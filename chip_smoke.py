@@ -9,17 +9,26 @@ In order, it:
   3. factors the flagship band (n = 1e6, bandwidth 201, K = 64, b = 128,
      stored bf16 spikes, newton_fixed) and holds each kernel against its
      plain PyTorch version on the same inputs: the banded matvec at the
-     flagship and a ragged shape, the fused sweep with f32 and bf16 factors
-     at the flagship factor shape and at nb = 1;
-  4. runs the main path through the library entry point,
-     ``solve(A, b, ksp_type="gmres", pc_type="spike", options=...)``, with
-     every kernel's launch count set to 0 just before and read just after,
-     and checks the answer (against x = 1, and against the plain CPU path in
-     f64 on a small band);
-  5. times the factor, one solve, one GMRES solve, one banded matvec and
-     each kernel beside its plain version with CUDA events (median and
-     spread of 5 repetitions), and the card's device-to-device copy rate;
-  6. prints a ``{"kernels": [...]}`` line and, last, the line
+     flagship and a ragged shape; the fused sweep with f32 and bf16 factors
+     at the flagship factor shape and at nb = 1; the multi-RHS fused sweep
+     at the same shapes for r = 32, 1 and 100; the block-tridiagonal matvec
+     on the flagship conversion (f32 and bf16 blocks) and a ragged band;
+  4. checks that the multi-RHS f32 solve carries f32 (against an f64 solve
+     of the same factor);
+  5. runs each path through the library entry point, with every kernel's
+     launch count set to 0 just before and read just after, and checks the
+     answer:
+       * ``solve(A, b, ksp_type="gmres", pc_type="spike", options=...)``
+         (against x = 1, and against the plain CPU path in f64 on a small
+         band), and the same with ``-mat_matvec_impl blocktri``;
+       * serving, ``solve_many(A, B, ksp_type="bcgs", pc_type="spike", ...)``
+         on 32 right-hand sides at rtol 1e-8 and at rtol 1e-4 (the
+         half-step exit), and against the plain CPU path in f64;
+  6. times the factor, the solves, the GMRES and serving solves, the
+     operators and each kernel beside its plain version with CUDA events
+     (median and spread of the repetitions), the serving stage's device
+     busy time (torch.profiler), and the card's device-to-device copy rate;
+  7. prints a ``{"kernels": [...]}`` line and, last, the line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the exit code is then non-zero and no result line
@@ -42,9 +51,15 @@ REPS = 5
 KERNEL_TOL = 1e-5          # max|kernel - plain| / max|plain|
 SPIKE_RELRES_MAX = 2.5e-4  # f32 relative residual of one bf16-spike solve
 GMRES_ITS_MAX = 3
+NRHS = 32                  # serving batch (BASELINE config 2's batched mode)
+SERVE_ITS_MAX = 2          # bcgs at rtol 1e-8; the TPU yardstick is 1
+SERVE_RELRES_MAX = 1e-4    # per-column true f32 relative residual
+CARRY_REL_MAX = 1e-5       # f32 multi-RHS solve against its f64 solve
 REPLACES = {
     "band_matvec": "spike_petsc_tpu/ops/pallas/band_matvec.py:66",
     "fused_sweep": "spike_petsc_tpu/ops/pallas/fused_sweep.py:109",
+    "fused_sweep_many": "spike_petsc_tpu/ops/pallas/fused_sweep.py:378",
+    "blocktri_matvec": "spike_petsc_tpu/ops/pallas/matvec.py:89",
 }
 
 
@@ -124,9 +139,13 @@ def phase_kernels(band, rhs, sf, device):
     """Each kernel against its plain version on the same inputs."""
     import torch
     from spike_petsc_tpu_torch import BandedMatrix
-    from spike_petsc_tpu_torch.ops.blocktri import cast_factor
+    from spike_petsc_tpu_torch.ops.blocktri import (BlockTridiagonal,
+                                                    band_to_blocktri,
+                                                    cast_factor)
     from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
+    from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
     from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many as cfm
     from spike_petsc_tpu_torch.ops.spike import spike_factor
     errs = {}
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -165,6 +184,48 @@ def phase_kernels(band, rhs, sf, device):
               f"{diff:.3e}, relative {err:.3e}")
         check(err <= KERNEL_TOL, f"fused_sweep {label} err {err}")
         errs.setdefault("fused_sweep", diff)
+
+    # the multi-RHS sweep: one column chunk (r = 32), one column, and
+    # several chunks (r = 100), f32 and bf16 factors, and nb = 1
+    for label, fact, nb, r in (
+            ("flagship f32 r=32", sf.fact, sf.nb, NRHS),
+            ("flagship bf16 r=32", cast_factor(sf.fact, torch.bfloat16),
+             sf.nb, NRHS),
+            ("flagship f32 r=1", sf.fact, sf.nb, 1),
+            ("flagship bf16 r=100", cast_factor(sf.fact, torch.bfloat16),
+             sf.nb, 100),
+            ("flagship f32 r=100", sf.fact, sf.nb, 100),
+            ("nb=1 f32 r=32", small.fact, 1, NRHS)):
+        rm = torch.randn((K, nb, BLOCK, r), generator=gen, device=device)
+        diff, err = kernel_err(
+            cfm.blocktri_solve_fused_many_cuda(fact, rm),
+            cfm.blocktri_solve_fused_many_cuda(fact, rm, impl="plain"))
+        torch.cuda.synchronize()
+        print(f"fused_sweep_many {label} {tuple(fact.F.shape)}: max abs err "
+              f"{diff:.3e}, relative {err:.3e}")
+        check(err <= KERNEL_TOL, f"fused_sweep_many {label} err {err}")
+        errs.setdefault("fused_sweep_many", diff)
+
+    # the block-tridiagonal matvec: the flagship conversion, and a ragged
+    # band (n not a multiple of 128, max(kl, ku) <= 128)
+    ragged_bt = BandedMatrix(
+        data=torch.rand((100_003, 198), generator=gen, device=device) - 0.5,
+        kl=120, ku=77)
+    T = band_to_blocktri(band, BLOCK)
+    for label, t, n in (
+            ("flagship f32", T, N),
+            ("flagship bf16", BlockTridiagonal(
+                D=T.D.bfloat16(), L=T.L.bfloat16(), U=T.U.bfloat16()), N),
+            ("ragged n=100003 kl=120 ku=77 f32",
+             band_to_blocktri(ragged_bt, BLOCK), ragged_bt.n)):
+        x = torch.randn(n, generator=gen, device=device)
+        diff, err = kernel_err(cbt.blocktri_matvec_cuda(t, x),
+                               cbt.blocktri_matvec_cuda(t, x, impl="plain"))
+        torch.cuda.synchronize()
+        print(f"blocktri_matvec {label} {tuple(t.D.shape)}: max abs err "
+              f"{diff:.3e}, relative {err:.3e}")
+        check(err <= KERNEL_TOL, f"blocktri_matvec {label} err {err}")
+        errs.setdefault("blocktri_matvec", diff)
     return errs
 
 
@@ -225,7 +286,7 @@ def phase_main_path(band, rhs, device):
     check(res.x.shape == (N,) and bool(torch.isfinite(res.x).all()),
           "solution shape / finiteness")
     check(xerr <= 1e-3 and true_rel <= 1e-4, "solution accuracy")
-    check(all(v > 0 for v in launches.values()),
+    check(launches["band_matvec"] > 0 and launches["fused_sweep"] > 0,
           f"a kernel did not run on the main path: {launches}")
     return res, launches
 
@@ -249,13 +310,187 @@ def phase_reference(device):
           "card and CPU reference disagree")
 
 
+def reset_launches():
+    from spike_petsc_tpu_torch.ops.cuda import KERNELS
+    for kern in KERNELS:
+        kern.launches = 0
+
+
+def read_launches():
+    import torch
+    from spike_petsc_tpu_torch.ops.cuda import KERNELS
+    torch.cuda.synchronize()
+    return {kern.name: kern.launches for kern in KERNELS}
+
+
+def phase_carry(sf, device):
+    """The multi-RHS precision trap: the f32 solve through the kernel must
+    match an f64 solve of the same factor (factors and bf16 spikes promoted
+    exactly; the plain path, since the kernel takes no f64) to f32 level.
+    A carry rounded to bf16 would miss by ~1e-3."""
+    import dataclasses
+    import torch
+    from spike_petsc_tpu_torch.ops.blocktri import BlockTriFactor
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many as cfm
+    from spike_petsc_tpu_torch.ops.spike import spike_solve_many
+
+    def f64(f):
+        return BlockTriFactor(F=f.F.double(), U=f.U.double(),
+                              Sinv=f.Sinv.double())
+    sf64 = dataclasses.replace(
+        sf, fact=f64(sf.fact), red_fact=f64(sf.red_fact),
+        Btip=sf.Btip.double(), Ctip=sf.Ctip.double(), V=sf.V.double(),
+        W=sf.W.double())
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    R = torch.randn((N, NRHS), generator=gen, device=device)
+    before = cfm.KERNEL.launches
+    x32 = spike_solve_many(sf, R)
+    launched = cfm.KERNEL.launches - before
+    x64 = spike_solve_many(sf64, R.double())
+    rel = float(torch.linalg.norm(x32.double() - x64)
+                / torch.linalg.norm(x64))
+    print(f"spike_solve_many f32 (factors f32, spikes bf16, kernel) against "
+          f"its f64 solve: relative error {rel:.3e} (limit {CARRY_REL_MAX})")
+    check(launched == 1 and x32.dtype == torch.float32,
+          "the f32 multi-RHS solve did not run the kernel")
+    check(rel <= CARRY_REL_MAX, f"multi-RHS f32 carry: relative error {rel}")
+    return rel
+
+
+def phase_blocktri_route(band, rhs, band_its):
+    """The GMRES main path with ``-mat_matvec_impl blocktri``: the
+    block-tridiagonal kernel as the operator, the same iteration count."""
+    import torch
+    from spike_petsc_tpu_torch import Options, solve
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.solvers.types import CONVERGED_RTOL, reason_str
+    reset_launches()
+    res = solve(band, rhs, ksp_type="gmres", pc_type="spike",
+                options=Options(dict(PC_OPTIONS, mat_matvec_impl="blocktri")),
+                rtol=1e-8, restart=30, maxit=30)
+    launches = read_launches()
+    true_rel = float(torch.linalg.norm(banded_matvec(band, res.x) - rhs)
+                     / torch.linalg.norm(rhs))
+    print(f"gmres+spike, blocktri operator: {res.its} its, "
+          f"{reason_str(res.reason)}, true relres (f32) {true_rel:.3e}; "
+          f"launches {launches}")
+    check(res.reason == CONVERGED_RTOL and res.its == band_its,
+          f"blocktri route: {res.its} its (band route {band_its}), "
+          f"reason {res.reason}")
+    check(true_rel <= 1e-4, "blocktri route accuracy")
+    check(launches["blocktri_matvec"] > 0,
+          f"blocktri kernel did not run on the blocktri route: {launches}")
+    return launches
+
+
+def phase_serving(band, device):
+    """Serving through ``solve_many``: 32 seeded right-hand sides B = A X,
+    bcgs + spike PC at rtol 1e-8, then at rtol 1e-4, where every column
+    exits at the half step (one iteration, one launch of the multi-RHS
+    sweep)."""
+    import torch
+    from spike_petsc_tpu_torch import Options, solve_many
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec_many
+    from spike_petsc_tpu_torch.solvers.types import CONVERGED_RTOL
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    X = torch.randn((N, NRHS), generator=gen, device=device)
+    B = banded_matvec(band, X)
+    route = as_matvec_many(band)[0]._route
+    print(f"solve_many operator route (-mat_matvec_impl auto): {route}")
+    check(route == "blocktri_many", f"serving operator route {route}")
+    main_launches = None
+    for rtol in (1e-8, 1e-4):
+        reset_launches()
+        res = solve_many(band, B, ksp_type="bcgs", pc_type="spike",
+                         options=Options(dict(PC_OPTIONS)), rtol=rtol,
+                         maxit=20)
+        launches = read_launches()
+        relres = (torch.linalg.norm(banded_matvec(band, res.x) - B, dim=0)
+                  / torch.linalg.norm(B, dim=0))
+        xerr = float((res.x - X).abs().max())
+        its = res.its.tolist()
+        print(f"bcgs+spike serving r={NRHS} rtol={rtol:g}: its "
+              f"min {min(its)} max {max(its)}, reasons "
+              f"{sorted(set(res.reason.tolist()))}, per-column true relres "
+              f"(f32) max {float(relres.max()):.3e}, max|x - X| {xerr:.3e}; "
+              f"launches {launches} (TPU v5e yardstick at rtol 1e-8: 1 it)")
+        check(res.x.shape == (N, NRHS) and bool(torch.isfinite(res.x).all()),
+              "serving solution shape / finiteness")
+        check(bool((res.reason == CONVERGED_RTOL).all()),
+              f"serving reasons {res.reason.tolist()}")
+        if rtol == 1e-8:
+            check(max(its) <= SERVE_ITS_MAX, f"serving its {its}")
+            check(float(relres.max()) <= SERVE_RELRES_MAX,
+                  f"serving relres {float(relres.max())}")
+            check(launches["fused_sweep_many"] > 0,
+                  f"multi-RHS sweep did not run on the serving path: "
+                  f"{launches}")
+            main_launches = launches
+        else:
+            check(its == [1] * NRHS and launches["fused_sweep_many"] == 1,
+                  f"half-step exit: its {its}, launches {launches}")
+    return main_launches
+
+
+def phase_reference_many(device):
+    """``solve_many`` on a small band on the card (f32, kernels) and on the
+    CPU (plain versions, f64): the solutions must agree."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix, Options, solve_many
+    band, _ = flagship_band(20_000, 20, device, seed=SEED + 7)
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    B = torch.randn((20_000, 4), generator=gen, device=device)
+    opts = dict(PC_OPTIONS, pc_spike_partitions=8, pc_spike_block=64)
+    got = solve_many(band, B, ksp_type="bcgs", pc_type="spike",
+                     options=Options(dict(opts)), rtol=1e-8)
+    cpu = BandedMatrix(data=band.data.double().cpu(), kl=20, ku=20)
+    ref = solve_many(cpu, B.double().cpu(), ksp_type="bcgs",
+                     pc_type="spike", options=Options(dict(opts)), rtol=1e-8)
+    err = float((got.x.double().cpu() - ref.x).abs().max()
+                / ref.x.abs().max())
+    print(f"solve_many small band n=20000 w=41 r=4: card its "
+          f"{got.its.tolist()} vs CPU f64 its {ref.its.tolist()}, "
+          f"max|x_card - x_cpu| / max|x_cpu| {err:.3e}")
+    check(err <= 1e-5 and bool((got.reason == 2).all())
+          and bool((ref.reason == 2).all()),
+          "solve_many: card and CPU reference disagree")
+
+
+def device_profile(fn, top=6):
+    """(device busy ms of one call of ``fn``, its largest device items):
+    the sum of the CUDA activity torch.profiler records (every launch,
+    the port's own kernels included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    items = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    items.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in items) / 1e3
+    return busy, [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                  for e in items[:top]]
+
+
 def phase_timing(band, rhs, sf, device):
     import torch
-    from spike_petsc_tpu_torch import Options, make_solver
-    from spike_petsc_tpu_torch.ops.blocktri import cast_factor
+    from spike_petsc_tpu_torch import Options, make_solver, make_solver_many
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.ops.blocktri import (BlockTridiagonal,
+                                                    band_to_blocktri,
+                                                    cast_factor)
     from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
+    from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
     from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
-    from spike_petsc_tpu_torch.ops.spike import spike_factor, spike_solve
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many as cfm
+    from spike_petsc_tpu_torch.ops.spike import (spike_factor, spike_solve,
+                                                 spike_solve_many)
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec_many
     t = {}
 
     def show(name, ms, gbytes=None):
@@ -297,6 +532,58 @@ def phase_timing(band, rhs, sf, device):
         show(f"fused_sweep_plain_{label}", time_ms(
             lambda: cfs.blocktri_solve_fused_cuda(fact, rblk, impl="plain"),
             iters=3), gb)
+
+    # serving: the multi-RHS sweep, the solve and the bcgs solve at r = 32
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    X = torch.randn((N, NRHS), generator=gen, device=device)
+    B = banded_matvec(band, X)
+    rm = torch.nn.functional.pad(B, (0, 0, 0, K * sf.m - N)).reshape(
+        K, sf.nb, BLOCK, NRHS)
+    for label, fact in (("f32", sf.fact),
+                        ("bf16", cast_factor(sf.fact, torch.bfloat16))):
+        gb = 3 * fact.F.numel() * fact.F.element_size() / 1e9
+        show(f"fused_sweep_many_cuda_{label}", time_ms(
+            lambda: cfm.blocktri_solve_fused_many_cuda(fact, rm), iters=5),
+            gb)
+        show(f"fused_sweep_many_plain_{label}", time_ms(
+            lambda: cfm.blocktri_solve_fused_many_cuda(fact, rm,
+                                                       impl="plain"),
+            iters=2), gb)
+    show("spike_solve_many_r32", time_ms(lambda: spike_solve_many(sf, B),
+                                         iters=3))
+    print(f"  spike_solve_many per RHS: "
+          f"{t['spike_solve_many_r32'][0] / NRHS:.4f} ms "
+          f"(spike_solve alone {t['spike_solve'][0]:.4f} ms)")
+    for rtol in (1e-8, 1e-4):
+        server = make_solver_many(band, ksp_type="bcgs", pc_type="spike",
+                                  options=Options(dict(PC_OPTIONS)),
+                                  rtol=rtol, maxit=20)
+        name = f"serve_bcgs_rtol{rtol:g}"
+        show(name, time_ms(lambda: server(B), reps=3))
+        print(f"  {name} per RHS: {t[name][0] / NRHS:.4f} ms")
+        busy, items = device_profile(lambda: server(B))
+        print(f"  {name} device busy {busy:.3f} ms of {t[name][0]:.3f} ms "
+              f"wall: idle share {1 - busy / t[name][0]:.3f}")
+        for key, count, ms in items:
+            print(f"    {ms:8.3f} ms  {count:5d} x  {key}")
+
+    # the operators: the blocktri kernel, its plain version, the band
+    # kernel, and the multi-RHS blocktri_many product at r = 32
+    T = band_to_blocktri(band, BLOCK)
+    bt_gb = (3 * T.D.numel() * 4 + 2 * N * 4) / 1e9
+    show("blocktri_matvec_cuda", time_ms(
+        lambda: cbt.blocktri_matvec_cuda(T, x), iters=20), bt_gb)
+    show("blocktri_matvec_plain", time_ms(
+        lambda: cbt.blocktri_matvec_cuda(T, x, impl="plain"), iters=5),
+        bt_gb)
+    T16 = BlockTridiagonal(D=T.D.bfloat16(), L=T.L.bfloat16(),
+                           U=T.U.bfloat16())
+    show("blocktri_matvec_cuda_bf16", time_ms(
+        lambda: cbt.blocktri_matvec_cuda(T16, x), iters=20), bt_gb / 2)
+    del T16
+    mv_many = as_matvec_many(band)[0]
+    show("blocktri_many_r32", time_ms(lambda: mv_many(X), iters=5),
+         (3 * T.D.numel() * 4 + 2 * N * NRHS * 4) / 1e9)
     return t
 
 
@@ -315,18 +602,29 @@ def main() -> int:
                       spike_dtype=torch.bfloat16, inverter="newton_fixed")
     errs = phase_kernels(band, rhs, sf, device)
     phase_accuracy(band, rhs, sf)
-    _, launches = phase_main_path(band, rhs, device)
+    phase_carry(sf, device)
+    res, launches = phase_main_path(band, rhs, device)
+    bt_launches = phase_blocktri_route(band, rhs, res.its)
+    serve_launches = phase_serving(band, device)
     phase_reference(device)
+    phase_reference_many(device)
     t = phase_timing(band, rhs, sf, device)
 
+    # each kernel's launches from the run of the path it carries
     kernels = []
-    for name, (ms, plain) in (
-            ("band_matvec", ("band_matvec_cuda", "band_matvec_plain")),
-            ("fused_sweep", ("fused_sweep_cuda_f32", "fused_sweep_plain_f32"))):
+    for name, path_launches, (ms, plain) in (
+            ("band_matvec", launches,
+             ("band_matvec_cuda", "band_matvec_plain")),
+            ("fused_sweep", launches,
+             ("fused_sweep_cuda_f32", "fused_sweep_plain_f32")),
+            ("fused_sweep_many", serve_launches,
+             ("fused_sweep_many_cuda_f32", "fused_sweep_many_plain_f32")),
+            ("blocktri_matvec", bt_launches,
+             ("blocktri_matvec_cuda", "blocktri_matvec_plain"))):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"spike_petsc_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": path_launches[name],
             "max_abs_err": errs[name], "ms": t[ms][0],
             "plain_ms": t[plain][0]})
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .ops.band import BandedMatrix
-from .ops.blocktri import BlockTriFactor
+from .ops.blocktri import BlockTriFactor, BlockTridiagonal
 from .ops.spike import SpikeFactor
 
 
@@ -31,6 +31,12 @@ def to_tensor(a, device=None) -> Optional[torch.Tensor]:
 
 def banded_from_numpy(data, kl: int, ku: int, device=None) -> BandedMatrix:
     return BandedMatrix(data=to_tensor(data, device), kl=int(kl), ku=int(ku))
+
+
+def blocktri_from_numpy(D, L, U, device=None) -> BlockTridiagonal:
+    """A BlockTridiagonal from its D, L, U blocks (``[..., nb, b, b]``)."""
+    return BlockTridiagonal(D=to_tensor(D, device), L=to_tensor(L, device),
+                            U=to_tensor(U, device))
 
 
 def blocktri_factor_from_numpy(F, U, Sinv, device=None) -> BlockTriFactor:

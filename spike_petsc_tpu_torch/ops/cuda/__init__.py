@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port (sources in ``csrc/``), each with
 its plain PyTorch version beside it and a launch count."""
 
-from . import band_matvec, fused_sweep
+from . import band_matvec, blocktri_matvec, fused_sweep, fused_sweep_many
 
-KERNELS = (band_matvec.KERNEL, fused_sweep.KERNEL)
+KERNELS = (band_matvec.KERNEL, fused_sweep.KERNEL, fused_sweep_many.KERNEL,
+           blocktri_matvec.KERNEL)

@@ -13,7 +13,9 @@ path runs:
   K-1 block rows, factored by block-Thomas;
 * a solve is one partition sweep (the fused CUDA kernel on the card), a
   reduced solve, and the stored-spike correction ``x = g - V xt - W xb``
-  (or a second sweep when spikes are not stored).
+  (or a second sweep when spikes are not stored);
+* ``spike_solve_many`` does the same for ``[n, r]`` right-hand sides, the
+  factors streamed once for all r (the multi-RHS fused kernel on the card).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from .blocktri import (BlockTridiagonal, BlockTriFactor, _sweep_matvec,
                        blocktri_factor_inv_waux_band, blocktri_solve,
                        cast_factor, sweep_precision)
 from .cuda.fused_sweep import blocktri_solve_fused_cuda, fused_sweep_feasible
+from .cuda.fused_sweep_many import (blocktri_solve_fused_many_cuda,
+                                    fused_sweep_many_feasible)
 
 
 @dataclass(frozen=True)
@@ -223,28 +227,31 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 def _reduced_solve(sf: SpikeFactor, g_bot: torch.Tensor, g_top: torch.Tensor):
-    """Solve for interface unknowns.  Returns (xbot_prev, xtop_next):
+    """Solve for interface unknowns; ``g_bot``/``g_top`` are ``[K, k]`` or
+    ``[K, k, r]``.  Returns (xbot_prev, xtop_next) of the same shape:
     xtop_next[p] = x_{p+1}^top (zero for p = K-1),
     xbot_prev[p] = x_{p-1}^bot (zero for p = 0)."""
     k = sf.k
-    rhs = torch.cat([g_bot[:-1], g_top[1:]], dim=1)          # [K-1, 2k]
+    rhs = torch.cat([g_bot[:-1], g_top[1:]], dim=1)          # [K-1, 2k(, r)]
     z = blocktri_solve(sf.red_fact, rhs)
-    zk = torch.zeros((1, k), dtype=z.dtype, device=z.device)
-    xtop_next = torch.cat([z[:, k:], zk], dim=0)             # [K, k]
-    xbot_prev = torch.cat([zk, z[:, :k]], dim=0)             # [K, k]
+    zk = torch.zeros_like(z[:1, :k])
+    xtop_next = torch.cat([z[:, k:], zk], dim=0)
+    xbot_prev = torch.cat([zk, z[:, :k]], dim=0)
     return xbot_prev, xtop_next
 
 
-def _resolve_impl(sf: SpikeFactor, impl: str, rhs: torch.Tensor) -> str:
+def _resolve_impl(sf: SpikeFactor, impl: str, rhs: torch.Tensor,
+                  feasible=fused_sweep_feasible) -> str:
     """'auto' takes the fused CUDA sweep for a CUDA right-hand side whenever
-    ``fused_sweep_feasible`` admits the factors (as the JAX dispatch takes
-    its Pallas kernel on the TPU), and the plain sweep otherwise — on the
-    CPU, and for factors the rule excludes."""
+    the kernel's rule (``fused_sweep_feasible``, or
+    ``fused_sweep_many_feasible`` for ``spike_solve_many``) admits the
+    factors, as the JAX dispatch takes its Pallas kernel on the TPU, and the
+    plain sweep otherwise — on the CPU, and for factors the rule excludes."""
     if impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"unknown impl {impl!r}: expected auto, cuda, plain")
     if impl != "auto":
         return impl
-    if rhs.is_cuda and fused_sweep_feasible(sf.fact, sf.b, rhs.dtype):
+    if rhs.is_cuda and feasible(sf.fact, sf.b, rhs.dtype):
         return "cuda"
     return "plain"
 
@@ -291,3 +298,51 @@ def spike_solve(sf: SpikeFactor, rhs: torch.Tensor,
         r2[:, 0, :k] -= corrC.to(r2.dtype)
         x = batched_solve(r2)
     return x.reshape(-1)[:sf.n]
+
+
+def spike_solve_many(sf: SpikeFactor, rhs: torch.Tensor,
+                     impl: str = "auto") -> torch.Tensor:
+    """Blocked multi-RHS solve; rhs ``[n, r]`` -> x ``[n, r]``.
+
+    One batched sweep streams the factors once for all r columns (the
+    serving path), then the reduced solve on ``[K-1, 2k, r]`` and the
+    stored-spike correction ``g - V xt - W xb`` as batched products (or a
+    second sweep when spikes are not stored).  The correction promotes
+    bf16 spikes to the f32-or-wider sweep precision, so an f32 solve carries
+    f32 throughout.
+
+    impl: "auto" (the multi-RHS CUDA kernel whenever
+    ``fused_sweep_many_feasible`` admits the factors, else plain), "cuda"
+    (the kernel; raises where it does not apply), or "plain".  The JAX
+    dispatch's switch to XLA at large r is a TPU VMEM measurement and is
+    not carried over.
+    """
+    K, m, b, k, nb = sf.K, sf.m, sf.b, sf.k, sf.nb
+    r = rhs.shape[1]
+    rp = torch.zeros((K * m, r), dtype=rhs.dtype, device=rhs.device)
+    rp[:sf.n] = rhs
+    rblk = rp.reshape(K, nb, b, r)
+    impl = _resolve_impl(sf, impl, rhs, fused_sweep_many_feasible)
+
+    def batched_solve(rr):
+        return blocktri_solve_fused_many_cuda(sf.fact, rr, impl=impl)
+
+    g = batched_solve(rblk)                                  # [K, nb, b, r]
+    if K == 1:
+        return g.reshape(K * m, r)[:sf.n]
+
+    xbot_prev, xtop_next = _reduced_solve(sf, g[:, nb - 1, b - k:, :],
+                                          g[:, 0, :k, :])    # [K, k, r]
+    if sf.V is not None:
+        dtype = sweep_precision(sf.V, g)
+        x = (g - sf.V.to(dtype) @ xtop_next.to(dtype)[:, None]
+             - sf.W.to(dtype) @ xbot_prev.to(dtype)[:, None])
+    else:
+        dtype = sweep_precision(sf.Btip, g)
+        corrB = sf.Btip.to(dtype) @ xtop_next.to(dtype)      # [K, k, r]
+        corrC = sf.Ctip.to(dtype) @ xbot_prev.to(dtype)
+        r2 = rblk.clone()
+        r2[:, nb - 1, b - k:, :] -= corrB.to(r2.dtype)
+        r2[:, 0, :k, :] -= corrC.to(r2.dtype)
+        x = batched_solve(r2)
+    return x.reshape(K * m, r)[:sf.n]

@@ -2,7 +2,8 @@
 
 Ported: restarted GMRES with left preconditioning, classical Gram-Schmidt
 with one unconditional refinement pass (``cgs_refinement="always"``) and
-classical Givens rotations, as in ``spike_petsc_tpu.solvers.krylov``.
+classical Givens rotations, and BiCGStab (``bcgs``/``fbcgs``/``bicgstab``),
+as in ``spike_petsc_tpu.solvers.krylov``.
 
 The JAX version stages the whole solve in ``lax.while_loop``.  Here the
 vectors and the Krylov basis stay on the operator's device, and the small
@@ -21,7 +22,8 @@ import scipy.linalg
 import torch
 
 from ..utils.registry import register_ksp
-from .types import CONVERGED_ITERATING, KSPResult, default_convergence_check
+from .types import (CONVERGED_ITERATING, DIVERGED_BREAKDOWN, KSPResult,
+                    default_convergence_check)
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -126,4 +128,64 @@ def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
                      history=history)
 
 
+def bicgstab(matvec: Callable, b: torch.Tensor,
+             x0: Optional[torch.Tensor] = None,
+             pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
+             atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
+             **_) -> KSPResult:
+    """Preconditioned BiCGStab (van der Vorst), PETSc KSPBCGS/KSPFBCGS as in
+    the JAX package: the PC is applied afresh to p and s every iteration
+    and the solution is updated with the preconditioned vectors; the
+    monitored residual is the true residual.  The scalars stay on the
+    device; the residual norm and |rho| come to the host once per
+    iteration for the convergence and breakdown tests."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
+    x = torch.zeros_like(b) if x0_zero else x0.clone()
+    dtype = b.dtype
+    tiny = torch.finfo(dtype).tiny
+    bnorm = float(_norm(b))
+    history = torch.full((maxit + 1,), float("nan"), dtype=dtype)
+
+    def check(rn, its):
+        return default_convergence_check(rn, bnorm, its, rtol=rtol,
+                                         atol=atol, divtol=divtol,
+                                         maxit=maxit)
+
+    r = b if x0_zero else b - matvec(x)
+    rtilde = r
+    rnorm = float(_norm(r))
+    history[0] = rnorm
+    its = 0
+    reason = check(rnorm, its)
+    p, v = torch.zeros_like(b), torch.zeros_like(b)
+    rho = alpha = omega = torch.ones((), dtype=dtype, device=b.device)
+    while reason == CONVERGED_ITERATING:
+        rho_new = torch.dot(rtilde, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p = r + beta * (p - omega * v)
+        phat = psolve(p)
+        v = matvec(phat)
+        denom = torch.dot(rtilde, v)
+        alpha = rho_new / torch.where(denom != 0, denom, 1.0)
+        sr = r - alpha * v
+        shat = psolve(sr)
+        t = matvec(shat)
+        tt, ts = torch.dot(t, t), torch.dot(t, sr)
+        omega = ts / torch.where(tt != 0, tt, 1.0)
+        x = x + alpha * phat + omega * shat
+        r = sr - omega * t
+        rho = rho_new
+        rn, rho_abs = torch.stack([_norm(r), rho_new.abs()]).tolist()
+        its += 1
+        history[its] = rn
+        reason = check(rn, its)
+        if reason == CONVERGED_ITERATING and rho_abs < tiny:
+            reason = DIVERGED_BREAKDOWN
+    return KSPResult(x=x, its=its, reason=reason,
+                     rnorm=float(_norm(b - matvec(x))), history=history)
+
+
 register_ksp("gmres", gmres)
+for _name in ("bcgs", "fbcgs", "bicgstab"):
+    register_ksp(_name, bicgstab)

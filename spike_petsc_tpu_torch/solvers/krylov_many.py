@@ -1,0 +1,348 @@
+"""Batched multi-RHS Krylov engines (PyTorch): one iteration loop for all
+columns of B ``[n, r]``.
+
+The port of ``spike_petsc_tpu.solvers.krylov_many``.  Every matvec and
+PCApply is one call on the ``[n, r]`` block (the spike PC streams its
+factors once for all columns), and the per-column inner products of a step
+are ``[r]`` reductions.  Convergence is per column: a column whose reason is
+terminal keeps its state (the JAX ``_freeze_cols``), while the whole block
+still goes through matvec and PC until every column is terminal.
+
+The JAX engines run in ``lax.while_loop``.  Here the vectors and the
+per-column scalars stay on the operator's device, and the per-column norms
+come to the host once per decision point (BiCGStab: after the s-norm and
+after the full step; the other engines: once per iteration), where the
+convergence tests, the iteration counts and the history are kept.  Results
+are column-batched ``KSPResult``s (see ``types.KSPResult``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import scipy.linalg
+import torch
+
+from .types import (CONVERGED_ITERATING, CONVERGED_ITS, DIVERGED_BREAKDOWN,
+                    DIVERGED_NANORINF, KSPResult, default_convergence_check)
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _identity_pc(x):
+    return x
+
+
+def _cdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-column inner products <a_j, b_j>: [n, r] x [n, r] -> [r]."""
+    return (a * b).sum(dim=0)
+
+
+def _cnorm(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(_cdot(x, x))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """Bring a small device tensor to the host (one synchronization)."""
+    return t.detach().cpu().numpy()
+
+
+class _Columns:
+    """Host-side per-column bookkeeping shared by the engines: the reasons,
+    iteration counts and residual history, and the per-column freeze."""
+
+    def __init__(self, rnorm0: np.ndarray, bnorm: np.ndarray, maxit: int,
+                 dtype: torch.dtype, *, rtol, atol, divtol):
+        self.bnorm = bnorm
+        self.tols = dict(rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
+        r = rnorm0.shape[0]
+        self.history = torch.full((maxit + 1, r), float("nan"), dtype=dtype)
+        self.history[0] = torch.from_numpy(rnorm0)
+        self.its = np.zeros(r, np.int32)
+        self.reason = self.check(rnorm0, 0)
+        self.trip = 0                      # loop-global iteration count
+
+    def check(self, rn: np.ndarray, its: int) -> np.ndarray:
+        return np.array([default_convergence_check(
+            rn[j], self.bnorm[j], its, **self.tols)
+            for j in range(rn.shape[0])], np.int32)
+
+    def iterating(self) -> bool:
+        return bool((self.reason == CONVERGED_ITERATING).any())
+
+    def active(self) -> np.ndarray:
+        return self.reason == CONVERGED_ITERATING
+
+    def record(self, active: np.ndarray, rn: np.ndarray,
+               reason: np.ndarray) -> None:
+        """One iteration of the active columns: history row ``trip + 1``,
+        its + 1, the new reason; terminal columns keep theirs."""
+        self.trip += 1
+        idx = torch.from_numpy(np.flatnonzero(active))
+        self.history[self.trip, idx] = torch.from_numpy(rn[active]).to(
+            self.history.dtype)
+        self.its[active] += 1
+        self.reason = np.where(active, reason, self.reason).astype(np.int32)
+
+    def result(self, X: torch.Tensor, rnorm: torch.Tensor) -> KSPResult:
+        return KSPResult(x=X, its=torch.from_numpy(self.its),
+                         reason=torch.from_numpy(self.reason),
+                         rnorm=rnorm.detach().cpu(), history=self.history)
+
+
+def _merge(active: np.ndarray, new: torch.Tensor,
+           old: torch.Tensor) -> torch.Tensor:
+    """Per-column merge (the column axis last): terminal columns keep
+    ``old``."""
+    if active.all():
+        return new
+    return torch.where(torch.from_numpy(active).to(new.device), new, old)
+
+
+def _freeze(active: np.ndarray, new: dict, old: dict) -> dict:
+    return {k: _merge(active, new[k], old[k]) for k in new}
+
+
+def bicgstab_many(matvec: Callable, B: torch.Tensor,
+                  X0: Optional[torch.Tensor] = None,
+                  pc_apply: Optional[Callable] = None, *,
+                  rtol: float = 1e-5, atol: float = 1e-50,
+                  divtol: float = 1e4, maxit: int = 10000,
+                  **_) -> KSPResult:
+    """Column-batched preconditioned BiCGStab; B: [n, r].
+
+    Each column runs the one-RHS ``bicgstab`` recurrence (its own initial
+    residual as shadow vector).  The half-step ("s-norm") exit: when every
+    active column already passes the convergence test on s = r - alpha v,
+    the iteration stops there (x += alpha p_hat) and skips the second PC
+    apply and matvec; otherwise the full step runs and per-column freezing
+    applies.  PETSc's KSPSolve_BCGS performs the same s-norm exit."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = X0 is None                 # R0 = B exactly; skip matvec(0)
+    dev, dtype = B.device, B.dtype
+    tiny = torch.finfo(dtype).tiny
+    bnorm = _host(_cnorm(B))
+    R0 = B if x0_zero else B - matvec(X0)
+    cols = _Columns(_host(_cnorm(R0)), bnorm, maxit, dtype, rtol=rtol,
+                    atol=atol, divtol=divtol)
+    ones = torch.ones(B.shape[1], dtype=dtype, device=dev)
+    s = dict(X=torch.zeros_like(B) if x0_zero else X0.clone(), R=R0,
+             P=torch.zeros_like(B), V=torch.zeros_like(B), rho=ones,
+             alpha=ones, omega=ones)
+    Rt = R0
+    while cols.iterating():
+        active = cols.active()
+        rho_new = _cdot(Rt, s["R"])
+        beta = (rho_new / torch.where(s["rho"] != 0, s["rho"], 1.0)) \
+            * (s["alpha"] / torch.where(s["omega"] != 0, s["omega"], 1.0))
+        P = s["R"] + beta * (s["P"] - s["omega"] * s["V"])
+        Phat = psolve(P)
+        V = matvec(Phat)
+        denom = _cdot(Rt, V)
+        alpha = rho_new / torch.where(denom != 0, denom, 1.0)
+        Sr = s["R"] - alpha * V
+        snorm, rho_abs = _host(torch.stack([_cnorm(Sr), rho_new.abs()]))
+        half_reason = cols.check(snorm, cols.trip + 1)
+        if np.all(~active | (half_reason > 0)):
+            new = dict(X=s["X"] + alpha * Phat, R=Sr, P=P, V=V, rho=rho_new,
+                       alpha=alpha, omega=s["omega"])
+            rn, reason = snorm, half_reason
+        else:
+            Shat = psolve(Sr)
+            T = matvec(Shat)
+            tt, ts = _cdot(T, T), _cdot(T, Sr)
+            omega = ts / torch.where(tt != 0, tt, 1.0)
+            R = Sr - omega * T
+            new = dict(X=s["X"] + alpha * Phat + omega * Shat, R=R, P=P, V=V,
+                       rho=rho_new, alpha=alpha, omega=omega)
+            rn = _host(_cnorm(R))
+            reason = cols.check(rn, cols.trip + 1)
+            reason = np.where((rho_abs < tiny)
+                              & (reason == CONVERGED_ITERATING),
+                              DIVERGED_BREAKDOWN, reason)
+        s = _freeze(active, new, s)
+        cols.record(active, rn, reason)
+    return cols.result(s["X"], _cnorm(B - matvec(s["X"])))
+
+
+def cg_many(matvec: Callable, B: torch.Tensor,
+            X0: Optional[torch.Tensor] = None,
+            pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
+            atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
+            **_) -> KSPResult:
+    """Column-batched preconditioned CG (SPD operator and PC); B: [n, r]."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = X0 is None
+    dtype = B.dtype
+    bnorm = _host(_cnorm(B))
+    R0 = B if x0_zero else B - matvec(X0)
+    Z0 = psolve(R0)
+    cols = _Columns(_host(_cnorm(R0)), bnorm, maxit, dtype, rtol=rtol,
+                    atol=atol, divtol=divtol)
+    s = dict(X=torch.zeros_like(B) if x0_zero else X0.clone(), R=R0, P=Z0,
+             rz=_cdot(R0, Z0))
+    while cols.iterating():
+        active = cols.active()
+        W = matvec(s["P"])
+        pw = _cdot(s["P"], W)
+        alpha = s["rz"] / torch.where(pw != 0, pw, 1.0)
+        X = s["X"] + alpha * s["P"]
+        R = s["R"] - alpha * W
+        Z = psolve(R)
+        rz_new, rr = _cdot(R, Z), _cdot(R, R)
+        beta = rz_new / torch.where(s["rz"] != 0, s["rz"], 1.0)
+        new = dict(X=X, R=R, P=Z + beta * s["P"], rz=rz_new)
+        rn = _host(torch.sqrt(rr))
+        reason = cols.check(rn, cols.trip + 1)
+        s = _freeze(active, new, s)
+        cols.record(active, rn, reason)
+    return cols.result(s["X"], _cnorm(B - matvec(s["X"])))
+
+
+def gmres_many(matvec: Callable, B: torch.Tensor,
+               X0: Optional[torch.Tensor] = None,
+               pc_apply: Optional[Callable] = None, *, restart: int = 30,
+               rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
+               maxit: int = 10000, side: str = "left",
+               cgs_refinement: str = "always", **_) -> KSPResult:
+    """Column-batched restarted GMRES with left preconditioning; B: [n, r].
+
+    Every column runs the one-RHS ``gmres`` recurrence (classical
+    Gram-Schmidt with one refinement pass, Givens least squares), sharing
+    each iteration's matvec and PCApply.  The Hessenberg column of every
+    column comes to the host once per iteration, where the rotations run
+    per column in the vectors' dtype.  A column that converges mid-cycle
+    freezes its basis, Hessenberg and rotations; its solution update uses
+    exactly the basis vectors it built.  The basis is ``[restart+1, n, r]``.
+    Ported options as in ``krylov.gmres``; the others raise.
+    """
+    if side != "left":
+        raise NotImplementedError(
+            f"gmres_many(side={side!r}) is not yet ported")
+    if cgs_refinement != "always":
+        raise NotImplementedError(
+            f"gmres_many(cgs_refinement={cgs_refinement!r}) is not yet ported")
+    psolve = pc_apply or _identity_pc
+    n, nc = B.shape
+    dev, dtype = B.device, B.dtype
+    npdt = _NP_DTYPES[dtype]
+    m = max(1, int(restart))
+    X = torch.zeros_like(B) if X0 is None else X0.clone()
+    bnorm = _host(_cnorm(psolve(B)))
+    R = psolve(B - matvec(X))
+    cols = _Columns(_host(_cnorm(R)), bnorm, maxit, dtype, rtol=rtol,
+                    atol=atol, divtol=divtol)
+    while cols.iterating():
+        cycle_active = cols.active()
+        beta = _cnorm(R)
+        V = torch.zeros((m + 1, n, nc), dtype=dtype, device=dev)
+        V[0] = R / torch.where(beta > 0, beta, 1.0)
+        H = np.zeros((m + 1, m, nc), npdt)
+        g = np.zeros((m + 1, nc), npdt)
+        g[0] = _host(beta)
+        cs = np.ones((m, nc), npdt)
+        sn = np.zeros((m, nc), npdt)
+        jcol = np.zeros(nc, np.int64)      # steps each column was active for
+        j = 0
+        while j < m and cols.iterating():
+            active = cols.active()
+            w = psolve(matvec(V[j]))
+            Vj = V[:j + 1]
+            h = torch.einsum("anr,nr->ar", Vj, w)
+            w = w - torch.einsum("ar,anr->nr", h, Vj)
+            h2 = torch.einsum("anr,nr->ar", Vj, w)
+            w = w - torch.einsum("ar,anr->nr", h2, Vj)
+            hj1 = _cnorm(w)
+            V[j + 1] = _merge(active, w / torch.where(hj1 > 0, hj1, 1.0),
+                              V[j + 1])
+            col = np.zeros((m + 1, nc), npdt)
+            col[:j + 2] = _host(torch.cat([h + h2, hj1[None]]))
+            # accumulated Givens rotations, then the one eliminating col[j+1]
+            for i in range(j):
+                t1 = cs[i] * col[i] + sn[i] * col[i + 1]
+                t2 = -sn[i] * col[i] + cs[i] * col[i + 1]
+                col[i], col[i + 1] = t1, t2
+            denom = np.sqrt(col[j] ** 2 + col[j + 1] ** 2)
+            ok = denom > 0
+            safe = np.where(ok, denom, npdt(1))
+            c_new = np.where(ok, col[j] / safe, npdt(1)).astype(npdt)
+            s_new = np.where(ok, col[j + 1] / safe, npdt(0)).astype(npdt)
+            col[j], col[j + 1] = denom, 0
+            gj = g[j].copy()
+            H[:, j, active] = col[:, active]
+            g[j, active] = (c_new * gj)[active]
+            g[j + 1, active] = (-s_new * gj)[active]
+            cs[j, active], sn[j, active] = c_new[active], s_new[active]
+            jcol[active] += 1
+            rn = np.abs(g[j + 1])
+            cols.record(active, rn, cols.check(rn, cols.trip + 1))
+            j += 1
+        # per-column least squares on the rotated Hessenberg, each over
+        # the basis vectors that column built
+        y = np.zeros((m, nc), npdt)
+        for c in np.flatnonzero(jcol):
+            jc = jcol[c]
+            y[:jc, c] = scipy.linalg.solve_triangular(
+                H[:jc, :jc, c], g[:jc, c], lower=False)
+        dX = torch.einsum("ar,anr->nr", torch.from_numpy(y).to(dev), V[:m])
+        Xn = X + dX
+        X, R = (_merge(cycle_active, Xn, X),
+                _merge(cycle_active, psolve(B - matvec(Xn)), R))
+    return cols.result(X, _cnorm(B - matvec(X)))
+
+
+def richardson_many(matvec: Callable, B: torch.Tensor,
+                    X0: Optional[torch.Tensor] = None,
+                    pc_apply: Optional[Callable] = None, *,
+                    rtol: float = 1e-5, atol: float = 1e-50,
+                    divtol: float = 1e4, maxit: int = 10000,
+                    scale: float = 1.0, **_) -> KSPResult:
+    """Column-batched preconditioned Richardson iteration
+    X += scale * M^{-1}(B - A X); B: [n, r].  With a factorization PC this
+    is multi-RHS iterative refinement."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = X0 is None
+    dtype = B.dtype
+    bnorm = _host(_cnorm(B))
+    R0 = B if x0_zero else B - matvec(X0)
+    cols = _Columns(_host(_cnorm(R0)), bnorm, maxit, dtype, rtol=rtol,
+                    atol=atol, divtol=divtol)
+    s = dict(X=torch.zeros_like(B) if x0_zero else X0.clone(), R=R0)
+    while cols.iterating():
+        active = cols.active()
+        X = s["X"] + scale * psolve(s["R"])
+        R = B - matvec(X)
+        rn = _host(_cnorm(R))
+        reason = cols.check(rn, cols.trip + 1)
+        s = _freeze(active, dict(X=X, R=R), s)
+        cols.record(active, rn, reason)
+    return cols.result(s["X"], _cnorm(B - matvec(s["X"])))
+
+
+def preonly_many(matvec: Callable, B: torch.Tensor,
+                 X0: Optional[torch.Tensor] = None,
+                 pc_apply: Optional[Callable] = None, **_) -> KSPResult:
+    """One multi-RHS preconditioner application (KSPPREONLY batched): with
+    a direct factorization PC this is ``spike_solve_many`` with the
+    KSPResult bookkeeping.  The history is ``[2, r]``: ||B|| and the final
+    residual norm."""
+    psolve = pc_apply or _identity_pc
+    X = psolve(B) if X0 is None else X0 + psolve(B - matvec(X0))
+    rn = _cnorm(B - matvec(X)).detach().cpu()
+    history = torch.stack([_cnorm(B).detach().cpu(), rn])
+    reason = torch.where(torch.isfinite(rn), CONVERGED_ITS,
+                         DIVERGED_NANORINF).to(torch.int32)
+    return KSPResult(x=X, its=torch.ones(B.shape[1], dtype=torch.int32),
+                     reason=reason, rnorm=rn, history=history)
+
+
+#: batched engines by the single-RHS name they correspond to
+MANY_SOLVERS = {
+    "gmres": gmres_many,
+    "bcgs": bicgstab_many,
+    "bicgstab": bicgstab_many,
+    "cg": cg_many,
+    "richardson": richardson_many,
+    "preonly": preonly_many,
+}

@@ -3,8 +3,11 @@
     result = solve(A, b, ksp_type="gmres", pc_type="spike",
                    options=Options({...}), rtol=1e-8)
 
-Ported: a ``BandedMatrix`` (or callable) operator, a BandedMatrix PC matrix,
-``gmres``, the ``none`` and ``spike`` PCs, and no null space.  Options
+    result = solve_many(A, B, ksp_type="bcgs", pc_type="spike", ...)
+
+Ported: a ``BandedMatrix``, ``BlockTridiagonal`` or callable operator, a
+BandedMatrix PC matrix, ``gmres`` and ``bcgs``, the batched engines of
+``krylov_many``, the ``none`` and ``spike`` PCs, and no null space.  Options
 whose code paths are not yet ported raise.
 """
 
@@ -12,10 +15,12 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import torch
+
 from ..utils.options import Options
 from ..utils.registry import SOLVERS
 from . import krylov  # noqa: F401  (registers the ported solvers)
-from .operator import as_matvec
+from .operator import as_matvec, as_matvec_many
 from .pc import PC, make_pc
 from .types import KSPResult, reason_str
 
@@ -72,7 +77,8 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
     if pc is None:
         name = pc_type or opts.get_string("pc_type", "none")
         pc = make_pc(name, A if pmat is None else pmat, opts)
-    # -mat_matvec_impl auto|banded_pallas|banded_cuda|xla: operator SpMV route
+    # -mat_matvec_impl auto|banded_pallas|banded_cuda|blocktri|xla: the
+    # operator's SpMV route
     matvec, _, _ = as_matvec(
         A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"))
     pc_apply = pc.apply if pc.name != "none" else None
@@ -83,6 +89,71 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
         return method(matvec, b, x0, pc_apply, **kw)
 
     return _solve
+
+
+def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
+                     ksp_type: Optional[str] = None,
+                     pc_type: Optional[str] = None, pc: Optional[PC] = None,
+                     n_hint: Optional[int] = None, transpose: bool = False,
+                     nullspace=None, **params) -> Callable:
+    """Compose a batched multi-RHS solver: ``solve(B [n, r], X0=None)``
+    returns a column-batched KSPResult (x [n, r]; its, reason, rnorm per
+    column).
+
+    One iteration loop drives all columns (``krylov_many``).  The operator
+    is applied as a true ``[n, r]`` block (``as_matvec_many``) and the PC
+    through its native ``apply_many`` where it has one, else a column loop
+    of ``apply``.  ``ksp_type`` (default ``bcgs``) is one of
+    ``krylov_many.MANY_SOLVERS``."""
+    from .krylov_many import MANY_SOLVERS
+    opts = options or Options()
+    _reject_unported(opts, transpose, nullspace)
+    ksp_type = ksp_type or opts.get_string("ksp_type", "bcgs")
+    if ksp_type not in MANY_SOLVERS:
+        raise ValueError(
+            f"no batched engine for ksp_type {ksp_type!r}: available "
+            f"{sorted(set(MANY_SOLVERS))} (other methods: call a "
+            "make_solver closure per column)")
+    method = MANY_SOLVERS[ksp_type]
+    if pc is None:
+        name = pc_type or opts.get_string("pc_type", "none")
+        pc = make_pc(name, A if pmat is None else pmat, opts)
+    matvec_many, _, _ = as_matvec_many(
+        A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"))
+    if pc.name == "none":
+        pc_apply_many = None
+    elif pc.apply_many is not None:
+        pc_apply_many = pc.apply_many
+    else:
+        def pc_apply_many(R):
+            return torch.stack([pc.apply(R[:, j]) for j in range(R.shape[1])],
+                               dim=1)
+    kw = _params_from_options(opts, params)
+    for extra in ("norm_type", "monitor_true"):    # not in the batched
+        kw.pop(extra, None)                        # engines' surface
+    if ksp_type == "richardson":
+        scale = opts.get_real("ksp_richardson_scale", None)
+        if scale is not None:
+            kw.setdefault("scale", scale)
+
+    def _solve(B, X0=None):
+        return method(matvec_many, B, X0, pc_apply_many, **kw)
+
+    return _solve
+
+
+def solve_many(A, B, X0=None, *, pmat=None, options: Optional[Options] = None,
+               ksp_type: Optional[str] = None, pc_type: Optional[str] = None,
+               pc: Optional[PC] = None, transpose: bool = False,
+               **params) -> KSPResult:
+    """One-shot batched multi-RHS solve (PETSc KSPMatSolve role):
+    ``solve_many(A, B [n, r])`` -> column-batched KSPResult, options-driven
+    like ``solve``."""
+    solver = make_solver_many(A, pmat=pmat, options=options,
+                              ksp_type=ksp_type, pc_type=pc_type, pc=pc,
+                              n_hint=B.shape[0], transpose=transpose,
+                              **params)
+    return solver(B, X0)
 
 
 def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,

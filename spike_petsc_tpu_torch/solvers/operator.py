@@ -1,18 +1,33 @@
 """Operator normalization: a matrix-like object -> a matvec closure.
 
-The KSP layer only ever sees ``matvec: [n] -> [n]``.  Ported: BandedMatrix
-(plain shifted-axpy route or the banded CUDA kernel) and callables.
+The KSP layer only ever sees ``matvec: [n] -> [n]`` (or, for the batched
+engines, ``matvec_many: [n, r] -> [n, r]``).  Ported: BandedMatrix (plain
+shifted-axpy route, the banded CUDA kernel, or a one-time block-tridiagonal
+conversion with the blocktri CUDA kernel), BlockTridiagonal and callables.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import torch
+
 from ..ops.band import BandedMatrix, banded_matvec
+from ..ops.blocktri import BlockTridiagonal, band_to_blocktri, blocktri_matvec
 from ..ops.cuda.band_matvec import (banded_matvec_prepared, banded_mv_feasible,
                                     prepare_banded_mv)
+from ..ops.cuda.blocktri_matvec import (blocktri_matvec_cuda,
+                                        blocktri_matvec_feasible)
 
 _IMPLS = ("auto", "banded_pallas", "banded_cuda", "blocktri", "xla")
+_BT_BLOCK = 128          # block size of the band -> blocktri conversion
+
+
+def _use_blocktri_matvec(a) -> bool:
+    """Whether the blocktri routes may run: the operator (a band or a
+    BlockTridiagonal) lies on a CUDA device (the JAX package's rule is "the
+    backend is a TPU")."""
+    return (a.data if isinstance(a, BandedMatrix) else a.D).is_cuda
 
 
 def _tag(mv, route: str):
@@ -21,46 +36,140 @@ def _tag(mv, route: str):
     return mv
 
 
+def _check_impl(impl: str) -> None:
+    if impl not in _IMPLS:
+        raise ValueError(
+            f"unknown matvec impl {impl!r}: expected auto, banded_pallas, "
+            f"banded_cuda, blocktri, or xla (-mat_matvec_impl)")
+
+
+def _bt_gate(a: BandedMatrix) -> Tuple[bool, bool]:
+    """The band->blocktri conversion gate shared by the single- and
+    multi-RHS routes: (feasible, wide).
+
+    ``feasible``: the 128-blocked conversion needs max(kl, ku) <= 128, a
+    few blocks of rows, and storage of at most 4 bytes per entry.
+    ``wide``: the conversion stores 3 * 128 entries per row against w in
+    band form, so 'auto' takes it only where that blowup is modest
+    (w >= 96, under ~4x)."""
+    bt_ok = (max(a.kl, a.ku) <= _BT_BLOCK and a.n >= 4 * _BT_BLOCK
+             and a.data.element_size() <= 4)
+    return bt_ok, bt_ok and a.width >= 96
+
+
+def _bt_refused(a: BandedMatrix) -> ValueError:
+    """The error for ``impl="blocktri"`` on a CUDA band the route refuses."""
+    return ValueError(
+        f"-mat_matvec_impl blocktri does not take this band (n={a.n}, "
+        f"kl={a.kl}, ku={a.ku}, {a.dtype}): the conversion gate needs "
+        f"max(kl, ku) <= {_BT_BLOCK}, n >= {4 * _BT_BLOCK} and at most 4 "
+        "bytes per entry, and the single-RHS kernel f32 or bf16 storage")
+
+
 def _band_route(a: BandedMatrix, impl: str) -> str:
     """Resolve ``-mat_matvec_impl`` for a band.
 
-    * ``auto``: on a CUDA band the CUDA kernel whenever ``banded_mv_feasible``
-      admits it, the plain version otherwise; on the CPU the plain version
-      (as the JAX package takes its XLA form off the TPU);
-    * ``banded_pallas`` / ``banded_cuda``: the kernel's wrapper (on the CPU
-      the wrapper runs the kernel's plain version);
-    * ``xla``: the plain shifted-axpy version;
-    * ``blocktri``: not yet ported.
+    * ``auto``: on a CUDA band, the banded CUDA kernel whenever
+      ``banded_mv_feasible`` admits it, else the plain version; on the CPU
+      the plain version.  (The JAX package's TPU order has the blocktri
+      route between the two for wide bands; here the band kernel admits
+      every band the blocktri kernel does, so that branch could never run.)
+    * ``banded_pallas`` / ``banded_cuda``: the banded kernel's wrapper (on
+      the CPU the wrapper runs the kernel's plain version);
+    * ``blocktri``: on a CUDA band, the blocktri kernel, raising where the
+      gate or the kernel refuses the band; on the CPU the plain version
+      (as the JAX package off the TPU);
+    * ``xla``: the plain shifted-axpy version.
     """
-    if impl == "blocktri":
-        raise NotImplementedError(
-            "the blocktri matvec route is not yet ported to "
-            "spike_petsc_tpu_torch")
     if impl in ("banded_pallas", "banded_cuda"):
         return "banded_cuda"
     if impl == "auto" and a.data.is_cuda and banded_mv_feasible(a):
         return "banded_cuda"
+    if impl == "blocktri" and _use_blocktri_matvec(a):
+        if not (_bt_gate(a)[0]
+                and blocktri_matvec_feasible(a.dtype, _BT_BLOCK)):
+            raise _bt_refused(a)
+        return "blocktri"
     return "xla"
 
 
 def as_matvec(a, n_hint: int = None,
               impl: str = "auto") -> Tuple[Callable, int, object]:
-    """Return (matvec, n, dtype) for a BandedMatrix or a callable."""
-    if impl not in _IMPLS:
-        raise ValueError(
-            f"unknown matvec impl {impl!r}: expected auto, banded_pallas, "
-            f"banded_cuda, blocktri, or xla (-mat_matvec_impl)")
+    """Return (matvec, n, dtype) for a BandedMatrix, a BlockTridiagonal or a
+    callable.  ``impl`` selects the BandedMatrix route (``_band_route``)."""
+    _check_impl(impl)
     if isinstance(a, BandedMatrix):
         route = _band_route(a, impl)
         if route == "banded_cuda":
             prep = prepare_banded_mv(a)
             return (_tag(lambda x: banded_matvec_prepared(prep, x), route),
                     a.n, a.dtype)
+        if route == "blocktri":
+            # one conversion, held for the operator's lifetime; the kernel
+            # takes the unpadded blocks and reads x as zero beyond n
+            T = band_to_blocktri(a, _BT_BLOCK)
+            return (_tag(lambda x: blocktri_matvec_cuda(T, x), route),
+                    a.n, a.dtype)
         return _tag(lambda x: banded_matvec(a, x), route), a.n, a.dtype
+    if isinstance(a, BlockTridiagonal):
+        nb, b = a.nb, a.b
+        if _use_blocktri_matvec(a) and blocktri_matvec_feasible(a.dtype, b):
+            return (_tag(lambda x: blocktri_matvec_cuda(a, x), "blocktri"),
+                    nb * b, a.dtype)
+        return (_tag(lambda x: blocktri_matvec(a, x.reshape(nb, b))
+                     .reshape(-1), "xla"), nb * b, a.dtype)
     if callable(a):
         if n_hint is None:
             raise ValueError("callable operator requires n_hint (vector size)")
         return a, n_hint, None
     raise NotImplementedError(
         f"operators of type {type(a).__name__} are not yet ported to "
-        "spike_petsc_tpu_torch (BandedMatrix and callables are)")
+        "spike_petsc_tpu_torch (BandedMatrix, BlockTridiagonal and "
+        "callables are)")
+
+
+def as_matvec_many(a, n_hint: int = None,
+                   impl: str = "auto") -> Tuple[Callable, int, object]:
+    """Return (matvec_many: [n, r] -> [n, r], n, dtype): a true multi-RHS
+    operator apply for the batched Krylov engines (``krylov_many``).
+
+    Routes, tagged on the closure:
+      * ``blocktri_many``: a band the conversion gate admits (wide under
+        'auto', any width under ``impl="blocktri"``, which raises on a CUDA
+        band the gate refuses) on a CUDA device takes one band->blocktri
+        conversion, then ``blocktri_matvec`` on ``[nb, b, r]`` as batched
+        products: the blocks stream once for all r columns.  A
+        BlockTridiagonal operator takes the same product;
+      * ``vmap_<route>``: everything else applies the single-RHS route
+        column by column, so a narrow CUDA band still runs the banded
+        kernel.
+
+    The blocktri route keeps a second at-rest copy of the operator, 3 * 128
+    entries per row, beside the band.
+    """
+    _check_impl(impl)
+    if isinstance(a, BandedMatrix) and impl in ("auto", "blocktri") \
+            and _use_blocktri_matvec(a):
+        bt_ok, wide = _bt_gate(a)
+        if impl == "blocktri" and not bt_ok:
+            raise _bt_refused(a)
+        if bt_ok and (impl == "blocktri" or wide):
+            T = band_to_blocktri(a, _BT_BLOCK)
+            nb, b, n = T.nb, T.b, a.n
+
+            def mv_many(X):
+                Xb = torch.nn.functional.pad(X, (0, 0, 0, nb * b - n))
+                return blocktri_matvec(T, Xb.reshape(nb, b, -1)).reshape(
+                    nb * b, -1)[:n]
+            return _tag(mv_many, "blocktri_many"), n, a.dtype
+    if isinstance(a, BlockTridiagonal):
+        nb, b = a.nb, a.b
+
+        def mv_bt(X):
+            return blocktri_matvec(a, X.reshape(nb, b, -1)).reshape(nb * b, -1)
+        return _tag(mv_bt, "blocktri_many"), nb * b, a.dtype
+    mv, n, dt = as_matvec(a, n_hint=n_hint, impl=impl)
+
+    def mv_cols(X):
+        return torch.stack([mv(X[:, j]) for j in range(X.shape[1])], dim=1)
+    return _tag(mv_cols, f"vmap_{getattr(mv, '_route', 'op')}"), n, dt

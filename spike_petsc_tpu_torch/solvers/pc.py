@@ -1,9 +1,10 @@
 """Preconditioners (the PC layer), PyTorch.
 
 A PC is a small object with an ``apply`` closure over device factorization
-state; factories are registered by name and read their parameters from a
-prefix-scoped options database.  Ported: ``none`` and ``spike`` (forward
-apply, with the Newton safety net).
+state (and, where the type has one, a multi-RHS ``apply_many``); factories
+are registered by name and read their parameters from a prefix-scoped
+options database.  Ported: ``none`` and ``spike`` (forward apply and
+multi-RHS apply, with the Newton safety net).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Callable, Optional
 import torch
 
 from ..ops.band import BandedMatrix, banded_matvec
-from ..ops.spike import spike_factor, spike_solve
+from ..ops.spike import spike_factor, spike_solve, spike_solve_many
 from ..utils.options import Options
 from ..utils.registry import PRECONDITIONERS, register_pc
 
@@ -28,6 +29,10 @@ class PC:
     name: str
     apply: Callable
     info: dict = dfield(default_factory=dict)
+    # native multi-RHS apply ([n, r] -> [n, r]) where the PC type has one
+    # (the spike PC: spike_solve_many streams the factors once for all r
+    # columns); None: callers apply ``apply`` column by column
+    apply_many: Optional[Callable] = dfield(default=None, repr=False)
     # host-side builder for the M^{-T} apply (PCApplyTranspose)
     make_transpose: Optional[Callable] = dfield(default=None, repr=False)
 
@@ -144,6 +149,7 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int) -> PC:
             f"pc '{name}' transpose apply is not yet ported")
 
     return PC(name=name, apply=partial(spike_solve, sf), info=info,
+              apply_many=partial(spike_solve_many, sf),
               make_transpose=_no_transpose)
 
 

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Union
 
 import torch
 
@@ -44,15 +45,24 @@ class KSPResult:
     ``history[i]`` is the monitored residual norm at iteration i
     (``history[0]`` is the initial residual); entries beyond ``its`` are
     NaN.  ``history`` is a CPU tensor of the residual's real dtype.
+
+    A column-batched solve (``solve_many``, ``krylov_many``) gives ``x``
+    ``[n, r]``; ``its``, ``reason`` and ``rnorm`` as ``[r]`` CPU tensors;
+    and ``history`` ``[maxit+1, r]``, NaN beyond each column's ``its``
+    (``[2, r]`` for ``preonly_many``).
     """
 
     x: torch.Tensor
-    its: int
-    reason: int
-    rnorm: float
+    its: Union[int, torch.Tensor]
+    reason: Union[int, torch.Tensor]
+    rnorm: Union[float, torch.Tensor]
     history: torch.Tensor
 
     def __repr__(self):  # pragma: no cover
+        if isinstance(self.its, torch.Tensor):
+            return (f"KSPResult(its={self.its.tolist()}, reason="
+                    f"{[reason_str(r) for r in self.reason.tolist()]}, "
+                    f"rnorm max={float(self.rnorm.max()):.6e})")
         return (f"KSPResult(its={self.its}, reason={reason_str(self.reason)}, "
                 f"rnorm={self.rnorm:.6e})")
 

@@ -17,9 +17,13 @@ import torch
 
 from spike_petsc_tpu_torch import BandedMatrix, Options, solve
 from spike_petsc_tpu_torch.convert import banded_from_numpy
-from spike_petsc_tpu_torch.ops.blocktri import cast_factor
+from spike_petsc_tpu_torch.ops.band import banded_matvec
+from spike_petsc_tpu_torch.ops.blocktri import (BlockTridiagonal,
+                                                band_to_blocktri, cast_factor)
 from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
+from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
 from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
+from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many as cfm
 from spike_petsc_tpu_torch.ops.spike import spike_factor, spike_solve
 
 from torch_parity import cuda_device, random_band  # noqa: F401
@@ -96,3 +100,159 @@ def test_main_path_runs_both_kernels(cuda_device):
     torch.cuda.synchronize()
     assert res.reason == 2 and res.its <= 3
     assert cbm.KERNEL.launches > before[0] and cfs.KERNEL.launches > before[1]
+
+
+def _factor(b, K, n, seed):
+    band = banded_from_numpy(random_band(n, 20, 20, seed=seed,
+                                         dtype=np.float32), 20, 20,
+                             device=torch.device("cuda", 0))
+    return spike_factor(band, K=K, block_b=b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,K,n", [(128, 8, 8 * 128 * 9), (64, 16, 16 * 64),
+                                   (128, 4, 4 * 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 32, 100])
+def test_fused_sweep_many_kernel_matches_plain(cuda_device, b, K, n, dtype,
+                                               r):
+    """Real factors of a diagonally dominant band; nb = 9 and nb = 1; one
+    column, one chunk and several chunks of columns."""
+    sf = _factor(b, K, n, seed=12)
+    fact = cast_factor(sf.fact, dtype)
+    rhs = torch.randn((K, sf.nb, b, r), device=cuda_device)
+    ref = cfm.blocktri_solve_fused_many_cuda(fact, rhs, impl="plain")
+    launches = cfm.KERNEL.launches
+    got = cfm.blocktri_solve_fused_many_cuda(fact, rhs)
+    torch.cuda.synchronize()
+    assert cfm.KERNEL.launches == launches + 1
+    assert got.shape == rhs.shape and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [15, 17, 37])
+def test_fused_sweep_many_column_chunks_agree(cuda_device, r):
+    """A last column chunk of the 16-column blocks that is partly empty."""
+    sf = _factor(128, 8, 8 * 128 * 5, seed=13)
+    rhs = torch.randn((8, sf.nb, 128, r), device=cuda_device)
+    ref = cfm.blocktri_solve_fused_many_cuda(sf.fact, rhs, impl="plain")
+    got = cfm.blocktri_solve_fused_many_cuda(sf.fact, rhs)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(100003, 100), (4099, 20), (1024, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocktri_matvec_kernel_matches_plain(cuda_device, n, k, dtype):
+    """Ragged n (the last block row partly outside x) and full block rows;
+    held against the plain version and against the banded matvec."""
+    band = banded_from_numpy(random_band(n, k, k, seed=14, dtype=np.float32,
+                                         dominant=False), k, k,
+                             device=cuda_device)
+    band = BandedMatrix(data=band.data.to(dtype), kl=k, ku=k)
+    T = band_to_blocktri(band, 128)
+    x = torch.randn(n, device=cuda_device)
+    ref = cbt.blocktri_matvec_cuda(T, x, impl="plain")
+    launches = cbt.KERNEL.launches
+    got = cbt.blocktri_matvec_cuda(T, x)
+    torch.cuda.synchronize()
+    assert cbt.KERNEL.launches == launches + 1
+    assert got.shape == (n,) and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+    band_ref = banded_matvec(BandedMatrix(data=band.data.float(), kl=k,
+                                          ku=k), x)
+    assert _rel(got, band_ref) <= TOL
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
+    sf = spike_factor(banded_from_numpy(random_band(4096, 20, 20, seed=15),
+                                        20, 20, device=cuda_device),
+                      K=4, block_b=64)                               # f64
+    rhs = torch.randn((4, sf.nb, 64, 3), dtype=torch.float64,
+                      device=cuda_device)
+    with pytest.raises(ValueError, match="does not take"):
+        cfm.blocktri_solve_fused_many_cuda(sf.fact, rhs)
+    f32 = cast_factor(sf.fact, torch.float32)
+    with pytest.raises(ValueError, match="rhs shape"):
+        cfm.blocktri_solve_fused_many_cuda(f32, rhs[..., :0].float())
+    T = BlockTridiagonal(*(torch.zeros((3, 64, 64), dtype=torch.float64,
+                                       device=cuda_device),) * 3)
+    with pytest.raises(ValueError, match="does not take"):
+        cbt.blocktri_matvec_cuda(T, torch.zeros(192, dtype=torch.float64,
+                                                device=cuda_device))
+    T32 = BlockTridiagonal(*(m.float() for m in (T.D, T.L, T.U)))
+    with pytest.raises(ValueError, match="length"):
+        cbt.blocktri_matvec_cuda(T32, torch.zeros(100, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_serving_path_runs_the_multi_rhs_sweep(cuda_device):
+    """solve_many on a wide band: the blocktri_many operator and the spike
+    PC's multi-RHS apply (kernel #4), every column converged."""
+    from spike_petsc_tpu_torch import solve_many
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec_many
+    band = banded_from_numpy(random_band(20000, 50, 50, seed=16,
+                                         dtype=np.float32), 50, 50,
+                             device=cuda_device)
+    X = torch.randn((20000, 6), device=cuda_device)
+    B = banded_matvec(band, X)
+    assert as_matvec_many(band)[0]._route == "blocktri_many"
+    before = cfm.KERNEL.launches
+    res = solve_many(band, B, ksp_type="bcgs", pc_type="spike", rtol=1e-6,
+                     options=Options({"pc_spike_partitions": 8,
+                                      "pc_spike_block": 64,
+                                      "pc_spike_store_spikes": 1}))
+    torch.cuda.synchronize()
+    assert (res.reason == 2).all() and res.its.max() <= 2
+    assert cfm.KERNEL.launches > before
+    assert float((res.x - X).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_blocktri_route_runs_the_blocktri_kernel(cuda_device):
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec
+    band = banded_from_numpy(random_band(5000, 40, 40, seed=17,
+                                         dtype=np.float32), 40, 40,
+                             device=cuda_device)
+    mv, _, _ = as_matvec(band, impl="blocktri")
+    assert mv._route == "blocktri"
+    x = torch.randn(5000, device=cuda_device)
+    before = cbt.KERNEL.launches
+    y = mv(x)
+    torch.cuda.synchronize()
+    assert cbt.KERNEL.launches == before + 1
+    assert _rel(y, banded_matvec(band, x)) <= TOL
+    # the same blocks handed in as a BlockTridiagonal take the same kernel
+    T = band_to_blocktri(band, 128)
+    mvT, nT, _ = as_matvec(T)
+    assert (mvT._route, nT) == ("blocktri", T.nb * 128)
+    yT = mvT(torch.nn.functional.pad(x, (0, nT - 5000)))
+    torch.cuda.synchronize()
+    assert cbt.KERNEL.launches == before + 2
+    assert _rel(yT[:5000], y) <= TOL
+    T64 = BlockTridiagonal(*(m.double() for m in (T.D, T.L, T.U)))
+    assert as_matvec(T64)[0]._route == "xla"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kl,dtype", [(40, torch.float64),
+                                      (129, torch.float32),
+                                      (40, torch.float16)])
+def test_blocktri_route_refuses_on_the_card(cuda_device, kl, dtype):
+    """``impl="blocktri"`` on a CUDA band the gate (f64, kl > 128) or the
+    kernel (f16) refuses raises; 'auto' takes the band kernel where it
+    admits the band, else the plain version."""
+    from spike_petsc_tpu_torch.solvers.operator import (as_matvec,
+                                                        as_matvec_many)
+    band = BandedMatrix(data=torch.randn((5000, kl + 41), device=cuda_device)
+                        .to(dtype), kl=kl, ku=40)
+    with pytest.raises(ValueError, match="blocktri does not take"):
+        as_matvec(band, impl="blocktri")
+    if dtype != torch.float16:
+        with pytest.raises(ValueError, match="blocktri does not take"):
+            as_matvec_many(band, impl="blocktri")
+    assert as_matvec(band)[0]._route == (
+        "banded_cuda" if dtype == torch.float32 else "xla")

@@ -89,7 +89,7 @@ def test_restarted_gmres_without_pc_matches_jax(system):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(ksp_type="bcgs", pc_type="spike"), "ksp type 'bcgs'"),
+    (dict(ksp_type="tfqmr", pc_type="spike"), "ksp type 'tfqmr'"),
     (dict(ksp_type="gmres", pc_type="jacobi"), "pc type 'jacobi'"),
     (dict(ksp_type="gmres", pc_type="spike", transpose=True), "transpose"),
     (dict(ksp_type="gmres", pc_type="none",
