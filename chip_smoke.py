@@ -25,11 +25,23 @@ In order, it:
          on 32 right-hand sides at rtol 1e-8 and at rtol 1e-4 (the
          half-step exit), and against the plain CPU path in f64;
   6. times the factor, the solves, the GMRES and serving solves, the
-     operators and each kernel beside its plain version with CUDA events
-     (median and spread of the repetitions), the serving stage's device
-     busy time (torch.profiler), and the card's device-to-device copy rate;
-  7. prints a ``{"kernels": [...]}`` line and, last, the line
-     ``{"ok": true, "device": {...}}``.
+     operators and each kernel beside its plain version and, where one
+     PyTorch call computes the same function (a sparse product), beside
+     that call, with CUDA events (median and spread of the repetitions),
+     the serving stage's device busy time (torch.profiler), and the card's
+     device-to-device copy rate;
+  7. frees the flagship and runs the SPD path (BASELINE config 2: a
+     symmetric dominant band, n = 1e6, bandwidth 33, f32; the ``cholesky``
+     PC with 16 partitions, b = 64, the truncated reduced system and stored
+     spikes): the symmetric fused sweep and its multi-RHS form against their
+     plain versions (f32 and bf16 factors, nb = 1, r = 32, 1 and 100), the
+     multi-RHS f32 carry, ``solve(... ksp_type="cg", pc_type="cholesky")``
+     at rtol 1e-8 and ``solve_many`` on 32 right-hand sides through the
+     entry points with launch counts, the card against the CPU in f64 on a
+     small band, and the timings of that path;
+  8. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
+     path, error, time, plain time, bound and library time) and, last, the
+     line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the exit code is then non-zero and no result line
 is printed.  Without a CUDA device it exits with code 2 at once.
@@ -55,11 +67,23 @@ NRHS = 32                  # serving batch (BASELINE config 2's batched mode)
 SERVE_ITS_MAX = 2          # bcgs at rtol 1e-8; the TPU yardstick is 1
 SERVE_RELRES_MAX = 1e-4    # per-column true f32 relative residual
 CARRY_REL_MAX = 1e-5       # f32 multi-RHS solve against its f64 solve
+# the SPD path: BASELINE config 2 (SPD band, bandwidth 33, n = 1e6, 16
+# partitions, truncated reduced system), the cholesky PC
+SPD_N, SPD_HALF_BW, SPD_K, SPD_BLOCK = 1_000_000, 16, 16, 64
+SPD_OPTIONS = {"pc_cholesky_partitions": SPD_K,
+               "pc_cholesky_block": SPD_BLOCK,
+               "pc_cholesky_truncated": 1, "pc_cholesky_store_spikes": 1}
+CG_ITS_MAX = 5             # the JAX config-2 test's bound
+# NVIDIA's data sheet for the H100 SXM (700 W): the bound of each kernel
+PEAK_BYTES_S = 3.35e12     # HBM3
+PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
 REPLACES = {
     "band_matvec": "spike_petsc_tpu/ops/pallas/band_matvec.py:66",
     "fused_sweep": "spike_petsc_tpu/ops/pallas/fused_sweep.py:109",
     "fused_sweep_many": "spike_petsc_tpu/ops/pallas/fused_sweep.py:378",
     "blocktri_matvec": "spike_petsc_tpu/ops/pallas/matvec.py:89",
+    "fused_sweep_spd": "spike_petsc_tpu/ops/pallas/fused_sweep.py:190",
+    "fused_sweep_many_spd": "spike_petsc_tpu/ops/pallas/fused_sweep.py:458",
 }
 
 
@@ -81,6 +105,27 @@ def flagship_band(n, half_bw, device, seed=SEED):
                       dtype=torch.float32) * 2 - 1
     data[:, half_bw] = data.abs().sum(dim=1) + 1
     band = BandedMatrix(data=data, kl=half_bw, ku=half_bw)
+    return band, banded_matvec(band, torch.ones(n, device=device))
+
+
+def spd_band(n, half_bw, device, seed=SEED):
+    """Symmetric diagonally dominant random band (BASELINE config 2, the
+    matrix of ``models.problems.spd_banded``), built on the device: the
+    upper diagonals uniform(-1, 1), mirrored to the lower ones so that
+    data[i, k + d] == data[i + d, k - d]; the diagonal the row's absolute
+    sum + 1; slots outside the matrix zero.  Right-hand side b = A @ 1."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k = half_bw
+    data = torch.zeros((n, 2 * k + 1), device=device)
+    for d in range(1, k + 1):
+        v = torch.rand(n - d, generator=gen, device=device) * 2 - 1
+        data[:n - d, k + d] = v
+        data[d:, k - d] = v
+    data[:, k] = data.abs().sum(dim=1) + 1
+    band = BandedMatrix(data=data, kl=k, ku=k)
     return band, banded_matvec(band, torch.ones(n, device=device))
 
 
@@ -107,6 +152,59 @@ def kernel_err(got, ref):
     """(max|got - ref|, that over max|ref|)."""
     diff = float((got.double() - ref.double()).abs().max())
     return diff, diff / float(ref.double().abs().max())
+
+
+def roofline(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of ``nbytes`` (each input read once, each output written
+    once) over the data sheet's memory rate and ``flops`` (f32, an FMA is
+    two) over its f32 rate."""
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def sweep_bound(fact, r=1):
+    """The roofline of a fused block-Thomas solve of ``r`` right-hand
+    sides: the factor's stored matrices (F, U, Sinv for ``inv``; F, Sinv
+    for ``spd``) and the f32 vectors in and out; 3 nb - 2 matrix-vector
+    products per partition and column."""
+    K, nb, b, _ = fact.F.shape
+    mats = 3 if fact.method == "inv" else 2
+    nbytes = (mats * fact.F.numel() * fact.F.element_size()
+              + 2 * K * nb * b * r * 4)
+    return roofline(nbytes, 2 * K * (3 * nb - 2) * b * b * r)
+
+
+def band_csr(band):
+    """The band's entries inside the matrix as a CSR tensor (int32
+    indices): the input of the library's sparse product."""
+    import torch
+    n, dev = band.n, band.data.device
+    cols = (torch.arange(n, device=dev)[:, None]
+            + torch.arange(band.width, device=dev)[None] - band.kl)
+    keep = (cols >= 0) & (cols < n)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = keep.sum(dim=1).cumsum(0)
+    return torch.sparse_csr_tensor(crow.int(), cols[keep].int(),
+                                   band.data[keep], size=(n, n))
+
+
+def blocktri_bsr(T):
+    """A block-tridiagonal matrix as a BSR tensor of its stored b x b
+    blocks (int32 indices), L_0 and U_{nb-1} left out."""
+    import torch
+    nb, b, dev = T.nb, T.b, T.D.device
+    vals = torch.stack([T.L, T.D, T.U], dim=1).reshape(3 * nb, b, b)[1:-1]
+    cols = (torch.arange(nb, device=dev)[:, None]
+            + torch.arange(-1, 2, device=dev)[None]).reshape(-1)[1:-1]
+    counts = torch.full((nb,), 3, dtype=torch.int64, device=dev)
+    counts[0] = counts[-1] = 2
+    crow = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+    crow[1:] = counts.cumsum(0)
+    return torch.sparse_bsr_tensor(crow.int(), cols.int(),
+                                   vals.contiguous(), size=(nb * b, nb * b))
 
 
 def phase_card():
@@ -323,36 +421,39 @@ def read_launches():
     return {kern.name: kern.launches for kern in KERNELS}
 
 
-def phase_carry(sf, device):
-    """The multi-RHS precision trap: the f32 solve through the kernel must
-    match an f64 solve of the same factor (factors and bf16 spikes promoted
-    exactly; the plain path, since the kernel takes no f64) to f32 level.
-    A carry rounded to bf16 would miss by ~1e-3."""
+def phase_carry(sf, device, kern, label, seed=SEED + 5):
+    """The multi-RHS precision trap: the f32 solve through the kernel
+    ``kern`` must match an f64 solve of the same factor (factors and bf16
+    spikes promoted exactly; the plain path, since the kernel takes no f64)
+    to f32 level.  A carry rounded to bf16 would miss by ~1e-3."""
     import dataclasses
     import torch
     from spike_petsc_tpu_torch.ops.blocktri import BlockTriFactor
-    from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many as cfm
     from spike_petsc_tpu_torch.ops.spike import spike_solve_many
 
-    def f64(f):
-        return BlockTriFactor(F=f.F.double(), U=f.U.double(),
-                              Sinv=f.Sinv.double())
+    def f64(t):
+        return None if t is None else t.double()
+
+    def f64_factor(f):
+        return None if f is None else BlockTriFactor(
+            F=f.F.double(), U=f.U.double(), Sinv=f.Sinv.double(),
+            method=f.method)
     sf64 = dataclasses.replace(
-        sf, fact=f64(sf.fact), red_fact=f64(sf.red_fact),
-        Btip=sf.Btip.double(), Ctip=sf.Ctip.double(), V=sf.V.double(),
-        W=sf.W.double())
-    gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    R = torch.randn((N, NRHS), generator=gen, device=device)
-    before = cfm.KERNEL.launches
+        sf, fact=f64_factor(sf.fact), red_fact=f64_factor(sf.red_fact),
+        red_Dinv=f64(sf.red_Dinv), Btip=f64(sf.Btip), Ctip=f64(sf.Ctip),
+        V=f64(sf.V), W=f64(sf.W))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    R = torch.randn((sf.n, NRHS), generator=gen, device=device)
+    before = kern.KERNEL.launches
     x32 = spike_solve_many(sf, R)
-    launched = cfm.KERNEL.launches - before
-    x64 = spike_solve_many(sf64, R.double())
+    launched = kern.KERNEL.launches - before
+    x64 = spike_solve_many(sf64, R.double(), impl="plain")
     rel = float(torch.linalg.norm(x32.double() - x64)
                 / torch.linalg.norm(x64))
-    print(f"spike_solve_many f32 (factors f32, spikes bf16, kernel) against "
-          f"its f64 solve: relative error {rel:.3e} (limit {CARRY_REL_MAX})")
+    print(f"spike_solve_many f32 ({label}, kernel) against its f64 solve: "
+          f"relative error {rel:.3e} (limit {CARRY_REL_MAX})")
     check(launched == 1 and x32.dtype == torch.float32,
-          "the f32 multi-RHS solve did not run the kernel")
+          f"the f32 multi-RHS solve did not run {kern.KERNEL.name}")
     check(rel <= CARRY_REL_MAX, f"multi-RHS f32 carry: relative error {rel}")
     return rel
 
@@ -477,6 +578,16 @@ def device_profile(fn, top=6):
                   for e in items[:top]]
 
 
+def shower(t):
+    """A printer that records each (median, spread) time in ``t``."""
+    def show(name, ms, gbytes=None):
+        t[name] = ms
+        rate = f" ({gbytes * 1e3 / ms[0]:.1f} GB/s)" if gbytes else ""
+        print(f"time {name}: {ms[0]:.4f} ms median, spread {ms[1]:.4f} ms"
+              f"{rate}")
+    return show
+
+
 def phase_timing(band, rhs, sf, device):
     import torch
     from spike_petsc_tpu_torch import Options, make_solver, make_solver_many
@@ -491,13 +602,8 @@ def phase_timing(band, rhs, sf, device):
     from spike_petsc_tpu_torch.ops.spike import (spike_factor, spike_solve,
                                                  spike_solve_many)
     from spike_petsc_tpu_torch.solvers.operator import as_matvec_many
-    t = {}
-
-    def show(name, ms, gbytes=None):
-        t[name] = ms
-        rate = f" ({gbytes * 1e3 / ms[0]:.1f} GB/s)" if gbytes else ""
-        print(f"time {name}: {ms[0]:.4f} ms median, spread {ms[1]:.4f} ms"
-              f"{rate}")
+    t, bounds = {}, {}
+    show = shower(t)
 
     nbytes = 1 << 30
     src = torch.empty(nbytes, dtype=torch.uint8, device=device)
@@ -522,6 +628,13 @@ def phase_timing(band, rhs, sf, device):
     show("band_matvec_plain", time_ms(
         lambda: cbm.banded_matvec_prepared(prep, x, impl="plain"), iters=5),
         mv_gb)
+    bounds["band_matvec"] = roofline(band.n * band.width * 4 + 2 * N * 4,
+                                     2 * band.n * band.width)
+    csr = band_csr(band)
+    _, err = kernel_err(csr @ x, cbm.banded_matvec_prepared(prep, x))
+    check(err <= KERNEL_TOL, f"CSR product disagrees with the band: {err}")
+    show("band_matvec_library", time_ms(lambda: csr @ x, iters=20), mv_gb)
+    del csr
     rblk = torch.nn.functional.pad(rhs, (0, K * sf.m - N)).reshape(
         K, sf.nb, BLOCK)
     for label, fact in (("f32", sf.fact),
@@ -532,6 +645,8 @@ def phase_timing(band, rhs, sf, device):
         show(f"fused_sweep_plain_{label}", time_ms(
             lambda: cfs.blocktri_solve_fused_cuda(fact, rblk, impl="plain"),
             iters=3), gb)
+    bounds["fused_sweep"] = sweep_bound(sf.fact)
+    bounds["fused_sweep_many"] = sweep_bound(sf.fact, NRHS)
 
     # serving: the multi-RHS sweep, the solve and the bcgs solve at r = 32
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
@@ -581,10 +696,234 @@ def phase_timing(band, rhs, sf, device):
     show("blocktri_matvec_cuda_bf16", time_ms(
         lambda: cbt.blocktri_matvec_cuda(T16, x), iters=20), bt_gb / 2)
     del T16
+    bounds["blocktri_matvec"] = roofline(3 * T.D.numel() * 4 + 2 * N * 4,
+                                         2 * 3 * T.D.numel())
+    bsr = blocktri_bsr(T)
+    xp = torch.nn.functional.pad(x, (0, T.nb * T.b - N))
+    _, err = kernel_err((bsr @ xp)[:N], cbt.blocktri_matvec_cuda(T, x))
+    check(err <= KERNEL_TOL, f"BSR product disagrees with the blocks: {err}")
+    show("blocktri_matvec_library", time_ms(lambda: bsr @ xp, iters=20),
+         bt_gb)
+    del bsr
     mv_many = as_matvec_many(band)[0]
     show("blocktri_many_r32", time_ms(lambda: mv_many(X), iters=5),
          (3 * T.D.numel() * 4 + 2 * N * NRHS * 4) / 1e9)
-    return t
+    return t, bounds
+
+
+def spd_factor(band, K=SPD_K):
+    """The config-2 factor the cholesky PC builds from SPD_OPTIONS."""
+    from spike_petsc_tpu_torch.ops.spike import spike_factor
+    return spike_factor(band, K=K, block_b=SPD_BLOCK, method="spd",
+                        truncated=True, store_spikes=True)
+
+
+def phase_spd_kernels(rhs, ssf, device):
+    """The symmetric sweeps (#3, #5) against their plain versions: the
+    config-2 factor in f32 and bf16, and an nb = 1 factor."""
+    import torch
+    from spike_petsc_tpu_torch.ops.blocktri import cast_factor
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many_spd as cfms
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep_spd as cfss
+    errs = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    small_band, _ = spd_band(SPD_K * SPD_BLOCK, SPD_HALF_BW, device,
+                             seed=SEED + 12)
+    small = spd_factor(small_band)
+    check(small.nb == 1, "small spd factor must have nb = 1")
+    f16 = cast_factor(ssf.fact, torch.bfloat16)
+    rblk = torch.nn.functional.pad(rhs, (0, SPD_K * ssf.m - SPD_N)).reshape(
+        SPD_K, ssf.nb, SPD_BLOCK)
+    for label, fact, r in (
+            ("config-2 f32", ssf.fact, rblk), ("config-2 bf16", f16, rblk),
+            ("nb=1 f32", small.fact, torch.randn(
+                (SPD_K, 1, SPD_BLOCK), generator=gen, device=device))):
+        diff, err = kernel_err(
+            cfss.blocktri_solve_fused_spd_cuda(fact, r),
+            cfss.blocktri_solve_fused_spd_cuda(fact, r, impl="plain"))
+        torch.cuda.synchronize()
+        print(f"fused_sweep_spd {label} {tuple(fact.F.shape)}: max abs err "
+              f"{diff:.3e}, relative {err:.3e}")
+        check(err <= KERNEL_TOL, f"fused_sweep_spd {label} err {err}")
+        errs.setdefault("fused_sweep_spd", diff)
+    for label, fact, nb, r in (
+            ("config-2 f32 r=32", ssf.fact, ssf.nb, NRHS),
+            ("config-2 bf16 r=32", f16, ssf.nb, NRHS),
+            ("config-2 f32 r=1", ssf.fact, ssf.nb, 1),
+            ("config-2 bf16 r=100", f16, ssf.nb, 100),
+            ("config-2 f32 r=100", ssf.fact, ssf.nb, 100),
+            ("nb=1 f32 r=32", small.fact, 1, NRHS)):
+        rm = torch.randn((SPD_K, nb, SPD_BLOCK, r), generator=gen,
+                         device=device)
+        diff, err = kernel_err(
+            cfms.blocktri_solve_fused_many_spd_cuda(fact, rm),
+            cfms.blocktri_solve_fused_many_spd_cuda(fact, rm, impl="plain"))
+        torch.cuda.synchronize()
+        print(f"fused_sweep_many_spd {label} {tuple(fact.F.shape)}: max abs "
+              f"err {diff:.3e}, relative {err:.3e}")
+        check(err <= KERNEL_TOL, f"fused_sweep_many_spd {label} err {err}")
+        errs.setdefault("fused_sweep_many_spd", diff)
+    return errs
+
+
+def phase_spd_main_path(band, rhs):
+    """``solve(A, b, ksp_type="cg", pc_type="cholesky")`` on config 2,
+    launch counts read around it."""
+    import torch
+    from spike_petsc_tpu_torch import Options, solve
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.solvers.types import CONVERGED_RTOL, reason_str
+    reset_launches()
+    res = solve(band, rhs, ksp_type="cg", pc_type="cholesky",
+                options=Options(dict(SPD_OPTIONS)), rtol=1e-8, maxit=50)
+    launches = read_launches()
+    true_rel = float(torch.linalg.norm(banded_matvec(band, res.x) - rhs)
+                     / torch.linalg.norm(rhs))
+    xerr = float((res.x - 1).abs().max())
+    print(f"cg+cholesky (config 2): {res.its} its, {reason_str(res.reason)}, "
+          f"rnorm/||b|| {res.rnorm / float(torch.linalg.norm(rhs)):.3e}, "
+          f"true relres (f32) {true_rel:.3e}, max|x - 1| {xerr:.3e}")
+    print(f"launches on the cg path: {launches}")
+    check(res.reason == CONVERGED_RTOL and res.its <= CG_ITS_MAX,
+          f"cg: {res.its} its, reason {res.reason}")
+    check(res.x.shape == (SPD_N,) and bool(torch.isfinite(res.x).all()),
+          "cg solution shape / finiteness")
+    check(xerr <= 1e-3 and true_rel <= 1e-4, "cg solution accuracy")
+    check(launches["band_matvec"] > 0 and launches["fused_sweep_spd"] > 0,
+          f"a kernel did not run on the cg path: {launches}")
+    return launches
+
+
+def phase_spd_serving(band, device):
+    """Serving config 2 through ``solve_many``: 32 seeded right-hand sides
+    B = A X, cg + cholesky at rtol 1e-8."""
+    import torch
+    from spike_petsc_tpu_torch import Options, solve_many
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec_many
+    from spike_petsc_tpu_torch.solvers.types import CONVERGED_RTOL
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    X = torch.randn((SPD_N, NRHS), generator=gen, device=device)
+    B = banded_matvec(band, X)
+    print(f"cg serving operator route: {as_matvec_many(band)[0]._route}")
+    reset_launches()
+    res = solve_many(band, B, ksp_type="cg", pc_type="cholesky",
+                     options=Options(dict(SPD_OPTIONS)), rtol=1e-8, maxit=50)
+    launches = read_launches()
+    relres = (torch.linalg.norm(banded_matvec(band, res.x) - B, dim=0)
+              / torch.linalg.norm(B, dim=0))
+    its = res.its.tolist()
+    print(f"cg+cholesky serving r={NRHS} rtol=1e-08: its min {min(its)} "
+          f"max {max(its)}, reasons {sorted(set(res.reason.tolist()))}, "
+          f"per-column true relres (f32) max {float(relres.max()):.3e}, "
+          f"max|x - X| {float((res.x - X).abs().max()):.3e}; "
+          f"launches {launches}")
+    check(res.x.shape == (SPD_N, NRHS) and bool(torch.isfinite(res.x).all()),
+          "cg serving solution shape / finiteness")
+    check(bool((res.reason == CONVERGED_RTOL).all()),
+          f"cg serving reasons {res.reason.tolist()}")
+    check(float(relres.max()) <= SERVE_RELRES_MAX,
+          f"cg serving relres {float(relres.max())}")
+    check(launches["fused_sweep_many_spd"] > 0,
+          f"the spd multi-RHS sweep did not run on cg serving: {launches}")
+    return launches
+
+
+def phase_spd_reference(device):
+    """cg + cholesky on a small SPD band on the card (kernels, f32) and on
+    the CPU (plain versions, f64): the solutions must agree."""
+    from spike_petsc_tpu_torch import BandedMatrix, Options, solve
+    band, rhs = spd_band(20_000, SPD_HALF_BW, device, seed=SEED + 14)
+    got = solve(band, rhs, ksp_type="cg", pc_type="cholesky",
+                options=Options(dict(SPD_OPTIONS)), rtol=1e-8)
+    cpu = BandedMatrix(data=band.data.double().cpu(), kl=SPD_HALF_BW,
+                       ku=SPD_HALF_BW)
+    ref = solve(cpu, rhs.double().cpu(), ksp_type="cg", pc_type="cholesky",
+                options=Options(dict(SPD_OPTIONS)), rtol=1e-8)
+    err = float((got.x.double().cpu() - ref.x).abs().max()
+                / ref.x.abs().max())
+    print(f"cg+cholesky small band n=20000 w=33: card {got.its} its vs CPU "
+          f"f64 {ref.its} its, max|x_card - x_cpu| / max|x_cpu| {err:.3e}")
+    check(err <= 1e-5 and got.reason == ref.reason == 2,
+          "cg: card and CPU reference disagree")
+    # no options: one partition, and on the card the block the kernel takes
+    before = read_launches()["fused_sweep_spd"]
+    got = solve(band, rhs, ksp_type="cg", pc_type="cholesky", rtol=1e-8)
+    ran = read_launches()["fused_sweep_spd"] - before
+    ref = solve(cpu, rhs.double().cpu(), ksp_type="cg", pc_type="cholesky",
+                rtol=1e-8)
+    err = float((got.x.double().cpu() - ref.x).abs().max()
+                / ref.x.abs().max())
+    print(f"cg+cholesky default options n=20000: card {got.its} its "
+          f"(fused_sweep_spd {ran} launches) vs CPU f64 {ref.its} its, "
+          f"max|x_card - x_cpu| / max|x_cpu| {err:.3e}")
+    check(err <= 1e-5 and got.reason == ref.reason == 2 and ran > 0,
+          "cg + cholesky with default options")
+
+
+def phase_spd_timing(band, rhs, ssf, device):
+    import torch
+    from spike_petsc_tpu_torch import Options, make_solver, make_solver_many
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.ops.blocktri import cast_factor
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many_spd as cfms
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep_spd as cfss
+    from spike_petsc_tpu_torch.ops.spike import spike_solve, spike_solve_many
+    t, bounds = {}, {}
+    show = shower(t)
+    show("spd_factor", time_ms(lambda: spd_factor(band), reps=3))
+    show("cholesky_spike_solve", time_ms(lambda: spike_solve(ssf, rhs),
+                                         iters=5))
+    solver = make_solver(band, ksp_type="cg", pc_type="cholesky",
+                         options=Options(dict(SPD_OPTIONS)), rtol=1e-8,
+                         maxit=50)
+    show("cg_solve", time_ms(lambda: solver(rhs)))
+    busy, items = device_profile(lambda: solver(rhs))
+    print(f"  cg_solve device busy {busy:.3f} ms of {t['cg_solve'][0]:.3f} "
+          f"ms wall: idle share {1 - busy / t['cg_solve'][0]:.3f}")
+    for key, count, ms in items:
+        print(f"    {ms:8.3f} ms  {count:5d} x  {key}")
+
+    rblk = torch.nn.functional.pad(rhs, (0, SPD_K * ssf.m - SPD_N)).reshape(
+        SPD_K, ssf.nb, SPD_BLOCK)
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    X = torch.randn((SPD_N, NRHS), generator=gen, device=device)
+    B = banded_matvec(band, X)
+    rm = torch.nn.functional.pad(B, (0, 0, 0, SPD_K * ssf.m - SPD_N)).reshape(
+        SPD_K, ssf.nb, SPD_BLOCK, NRHS)
+    for label, fact in (("f32", ssf.fact),
+                        ("bf16", cast_factor(ssf.fact, torch.bfloat16))):
+        gb = 2 * fact.F.numel() * fact.F.element_size() / 1e9
+        show(f"fused_sweep_spd_cuda_{label}", time_ms(
+            lambda: cfss.blocktri_solve_fused_spd_cuda(fact, rblk),
+            iters=5), gb)
+        show(f"fused_sweep_spd_plain_{label}", time_ms(
+            lambda: cfss.blocktri_solve_fused_spd_cuda(fact, rblk,
+                                                       impl="plain"),
+            reps=3), gb)
+        show(f"fused_sweep_many_spd_cuda_{label}", time_ms(
+            lambda: cfms.blocktri_solve_fused_many_spd_cuda(fact, rm),
+            iters=3), gb)
+        show(f"fused_sweep_many_spd_plain_{label}", time_ms(
+            lambda: cfms.blocktri_solve_fused_many_spd_cuda(fact, rm,
+                                                            impl="plain"),
+            reps=3), gb)
+    bounds["fused_sweep_spd"] = sweep_bound(ssf.fact)
+    bounds["fused_sweep_many_spd"] = sweep_bound(ssf.fact, NRHS)
+    show("cholesky_spike_solve_many_r32",
+         time_ms(lambda: spike_solve_many(ssf, B), iters=3))
+    server = make_solver_many(band, ksp_type="cg", pc_type="cholesky",
+                              options=Options(dict(SPD_OPTIONS)), rtol=1e-8,
+                              maxit=50)
+    show("serve_cg_r32", time_ms(lambda: server(B), reps=3))
+    print(f"  serve_cg_r32 per RHS: {t['serve_cg_r32'][0] / NRHS:.4f} ms")
+    busy, items = device_profile(lambda: server(B))
+    print(f"  serve_cg_r32 device busy {busy:.3f} ms of "
+          f"{t['serve_cg_r32'][0]:.3f} ms wall: idle share "
+          f"{1 - busy / t['serve_cg_r32'][0]:.3f}")
+    for key, count, ms in items:
+        print(f"    {ms:8.3f} ms  {count:5d} x  {key}")
+    return t, bounds
 
 
 def main() -> int:
@@ -602,31 +941,60 @@ def main() -> int:
                       spike_dtype=torch.bfloat16, inverter="newton_fixed")
     errs = phase_kernels(band, rhs, sf, device)
     phase_accuracy(band, rhs, sf)
-    phase_carry(sf, device)
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many as cfm
+    phase_carry(sf, device, cfm, "flagship: factors f32, spikes bf16")
     res, launches = phase_main_path(band, rhs, device)
     bt_launches = phase_blocktri_route(band, rhs, res.its)
     serve_launches = phase_serving(band, device)
     phase_reference(device)
     phase_reference_many(device)
-    t = phase_timing(band, rhs, sf, device)
+    t, bounds = phase_timing(band, rhs, sf, device)
+    del band, rhs, sf, res
+    torch.cuda.empty_cache()
 
-    # each kernel's launches from the run of the path it carries
+    # the SPD path (BASELINE config 2)
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many_spd as cfms
+    sband, srhs = spd_band(SPD_N, SPD_HALF_BW, device)
+    ssf = spd_factor(sband)
+    errs.update(phase_spd_kernels(srhs, ssf, device))
+    phase_carry(ssf, device, cfms, "config 2: spd factors f32, truncated",
+                seed=SEED + 16)
+    cg_launches = phase_spd_main_path(sband, srhs)
+    cg_serve_launches = phase_spd_serving(sband, device)
+    phase_spd_reference(device)
+    spd_t, spd_bounds = phase_spd_timing(sband, srhs, ssf, device)
+    t.update(spd_t)
+    bounds.update(spd_bounds)
+
+    # each kernel's launches from the run of the path it carries; the
+    # library call where one PyTorch call computes the same function
     kernels = []
-    for name, path_launches, (ms, plain) in (
+    for name, path_launches, (ms, plain), library in (
             ("band_matvec", launches,
-             ("band_matvec_cuda", "band_matvec_plain")),
+             ("band_matvec_cuda", "band_matvec_plain"),
+             "band_matvec_library"),
             ("fused_sweep", launches,
-             ("fused_sweep_cuda_f32", "fused_sweep_plain_f32")),
+             ("fused_sweep_cuda_f32", "fused_sweep_plain_f32"), None),
             ("fused_sweep_many", serve_launches,
-             ("fused_sweep_many_cuda_f32", "fused_sweep_many_plain_f32")),
+             ("fused_sweep_many_cuda_f32", "fused_sweep_many_plain_f32"),
+             None),
             ("blocktri_matvec", bt_launches,
-             ("blocktri_matvec_cuda", "blocktri_matvec_plain"))):
+             ("blocktri_matvec_cuda", "blocktri_matvec_plain"),
+             "blocktri_matvec_library"),
+            ("fused_sweep_spd", cg_launches,
+             ("fused_sweep_spd_cuda_f32", "fused_sweep_spd_plain_f32"), None),
+            ("fused_sweep_many_spd", cg_serve_launches,
+             ("fused_sweep_many_spd_cuda_f32",
+              "fused_sweep_many_spd_plain_f32"), None)):
+        bound_ms, bound_by = bounds[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"spike_petsc_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": path_launches[name],
             "max_abs_err": errs[name], "ms": t[ms][0],
-            "plain_ms": t[plain][0]})
+            "plain_ms": t[plain][0], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": t[library][0] if library else None})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

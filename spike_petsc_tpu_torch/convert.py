@@ -39,26 +39,34 @@ def blocktri_from_numpy(D, L, U, device=None) -> BlockTridiagonal:
                             U=to_tensor(U, device))
 
 
-def blocktri_factor_from_numpy(F, U, Sinv, device=None) -> BlockTriFactor:
-    """A ``method='inv'`` block-Thomas factor from its F, U, Sinv blocks."""
+def blocktri_factor_from_numpy(F, U, Sinv, device=None,
+                               method: str = "inv") -> BlockTriFactor:
+    """A block-Thomas factor from its F, U, Sinv blocks: ``method='inv'``,
+    or ``'spd'`` with an empty U (``[..., nb, 0, 0]``, as the JAX spd
+    factor stores it)."""
+    if method not in ("inv", "spd"):
+        raise NotImplementedError(
+            f"method={method!r} factors are not yet ported to "
+            "spike_petsc_tpu_torch")
     return BlockTriFactor(F=to_tensor(F, device), U=to_tensor(U, device),
-                          Sinv=to_tensor(Sinv, device), method="inv")
+                          Sinv=to_tensor(Sinv, device), method=method)
 
 
 def spike_factor_from_numpy(*, fact, Btip, Ctip, red_fact, V, W, n: int,
                             K: int, m: int, b: int, k: int,
-                            truncated: bool = False,
+                            truncated: bool = False, red_Dinv=None,
+                            method: str = "inv",
                             device=None) -> SpikeFactor:
     """A SpikeFactor from numpy arrays: ``fact`` and ``red_fact`` are
-    ``(F, U, Sinv)`` triples (``red_fact`` None for K == 1), ``V``/``W``
-    None when spikes are not stored."""
-    if truncated:
-        raise NotImplementedError(
-            "truncated SPIKE is not yet ported to spike_petsc_tpu_torch")
+    ``(F, U, Sinv)`` triples (``red_fact`` None for K == 1 and for
+    ``truncated`` factors, which carry ``red_Dinv`` ``[K-1, 2k, 2k]``
+    instead), ``V``/``W`` None when spikes are not stored.  ``method`` is
+    the partition factors' (the reduced factor is always ``inv``)."""
     return SpikeFactor(
-        fact=blocktri_factor_from_numpy(*fact, device=device),
+        fact=blocktri_factor_from_numpy(*fact, device=device, method=method),
         Btip=to_tensor(Btip, device), Ctip=to_tensor(Ctip, device),
         red_fact=(None if red_fact is None
                   else blocktri_factor_from_numpy(*red_fact, device=device)),
         V=to_tensor(V, device), W=to_tensor(W, device),
-        n=int(n), K=int(K), m=int(m), b=int(b), k=int(k))
+        n=int(n), K=int(K), m=int(m), b=int(b), k=int(k),
+        red_Dinv=to_tensor(red_Dinv, device), truncated=bool(truncated))

@@ -1,13 +1,15 @@
 """Block-tridiagonal representation and block-Thomas factorization (PyTorch).
 
 The port of the subset of ``spike_petsc_tpu.ops.blocktri`` that the
-SPIKE main path runs.  A banded matrix with half-bandwidths kl, ku <= b is a
+SPIKE paths run.  A banded matrix with half-bandwidths kl, ku <= b is a
 block-tridiagonal matrix with dense ``b x b`` blocks; block-Thomas
 factorization does, per block row,
 
     F_i = L_i @ inv(S_{i-1}),     S_i = D_i - F_i @ U_{i-1},
 
-i.e. two ``b x b`` matmuls and one batched inversion.  The JAX ``lax.scan``
+i.e. two ``b x b`` matmuls and one batched inversion (``method="inv"``);
+the symmetric ``method="spd"`` takes ``S_i = D_i - F_i @ L_i^T`` and stores
+no U.  The JAX ``lax.scan``
 over block rows becomes a Python loop over ``nb``; every tensor may carry
 leading batch dimensions (the SPIKE partition axis K takes the place of
 ``jax.vmap``).
@@ -49,10 +51,13 @@ class BlockTridiagonal:
 
 @dataclass(frozen=True)
 class BlockTriFactor:
-    """Block-Thomas factorization with explicit Schur inverses
-    (``method == "inv"``): solves are pure batched matmuls.
+    """Block-Thomas factorization with explicit Schur inverses: solves are
+    pure batched matmuls.
 
-    F, U, Sinv are ``[..., nb, b, b]``; F[0] == 0 and U[nb-1] == 0.
+    ``method == "inv"``: F, U, Sinv are ``[..., nb, b, b]``; F[0] == 0 and
+    U[nb-1] == 0.  ``method == "spd"`` (symmetric block-LDL^T): F and Sinv
+    only; U is an empty ``[..., nb, 0, 0]`` placeholder, the sweeps read
+    F^T in its place.
     """
 
     F: torch.Tensor
@@ -229,30 +234,54 @@ def batched_inverse(S: torch.Tensor, inverter: str = "auto") -> torch.Tensor:
 # Factorization
 # ---------------------------------------------------------------------------
 
-def _factor_from_lists(f_list, sinv_list, U) -> BlockTriFactor:
+def _factor_from_lists(f_list, sinv_list, U, method="inv") -> BlockTriFactor:
     F = torch.stack([torch.zeros_like(sinv_list[0])] + f_list, dim=-3)
-    return BlockTriFactor(F=F, U=U, Sinv=torch.stack(sinv_list, dim=-3))
+    return BlockTriFactor(F=F, U=U, Sinv=torch.stack(sinv_list, dim=-3),
+                          method=method)
 
 
 def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
                     inverter: str = "auto") -> BlockTriFactor:
-    """Block-Thomas factorization (``method="inv"``) over ``[..., nb, b, b]``
-    blocks: a loop over block rows of batched matmuls and one batched
-    inversion each.  No outer pivoting: the scaling/ordering pipeline is
-    responsible for diagonal dominance."""
-    if method != "inv":
+    """Block-Thomas factorization over ``[..., nb, b, b]`` blocks: a loop
+    over block rows of batched matmuls and one batched inversion each.  No
+    outer pivoting: the scaling/ordering pipeline is responsible for
+    diagonal dominance.
+
+    ``method="inv"``: F_i = L_i Sinv_{i-1}, S_i = D_i - F_i U_{i-1}.
+    ``method="spd"`` (symmetric matrices): S_i = D_i - F_i L_i^T,
+    re-symmetrized as ``(S + S^T) / 2`` before each inversion; the U blocks
+    are ignored and not stored.  Complex Hermitian blocks are not ported.
+    """
+    if method not in ("inv", "spd"):
         raise NotImplementedError(
             f"blocktri_factor(method={method!r}) is not yet ported; "
-            "only 'inv' is")
-    s_inv = batched_inverse(t.D[..., 0, :, :], inverter)
+            "only 'inv' and 'spd' are")
+    spd = method == "spd"
+    if spd and t.D.is_complex():
+        raise NotImplementedError(
+            "blocktri_factor(method='spd') for complex Hermitian blocks is "
+            "not yet ported")
+    d0 = t.D[..., 0, :, :]
+    s_inv = batched_inverse(_symmetrize(d0) if spd else d0, inverter)
     f_list, sinv_list = [], [s_inv]
     for i in range(1, t.nb):
-        f = t.L[..., i, :, :] @ s_inv
-        s = t.D[..., i, :, :] - f @ t.U[..., i - 1, :, :]
+        l = t.L[..., i, :, :]
+        f = l @ s_inv
+        if spd:
+            s = _symmetrize(t.D[..., i, :, :] - f @ l.transpose(-1, -2))
+        else:
+            s = t.D[..., i, :, :] - f @ t.U[..., i - 1, :, :]
         s_inv = batched_inverse(s, inverter)
         f_list.append(f)
         sinv_list.append(s_inv)
-    return _factor_from_lists(f_list, sinv_list, t.U)
+    U = t.U.new_zeros((*t.D.shape[:-2], 0, 0)) if spd else t.U
+    return _factor_from_lists(f_list, sinv_list, U, method)
+
+
+def _symmetrize(s: torch.Tensor) -> torch.Tensor:
+    """``(S + S^T) / 2``: inexact inverters leave O(eps) asymmetry that would
+    otherwise compound down the recursion."""
+    return 0.5 * (s + s.transpose(-1, -2))
 
 
 def blocktri_factor_inv_waux_band(local_band: torch.Tensor, y0: torch.Tensor,
@@ -319,22 +348,24 @@ def _sweep_matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def cast_factor(fact: BlockTriFactor, dtype: torch.dtype) -> BlockTriFactor:
     """Store factors in a lower precision (e.g. bfloat16) while solves keep
     f32 carries: F/Sinv/U are read-bandwidth-bound in the sweeps."""
-    if fact.method != "inv":
-        raise ValueError("cast_factor supports method='inv' factors")
+    if fact.method not in ("inv", "spd"):
+        raise ValueError("cast_factor supports method='inv'/'spd' factors")
     return BlockTriFactor(F=fact.F.to(dtype), U=fact.U.to(dtype),
                           Sinv=fact.Sinv.to(dtype), method=fact.method)
 
 
 def blocktri_solve(fact: BlockTriFactor, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve T x = rhs given a block-Thomas ``inv`` factorization.
+    """Solve T x = rhs given a block-Thomas ``inv`` or ``spd`` factorization.
 
     rhs: ``[..., nb, b]`` or ``[..., nb, b, r]`` with the factor's leading
-    dims.  Forward sweep ``y_i = rhs_i - F_i y_{i-1}``, backward sweep
-    ``x_i = Sinv_i (y_i - U_i x_{i+1})``; the result is in the sweep
-    precision (f32 or wider).  The plain version of the fused sweep kernel
-    (``ops/cuda/fused_sweep.py``).
+    dims.  Forward sweep ``y_i = rhs_i - F_i y_{i-1}``; backward sweep
+    ``x_i = Sinv_i (y_i - U_i x_{i+1})`` for ``inv`` and
+    ``x_i = Sinv_i y_i - F_{i+1}^T x_{i+1}`` for ``spd`` (Sinv_i U_i =
+    F_{i+1}^T when U_i = L_{i+1}^T and Sinv is symmetric).  The result is in
+    the sweep precision (f32 or wider).  The plain version of the fused
+    sweep kernels (``ops/cuda/fused_sweep.py``, ``fused_sweep_spd.py``).
     """
-    if fact.method != "inv":
+    if fact.method not in ("inv", "spd"):
         raise NotImplementedError(
             f"blocktri_solve for method={fact.method!r} is not yet ported")
     squeeze = rhs.dim() == fact.F.dim() - 1
@@ -347,7 +378,12 @@ def blocktri_solve(fact: BlockTriFactor, rhs: torch.Tensor) -> torch.Tensor:
         ys.append(rhs[..., i, :, :] - mv(fact.F[..., i, :, :], ys[-1]))
     xs = [mv(fact.Sinv[..., nb - 1, :, :], ys[nb - 1])]
     for i in range(nb - 2, -1, -1):
-        xs.append(mv(fact.Sinv[..., i, :, :],
-                     ys[i] - mv(fact.U[..., i, :, :], xs[-1])))
+        if fact.method == "spd":
+            xs.append(mv(fact.Sinv[..., i, :, :], ys[i])
+                      - mv(fact.F[..., i + 1, :, :].transpose(-1, -2),
+                           xs[-1]))
+        else:
+            xs.append(mv(fact.Sinv[..., i, :, :],
+                         ys[i] - mv(fact.U[..., i, :, :], xs[-1])))
     x = torch.stack(xs[::-1], dim=-3)
     return x[..., 0] if squeeze else x

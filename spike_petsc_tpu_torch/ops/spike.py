@@ -1,21 +1,23 @@
 """SPIKE partitioned banded factorization and solve (PyTorch, single device).
 
 The port of the subset of ``spike_petsc_tpu.ops.spike`` that the flagship
-path runs:
+and SPD paths run:
 
-* the band is split into K row partitions, each factored by block-Thomas
-  with the band->block conversion folded into the factor loop
-  (``blocktri_factor_inv_waux_band``, K batched);
+* the band is split into K row partitions, each factored by block-Thomas:
+  ``method='inv'`` with the band->block conversion folded into the factor
+  loop (``blocktri_factor_inv_waux_band``, K batched), ``method='spd'``
+  (symmetric block-LDL^T, F and Sinv only) on materialized blocks;
 * the k x k coupling tips B_p (to the next partition) and C_p (to the
   previous one) give the spikes V_p = A_p^{-1} E_bot B_p and
   W_p = A_p^{-1} E_top C_p;
 * the reduced interface system is block-tridiagonal with 2k x 2k blocks and
-  K-1 block rows, factored by block-Thomas;
-* a solve is one partition sweep (the fused CUDA kernel on the card), a
-  reduced solve, and the stored-spike correction ``x = g - V xt - W xb``
-  (or a second sweep when spikes are not stored);
+  K-1 block rows, factored by block-Thomas, or, ``truncated``, only its
+  diagonal blocks, inverted (exact in the diagonally dominant limit);
+* a solve is one partition sweep (a fused CUDA kernel on the card, chosen
+  by the factor's method), a reduced solve, and the stored-spike correction
+  ``x = g - V xt - W xb`` (or a second sweep when spikes are not stored);
 * ``spike_solve_many`` does the same for ``[n, r]`` right-hand sides, the
-  factors streamed once for all r (the multi-RHS fused kernel on the card).
+  factors streamed once for all r (the multi-RHS fused kernels on the card).
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ from .blocktri import (BlockTridiagonal, BlockTriFactor, _sweep_matvec,
 from .cuda.fused_sweep import blocktri_solve_fused_cuda, fused_sweep_feasible
 from .cuda.fused_sweep_many import (blocktri_solve_fused_many_cuda,
                                     fused_sweep_many_feasible)
+from .cuda.fused_sweep_many_spd import (blocktri_solve_fused_many_spd_cuda,
+                                        fused_sweep_many_spd_feasible)
+from .cuda.fused_sweep_spd import (blocktri_solve_fused_spd_cuda,
+                                   fused_sweep_spd_feasible)
 
 
 @dataclass(frozen=True)
@@ -42,7 +48,7 @@ class SpikeFactor:
     fact: BlockTriFactor                  # per-partition factors, leading K
     Btip: torch.Tensor                    # [K, k, k], coupling to next
     Ctip: torch.Tensor                    # [K, k, k], coupling to prev
-    red_fact: Optional[BlockTriFactor]    # reduced-system factorization
+    red_fact: Optional[BlockTriFactor]    # exact reduced-system factorization
     V: Optional[torch.Tensor]             # [K, nb, b, k] right spikes
     W: Optional[torch.Tensor]             # [K, nb, b, k] left spikes
     n: int                                # original size
@@ -50,6 +56,8 @@ class SpikeFactor:
     m: int                                # padded rows per partition
     b: int                                # block size
     k: int                                # tip size = max(kl, ku)
+    red_Dinv: Optional[torch.Tensor] = None   # [K-1, 2k, 2k] truncated
+    truncated: bool = False
 
     @property
     def nb(self) -> int:
@@ -112,9 +120,11 @@ def _extract_tips(data: torch.Tensor, K: int, m: int, k: int, kl: int,
 def _spike_bwd_one(f: BlockTriFactor, Bt: torch.Tensor, yw: torch.Tensor,
                    b: int, k: int, dtype):
     """Shared V/W backward sweep given the W forward sweep ``yw
-    [K, nb, b, k]`` fused into the factor loop.  The partition axis is a
-    batch dimension, so this is also the JAX ``_spike_columns_from_waux``
-    (a ``vmap`` of ``_spike_bwd_one``).  Returns ``(V, W)``, each
+    [K, nb, b, k]`` (fused into the ``inv`` factor loop, or from
+    ``_spike_columns``).  The partition axis is a batch dimension, so this
+    is also the JAX ``_spike_columns_from_waux`` (a ``vmap`` of
+    ``_spike_bwd_one``).  ``spd`` factors store no U: their backward sweep
+    reads F^T, as ``blocktri_solve`` does.  Returns ``(V, W)``, each
     ``[K, nb, b, k]``."""
     K, nb = Bt.shape[0], f.nb
     Bb = torch.zeros((K, b, k), dtype=dtype, device=Bt.device)
@@ -124,26 +134,52 @@ def _spike_bwd_one(f: BlockTriFactor, Bt: torch.Tensor, yw: torch.Tensor,
                         torch.cat([Bb, yw[:, nb - 1]], dim=-1))]
     for i in range(nb - 2, -1, -1):
         y = torch.cat([zero, yw[:, i]], dim=-1)                 # [K, b, 2k]
-        xs.append(_sweep_matvec(f.Sinv[:, i],
-                                y - _sweep_matvec(f.U[:, i], xs[-1])))
+        if f.method == "spd":
+            xs.append(_sweep_matvec(f.Sinv[:, i], y)
+                      - _sweep_matvec(f.F[:, i + 1].transpose(-1, -2),
+                                      xs[-1]))
+        else:
+            xs.append(_sweep_matvec(f.Sinv[:, i],
+                                    y - _sweep_matvec(f.U[:, i], xs[-1])))
     x = torch.stack(xs[::-1], dim=1)                            # [K,nb,b,2k]
     return x[..., :k], x[..., k:]
 
 
-def _reduced_from_tips(V_top, V_bot, W_top, W_bot, *, inverter: str,
-                       cr_threshold: int = 255) -> BlockTriFactor:
-    """Factor the reduced interface system: K-1 block rows of 2k x 2k,
+def _spike_columns(f: BlockTriFactor, Btip: torch.Tensor, Ctip: torch.Tensor,
+                   b: int, k: int, dtype):
+    """Spike columns V = A_p^{-1} E_bot B_p and W = A_p^{-1} E_top C_p for
+    ``inv``/``spd`` factors: V's forward sweep is free (its right-hand side
+    lives in the last block only), W's is ``y_i = -F_i y_{i-1}`` from the
+    C-tip block, and both share one backward sweep (``_spike_bwd_one``)."""
+    K = Btip.shape[0]
+    y = torch.zeros((K, b, k), dtype=dtype, device=Btip.device)
+    y[:, :k, :] = Ctip
+    ys = [y]
+    for i in range(1, f.nb):
+        ys.append(-_sweep_matvec(f.F[:, i], ys[-1]))
+    return _spike_bwd_one(f, Btip, torch.stack(ys, dim=1), b, k, dtype)
+
+
+def _reduced_from_tips(V_top, V_bot, W_top, W_bot, *, truncated: bool,
+                       inverter: str, cr_threshold: int = 255):
+    """The reduced interface system: K-1 block rows of 2k x 2k,
     D_j = [[I, V_bot_j], [W_top_{j+1}, I]], coupled through W_bot and V_top.
-    Block-Thomas below ``cr_threshold`` block rows (cyclic reduction beyond
-    it is not yet ported)."""
+    Returns ``(red_fact, red_Dinv)``: ``truncated`` drops the coupling and
+    keeps ``red_Dinv = D^{-1}`` (K-1 independent solves); otherwise an
+    ``inv`` block-Thomas factor, whatever the partitions' method (the JAX
+    ``reduced_factor`` maps ``spd`` to ``inv``), below ``cr_threshold``
+    block rows (cyclic reduction beyond it is not yet ported)."""
     K, k = V_top.shape[0], V_top.shape[1]
-    if K - 1 >= cr_threshold:
-        raise _not_ported("cyclic reduction of the reduced system (K > 255)")
     dtype, dev = V_top.dtype, V_top.device
     eye = torch.eye(k, dtype=dtype, device=dev).expand(K - 1, k, k)
     z = torch.zeros((K - 1, k, k), dtype=dtype, device=dev)
     D = torch.cat([torch.cat([eye, V_bot[:-1]], dim=2),
                    torch.cat([W_top[1:], eye], dim=2)], dim=1)
+    if truncated:
+        eye2 = torch.eye(2 * k, dtype=dtype, device=dev).expand_as(D)
+        return None, torch.linalg.solve(D, eye2)
+    if K - 1 >= cr_threshold:
+        raise _not_ported("cyclic reduction of the reduced system (K > 255)")
     L = torch.cat([torch.cat([W_bot[:-1], z], dim=2),
                    torch.cat([z, z], dim=2)], dim=1)
     L[0] = 0
@@ -151,22 +187,27 @@ def _reduced_from_tips(V_top, V_bot, W_top, W_bot, *, inverter: str,
                    torch.cat([z, V_top[1:]], dim=2)], dim=1)
     U[K - 2] = 0
     return blocktri_factor(BlockTridiagonal(D=D, L=L, U=U), method="inv",
-                           inverter=inverter)
+                           inverter=inverter), None
 
 
-def _finish_factor(fact, yw, Btip, Ctip, *, n, K, m, b, k, store_spikes,
-                   store_dtype, inverter, spike_dtype) -> SpikeFactor:
+def _finish_factor(fact, yw, Btip, Ctip, *, n, K, m, b, k, truncated,
+                   store_spikes, store_dtype, inverter,
+                   spike_dtype) -> SpikeFactor:
     """Factorization tail: spikes -> reduced system -> mixed-precision cast.
-    ``yw`` is the W forward sweep from the folded factor loop (None for
-    K == 1)."""
+    ``yw`` is the W forward sweep from the folded factor loop (None when
+    the factor was computed without it)."""
     nb = m // b
-    V = W = red_fact = None
+    V = W = red_fact = red_Dinv = None
     if K > 1:
-        Vfull, Wfull = _spike_bwd_one(fact, Btip, yw, b, k, fact.Sinv.dtype)
-        red_fact = _reduced_from_tips(
+        dtype = fact.Sinv.dtype
+        if yw is None:
+            Vfull, Wfull = _spike_columns(fact, Btip, Ctip, b, k, dtype)
+        else:
+            Vfull, Wfull = _spike_bwd_one(fact, Btip, yw, b, k, dtype)
+        red_fact, red_Dinv = _reduced_from_tips(
             Vfull[:, 0, :k, :], Vfull[:, nb - 1, b - k:, :],
             Wfull[:, 0, :k, :], Wfull[:, nb - 1, b - k:, :],
-            inverter=inverter)
+            truncated=truncated, inverter=inverter)
         if store_spikes:
             V, W = Vfull, Wfull
     if store_dtype is not None:
@@ -176,7 +217,8 @@ def _finish_factor(fact, yw, Btip, Ctip, *, n, K, m, b, k, store_spikes,
     if spike_dtype is not None and V is not None:
         V, W = V.to(spike_dtype), W.to(spike_dtype)
     return SpikeFactor(fact=fact, Btip=Btip, Ctip=Ctip, red_fact=red_fact,
-                       V=V, W=W, n=n, K=K, m=m, b=b, k=k)
+                       V=V, W=W, n=n, K=K, m=m, b=b, k=k, red_Dinv=red_Dinv,
+                       truncated=truncated)
 
 
 def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
@@ -187,14 +229,14 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
                  spike_dtype=None, store_lt: bool = False) -> SpikeFactor:
     """Factor a banded matrix for SPIKE solves over K partitions.
 
-    Same arguments as the JAX ``spike_factor``.  Ported: ``method='inv'``,
-    the exact (non-truncated) block-Thomas reduced system, ``store_spikes``,
-    ``store_dtype`` and ``spike_dtype``; the rest raise.
+    Same arguments as the JAX ``spike_factor``.  Ported: ``method='inv'``
+    and ``method='spd'`` (symmetric block-LDL^T for a symmetric band: F and
+    Sinv stored, 2/3 of ``inv``'s factor memory, U blocks ignored), the
+    exact block-Thomas reduced system and the ``truncated`` one,
+    ``store_spikes``, ``store_dtype`` and ``spike_dtype``; the rest raise.
     """
-    if method != "inv":
+    if method not in ("inv", "spd"):
         raise _not_ported(f"spike_factor(method={method!r})")
-    if truncated:
-        raise _not_ported("truncated SPIKE")
     if reduced not in ("auto", "thomas"):
         raise _not_ported(f"spike_factor(reduced={reduced!r})")
     if shift != "none":
@@ -205,7 +247,8 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
     k, b, m = _partition_geometry(n, K, kl, ku, block_b)
     band = pad_banded(band, K * m)
     Btip, Ctip = _extract_tips(band.data, K, m, k, kl, ku)
-    if K > 1:
+    if method == "inv" and K > 1:
+        # the conversion rides the factor loop, with the W forward sweep
         local = band.data.reshape(K, m // b, b, band.width)
         Cb = torch.zeros((K, b, k), dtype=band.dtype, device=band.device)
         Cb[:, :k, :] = Ctip
@@ -213,13 +256,16 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
                                                  inverter=inverter)
     else:
         t = band_to_blocktri(band, b)
-        fact = blocktri_factor(BlockTridiagonal(D=t.D[None], L=t.L[None],
-                                                U=t.U[None]),
-                               method="inv", inverter=inverter)
+        L, D, U = (a.reshape(K, m // b, b, b) for a in (t.L, t.D, t.U))
+        L[:, 0] = 0                 # the couplings that leave each partition
+        U[:, -1] = 0
+        fact = blocktri_factor(BlockTridiagonal(D=D, L=L, U=U),
+                               method=method, inverter=inverter)
         yw = None
     return _finish_factor(fact, yw, Btip, Ctip, n=n, K=K, m=m, b=b, k=k,
-                          store_spikes=store_spikes, store_dtype=store_dtype,
-                          inverter=inverter, spike_dtype=spike_dtype)
+                          truncated=truncated, store_spikes=store_spikes,
+                          store_dtype=store_dtype, inverter=inverter,
+                          spike_dtype=spike_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -233,45 +279,62 @@ def _reduced_solve(sf: SpikeFactor, g_bot: torch.Tensor, g_top: torch.Tensor):
     xbot_prev[p] = x_{p-1}^bot (zero for p = 0)."""
     k = sf.k
     rhs = torch.cat([g_bot[:-1], g_top[1:]], dim=1)          # [K-1, 2k(, r)]
-    z = blocktri_solve(sf.red_fact, rhs)
+    if sf.truncated:
+        cols = rhs.dim() == 3
+        z = _sweep_matvec(sf.red_Dinv, rhs if cols else rhs[..., None])
+        z = z if cols else z[..., 0]
+    else:
+        z = blocktri_solve(sf.red_fact, rhs)
     zk = torch.zeros_like(z[:1, :k])
     xtop_next = torch.cat([z[:, k:], zk], dim=0)
     xbot_prev = torch.cat([zk, z[:, :k]], dim=0)
     return xbot_prev, xtop_next
 
 
-def _resolve_impl(sf: SpikeFactor, impl: str, rhs: torch.Tensor,
-                  feasible=fused_sweep_feasible) -> str:
-    """'auto' takes the fused CUDA sweep for a CUDA right-hand side whenever
-    the kernel's rule (``fused_sweep_feasible``, or
-    ``fused_sweep_many_feasible`` for ``spike_solve_many``) admits the
-    factors, as the JAX dispatch takes its Pallas kernel on the TPU, and the
-    plain sweep otherwise — on the CPU, and for factors the rule excludes."""
+# the fused sweep kernel of each factor method: (wrapper, feasibility rule)
+_SWEEPS = {
+    "inv": (blocktri_solve_fused_cuda, fused_sweep_feasible),
+    "spd": (blocktri_solve_fused_spd_cuda, fused_sweep_spd_feasible),
+}
+_SWEEPS_MANY = {
+    "inv": (blocktri_solve_fused_many_cuda, fused_sweep_many_feasible),
+    "spd": (blocktri_solve_fused_many_spd_cuda,
+            fused_sweep_many_spd_feasible),
+}
+
+
+def _batched_solver(sf: SpikeFactor, impl: str, rhs: torch.Tensor,
+                    sweeps=_SWEEPS):
+    """The partition sweep ``r -> x`` for ``sf``'s factor method.  'auto'
+    takes the plain sweep for a CPU right-hand side and the method's fused
+    CUDA kernel for a CUDA one, as the JAX dispatch takes its Pallas kernel
+    on the TPU.  On the card, ``spd`` factors the kernel's rule refuses
+    raise (only ``impl='plain'`` runs their plain sweep there); ``inv``
+    factors the rule refuses take the plain sweep."""
     if impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"unknown impl {impl!r}: expected auto, cuda, plain")
-    if impl != "auto":
-        return impl
-    if rhs.is_cuda and feasible(sf.fact, sf.b, rhs.dtype):
-        return "cuda"
-    return "plain"
+    solve, feasible = sweeps[sf.fact.method]
+    if impl == "auto":
+        impl = ("cuda" if rhs.is_cuda and (
+            sf.fact.method == "spd" or feasible(sf.fact, sf.b, rhs.dtype))
+            else "plain")
+    return lambda r: solve(sf.fact, r, impl=impl)
 
 
 def spike_solve(sf: SpikeFactor, rhs: torch.Tensor,
                 impl: str = "auto") -> torch.Tensor:
     """Solve A x = rhs with a SPIKE factorization.  rhs: [n].
 
-    impl: "auto" (fused CUDA sweep when it applies, else plain), "cuda"
-    (the kernel; raises where it does not apply), or "plain" (the plain
-    PyTorch sweeps on any device).
+    impl: "auto" (on a CUDA tensor the fused CUDA sweep of the factor's
+    method: #1 for ``inv`` where it applies, else plain; #3 for ``spd``,
+    raising where it does not apply), "cuda" (the kernel; raises where it
+    does not apply), or "plain" (the plain PyTorch sweeps on any device).
     """
     K, m, b, k, nb = sf.K, sf.m, sf.b, sf.k, sf.nb
     rp = torch.zeros(K * m, dtype=rhs.dtype, device=rhs.device)
     rp[:sf.n] = rhs
     rblk = rp.reshape(K, nb, b)
-    impl = _resolve_impl(sf, impl, rhs)
-
-    def batched_solve(r):
-        return blocktri_solve_fused_cuda(sf.fact, r, impl=impl)
+    batched_solve = _batched_solver(sf, impl, rhs)
 
     g = batched_solve(rblk)                                  # [K, nb, b]
     if K == 1:
@@ -311,9 +374,10 @@ def spike_solve_many(sf: SpikeFactor, rhs: torch.Tensor,
     bf16 spikes to the f32-or-wider sweep precision, so an f32 solve carries
     f32 throughout.
 
-    impl: "auto" (the multi-RHS CUDA kernel whenever
-    ``fused_sweep_many_feasible`` admits the factors, else plain), "cuda"
-    (the kernel; raises where it does not apply), or "plain".  The JAX
+    impl: "auto" (on a CUDA tensor the multi-RHS CUDA kernel of the
+    factor's method: #4 for ``inv`` whenever its feasibility rule admits
+    the factors, else plain; #5 for ``spd``, raising where its rule refuses
+    them), "cuda" (the kernel; raises where it does not apply), or "plain".  The JAX
     dispatch's switch to XLA at large r is a TPU VMEM measurement and is
     not carried over.
     """
@@ -322,10 +386,7 @@ def spike_solve_many(sf: SpikeFactor, rhs: torch.Tensor,
     rp = torch.zeros((K * m, r), dtype=rhs.dtype, device=rhs.device)
     rp[:sf.n] = rhs
     rblk = rp.reshape(K, nb, b, r)
-    impl = _resolve_impl(sf, impl, rhs, fused_sweep_many_feasible)
-
-    def batched_solve(rr):
-        return blocktri_solve_fused_many_cuda(sf.fact, rr, impl=impl)
+    batched_solve = _batched_solver(sf, impl, rhs, _SWEEPS_MANY)
 
     g = batched_solve(rblk)                                  # [K, nb, b, r]
     if K == 1:

@@ -2,8 +2,8 @@
 
 Ported: restarted GMRES with left preconditioning, classical Gram-Schmidt
 with one unconditional refinement pass (``cgs_refinement="always"``) and
-classical Givens rotations, and BiCGStab (``bcgs``/``fbcgs``/``bicgstab``),
-as in ``spike_petsc_tpu.solvers.krylov``.
+classical Givens rotations, BiCGStab (``bcgs``/``fbcgs``/``bicgstab``) and
+preconditioned CG (``cg``), as in ``spike_petsc_tpu.solvers.krylov``.
 
 The JAX version stages the whole solve in ``lax.while_loop``.  Here the
 vectors and the Krylov basis stay on the operator's device, and the small
@@ -186,6 +186,52 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
                      rnorm=float(_norm(b - matvec(x))), history=history)
 
 
+def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+       pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
+       atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
+       **_) -> KSPResult:
+    """Preconditioned conjugate gradients (SPD operator and PC).  The
+    monitored residual is the unpreconditioned ||r||, which comes to the
+    host once per iteration for the convergence test; <r, z>, alpha and
+    beta stay on the device."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
+    x = torch.zeros_like(b) if x0_zero else x0.clone()
+    bnorm = float(_norm(b))
+    history = torch.full((maxit + 1,), float("nan"), dtype=b.dtype)
+
+    def check(rn, its):
+        return default_convergence_check(rn, bnorm, its, rtol=rtol,
+                                         atol=atol, divtol=divtol,
+                                         maxit=maxit)
+
+    r = b if x0_zero else b - matvec(x)
+    p = psolve(r)
+    rz = torch.dot(r, p)
+    rnorm = float(_norm(r))
+    history[0] = rnorm
+    its = 0
+    reason = check(rnorm, its)
+    while reason == CONVERGED_ITERATING:
+        w = matvec(p)
+        pw = torch.dot(p, w)
+        alpha = rz / torch.where(pw != 0, pw, 1.0)
+        x = x + alpha * p
+        r = r - alpha * w
+        z = psolve(r)
+        rz_new = torch.dot(r, z)
+        beta = rz_new / torch.where(rz != 0, rz, 1.0)
+        p = z + beta * p
+        rz = rz_new
+        rn = float(_norm(r))
+        its += 1
+        history[its] = rn
+        reason = check(rn, its)
+    return KSPResult(x=x, its=its, reason=reason,
+                     rnorm=float(_norm(b - matvec(x))), history=history)
+
+
 register_ksp("gmres", gmres)
+register_ksp("cg", cg)
 for _name in ("bcgs", "fbcgs", "bicgstab"):
     register_ksp(_name, bicgstab)

@@ -5,10 +5,12 @@
 
     result = solve_many(A, B, ksp_type="bcgs", pc_type="spike", ...)
 
+    result = solve(A, b, ksp_type="cg", pc_type="cholesky", ...)  # SPD A
+
 Ported: a ``BandedMatrix``, ``BlockTridiagonal`` or callable operator, a
-BandedMatrix PC matrix, ``gmres`` and ``bcgs``, the batched engines of
-``krylov_many``, the ``none`` and ``spike`` PCs, and no null space.  Options
-whose code paths are not yet ported raise.
+BandedMatrix PC matrix, ``gmres``, ``bcgs`` and ``cg``, the batched engines
+of ``krylov_many``, the ``none``, ``spike`` and ``cholesky`` PCs, and no
+null space.  Options whose code paths are not yet ported raise.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 A PC is a small object with an ``apply`` closure over device factorization
 state (and, where the type has one, a multi-RHS ``apply_many``); factories
 are registered by name and read their parameters from a prefix-scoped
-options database.  Ported: ``none`` and ``spike`` (forward apply and
+options database.  Ported: ``none``, ``spike`` and ``cholesky`` (the
+symmetric ``spd`` factorization of the spike family; forward apply and
 multi-RHS apply, with the Newton safety net).
 """
 
@@ -17,6 +18,7 @@ from typing import Callable, Optional
 import torch
 
 from ..ops.band import BandedMatrix, banded_matvec
+from ..ops.cuda.fused_sweep_spd import require_spd_feasible, spd_block_for
 from ..ops.spike import spike_factor, spike_solve, spike_solve_many
 from ..utils.options import Options
 from ..utils.registry import PRECONDITIONERS, register_pc
@@ -78,11 +80,13 @@ def _probe_tolerance(store_dtype, spike_dtype) -> float:
 
 
 def _newton_safety_net(band, sf, inverter, store_dtype, spike_dtype,
-                       refactor):
+                       refactor, exact: bool = True):
     """The Newton inverters assume the near-diagonally dominant regime (and
     'newton_fixed' has no convergence check at all): verify the
     factorization on a probe solve and re-factor with the pivoted blocked
-    recursion if the result is junk.  Returns (sf, fell_back)."""
+    recursion if the result is junk.  ``exact=False`` (truncated
+    factorizations, which drop coupling on purpose) rejects only
+    non-finite or exploding probes.  Returns (sf, fell_back)."""
     if not _newton_probe_active(inverter):
         return sf, False
     probe = banded_matvec(band, torch.ones(band.n, dtype=band.dtype,
@@ -91,7 +95,7 @@ def _newton_safety_net(band, sf, inverter, store_dtype, spike_dtype,
     err = float(torch.linalg.norm(banded_matvec(band, xs) - probe)
                 / torch.linalg.norm(probe))
     tol = _probe_tolerance(store_dtype, spike_dtype)
-    bad = not math.isfinite(err) or err > tol
+    bad = not math.isfinite(err) or (exact and err > tol) or err > 1e6
     if bad:
         return refactor(), True
     return sf, False
@@ -103,7 +107,7 @@ _DTYPES = {"": None, "none": None, "bf16": torch.bfloat16,
 
 def _reject_unported(opts: Options, name: str) -> None:
     """Raise on spike options whose code paths are not yet ported."""
-    unported = [f"-pc_{name}_{o}" for o in ("truncated", "store_lt", "check")
+    unported = [f"-pc_{name}_{o}" for o in ("store_lt", "check")
                 if opts.get_bool(f"pc_{name}_{o}", False)]
     if opts.get_string(f"pc_{name}_factor_dtype", "") not in ("", "none"):
         unported.append(f"-pc_{name}_factor_dtype")
@@ -114,14 +118,19 @@ def _reject_unported(opts: Options, name: str) -> None:
             f"{', '.join(unported)} not yet ported to spike_petsc_tpu_torch")
 
 
-def _spike_pc(pmat, opts: Options, *, name: str, default_K: int) -> PC:
+def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
+              default_method: str = "inv") -> PC:
     band = _as_banded(pmat, opts)
     _reject_unported(opts, name)
     k = max(band.kl, band.ku, 1)
     K = opts.get_int(f"pc_{name}_partitions", default_K)
     K = max(1, min(K, band.n // (2 * k)))   # partitions must cover 2k rows
     block = opts.get_int(f"pc_{name}_block", None)
-    method = opts.get_string(f"pc_{name}_method", "inv")
+    method = opts.get_string(f"pc_{name}_method", default_method)
+    on_card = method == "spd" and band.data.is_cuda
+    if on_card and block is None:
+        block = spd_block_for(k)        # a block size the spd kernels take
+    truncated = opts.get_bool(f"pc_{name}_truncated", False)
     store = opts.get_bool(f"pc_{name}_store_spikes", False)
     inverter = opts.get_string(f"pc_{name}_inverter", "auto")
     store_dtype = _DTYPES[opts.get_string(f"pc_{name}_store_dtype", "")]
@@ -129,18 +138,23 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int) -> PC:
 
     def factor(inv):
         return spike_factor(band, K=K, block_b=block, method=method,
-                            store_spikes=store, inverter=inv,
+                            truncated=truncated, store_spikes=store,
+                            inverter=inv,
                             store_dtype=store_dtype, spike_dtype=spike_dtype)
 
     sf = factor(inverter)
+    if on_card:                         # every apply runs the spd kernels
+        require_spd_feasible(sf.fact, sf.b, band.dtype,
+                             f"pc '{name}' on the card: the spd sweep kernel")
     info = dict(partitions=K, block=sf.b, tip=sf.k, method=method,
-                truncated=False)
+                truncated=truncated)
     if store_dtype is not None:
         info["store_dtype"] = str(store_dtype).replace("torch.", "")
     if spike_dtype is not None and store:
         info["spike_dtype"] = str(spike_dtype).replace("torch.", "")
     sf, fb = _newton_safety_net(band, sf, inverter, store_dtype, spike_dtype,
-                                lambda: factor("blocked"))
+                                lambda: factor("blocked"),
+                                exact=not truncated)
     if fb:
         info["inverter_fallback"] = "blocked"
 
@@ -156,3 +170,19 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int) -> PC:
 @register_pc("spike")
 def pc_spike(pmat, opts: Options) -> PC:
     return _spike_pc(pmat, opts, name="spike", default_K=16)
+
+
+@register_pc("cholesky")
+def pc_cholesky(pmat, opts: Options) -> PC:
+    """Symmetric direct factorization, PETSc's ``-pc_type cholesky`` role:
+    ``method='spd'`` block-LDL^T factors (F and Sinv stored, 2/3 of
+    ``inv``'s block arrays).  The matrix must be symmetric: the factor reads
+    only the diagonal and subdiagonal blocks.  The ``pc_cholesky_*``
+    options of the spike family apply (partitions, default 1; block,
+    default the tip size k, and on the card the smallest block the spd
+    sweep kernels take, 64 or 128; truncated; store_spikes; inverter;
+    store_dtype); ``-pc_cholesky_method inv`` overrides the method.  On the
+    card a factor the kernels refuse (another block size, an f64 band)
+    raises here."""
+    return _spike_pc(pmat, opts, name="cholesky", default_K=1,
+                     default_method="spd")

@@ -24,9 +24,12 @@ from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
 from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
 from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
 from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many as cfm
-from spike_petsc_tpu_torch.ops.spike import spike_factor, spike_solve
+from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many_spd as cfms
+from spike_petsc_tpu_torch.ops.cuda import fused_sweep_spd as cfss
+from spike_petsc_tpu_torch.ops.spike import (spike_factor, spike_solve,
+                                             spike_solve_many)
 
-from torch_parity import cuda_device, random_band  # noqa: F401
+from torch_parity import cuda_device, random_band, spd_band  # noqa: F401
 
 TOL = 1e-5
 
@@ -256,3 +259,128 @@ def test_blocktri_route_refuses_on_the_card(cuda_device, kl, dtype):
             as_matvec_many(band, impl="blocktri")
     assert as_matvec(band)[0]._route == (
         "banded_cuda" if dtype == torch.float32 else "xla")
+
+
+def _spd_factor(b, K, n, seed, k=16):
+    band = banded_from_numpy(spd_band(n, k, seed=seed, dtype=np.float32),
+                             k, k, device=torch.device("cuda", 0))
+    return spike_factor(band, K=K, block_b=b, method="spd")
+
+
+SPD_SHAPES = [(64, 16, 16 * 64 * 40), (128, 4, 4 * 128 * 9), (64, 16, 16 * 64),
+              (128, 2, 2 * 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,K,n", SPD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_sweep_spd_kernel_matches_plain(cuda_device, b, K, n, dtype):
+    """Real spd factors of a symmetric dominant band (kl = ku = 16); nb =
+    40, 9 and 1; f32 and bf16 factors."""
+    sf = _spd_factor(b, K, n, seed=18)
+    fact = cast_factor(sf.fact, dtype)
+    r = torch.randn((K, sf.nb, b), device=cuda_device)
+    ref = cfss.blocktri_solve_fused_spd_cuda(fact, r, impl="plain")
+    launches = cfss.KERNEL.launches
+    got = cfss.blocktri_solve_fused_spd_cuda(fact, r)
+    torch.cuda.synchronize()
+    assert cfss.KERNEL.launches == launches + 1
+    assert got.shape == r.shape and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,K,n", SPD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 17, 32, 100])
+def test_fused_sweep_many_spd_kernel_matches_plain(cuda_device, b, K, n,
+                                                   dtype, r):
+    sf = _spd_factor(b, K, n, seed=19)
+    fact = cast_factor(sf.fact, dtype)
+    rhs = torch.randn((K, sf.nb, b, r), device=cuda_device)
+    ref = cfms.blocktri_solve_fused_many_spd_cuda(fact, rhs, impl="plain")
+    launches = cfms.KERNEL.launches
+    got = cfms.blocktri_solve_fused_many_spd_cuda(fact, rhs)
+    torch.cuda.synchronize()
+    assert cfms.KERNEL.launches == launches + 1
+    assert got.shape == rhs.shape and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.cuda
+def test_spd_kernels_refuse_what_they_do_not_take(cuda_device):
+    band = banded_from_numpy(spd_band(4096, 16, seed=20), 16, 16,
+                             device=cuda_device)                     # f64
+    sf = spike_factor(band, K=4, block_b=64, method="spd")
+    r = torch.randn((4, sf.nb, 64), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take"):
+        cfss.blocktri_solve_fused_spd_cuda(sf.fact, r)
+    with pytest.raises(ValueError, match="does not take"):
+        cfms.blocktri_solve_fused_many_spd_cuda(sf.fact, r[..., None])
+    inv = spike_factor(band, K=4, block_b=64)           # an inv factor
+    with pytest.raises(ValueError, match="does not take"):
+        cfss.blocktri_solve_fused_spd_cuda(cast_factor(inv.fact,
+                                                       torch.float32),
+                                           r.float())
+    # 'auto' on the card raises where the rule refuses the spd factors
+    # (f64 here, b = 16 below); only impl='plain' runs the plain sweep
+    x64 = torch.randn(4096, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="fused_sweep_spd_feasible"):
+        spike_solve(sf, x64)
+    with pytest.raises(ValueError, match="fused_sweep_spd_feasible"):
+        spike_solve_many(sf, x64[:, None])
+    assert spike_solve(sf, x64, impl="plain").dtype == torch.float64
+    f32 = BandedMatrix(data=band.data.float(), kl=16, ku=16)
+    small = spike_factor(f32, K=4, block_b=16, method="spd")
+    with pytest.raises(ValueError, match="block sizes 64 or 128"):
+        spike_solve(small, x64.float())
+    with pytest.raises(ValueError, match="block sizes 64 or 128"):
+        solve(f32, x64.float(), ksp_type="cg", pc_type="cholesky",
+              options=Options({"pc_cholesky_block": 16}))
+
+
+@pytest.mark.cuda
+def test_spd_path_runs_the_spd_kernels(cuda_device):
+    """cg + cholesky (truncated, stored spikes) one column and many: the
+    operator's band kernel and both spd sweeps run, and the answers hold."""
+    from spike_petsc_tpu_torch import solve_many
+    n, k = 20000, 16
+    band = banded_from_numpy(spd_band(n, k, seed=21, dtype=np.float32), k, k,
+                             device=cuda_device)
+    opts = Options({"pc_cholesky_partitions": 8, "pc_cholesky_block": 64,
+                    "pc_cholesky_truncated": 1,
+                    "pc_cholesky_store_spikes": 1})
+    before = (cbm.KERNEL.launches, cfss.KERNEL.launches,
+              cfms.KERNEL.launches)
+    b = banded_matvec(band, torch.ones(n, device=cuda_device))
+    res = solve(band, b, ksp_type="cg", pc_type="cholesky", options=opts,
+                rtol=1e-8)
+    X = torch.randn((n, 5), device=cuda_device)
+    many = solve_many(band, banded_matvec(band, X), ksp_type="cg",
+                      pc_type="cholesky", options=opts, rtol=1e-8)
+    torch.cuda.synchronize()
+    assert res.reason == 2 and res.its <= 5
+    assert float((res.x - 1).abs().max()) < 1e-4
+    assert (many.reason == 2).all() and float((many.x - X).abs().max()) < 1e-4
+    assert cbm.KERNEL.launches > before[0]
+    assert cfss.KERNEL.launches > before[1]
+    assert cfms.KERNEL.launches > before[2]
+
+
+@pytest.mark.cuda
+def test_cholesky_default_options_run_the_spd_kernel(cuda_device):
+    """cg + cholesky with no options (K = 1, block unset) on a CUDA band:
+    the PC picks the kernel's block size 64 for k = 16, and every apply
+    runs the spd sweep kernel."""
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    n, k = 20000, 16
+    band = banded_from_numpy(spd_band(n, k, seed=22, dtype=np.float32), k, k,
+                             device=cuda_device)
+    assert make_pc("cholesky", band).info["block"] == 64
+    before = cfss.KERNEL.launches
+    res = solve(band, banded_matvec(band, torch.ones(n, device=cuda_device)),
+                ksp_type="cg", pc_type="cholesky", rtol=1e-6)
+    torch.cuda.synchronize()
+    assert res.reason == 2 and res.its <= 3
+    assert float((res.x - 1).abs().max()) < 1e-4
+    assert cfss.KERNEL.launches >= before + res.its + 1

@@ -95,7 +95,7 @@ def test_restarted_gmres_without_pc_matches_jax(system):
     (dict(ksp_type="gmres", pc_type="none",
           options={"ksp_gmres_cgs_refinement_type": "never"}), "never"),
     (dict(ksp_type="gmres", pc_type="spike",
-          options={"pc_spike_truncated": 1}), "truncated"),
+          options={"pc_spike_store_lt": 1}), "store_lt"),
 ])
 def test_unported_surface_raises(system, kwargs, match):
     data, b = system

@@ -110,7 +110,7 @@ def test_solve_on_jax_factor(band, rhs, store):
         tsp.spike_solve(st, torch.from_numpy(rhs), impl="xla")
 
 
-@pytest.mark.parametrize("kwargs", [dict(method="lu"), dict(truncated=True),
+@pytest.mark.parametrize("kwargs", [dict(method="lu"), dict(method="cr"),
                                     dict(shift="nonzero"),
                                     dict(store_lt=True),
                                     dict(reduced="cr")])

@@ -26,6 +26,22 @@ def random_band(n, kl, ku, seed=0, dtype=np.float64, dominant=True):
     return data.astype(dtype)
 
 
+def spd_band(n, k, seed=0, dtype=np.float64):
+    """A random symmetric, diagonally dominant band in diagonal-offset
+    storage: the matrix of ``models.problems.spd_banded(n, k, seed)`` (the
+    same draws in the same order).  The upper diagonals are uniform(-1, 1)
+    and mirrored to the lower ones, the diagonal is the row's absolute sum
+    + 1, and slots outside the matrix are zero."""
+    rng = np.random.default_rng(seed)
+    data = np.zeros((n, 2 * k + 1))
+    for d in range(1, k + 1):
+        v = rng.uniform(-1.0, 1.0, size=n - d)
+        data[:n - d, k + d] = v                  # A[i, i + d]
+        data[d:, k - d] = v                      # A[i + d, i]
+    data[:, k] = np.abs(data).sum(axis=1) + 1.0
+    return data.astype(dtype)
+
+
 def band_to_scipy(data, kl, ku):
     """Diagonal-offset storage -> scipy.linalg.solve_banded's ``ab``."""
     n = data.shape[0]
@@ -50,7 +66,9 @@ def jax_spike_to_numpy(sf):
                   else jax_factor_to_numpy(sf.red_fact)),
         V=None if sf.V is None else np.asarray(sf.V),
         W=None if sf.W is None else np.asarray(sf.W),
-        n=sf.n, K=sf.K, m=sf.m, b=sf.b, k=sf.k, truncated=sf.truncated)
+        n=sf.n, K=sf.K, m=sf.m, b=sf.b, k=sf.k, truncated=sf.truncated,
+        red_Dinv=None if sf.red_Dinv is None else np.asarray(sf.red_Dinv),
+        method=sf.fact.method)
 
 
 def t2n(t):
