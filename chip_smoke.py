@@ -13,6 +13,10 @@ In order, it:
      at the flagship factor shape and at nb = 1; the multi-RHS fused sweep
      at the same shapes for r = 32, 1 and 100; the block-tridiagonal matvec
      on the flagship conversion (f32 and bf16 blocks) and a ragged band;
+     the f64 banded matvec on the flagship band in f64 and a ragged band
+     (and both it and its plain version against an f64 CSR product); the
+     two-pass sweeps at the fused sweep's shapes; the grid block-tridiagonal
+     matvec (kt = 8) on the flagship conversion and a ragged nb;
   4. checks that the multi-RHS f32 solve carries f32 (against an f64 solve
      of the same factor);
   5. runs each path through the library entry point, with every kernel's
@@ -24,12 +28,21 @@ In order, it:
        * serving, ``solve_many(A, B, ksp_type="bcgs", pc_type="spike", ...)``
          on 32 right-hand sides at rtol 1e-8 and at rtol 1e-4 (the
          half-step exit), and against the plain CPU path in f64;
+       * f64-grade refinement, ``solve(A64, b64, ksp_type="richardson",
+         pc_type="spike", ...)`` with ``-pc_spike_factor_dtype f32`` at
+         rtol 1e-12 on the flagship band in f64 (the launch counts checked
+         exactly, the answer against x = 1 with the plain f64 operator),
+         the same with bf16-stored factors, and a small band on the card
+         against the CPU;
+       * ``spike_solve(sf, b, impl="pallas")`` (the two-pass sweeps) and
+         ``blocktri_matvec_pallas`` (the grid matvec) on the flagship;
   6. times the factor, the solves, the GMRES and serving solves, the
      operators and each kernel beside its plain version and, where one
      PyTorch call computes the same function (a sparse product), beside
      that call, with CUDA events (median and spread of the repetitions),
      the serving stage's device busy time (torch.profiler), and the card's
-     device-to-device copy rate;
+     device-to-device copy rate; the refinement solve with the f64 kernel
+     against the plain f64 operator, with its device busy time;
   7. frees the flagship and runs the SPD path (BASELINE config 2: a
      symmetric dominant band, n = 1e6, bandwidth 33, f32; the ``cholesky``
      PC with 16 partitions, b = 64, the truncated reduced system and stored
@@ -74,9 +87,23 @@ SPD_OPTIONS = {"pc_cholesky_partitions": SPD_K,
                "pc_cholesky_block": SPD_BLOCK,
                "pc_cholesky_truncated": 1, "pc_cholesky_store_spikes": 1}
 CG_ITS_MAX = 5             # the JAX config-2 test's bound
+# f64-grade refinement on the flagship band (f64 operator, f32 factors):
+# the recipe of spike_petsc_tpu/testbed.py (-ksp_type richardson
+# -pc_spike_factor_dtype f32), rtol 1e-12 and maxit 20 as bench.py's stage
+REFINE_OPTIONS = dict(PC_OPTIONS, pc_spike_factor_dtype="f32")
+REFINE_RTOL, REFINE_MAXIT = 1e-12, 20
+REFINE_ITS_MAX = 4         # the TPU took 3
+REFINE_XERR_MAX = 1e-10    # max|x - 1|
+LADDER_OPTIONS = dict(REFINE_OPTIONS, pc_spike_store_dtype="bf16")
+LADDER_MAXIT = 30          # bf16-stored factors: the ladder's second rung
+F64_KERNEL_TOL = 1e-13     # the f64 band kernel against its plain version
+F64_CSR_TOL = 3e-13        # either against an f64 CSR product (the JAX
+#                            test's bound for its emulated-f64 kernel)
+GRID_KT = 8                # block rows per thread block of the grid matvec
 # NVIDIA's data sheet for the H100 SXM (700 W): the bound of each kernel
 PEAK_BYTES_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
+PEAK_F64_FLOPS = 34e12     # f64 outside the tensor cores
 REPLACES = {
     "band_matvec": "spike_petsc_tpu/ops/pallas/band_matvec.py:66",
     "fused_sweep": "spike_petsc_tpu/ops/pallas/fused_sweep.py:109",
@@ -84,6 +111,9 @@ REPLACES = {
     "blocktri_matvec": "spike_petsc_tpu/ops/pallas/matvec.py:89",
     "fused_sweep_spd": "spike_petsc_tpu/ops/pallas/fused_sweep.py:190",
     "fused_sweep_many_spd": "spike_petsc_tpu/ops/pallas/fused_sweep.py:458",
+    "band_matvec_f64": "spike_petsc_tpu/ops/pallas/band_matvec.py:231",
+    "sweeps": "spike_petsc_tpu/ops/pallas/sweeps.py:66/:84",
+    "blocktri_matvec_grid": "spike_petsc_tpu/ops/pallas/matvec.py:31",
 }
 
 
@@ -154,13 +184,13 @@ def kernel_err(got, ref):
     return diff, diff / float(ref.double().abs().max())
 
 
-def roofline(nbytes, flops):
+def roofline(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     """(ms, "bytes" or "operations"): the least time the card could take,
     the larger of ``nbytes`` (each input read once, each output written
-    once) over the data sheet's memory rate and ``flops`` (f32, an FMA is
-    two) over its f32 rate."""
+    once) over the data sheet's memory rate and ``flops`` (an FMA is two)
+    over its rate for their type (f32 unless ``peak_flops`` says)."""
     by_bytes = nbytes / PEAK_BYTES_S * 1e3
-    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    by_ops = flops / peak_flops * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -926,6 +956,308 @@ def phase_spd_timing(band, rhs, ssf, device):
     return t, bounds
 
 
+def phase_alternate_kernels(band, rhs, sf, device):
+    """The kernels of the refinement path and of the alternate sweep and
+    matvec against their plain versions: the f64 band matvec (#6) on the
+    flagship band in f64 and on a ragged band, and both against an f64 CSR
+    product of the band; the two-pass sweeps (#9) on the flagship factor
+    in f32 and bf16 and at nb = 1; the grid block-tridiagonal matvec (#8)
+    on the flagship conversion and at a ragged nb."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix
+    from spike_petsc_tpu_torch.ops.blocktri import (BlockTridiagonal,
+                                                    band_to_blocktri,
+                                                    cast_factor)
+    from spike_petsc_tpu_torch.ops.cuda import band_matvec_f64 as cbm64
+    from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec_grid as cgrid
+    from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
+    from spike_petsc_tpu_torch.ops.spike import spike_factor
+    errs = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    band64 = BandedMatrix(data=band.data.double(), kl=band.kl, ku=band.ku)
+    ragged = BandedMatrix(
+        data=torch.rand((100_003, 231), generator=gen, device=device,
+                        dtype=torch.float64) - 0.5, kl=150, ku=80)
+    for label, bm in (("flagship f64 n=1e6 w=201", band64),
+                      ("ragged f64 n=100003 kl=150 ku=80", ragged)):
+        prep = cbm64.prepare_banded_mv_f64(bm)
+        x = torch.randn(bm.n, generator=gen, device=device,
+                        dtype=torch.float64)
+        got = cbm64.banded_matvec_prepared_f64(prep, x)
+        plain = cbm64.banded_matvec_prepared_f64(prep, x, impl="plain")
+        diff, err = kernel_err(got, plain)
+        csr = band_csr(bm)
+        lib = csr @ x
+        _, err_csr = kernel_err(got, lib)
+        _, err_plain_csr = kernel_err(plain, lib)
+        torch.cuda.synchronize()
+        del prep, csr
+        print(f"band_matvec_f64 {label}: max abs err {diff:.3e}, relative "
+              f"{err:.3e}; against the f64 CSR product: kernel "
+              f"{err_csr:.3e}, plain {err_plain_csr:.3e}")
+        check(err <= F64_KERNEL_TOL, f"band_matvec_f64 {label} err {err}")
+        check(err_csr <= F64_CSR_TOL and err_plain_csr <= F64_CSR_TOL,
+              f"band_matvec_f64 {label} against CSR: {err_csr}, "
+              f"{err_plain_csr}")
+        errs.setdefault("band_matvec_f64", diff)
+    del band64, ragged
+
+    small_band, _ = flagship_band(K * BLOCK, 50, device, seed=SEED + 22)
+    small = spike_factor(small_band, K=K, block_b=BLOCK, inverter="lapack")
+    check(small.nb == 1, "small factor must have nb = 1")
+    rblk = torch.nn.functional.pad(rhs, (0, K * sf.m - N)).reshape(
+        K, sf.nb, BLOCK)
+    for label, fact, r in (
+            ("flagship f32", sf.fact, rblk),
+            ("flagship bf16", cast_factor(sf.fact, torch.bfloat16), rblk),
+            ("nb=1 f32", small.fact,
+             torch.randn((K, 1, BLOCK), generator=gen, device=device))):
+        diff, err = kernel_err(
+            csw.blocktri_solve_batched_cuda(fact, r),
+            csw.blocktri_solve_batched_cuda(fact, r, impl="plain"))
+        torch.cuda.synchronize()
+        print(f"sweeps {label} {tuple(fact.F.shape)}: max abs err "
+              f"{diff:.3e}, relative {err:.3e}")
+        check(err <= KERNEL_TOL, f"sweeps {label} err {err}")
+        errs.setdefault("sweeps", diff)
+
+    ragged_bt = BandedMatrix(
+        data=torch.rand((100_003, 198), generator=gen, device=device) - 0.5,
+        kl=120, ku=77)
+    T = band_to_blocktri(band, BLOCK)
+    for label, t in (
+            ("flagship f32", T),
+            ("flagship bf16", BlockTridiagonal(
+                D=T.D.bfloat16(), L=T.L.bfloat16(), U=T.U.bfloat16())),
+            ("ragged nb=782 (nb % kt = 6) f32",
+             band_to_blocktri(ragged_bt, BLOCK))):
+        x = torch.randn((t.nb, BLOCK), generator=gen, device=device)
+        diff, err = kernel_err(
+            cgrid.blocktri_matvec_pallas(t, x, kt=GRID_KT),
+            cgrid.blocktri_matvec_pallas(t, x, kt=GRID_KT, impl="plain"))
+        torch.cuda.synchronize()
+        print(f"blocktri_matvec_grid kt={GRID_KT} {label} "
+              f"{tuple(t.D.shape)}: max abs err {diff:.3e}, relative "
+              f"{err:.3e}")
+        check(err <= KERNEL_TOL, f"blocktri_matvec_grid {label} err {err}")
+        errs.setdefault("blocktri_matvec_grid", diff)
+    return errs
+
+
+def f64_band(band):
+    """The flagship's data in f64 and b64 = A64 @ 1 (the plain f64 route)."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    a64 = BandedMatrix(data=band.data.double(), kl=band.kl, ku=band.ku)
+    return a64, banded_matvec(a64, torch.ones(a64.n, dtype=torch.float64,
+                                              device=a64.device))
+
+
+def phase_refine(a64, b64):
+    """f64-grade refinement through ``solve``: richardson + the spike PC
+    with f32 factors on the f64 flagship band, rtol 1e-12, launch counts
+    read around it; then the ladder's second rung (bf16-stored factors)."""
+    import torch
+    from spike_petsc_tpu_torch import Options, solve
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec
+    from spike_petsc_tpu_torch.solvers.types import CONVERGED_RTOL, reason_str
+    route = as_matvec(a64)[0]._route
+    print(f"f64 operator route (-mat_matvec_impl auto): {route}")
+    check(route == "banded_cuda_f64", f"f64 operator route {route}")
+    bnorm = float(torch.linalg.norm(b64))
+    main_launches = None
+    for label, opts, maxit in (("f32 factors", REFINE_OPTIONS, REFINE_MAXIT),
+                               ("bf16-stored factors", LADDER_OPTIONS,
+                                LADDER_MAXIT)):
+        reset_launches()
+        res = solve(a64, b64, ksp_type="richardson", pc_type="spike",
+                    options=Options(dict(opts)), rtol=REFINE_RTOL,
+                    maxit=maxit)
+        launches = read_launches()
+        # the true residual with the plain f64 route, not the kernel
+        true_rel = float(torch.linalg.norm(banded_matvec(a64, res.x) - b64)
+                         / bnorm)
+        xerr = float((res.x - 1).abs().max())
+        print(f"richardson+spike ({label}) on the f64 band: {res.its} its, "
+              f"{reason_str(res.reason)}, rnorm/||b|| {res.rnorm / bnorm:.3e},"
+              f" true relres (f64) {true_rel:.3e}, max|x - 1| {xerr:.3e}; "
+              f"launches {launches} (TPU v5e yardstick, f32 factors: 3 its "
+              f"to 1.16e-13)")
+        check(res.x.dtype == torch.float64 and res.x.shape == (N,)
+              and bool(torch.isfinite(res.x).all()),
+              f"refinement ({label}) solution dtype / shape / finiteness")
+        check(res.reason == CONVERGED_RTOL and true_rel <= REFINE_RTOL,
+              f"refinement ({label}): {res.its} its, reason {res.reason}, "
+              f"true relres {true_rel}")
+        if main_launches is None:
+            # every residual on #6 (its + 1 with x0 = None: one per
+            # iteration and the final rnorm), every PC apply on #1, and the
+            # safety net's probe solve (newton_fixed) on #1 once
+            expect = {k: 0 for k in launches}
+            expect.update(band_matvec_f64=res.its + 1,
+                          fused_sweep=res.its + 1)
+            print(f"  expected launches: {expect}")
+            check(launches == expect, f"refinement launches {launches}, "
+                  f"expected {expect}")
+            check(res.its <= REFINE_ITS_MAX and xerr <= REFINE_XERR_MAX,
+                  f"refinement: {res.its} its, max|x - 1| {xerr}")
+            main_launches = launches
+    return main_launches
+
+
+def phase_refine_reference(device):
+    """The refinement on a small f64 band on the card (kernels) and on the
+    CPU (plain versions): both reach 1e-12 and the solutions agree."""
+    from spike_petsc_tpu_torch import BandedMatrix, Options, solve
+    band, _ = flagship_band(20_000, 20, device, seed=SEED + 23)
+    a64, b64 = f64_band(band)
+    opts = dict(REFINE_OPTIONS, pc_spike_partitions=8, pc_spike_block=64)
+    got = solve(a64, b64, ksp_type="richardson", pc_type="spike",
+                options=Options(dict(opts)), rtol=REFINE_RTOL,
+                maxit=REFINE_MAXIT)
+    cpu = BandedMatrix(data=a64.data.cpu(), kl=20, ku=20)
+    ref = solve(cpu, b64.cpu(), ksp_type="richardson", pc_type="spike",
+                options=Options(dict(opts)), rtol=REFINE_RTOL,
+                maxit=REFINE_MAXIT)
+    err = float((got.x.cpu() - ref.x).abs().max() / ref.x.abs().max())
+    print(f"refinement small band n=20000 w=41 f64: card {got.its} its vs "
+          f"CPU {ref.its} its, max|x_card - x_cpu| / max|x_cpu| {err:.3e}")
+    check(err <= 1e-10 and got.reason == ref.reason == 2,
+          "refinement: card and CPU reference disagree")
+
+
+def phase_alternate_path(band, rhs, sf):
+    """The alternate kernels on their paths: ``spike_solve(sf, rhs,
+    impl="pallas")`` (the two-pass sweeps, two launches) against
+    ``impl="pallas_fused"``, and ``blocktri_matvec_pallas`` on the
+    flagship conversion against the blocktri kernel #7."""
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.ops.blocktri import band_to_blocktri
+    from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
+    from spike_petsc_tpu_torch.ops.cuda.blocktri_matvec_grid import (
+        blocktri_matvec_pallas)
+    from spike_petsc_tpu_torch.ops.spike import spike_solve
+    reset_launches()
+    x = spike_solve(sf, rhs, impl="pallas")
+    launches = read_launches()
+    relres = float(torch.linalg.norm(banded_matvec(band, x) - rhs)
+                   / torch.linalg.norm(rhs))
+    _, err = kernel_err(x, spike_solve(sf, rhs, impl="pallas_fused"))
+    torch.cuda.synchronize()
+    print(f"spike_solve(impl='pallas'): f32 relative residual {relres:.3e}, "
+          f"against impl='pallas_fused' {err:.3e}; launches {launches}")
+    check(launches["sweeps"] == 2 and launches["fused_sweep"] == 0,
+          f"spike_solve(impl='pallas') launches {launches}")
+    check(relres <= SPIKE_RELRES_MAX and err <= KERNEL_TOL,
+          f"spike_solve(impl='pallas'): relres {relres}, err {err}")
+
+    T = band_to_blocktri(band, BLOCK)
+    v = torch.nn.functional.pad(rhs, (0, T.nb * BLOCK - N))
+    reset_launches()
+    y = blocktri_matvec_pallas(T, v.reshape(T.nb, BLOCK), kt=GRID_KT)
+    grid = read_launches()
+    _, err = kernel_err(y.reshape(-1)[:N], cbt.blocktri_matvec_cuda(T, rhs))
+    torch.cuda.synchronize()
+    print(f"blocktri_matvec_pallas kt={GRID_KT} on the flagship conversion: "
+          f"against the blocktri kernel {err:.3e}; launches {grid}")
+    check(grid["blocktri_matvec_grid"] == 1 and err <= KERNEL_TOL,
+          f"blocktri_matvec_pallas: err {err}, launches {grid}")
+    launches["blocktri_matvec_grid"] = grid["blocktri_matvec_grid"]
+    return launches
+
+
+def phase_alternate_timing(band, a64, b64, rhs, sf, device, t):
+    """The three kernels beside their plain versions, bounds and library
+    calls, and the refinement solve with the f64 kernel against the same
+    solve with the plain f64 operator (``-mat_matvec_impl xla``)."""
+    import torch
+    from spike_petsc_tpu_torch import Options, make_solver
+    from spike_petsc_tpu_torch.ops.blocktri import (BlockTridiagonal,
+                                                    band_to_blocktri,
+                                                    cast_factor)
+    from spike_petsc_tpu_torch.ops.cuda import band_matvec_f64 as cbm64
+    from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec_grid as cgrid
+    from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
+    bounds = {}
+    show = shower(t)
+
+    prep = cbm64.prepare_banded_mv_f64(a64)
+    x = torch.randn(N, dtype=torch.float64, device=device)
+    nbytes = a64.n * a64.width * 8 + 2 * N * 8
+    show("band_matvec_f64_cuda", time_ms(
+        lambda: cbm64.banded_matvec_prepared_f64(prep, x), iters=20),
+        nbytes / 1e9)
+    show("band_matvec_f64_plain", time_ms(
+        lambda: cbm64.banded_matvec_prepared_f64(prep, x, impl="plain"),
+        iters=3), nbytes / 1e9)
+    bounds["band_matvec_f64"] = roofline(nbytes, 2 * a64.n * a64.width,
+                                         PEAK_F64_FLOPS)
+    csr = band_csr(a64)
+    show("band_matvec_f64_library", time_ms(lambda: csr @ x, iters=20),
+         nbytes / 1e9)
+    del csr, prep
+
+    rblk = torch.nn.functional.pad(rhs, (0, K * sf.m - N)).reshape(
+        K, sf.nb, BLOCK)
+    for label, fact in (("f32", sf.fact),
+                        ("bf16", cast_factor(sf.fact, torch.bfloat16))):
+        gb = 3 * fact.F.numel() * fact.F.element_size() / 1e9
+        show(f"sweeps_cuda_{label}", time_ms(
+            lambda: csw.blocktri_solve_batched_cuda(fact, rblk), iters=10),
+            gb)
+    show("sweeps_plain_f32", time_ms(
+        lambda: csw.blocktri_solve_batched_cuda(sf.fact, rblk, impl="plain"),
+        iters=3))
+    # F, U, Sinv once, r in, y out and back in, x out
+    bounds["sweeps"] = roofline(
+        3 * sf.fact.F.numel() * 4 + 4 * K * sf.nb * BLOCK * 4,
+        2 * K * (3 * sf.nb - 2) * BLOCK * BLOCK)
+
+    T = band_to_blocktri(band, BLOCK)
+    xb = torch.randn((T.nb, BLOCK), device=device)
+    gb = (3 * T.D.numel() * 4 + 2 * T.nb * BLOCK * 4) / 1e9
+    show("blocktri_matvec_grid_cuda", time_ms(
+        lambda: cgrid.blocktri_matvec_pallas(T, xb, kt=GRID_KT), iters=20),
+        gb)
+    show("blocktri_matvec_grid_plain", time_ms(
+        lambda: cgrid.blocktri_matvec_pallas(T, xb, kt=GRID_KT,
+                                             impl="plain"), iters=5), gb)
+    T16 = BlockTridiagonal(D=T.D.bfloat16(), L=T.L.bfloat16(),
+                           U=T.U.bfloat16())
+    show("blocktri_matvec_grid_cuda_bf16", time_ms(
+        lambda: cgrid.blocktri_matvec_pallas(T16, xb, kt=GRID_KT),
+        iters=20), gb / 2)
+    del T16
+    bounds["blocktri_matvec_grid"] = roofline(
+        3 * T.D.numel() * 4 + 2 * T.nb * BLOCK * 4, 2 * 3 * T.D.numel())
+    del T
+
+    # the refinement solve: the f64 kernel (auto) against the plain f64
+    # operator, in turns
+    solvers = {impl: make_solver(
+        a64, ksp_type="richardson", pc_type="spike",
+        options=Options(dict(REFINE_OPTIONS, mat_matvec_impl=impl)),
+        rtol=REFINE_RTOL, maxit=REFINE_MAXIT) for impl in ("auto", "xla")}
+    best = {}
+    for impl in ("xla", "auto", "auto", "xla"):
+        ms = time_ms(lambda: solvers[impl](b64), reps=3)
+        print(f"  refine_solve_{impl} turn: {ms[0]:.4f} ms median")
+        if impl not in best or ms[0] < best[impl][0]:
+            best[impl] = ms
+    for impl in ("auto", "xla"):
+        show(f"refine_solve_{impl}", best[impl])
+    busy, items = device_profile(lambda: solvers["auto"](b64))
+    wall = t["refine_solve_auto"][0]
+    print(f"  refine_solve_auto device busy {busy:.3f} ms of {wall:.3f} ms "
+          f"wall: idle share {1 - busy / wall:.3f}")
+    for key, count, ms in items:
+        print(f"    {ms:8.3f} ms  {count:5d} x  {key}")
+    return bounds
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -940,6 +1272,7 @@ def main() -> int:
     sf = spike_factor(band, K=K, block_b=BLOCK, store_spikes=True,
                       spike_dtype=torch.bfloat16, inverter="newton_fixed")
     errs = phase_kernels(band, rhs, sf, device)
+    errs.update(phase_alternate_kernels(band, rhs, sf, device))
     phase_accuracy(band, rhs, sf)
     from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many as cfm
     phase_carry(sf, device, cfm, "flagship: factors f32, spikes bf16")
@@ -948,8 +1281,14 @@ def main() -> int:
     serve_launches = phase_serving(band, device)
     phase_reference(device)
     phase_reference_many(device)
+    # f64-grade refinement (path A) and the alternate kernels (path B)
+    a64, b64 = f64_band(band)
+    refine_launches = phase_refine(a64, b64)
+    phase_refine_reference(device)
+    alt_launches = phase_alternate_path(band, rhs, sf)
     t, bounds = phase_timing(band, rhs, sf, device)
-    del band, rhs, sf, res
+    bounds.update(phase_alternate_timing(band, a64, b64, rhs, sf, device, t))
+    del band, rhs, sf, res, a64, b64
     torch.cuda.empty_cache()
 
     # the SPD path (BASELINE config 2)
@@ -985,7 +1324,15 @@ def main() -> int:
              ("fused_sweep_spd_cuda_f32", "fused_sweep_spd_plain_f32"), None),
             ("fused_sweep_many_spd", cg_serve_launches,
              ("fused_sweep_many_spd_cuda_f32",
-              "fused_sweep_many_spd_plain_f32"), None)):
+              "fused_sweep_many_spd_plain_f32"), None),
+            ("band_matvec_f64", refine_launches,
+             ("band_matvec_f64_cuda", "band_matvec_f64_plain"),
+             "band_matvec_f64_library"),
+            ("sweeps", alt_launches, ("sweeps_cuda_f32", "sweeps_plain_f32"),
+             None),
+            ("blocktri_matvec_grid", alt_launches,
+             ("blocktri_matvec_grid_cuda", "blocktri_matvec_grid_plain"),
+             "blocktri_matvec_library")):
         bound_ms, bound_by = bounds[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -995,6 +1342,8 @@ def main() -> int:
             "plain_ms": t[plain][0], "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": t[library][0] if library else None})
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel ran no time on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

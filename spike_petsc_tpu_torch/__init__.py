@@ -2,8 +2,9 @@
 
 SPIKE-preconditioned Krylov solves of banded systems, one right-hand side
 (``solve``) or a batch of them (``solve_many``), in PyTorch, with
-hand-written CUDA kernels for the banded and block-tridiagonal matvecs and
-the fused block-Thomas sweeps (``ops/cuda``, sources in ``csrc``).  The JAX
+hand-written CUDA kernels for the banded (f32 and f64) and
+block-tridiagonal matvecs and the fused and two-pass block-Thomas sweeps
+(``ops/cuda``, sources in ``csrc``).  The JAX
 package ``spike_petsc_tpu`` is the reference it is held against; this
 package never imports JAX.
 """

@@ -4,6 +4,9 @@
 array comes as ``ml_dtypes.bfloat16``, which is accepted).  With these a
 test can feed a JAX-computed factorization to the port's solve and hold
 solve parity apart from factor parity.
+
+Every function here puts its tensors on the card (``device="cuda"``) unless
+the caller names another device, as the CPU tests do with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,8 +20,10 @@ from .ops.band import BandedMatrix
 from .ops.blocktri import BlockTriFactor, BlockTridiagonal
 from .ops.spike import SpikeFactor
 
+CUDA = torch.device("cuda")
 
-def to_tensor(a, device=None) -> Optional[torch.Tensor]:
+
+def to_tensor(a, device=CUDA) -> Optional[torch.Tensor]:
     """numpy array -> tensor on ``device``; bfloat16 arrays keep their bits."""
     if a is None:
         return None
@@ -29,17 +34,17 @@ def to_tensor(a, device=None) -> Optional[torch.Tensor]:
     return torch.from_numpy(a).to(device)
 
 
-def banded_from_numpy(data, kl: int, ku: int, device=None) -> BandedMatrix:
+def banded_from_numpy(data, kl: int, ku: int, device=CUDA) -> BandedMatrix:
     return BandedMatrix(data=to_tensor(data, device), kl=int(kl), ku=int(ku))
 
 
-def blocktri_from_numpy(D, L, U, device=None) -> BlockTridiagonal:
+def blocktri_from_numpy(D, L, U, device=CUDA) -> BlockTridiagonal:
     """A BlockTridiagonal from its D, L, U blocks (``[..., nb, b, b]``)."""
     return BlockTridiagonal(D=to_tensor(D, device), L=to_tensor(L, device),
                             U=to_tensor(U, device))
 
 
-def blocktri_factor_from_numpy(F, U, Sinv, device=None,
+def blocktri_factor_from_numpy(F, U, Sinv, device=CUDA,
                                method: str = "inv") -> BlockTriFactor:
     """A block-Thomas factor from its F, U, Sinv blocks: ``method='inv'``,
     or ``'spd'`` with an empty U (``[..., nb, 0, 0]``, as the JAX spd
@@ -56,7 +61,7 @@ def spike_factor_from_numpy(*, fact, Btip, Ctip, red_fact, V, W, n: int,
                             K: int, m: int, b: int, k: int,
                             truncated: bool = False, red_Dinv=None,
                             method: str = "inv",
-                            device=None) -> SpikeFactor:
+                            device=CUDA) -> SpikeFactor:
     """A SpikeFactor from numpy arrays: ``fact`` and ``red_fact`` are
     ``(F, U, Sinv)`` triples (``red_fact`` None for K == 1 and for
     ``truncated`` factors, which carry ``red_Dinv`` ``[K-1, 2k, 2k]``

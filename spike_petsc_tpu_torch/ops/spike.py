@@ -14,7 +14,8 @@ and SPD paths run:
   K-1 block rows, factored by block-Thomas, or, ``truncated``, only its
   diagonal blocks, inverted (exact in the diagonally dominant limit);
 * a solve is one partition sweep (a fused CUDA kernel on the card, chosen
-  by the factor's method), a reduced solve, and the stored-spike correction
+  by the factor's method, or with ``impl="pallas"`` the two-pass sweep
+  kernels), a reduced solve, and the stored-spike correction
   ``x = g - V xt - W xb`` (or a second sweep when spikes are not stored);
 * ``spike_solve_many`` does the same for ``[n, r]`` right-hand sides, the
   factors streamed once for all r (the multi-RHS fused kernels on the card).
@@ -39,6 +40,7 @@ from .cuda.fused_sweep_many_spd import (blocktri_solve_fused_many_spd_cuda,
                                         fused_sweep_many_spd_feasible)
 from .cuda.fused_sweep_spd import (blocktri_solve_fused_spd_cuda,
                                    fused_sweep_spd_feasible)
+from .cuda.sweeps import blocktri_solve_batched_cuda
 
 
 @dataclass(frozen=True)
@@ -303,6 +305,22 @@ _SWEEPS_MANY = {
 }
 
 
+# the JAX package's impl names: 'xla' is the plain sweep, 'pallas_fused' the
+# fused kernels; 'pallas' (the two-pass sweeps of a single RHS, the fused
+# kernel of many) is resolved by the callers
+_IMPLS = ("auto", "cuda", "plain", "xla", "pallas", "pallas_fused")
+_JAX_NAMES = {"xla": "plain", "pallas_fused": "cuda"}
+
+
+def _require_inv_factors(sf: SpikeFactor, impl: str) -> None:
+    """``impl='pallas'`` takes ``method='inv'`` factors only, as in JAX."""
+    if sf.fact.method != "inv":
+        raise ValueError(
+            f"impl={impl!r} requires method='inv' block-Thomas factors; got "
+            f"method={sf.fact.method!r} (use impl='xla' or 'pallas_fused', "
+            f"or refactor with spike_factor(..., method='inv'))")
+
+
 def _batched_solver(sf: SpikeFactor, impl: str, rhs: torch.Tensor,
                     sweeps=_SWEEPS):
     """The partition sweep ``r -> x`` for ``sf``'s factor method.  'auto'
@@ -310,9 +328,12 @@ def _batched_solver(sf: SpikeFactor, impl: str, rhs: torch.Tensor,
     CUDA kernel for a CUDA one, as the JAX dispatch takes its Pallas kernel
     on the TPU.  On the card, ``spd`` factors the kernel's rule refuses
     raise (only ``impl='plain'`` runs their plain sweep there); ``inv``
-    factors the rule refuses take the plain sweep."""
-    if impl not in ("auto", "cuda", "plain"):
-        raise ValueError(f"unknown impl {impl!r}: expected auto, cuda, plain")
+    factors the rule refuses take the plain sweep.  The JAX names ``xla``
+    and ``pallas_fused`` mean ``plain`` and ``cuda``."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}: expected "
+                         f"{', '.join(_IMPLS)}")
+    impl = _JAX_NAMES.get(impl, impl)
     solve, feasible = sweeps[sf.fact.method]
     if impl == "auto":
         impl = ("cuda" if rhs.is_cuda and (
@@ -328,13 +349,23 @@ def spike_solve(sf: SpikeFactor, rhs: torch.Tensor,
     impl: "auto" (on a CUDA tensor the fused CUDA sweep of the factor's
     method: #1 for ``inv`` where it applies, else plain; #3 for ``spd``,
     raising where it does not apply), "cuda" (the kernel; raises where it
-    does not apply), or "plain" (the plain PyTorch sweeps on any device).
+    does not apply), "plain" (the plain PyTorch sweeps on any device), or
+    the JAX names: "xla" (plain), "pallas_fused" (cuda) and "pallas" (the
+    two-pass sweep kernels #9 of ``ops/cuda/sweeps.py``, one launch per
+    sweep; ``inv`` factors only, raising on the card where their rule
+    refuses the factors).
     """
     K, m, b, k, nb = sf.K, sf.m, sf.b, sf.k, sf.nb
     rp = torch.zeros(K * m, dtype=rhs.dtype, device=rhs.device)
     rp[:sf.n] = rhs
     rblk = rp.reshape(K, nb, b)
-    batched_solve = _batched_solver(sf, impl, rhs)
+    if impl == "pallas":
+        _require_inv_factors(sf, impl)
+
+        def batched_solve(r):
+            return blocktri_solve_batched_cuda(sf.fact, r)
+    else:
+        batched_solve = _batched_solver(sf, impl, rhs)
 
     g = batched_solve(rblk)                                  # [K, nb, b]
     if K == 1:
@@ -377,7 +408,9 @@ def spike_solve_many(sf: SpikeFactor, rhs: torch.Tensor,
     impl: "auto" (on a CUDA tensor the multi-RHS CUDA kernel of the
     factor's method: #4 for ``inv`` whenever its feasibility rule admits
     the factors, else plain; #5 for ``spd``, raising where its rule refuses
-    them), "cuda" (the kernel; raises where it does not apply), or "plain".  The JAX
+    them), "cuda" (the kernel; raises where it does not apply), or "plain";
+    and the JAX names "xla" (plain), "pallas_fused" (cuda) and "pallas"
+    (the multi-RHS kernel, as in JAX, for ``inv`` factors only).  The JAX
     dispatch's switch to XLA at large r is a TPU VMEM measurement and is
     not carried over.
     """
@@ -386,6 +419,9 @@ def spike_solve_many(sf: SpikeFactor, rhs: torch.Tensor,
     rp = torch.zeros((K * m, r), dtype=rhs.dtype, device=rhs.device)
     rp[:sf.n] = rhs
     rblk = rp.reshape(K, nb, b, r)
+    if impl == "pallas":
+        _require_inv_factors(sf, impl)
+        impl = "cuda"
     batched_solve = _batched_solver(sf, impl, rhs, _SWEEPS_MANY)
 
     g = batched_solve(rblk)                                  # [K, nb, b, r]

@@ -2,8 +2,10 @@
 
 Ported: restarted GMRES with left preconditioning, classical Gram-Schmidt
 with one unconditional refinement pass (``cgs_refinement="always"``) and
-classical Givens rotations, BiCGStab (``bcgs``/``fbcgs``/``bicgstab``) and
-preconditioned CG (``cg``), as in ``spike_petsc_tpu.solvers.krylov``.
+classical Givens rotations, BiCGStab (``bcgs``/``fbcgs``/``bicgstab``),
+preconditioned CG (``cg``), preconditioned Richardson (``richardson``, the
+iterative-refinement loop) and one PC application (``preonly``), as in
+``spike_petsc_tpu.solvers.krylov``.
 
 The JAX version stages the whole solve in ``lax.while_loop``.  Here the
 vectors and the Krylov basis stay on the operator's device, and the small
@@ -15,6 +17,7 @@ iteration counts and residual histories equal to the reference.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -22,8 +25,8 @@ import scipy.linalg
 import torch
 
 from ..utils.registry import register_ksp
-from .types import (CONVERGED_ITERATING, DIVERGED_BREAKDOWN, KSPResult,
-                    default_convergence_check)
+from .types import (CONVERGED_ITERATING, CONVERGED_ITS, DIVERGED_BREAKDOWN,
+                    DIVERGED_NANORINF, KSPResult, default_convergence_check)
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -231,7 +234,61 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                      rnorm=float(_norm(b - matvec(x))), history=history)
 
 
+def richardson(matvec: Callable, b: torch.Tensor,
+               x0: Optional[torch.Tensor] = None,
+               pc_apply: Optional[Callable] = None, *, scale: float = 1.0,
+               rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
+               maxit: int = 10000, **_) -> KSPResult:
+    """Preconditioned Richardson iteration x += scale * M^{-1} r; with a
+    (possibly lower-precision) factorization PC this is stationary
+    iterative refinement.  The monitored residual is the true ||b - A x||,
+    recomputed every iteration, and comes to the host once per iteration
+    for the convergence test."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
+    x = torch.zeros_like(b) if x0_zero else x0.clone()
+    bnorm = float(_norm(b))
+    history = torch.full((maxit + 1,), float("nan"), dtype=b.dtype)
+
+    def check(rn, its):
+        return default_convergence_check(rn, bnorm, its, rtol=rtol,
+                                         atol=atol, divtol=divtol,
+                                         maxit=maxit)
+
+    r = b if x0_zero else b - matvec(x)
+    rnorm = float(_norm(r))
+    history[0] = rnorm
+    its = 0
+    reason = check(rnorm, its)
+    while reason == CONVERGED_ITERATING:
+        x = x + scale * psolve(r)
+        r = b - matvec(x)
+        rn = float(_norm(r))
+        its += 1
+        history[its] = rn
+        reason = check(rn, its)
+    return KSPResult(x=x, its=its, reason=reason,
+                     rnorm=float(_norm(b - matvec(x))), history=history)
+
+
+def preonly(matvec: Callable, b: torch.Tensor,
+            x0: Optional[torch.Tensor] = None,
+            pc_apply: Optional[Callable] = None, **_) -> KSPResult:
+    """One preconditioner application (PETSc KSPPREONLY): with a direct
+    factorization PC this is the direct solve.  The reason is
+    CONVERGED_ITS unless the residual is non-finite (DIVERGED_NANORINF);
+    the history is ``[||b||, ||b - A x||]`` whatever the caller's maxit."""
+    psolve = pc_apply or _identity_pc
+    x = psolve(b) if x0 is None else x0 + psolve(b - matvec(x0))
+    rn, bn = torch.stack([_norm(b - matvec(x)), _norm(b)]).tolist()
+    history = torch.tensor([bn, rn], dtype=b.dtype)
+    reason = CONVERGED_ITS if math.isfinite(rn) else DIVERGED_NANORINF
+    return KSPResult(x=x, its=1, reason=reason, rnorm=rn, history=history)
+
+
 register_ksp("gmres", gmres)
 register_ksp("cg", cg)
+register_ksp("richardson", richardson)
+register_ksp("preonly", preonly)
 for _name in ("bcgs", "fbcgs", "bicgstab"):
     register_ksp(_name, bicgstab)

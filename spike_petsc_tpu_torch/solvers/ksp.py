@@ -7,8 +7,14 @@
 
     result = solve(A, b, ksp_type="cg", pc_type="cholesky", ...)  # SPD A
 
+    # f64-grade refinement: f64 band, f32 factors
+    result = solve(A64, b64, ksp_type="richardson", pc_type="spike",
+                   options=Options({"pc_spike_factor_dtype": "f32"}),
+                   rtol=1e-12)
+
 Ported: a ``BandedMatrix``, ``BlockTridiagonal`` or callable operator, a
-BandedMatrix PC matrix, ``gmres``, ``bcgs`` and ``cg``, the batched engines
+BandedMatrix PC matrix, ``gmres``, ``bcgs``, ``cg``, ``richardson`` (with
+``-ksp_richardson_scale``) and ``preonly``, the batched engines
 of ``krylov_many``, the ``none``, ``spike`` and ``cholesky`` PCs, and no
 null space.  Options whose code paths are not yet ported raise.
 """
@@ -50,6 +56,15 @@ def _params_from_options(opts: Options, overrides: dict) -> dict:
     return p
 
 
+def _richardson_scale(opts: Options, ksp_type: str, kw: dict) -> None:
+    """``-ksp_richardson_scale``: richardson's damping, unless the caller
+    passed ``scale`` itself."""
+    if ksp_type == "richardson":
+        scale = opts.get_real("ksp_richardson_scale", None)
+        if scale is not None:
+            kw.setdefault("scale", scale)
+
+
 def _reject_unported(opts: Options, transpose: bool, nullspace) -> None:
     flags = [f"-{f}" for f in _UNPORTED_FLAGS if opts.get_bool(f, False)]
     if transpose:
@@ -86,6 +101,7 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
     pc_apply = pc.apply if pc.name != "none" else None
     method = SOLVERS.get(ksp_type)
     kw = _params_from_options(opts, params)
+    _richardson_scale(opts, ksp_type, kw)
 
     def _solve(b, x0=None):
         return method(matvec, b, x0, pc_apply, **kw)
@@ -133,10 +149,7 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
     kw = _params_from_options(opts, params)
     for extra in ("norm_type", "monitor_true"):    # not in the batched
         kw.pop(extra, None)                        # engines' surface
-    if ksp_type == "richardson":
-        scale = opts.get_real("ksp_richardson_scale", None)
-        if scale is not None:
-            kw.setdefault("scale", scale)
+    _richardson_scale(opts, ksp_type, kw)
 
     def _solve(B, X0=None):
         return method(matvec_many, B, X0, pc_apply_many, **kw)

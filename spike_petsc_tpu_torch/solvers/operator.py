@@ -2,8 +2,9 @@
 
 The KSP layer only ever sees ``matvec: [n] -> [n]`` (or, for the batched
 engines, ``matvec_many: [n, r] -> [n, r]``).  Ported: BandedMatrix (plain
-shifted-axpy route, the banded CUDA kernel, or a one-time block-tridiagonal
-conversion with the blocktri CUDA kernel), BlockTridiagonal and callables.
+shifted-axpy route, the banded CUDA kernel and its f64 form, or a one-time
+block-tridiagonal conversion with the blocktri CUDA kernel),
+BlockTridiagonal and callables.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from ..ops.band import BandedMatrix, banded_matvec
 from ..ops.blocktri import BlockTridiagonal, band_to_blocktri, blocktri_matvec
 from ..ops.cuda.band_matvec import (banded_matvec_prepared, banded_mv_feasible,
                                     prepare_banded_mv)
+from ..ops.cuda.band_matvec_f64 import (banded_matvec_prepared_f64,
+                                        banded_mv_f64_feasible,
+                                        prepare_banded_mv_f64)
 from ..ops.cuda.blocktri_matvec import (blocktri_matvec_cuda,
                                         blocktri_matvec_feasible)
 
@@ -69,22 +73,31 @@ def _bt_refused(a: BandedMatrix) -> ValueError:
 def _band_route(a: BandedMatrix, impl: str) -> str:
     """Resolve ``-mat_matvec_impl`` for a band.
 
-    * ``auto``: on a CUDA band, the banded CUDA kernel whenever
-      ``banded_mv_feasible`` admits it, else the plain version; on the CPU
-      the plain version.  (The JAX package's TPU order has the blocktri
-      route between the two for wide bands; here the band kernel admits
-      every band the blocktri kernel does, so that branch could never run.)
-    * ``banded_pallas`` / ``banded_cuda``: the banded kernel's wrapper (on
-      the CPU the wrapper runs the kernel's plain version);
+    * ``auto``: on a CUDA band, the f64 band kernel (#6) for an f64 band
+      ``banded_mv_f64_feasible`` admits, the banded CUDA kernel (#2)
+      whenever ``banded_mv_feasible`` admits the band, else the plain
+      version; on the CPU the plain version.  (The JAX package's 'auto'
+      keeps f64 bands on XLA because its TPU kernel for them emulates f64;
+      the card has FP64, so its f64 kernel is the route.  The JAX TPU order
+      also has the blocktri route between the band kernel and XLA for wide
+      bands; here the band kernel admits every band the blocktri kernel
+      does, so that branch could never run.)
+    * ``banded_pallas`` / ``banded_cuda``: the banded kernel's wrapper, #6
+      for an f64 band and #2 otherwise (on the CPU the wrapper runs the
+      kernel's plain version);
     * ``blocktri``: on a CUDA band, the blocktri kernel, raising where the
       gate or the kernel refuses the band; on the CPU the plain version
       (as the JAX package off the TPU);
     * ``xla``: the plain shifted-axpy version.
     """
+    f64 = a.dtype == torch.float64
     if impl in ("banded_pallas", "banded_cuda"):
-        return "banded_cuda"
-    if impl == "auto" and a.data.is_cuda and banded_mv_feasible(a):
-        return "banded_cuda"
+        return "banded_cuda_f64" if f64 else "banded_cuda"
+    if impl == "auto" and a.data.is_cuda:
+        if f64 and banded_mv_f64_feasible(a):
+            return "banded_cuda_f64"
+        if banded_mv_feasible(a):
+            return "banded_cuda"
     if impl == "blocktri" and _use_blocktri_matvec(a):
         if not (_bt_gate(a)[0]
                 and blocktri_matvec_feasible(a.dtype, _BT_BLOCK)):
@@ -104,6 +117,10 @@ def as_matvec(a, n_hint: int = None,
             prep = prepare_banded_mv(a)
             return (_tag(lambda x: banded_matvec_prepared(prep, x), route),
                     a.n, a.dtype)
+        if route == "banded_cuda_f64":
+            prep = prepare_banded_mv_f64(a)
+            return (_tag(lambda x: banded_matvec_prepared_f64(prep, x),
+                         route), a.n, a.dtype)
         if route == "blocktri":
             # one conversion, held for the operator's lifetime; the kernel
             # takes the unpadded blocks and reads x as zero beyond n

@@ -105,12 +105,23 @@ _DTYPES = {"": None, "none": None, "bf16": torch.bfloat16,
            "f32": torch.float32, "f64": torch.float64}
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _cast_apply(fn: Callable, factor_dtype: torch.dtype,
+                dtype: torch.dtype) -> Callable:
+    """``fn`` on a residual cast to the factors' dtype, its result cast back
+    (``-pc_<name>_factor_dtype``).  The JAX package traces the inner solve
+    with x64 off there, a Pallas lowering workaround with no counterpart
+    here."""
+    return lambda r: fn(r.to(factor_dtype)).to(dtype)
+
+
 def _reject_unported(opts: Options, name: str) -> None:
     """Raise on spike options whose code paths are not yet ported."""
     unported = [f"-pc_{name}_{o}" for o in ("store_lt", "check")
                 if opts.get_bool(f"pc_{name}_{o}", False)]
-    if opts.get_string(f"pc_{name}_factor_dtype", "") not in ("", "none"):
-        unported.append(f"-pc_{name}_factor_dtype")
     if opts.get_string("pc_factor_shift_type", "none") != "none":
         unported.append("-pc_factor_shift_type")
     if unported:
@@ -135,6 +146,15 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
     inverter = opts.get_string(f"pc_{name}_inverter", "auto")
     store_dtype = _DTYPES[opts.get_string(f"pc_{name}_store_dtype", "")]
     spike_dtype = _DTYPES[opts.get_string(f"pc_{name}_spike_dtype", "")]
+    # -pc_<name>_factor_dtype casts the BAND before factoring (store_dtype
+    # casts the finished factor): an f64 operator with f32 factors, the
+    # refinement recipe; every apply casts at the boundary
+    orig_dtype = band.dtype
+    factor_dtype = _DTYPES[opts.get_string(f"pc_{name}_factor_dtype", "")]
+    cast = factor_dtype is not None and factor_dtype != orig_dtype
+    if cast:
+        band = BandedMatrix(data=band.data.to(factor_dtype), kl=band.kl,
+                            ku=band.ku)
 
     def factor(inv):
         return spike_factor(band, K=K, block_b=block, method=method,
@@ -148,10 +168,12 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
                              f"pc '{name}' on the card: the spd sweep kernel")
     info = dict(partitions=K, block=sf.b, tip=sf.k, method=method,
                 truncated=truncated)
+    if cast:
+        info["factor_dtype"] = _dtype_name(factor_dtype)
     if store_dtype is not None:
-        info["store_dtype"] = str(store_dtype).replace("torch.", "")
+        info["store_dtype"] = _dtype_name(store_dtype)
     if spike_dtype is not None and store:
-        info["spike_dtype"] = str(spike_dtype).replace("torch.", "")
+        info["spike_dtype"] = _dtype_name(spike_dtype)
     sf, fb = _newton_safety_net(band, sf, inverter, store_dtype, spike_dtype,
                                 lambda: factor("blocked"),
                                 exact=not truncated)
@@ -162,8 +184,12 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
         raise NotImplementedError(
             f"pc '{name}' transpose apply is not yet ported")
 
-    return PC(name=name, apply=partial(spike_solve, sf), info=info,
-              apply_many=partial(spike_solve_many, sf),
+    apply = partial(spike_solve, sf)
+    apply_many = partial(spike_solve_many, sf)
+    if cast:
+        apply = _cast_apply(apply, factor_dtype, orig_dtype)
+        apply_many = _cast_apply(apply_many, factor_dtype, orig_dtype)
+    return PC(name=name, apply=apply, info=info, apply_many=apply_many,
               make_transpose=_no_transpose)
 
 
@@ -181,8 +207,8 @@ def pc_cholesky(pmat, opts: Options) -> PC:
     options of the spike family apply (partitions, default 1; block,
     default the tip size k, and on the card the smallest block the spd
     sweep kernels take, 64 or 128; truncated; store_spikes; inverter;
-    store_dtype); ``-pc_cholesky_method inv`` overrides the method.  On the
-    card a factor the kernels refuse (another block size, an f64 band)
-    raises here."""
+    store_dtype; factor_dtype); ``-pc_cholesky_method inv`` overrides the
+    method.  On the card a factor the kernels refuse (another block size,
+    an f64 band without ``-pc_cholesky_factor_dtype f32``) raises here."""
     return _spike_pc(pmat, opts, name="cholesky", default_K=1,
                      default_method="spd")

@@ -23,7 +23,7 @@ from spike_petsc_tpu_torch.ops.band import (BandedMatrix, banded_from_dense,
 from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
 from spike_petsc_tpu_torch.solvers.operator import as_matvec
 
-from torch_parity import random_band
+from torch_parity import CPU, random_band
 
 SHAPES = [
     (1024, 6, 6),      # narrow symmetric
@@ -46,7 +46,7 @@ def test_plain_matvec_matches_jax(n, kl, ku, dtype):
     x = np.random.default_rng(1).standard_normal(n).astype(dtype)
     ref = np.asarray(j_matvec(JBand(jnp.asarray(data), kl, ku),
                               jnp.asarray(x)))
-    got = banded_matvec(banded_from_numpy(data, kl, ku),
+    got = banded_matvec(banded_from_numpy(data, kl, ku, device=CPU),
                         torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, ref, atol=_atol(ref, dtype),
                                **TOL[dtype])
@@ -61,7 +61,7 @@ def test_prepared_plain_matches_jax_kernel(n, kl, ku):
     x = np.random.default_rng(2).standard_normal(n).astype(np.float32)
     ref = np.asarray(j_prepared(j_prepare(JBand(jnp.asarray(data), kl, ku)),
                                 jnp.asarray(x)))
-    prep = cbm.prepare_banded_mv(banded_from_numpy(data, kl, ku))
+    prep = cbm.prepare_banded_mv(banded_from_numpy(data, kl, ku, device=CPU))
     got = cbm.banded_matvec_prepared(prep, torch.from_numpy(x)).numpy()
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, ref, atol=_atol(ref, np.float32),
@@ -71,7 +71,7 @@ def test_prepared_plain_matches_jax_kernel(n, kl, ku):
 def test_prepared_layout_and_bf16_storage():
     n, kl, ku = 700, 9, 4
     data = random_band(n, kl, ku, seed=3, dtype=np.float32, dominant=False)
-    band = banded_from_numpy(data, kl, ku)
+    band = banded_from_numpy(data, kl, ku, device=CPU)
     prep = cbm.prepare_banded_mv(band)
     assert prep.d3.shape == (kl + ku + 1, 704)
     np.testing.assert_array_equal(prep.d3[:, :n].numpy(), data.T)
@@ -101,14 +101,14 @@ def test_dense_roundtrip_and_padding_match_jax(n, kl, ku):
 
 def test_operator_routes_on_cpu():
     data = random_band(600, 3, 3, seed=6)
-    band = banded_from_numpy(data, 3, 3)
+    band = banded_from_numpy(data, 3, 3, device=CPU)
     x = torch.from_numpy(np.random.default_rng(7).standard_normal(600))
     mv, n, dtype = as_matvec(band)
     assert (mv._route, n, dtype) == ("xla", 600, torch.float64)
     ref = mv(x)
     for impl in ("banded_pallas", "banded_cuda"):
         mvk, _, _ = as_matvec(band, impl=impl)
-        assert mvk._route == "banded_cuda"
+        assert mvk._route == "banded_cuda_f64"          # the band is f64
         np.testing.assert_allclose(mvk(x).numpy(), ref.numpy(), rtol=1e-12)
     assert as_matvec(band, impl="xla")[0]._route == "xla"
     # blocktri: the plain version on the CPU (as the JAX package off the TPU)

@@ -22,7 +22,7 @@ from spike_petsc_tpu_torch.convert import (banded_from_numpy,
 from spike_petsc_tpu_torch.ops import blocktri as tbt
 from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
 
-from torch_parity import j2n, jax_factor_to_numpy, random_band, t2n
+from torch_parity import CPU, j2n, jax_factor_to_numpy, random_band, t2n
 
 ATOL = 1e-10
 
@@ -59,7 +59,7 @@ def _torch_factor(D, L, U, inverter="auto"):
 def test_band_to_blocktri_matches_jax(n, kl, ku, b):
     data = random_band(n, kl, ku, seed=n)
     ref = jbt.band_to_blocktri(JBand(jnp.asarray(data), kl, ku), b)
-    got = tbt.band_to_blocktri(banded_from_numpy(data, kl, ku), b)
+    got = tbt.band_to_blocktri(banded_from_numpy(data, kl, ku, device=CPU), b)
     for name in ("D", "L", "U"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(ref, name)))
@@ -145,7 +145,7 @@ def test_plain_sweep_matches_fused_pallas_f64(K, nb, b):
     """f64 at 1e-10, including nb == 1 and nb < nbuf (4)."""
     fj, rhs = _sweep_case(K, nb, b, seed=K * nb)
     ref = np.asarray(blocktri_solve_fused_pallas(fj, jnp.asarray(rhs)))
-    ft = blocktri_factor_from_numpy(*jax_factor_to_numpy(fj))
+    ft = blocktri_factor_from_numpy(*jax_factor_to_numpy(fj), device=CPU)
     got = cfs.blocktri_solve_fused_cuda(ft, torch.from_numpy(rhs))
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
@@ -159,7 +159,7 @@ def test_plain_sweep_matches_fused_pallas_low_precision(store):
                             Sinv=fj.Sinv.astype(jnp.float32), Slu=fj.Slu,
                             piv=fj.piv, method="inv")
     rhs = rhs.astype(np.float32)
-    ft = blocktri_factor_from_numpy(*jax_factor_to_numpy(fj))
+    ft = blocktri_factor_from_numpy(*jax_factor_to_numpy(fj), device=CPU)
     if store == "bf16":
         fj = jbt.cast_factor(fj, jnp.bfloat16)
         ft = tbt.cast_factor(ft, torch.bfloat16)
@@ -174,14 +174,15 @@ def test_plain_sweep_matches_fused_pallas_low_precision(store):
 
 def test_fused_sweep_feasibility_rule():
     fact = blocktri_factor_from_numpy(*(np.zeros((2, 3, 128, 128),
-                                                 np.float32),) * 3)
+                                                 np.float32),) * 3, device=CPU)
     assert cfs.fused_sweep_feasible(fact, 128)
     assert cfs.fused_sweep_feasible(tbt.cast_factor(fact, torch.bfloat16),
                                     128)
     assert not cfs.fused_sweep_feasible(fact, 128, torch.float64)
     assert not cfs.fused_sweep_feasible(
-        blocktri_factor_from_numpy(*(np.zeros((2, 3, 32, 32)),) * 3), 32)
+        blocktri_factor_from_numpy(*(np.zeros((2, 3, 32, 32)),) * 3,
+                                   device=CPU), 32)
     big = blocktri_factor_from_numpy(*(np.zeros((1, 460, 128, 128),
-                                                np.float32),) * 3)
+                                                np.float32),) * 3, device=CPU)
     assert not cfs.fused_sweep_feasible(big, 128)      # y exceeds smem
 

@@ -8,7 +8,8 @@ machine with a card and without JAX it runs as
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: max|kernel - plain| <= 1e-5 max|plain| (f32 accumulation in
-another order; bf16 factors are promoted to f32 by both).
+another order; bf16 factors are promoted to f32 by both); 1e-13 for the f64
+band kernel (f64 accumulation in another order).
 """
 
 import numpy as np
@@ -21,11 +22,14 @@ from spike_petsc_tpu_torch.ops.band import banded_matvec
 from spike_petsc_tpu_torch.ops.blocktri import (BlockTridiagonal,
                                                 band_to_blocktri, cast_factor)
 from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
+from spike_petsc_tpu_torch.ops.cuda import band_matvec_f64 as cbm64
 from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
+from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec_grid as cgrid
 from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
 from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many as cfm
 from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many_spd as cfms
 from spike_petsc_tpu_torch.ops.cuda import fused_sweep_spd as cfss
+from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
 from spike_petsc_tpu_torch.ops.spike import (spike_factor, spike_solve,
                                              spike_solve_many)
 
@@ -246,8 +250,9 @@ def test_blocktri_route_runs_the_blocktri_kernel(cuda_device):
                                       (40, torch.float16)])
 def test_blocktri_route_refuses_on_the_card(cuda_device, kl, dtype):
     """``impl="blocktri"`` on a CUDA band the gate (f64, kl > 128) or the
-    kernel (f16) refuses raises; 'auto' takes the band kernel where it
-    admits the band, else the plain version."""
+    kernel (f16) refuses raises; 'auto' takes the band kernel of the
+    band's dtype where one admits it (#2 for f32, #6 for f64), else the
+    plain version."""
     from spike_petsc_tpu_torch.solvers.operator import (as_matvec,
                                                         as_matvec_many)
     band = BandedMatrix(data=torch.randn((5000, kl + 41), device=cuda_device)
@@ -257,8 +262,9 @@ def test_blocktri_route_refuses_on_the_card(cuda_device, kl, dtype):
     if dtype != torch.float16:
         with pytest.raises(ValueError, match="blocktri does not take"):
             as_matvec_many(band, impl="blocktri")
-    assert as_matvec(band)[0]._route == (
-        "banded_cuda" if dtype == torch.float32 else "xla")
+    assert as_matvec(band)[0]._route == {
+        torch.float32: "banded_cuda", torch.float64: "banded_cuda_f64",
+        torch.float16: "xla"}[dtype]
 
 
 def _spd_factor(b, K, n, seed, k=16):
@@ -384,3 +390,167 @@ def test_cholesky_default_options_run_the_spd_kernel(cuda_device):
     assert res.reason == 2 and res.its <= 3
     assert float((res.x - 1).abs().max()) < 1e-4
     assert cfss.KERNEL.launches >= before + res.its + 1
+
+
+@pytest.mark.cuda
+def test_conversions_default_to_the_card(cuda_device):
+    band = banded_from_numpy(random_band(300, 2, 2, seed=23), 2, 2)
+    assert band.data.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kl,ku", [(100003, 150, 80), (4099, 20, 20),
+                                     (1000, 255, 255), (1000, 100, 100)])
+def test_band_matvec_f64_kernel_matches_plain(cuda_device, n, kl, ku):
+    """Ragged n and widths below and above the flagship's; against the
+    plain f64 version and the plain banded matvec of the band."""
+    data = random_band(n, kl, ku, seed=24, dominant=False) * (1 + 1e-9)
+    band = banded_from_numpy(data, kl, ku, device=cuda_device)
+    prep = cbm64.prepare_banded_mv_f64(band)
+    x = torch.randn(n, dtype=torch.float64, device=cuda_device)
+    ref = cbm64.banded_matvec_prepared_f64(prep, x, impl="plain")
+    launches = cbm64.KERNEL.launches
+    got = cbm64.banded_matvec_prepared_f64(prep, x)
+    torch.cuda.synchronize()
+    assert cbm64.KERNEL.launches == launches + 1
+    assert got.dtype == torch.float64 and got.shape == (n,)
+    assert _rel(got, ref) <= 1e-13
+    assert _rel(got, banded_matvec(band, x)) <= 1e-13
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,K,n", [(128, 8, 8 * 128 * 9), (64, 16, 16 * 64),
+                                   (128, 4, 4 * 128), (64, 4, 4 * 64 * 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sweeps_kernels_match_plain(cuda_device, b, K, n, dtype):
+    """Real factors of a diagonally dominant band; nb = 9, 1 and 40; two
+    launches a solve."""
+    sf = _factor(b, K, n, seed=25)
+    fact = cast_factor(sf.fact, dtype)
+    r = torch.randn((K, sf.nb, b), device=cuda_device)
+    ref = csw.blocktri_solve_batched_cuda(fact, r, impl="plain")
+    launches = csw.KERNEL.launches
+    got = csw.blocktri_solve_batched_cuda(fact, r)
+    torch.cuda.synchronize()
+    assert csw.KERNEL.launches == launches + 2
+    assert got.shape == r.shape and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+    fused = cfs.blocktri_solve_fused_cuda(fact, r)
+    torch.cuda.synchronize()
+    assert _rel(got, fused) <= TOL
+
+
+@pytest.mark.cuda
+def test_spike_solve_pallas_runs_the_two_pass_sweeps(cuda_device):
+    """``spike_solve(impl="pallas")`` launches #9 twice (stored spikes: one
+    partition solve) and agrees with the fused kernel's solve;
+    ``spike_solve_many(impl="pallas")`` runs the multi-RHS kernel."""
+    band = banded_from_numpy(random_band(20000, 20, 20, seed=26,
+                                         dtype=np.float32), 20, 20,
+                             device=cuda_device)
+    sf = spike_factor(band, K=8, block_b=64, store_spikes=True)
+    rhs = torch.randn(20000, device=cuda_device)
+    before = csw.KERNEL.launches, cfs.KERNEL.launches
+    got = spike_solve(sf, rhs, impl="pallas")
+    torch.cuda.synchronize()
+    assert csw.KERNEL.launches == before[0] + 2
+    assert cfs.KERNEL.launches == before[1]
+    ref = spike_solve(sf, rhs, impl="pallas_fused")
+    torch.cuda.synchronize()
+    assert cfs.KERNEL.launches == before[1] + 1
+    assert _rel(got, ref) <= TOL
+    assert _rel(banded_matvec(band, got), rhs) <= 1e-4
+    before = cfm.KERNEL.launches
+    many = spike_solve_many(sf, rhs[:, None], impl="pallas")
+    torch.cuda.synchronize()
+    assert cfm.KERNEL.launches == before + 1
+    assert _rel(many[:, 0], ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,b,kt", [(11, 128, 4), (9, 128, 8), (3, 64, 8),
+                                     (781, 128, 8), (100, 64, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_matvec_kernel_matches_plain(cuda_device, nb, b, kt, dtype):
+    """Short last chunks (nb % kt != 0), one chunk, full chunks; against
+    the plain version and the one-block-per-row kernel #7."""
+    n = nb * b
+    band = banded_from_numpy(random_band(n, b - 7, b - 20, seed=27,
+                                         dtype=np.float32, dominant=False),
+                             b - 7, b - 20, device=cuda_device)
+    T = band_to_blocktri(BandedMatrix(data=band.data.to(dtype), kl=b - 7,
+                                      ku=b - 20), b)
+    x = torch.randn((nb, b), device=cuda_device)
+    ref = cgrid.blocktri_matvec_pallas(T, x, kt=kt, impl="plain")
+    launches = cgrid.KERNEL.launches
+    got = cgrid.blocktri_matvec_pallas(T, x, kt=kt)
+    torch.cuda.synchronize()
+    assert cgrid.KERNEL.launches == launches + 1
+    assert got.shape == (nb, b) and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+    assert _rel(got.reshape(-1), cbt.blocktri_matvec_cuda(T, x.reshape(-1))) \
+        <= TOL
+
+
+@pytest.mark.cuda
+def test_alternate_kernels_refuse_what_they_do_not_take(cuda_device):
+    sf = spike_factor(banded_from_numpy(random_band(4096, 20, 20, seed=28),
+                                        20, 20, device=cuda_device),
+                      K=4, block_b=64)                               # f64
+    r64 = torch.randn((4, sf.nb, 64), dtype=torch.float64,
+                      device=cuda_device)
+    with pytest.raises(ValueError, match="sweeps_feasible"):
+        csw.blocktri_solve_batched_cuda(sf.fact, r64)
+    with pytest.raises(ValueError, match="sweeps_feasible"):
+        spike_solve(sf, torch.randn(4096, dtype=torch.float64,
+                                    device=cuda_device), impl="pallas")
+    f32 = cast_factor(sf.fact, torch.float32)
+    with pytest.raises(ValueError, match="rhs shape"):
+        csw.blocktri_solve_batched_cuda(f32, r64[:, :1].float())
+    T = BlockTridiagonal(*(torch.zeros((3, 64, 64), dtype=torch.float64,
+                                       device=cuda_device),) * 3)
+    with pytest.raises(ValueError, match="does not take"):
+        cgrid.blocktri_matvec_pallas(T, torch.zeros((3, 64),
+                                                    device=cuda_device))
+    T32 = BlockTridiagonal(*(m.float() for m in (T.D, T.L, T.U)))
+    with pytest.raises(ValueError, match="does not take"):
+        cgrid.blocktri_matvec_pallas(T32, torch.zeros((3, 64),
+                                                      device=cuda_device),
+                                     kt=33)
+    with pytest.raises(ValueError, match="x f32"):
+        cgrid.blocktri_matvec_pallas(T32, torch.zeros((2, 64),
+                                                      device=cuda_device))
+    band32 = BandedMatrix(data=torch.randn((500, 5), device=cuda_device),
+                          kl=2, ku=2)
+    prep32 = cbm.prepare_banded_mv(band32)
+    with pytest.raises(ValueError, match="contiguous f64"):
+        cbm64.banded_matvec_prepared_f64(
+            prep32, torch.zeros(500, dtype=torch.float64,
+                                device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_refinement_runs_the_f64_kernel(cuda_device):
+    """richardson + spike with f32 factors on an f64 CUDA band: 'auto' is
+    the f64 band kernel, which runs on every residual, and the fused sweep
+    on every PC apply; the answer is f64-grade."""
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec
+    n, k = 20000, 20
+    band = banded_from_numpy(random_band(n, k, k, seed=29), k, k,
+                             device=cuda_device)
+    assert as_matvec(band)[0]._route == "banded_cuda_f64"
+    b = banded_matvec(band, torch.ones(n, dtype=torch.float64,
+                                       device=cuda_device))
+    before = cbm64.KERNEL.launches, cfs.KERNEL.launches
+    res = solve(band, b, ksp_type="richardson", pc_type="spike", rtol=1e-12,
+                maxit=20, options=Options({"pc_spike_partitions": 8,
+                                           "pc_spike_block": 64,
+                                           "pc_spike_store_spikes": 1,
+                                           "pc_spike_factor_dtype": "f32"}))
+    torch.cuda.synchronize()
+    assert res.reason == 2 and res.its <= 4 and res.x.dtype == torch.float64
+    assert cbm64.KERNEL.launches == before[0] + res.its + 1
+    assert cfs.KERNEL.launches == before[1] + res.its
+    relres = float(torch.linalg.norm(banded_matvec(band, res.x) - b)
+                   / torch.linalg.norm(b))
+    assert relres <= 1e-12 and float((res.x - 1).abs().max()) <= 1e-10

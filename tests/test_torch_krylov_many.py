@@ -28,7 +28,7 @@ from spike_petsc_tpu_torch.ops.band import banded_matvec as t_mv
 from spike_petsc_tpu_torch.solvers import krylov_many as tkm
 from spike_petsc_tpu_torch.solvers import operator as top
 
-from torch_parity import random_band
+from torch_parity import CPU, random_band
 
 N, HW = 400, 3
 
@@ -52,7 +52,7 @@ def _sym_band(n, k, seed):
 def _operators(data, k):
     """(JAX matvec_many, port matvec_many, JAX Jacobi PC, port Jacobi PC)."""
     jb = JBand(jnp.asarray(data), k, k)
-    tb = banded_from_numpy(data, k, k)
+    tb = banded_from_numpy(data, k, k, device=CPU)
     dj = jnp.asarray(data[:, k])[:, None]
     dt = torch.from_numpy(data[:, k].copy())[:, None]
     return (lambda X: j_mv(jb, X), lambda X: t_mv(tb, X),
@@ -130,7 +130,8 @@ def test_bicgstab_many_half_step_exit():
     mvj, mvt, _, _ = _operators(data, HW)
     B = _rhs(data, HW, 3, seed=37)
     sj = jpkg.spike_factor(JBand(jnp.asarray(data), HW, HW), K=4, block_b=8)
-    st = tpkg.spike_factor(banded_from_numpy(data, HW, HW), K=4, block_b=8)
+    st = tpkg.spike_factor(banded_from_numpy(data, HW, HW,
+                                             device=CPU), K=4, block_b=8)
     calls = []
 
     def pct(X):
@@ -163,7 +164,8 @@ def test_solve_many_spike_pc_matches_jax(ksp_type):
     kw = dict(ksp_type=ksp_type, pc_type="spike", rtol=1e-10, maxit=30)
     rj = jksp.solve_many(JBand(jnp.asarray(data), 12, 12), jnp.asarray(B),
                          options=jpkg.Options(dict(FLAGSHIP_PC)), **kw)
-    rt = tpkg.solve_many(banded_from_numpy(data, 12, 12), torch.from_numpy(B),
+    rt = tpkg.solve_many(banded_from_numpy(data, 12, 12,
+                                           device=CPU), torch.from_numpy(B),
                          options=tpkg.Options(dict(FLAGSHIP_PC)), **kw)
     _assert_same(rj, rt)
 
@@ -176,7 +178,8 @@ def test_make_solver_many_blocktri_many_route_matches_jax(monkeypatch):
     n, k, r = 1536, 48, 3
     data = random_band(n, k, k, seed=40, dtype=np.float32)
     B = np.random.default_rng(41).standard_normal((n, r)).astype(np.float32)
-    jb, tb = JBand(jnp.asarray(data), k, k), banded_from_numpy(data, k, k)
+    jb, tb = JBand(jnp.asarray(data), k, k), banded_from_numpy(data, k, k,
+                                                               device=CPU)
     assert jop.as_matvec_many(jb)[0]._route == "blocktri_many"
     assert top.as_matvec_many(tb)[0]._route == "blocktri_many"
     kw = dict(ksp_type="bcgs", pc_type="spike", rtol=1e-6, maxit=60)
@@ -204,7 +207,7 @@ def test_make_solver_many_pc_without_apply_many():
                                pc=JPC(name="diag",
                                       apply=lambda x: pcj(x[:, None])[:, 0]),
                                jit=False, **kw)(jnp.asarray(B))
-    rt = tpkg.make_solver_many(banded_from_numpy(data, HW, HW),
+    rt = tpkg.make_solver_many(banded_from_numpy(data, HW, HW, device=CPU),
                                pc=TPC(name="diag",
                                       apply=lambda x: pct(x[:, None])[:, 0]),
                                **kw)(torch.from_numpy(B))
@@ -219,7 +222,8 @@ def test_single_rhs_bcgs_matches_jax(pc_type, opts):
     kw = dict(ksp_type="bcgs", pc_type=pc_type, rtol=1e-10, maxit=100)
     rj = jpkg.solve(JBand(jnp.asarray(data), 12, 12), jnp.asarray(b),
                     options=jpkg.Options(dict(opts)), **kw)
-    rt = tpkg.solve(banded_from_numpy(data, 12, 12), torch.from_numpy(b),
+    rt = tpkg.solve(banded_from_numpy(data, 12, 12,
+                                      device=CPU), torch.from_numpy(b),
                     options=tpkg.Options(dict(opts)), **kw)
     assert rt.its == int(rj.its) and rt.its >= 1
     assert rt.reason == int(rj.reason) == 2
@@ -242,7 +246,7 @@ def test_single_rhs_bcgs_matches_jax(pc_type, opts):
 def test_make_solver_many_rejects(kwargs, exc, match):
     kwargs = dict(kwargs)
     opts = tpkg.Options(kwargs.pop("options", {}))
-    band = banded_from_numpy(random_band(600, 2, 2, seed=44), 2, 2)
+    band = banded_from_numpy(random_band(600, 2, 2, seed=44), 2, 2, device=CPU)
     with pytest.raises(exc, match=match):
         tpkg.make_solver_many(band, options=opts, **kwargs)
     if exc is ValueError:      # the JAX package says the same

@@ -28,7 +28,7 @@ from spike_petsc_tpu_torch.ops.blocktri import band_to_blocktri
 from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
 from spike_petsc_tpu_torch.solvers import operator as top
 
-from torch_parity import j2n, random_band
+from torch_parity import CPU, j2n, random_band
 
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -45,7 +45,8 @@ def test_blocktri_route_matches_jax_dma_kernel(monkeypatch, dtype, n, k):
     data = random_band(n, k, k, seed=51, dtype=np.float32, dominant=False)
     jb = JBand(jnp.asarray(data).astype(JDT[dtype]), k, k)
     T = jbt.band_to_blocktri(jb, 128)
-    tT = blocktri_from_numpy(*(np.asarray(a) for a in (T.D, T.L, T.U)))
+    tT = blocktri_from_numpy(*(np.asarray(a) for a in (T.D, T.L, T.U)),
+                             device=CPU)
     assert tT.dtype == TDT[dtype] and tT.nb == -(-n // 128)
     x = np.random.default_rng(52).standard_normal(n).astype(np.float32)
     xb = np.zeros(tT.nb * 128, np.float32)
@@ -71,7 +72,7 @@ def test_blocktri_route_matches_jax_dma_kernel(monkeypatch, dtype, n, k):
     (4096, 129, 20, np.float32), (4096, 128, 100, np.float32)])
 def test_bt_gate_matches_jax(n, kl, ku, dtype):
     data = random_band(n, kl, ku, seed=53, dtype=dtype)
-    assert top._bt_gate(banded_from_numpy(data, kl, ku)) == \
+    assert top._bt_gate(banded_from_numpy(data, kl, ku, device=CPU)) == \
         jop._bt_gate(JBand(jnp.asarray(data), kl, ku))
 
 
@@ -79,7 +80,7 @@ def test_blocktri_route_gate_on_the_cpu():
     """Off the card the blocktri routes are not taken (the JAX package's
     rule off the TPU); 'auto' stays on the plain version."""
     data = random_band(1536, 48, 48, seed=54, dtype=np.float32)
-    tb = banded_from_numpy(data, 48, 48)
+    tb = banded_from_numpy(data, 48, 48, device=CPU)
     for impl in ("auto", "blocktri"):
         assert top.as_matvec(tb, impl=impl)[0]._route == "xla"
         assert top.as_matvec_many(tb, impl=impl)[0]._route == "vmap_xla"
@@ -123,8 +124,8 @@ def test_as_matvec_many_routes_match_jax(monkeypatch):
              (narrow, 3, "auto", "vmap_xla"),
              (wide.astype(np.float64), k, "auto", "vmap_xla")]
     for data, kk, impl, route in cases:
-        jb, tb = JBand(jnp.asarray(data), kk, kk), banded_from_numpy(data,
-                                                                      kk, kk)
+        jb = JBand(jnp.asarray(data), kk, kk)
+        tb = banded_from_numpy(data, kk, kk, device=CPU)
         mvj, _, _ = jop.as_matvec_many(jb, impl=impl)
         mvt, nn, _ = top.as_matvec_many(tb, impl=impl)
         assert nn == n and mvt._route == route
@@ -137,7 +138,8 @@ def test_as_matvec_many_routes_match_jax(monkeypatch):
                          for j in range(r)], axis=1)
         np.testing.assert_allclose(cols, ref, rtol=2e-5, atol=2e-5)
     T = jbt.band_to_blocktri(JBand(jnp.asarray(wide), k, k), 128)
-    tT = blocktri_from_numpy(*(np.asarray(a) for a in (T.D, T.L, T.U)))
+    tT = blocktri_from_numpy(*(np.asarray(a) for a in (T.D, T.L, T.U)),
+                             device=CPU)
     mvt, nn, _ = top.as_matvec_many(tT)
     assert (mvt._route, nn) == ("blocktri_many", T.nb * 128)
     Xp = np.zeros((nn, r), np.float32)

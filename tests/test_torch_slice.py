@@ -22,7 +22,7 @@ import spike_petsc_tpu as jpkg
 import spike_petsc_tpu_torch as tpkg
 from spike_petsc_tpu_torch.convert import banded_from_numpy
 
-from torch_parity import random_band
+from torch_parity import CPU, random_band
 
 N, K_HALF = 4096, 20
 FLAGSHIP_PC = {"pc_spike_partitions": 8, "pc_spike_block": 32,
@@ -42,7 +42,7 @@ def _solve_both(data, b, options, **params):
     rj = jpkg.solve(jpkg.BandedMatrix(jnp.asarray(data), K_HALF, K_HALF),
                     jnp.asarray(b), options=jpkg.Options(dict(options)),
                     **params)
-    rt = tpkg.solve(banded_from_numpy(data, K_HALF, K_HALF),
+    rt = tpkg.solve(banded_from_numpy(data, K_HALF, K_HALF, device=CPU),
                     torch.from_numpy(b), options=tpkg.Options(dict(options)),
                     **params)
     return rj, rt
@@ -102,7 +102,7 @@ def test_unported_surface_raises(system, kwargs, match):
     kwargs = dict(kwargs)
     opts = tpkg.Options(kwargs.pop("options", {}))
     with pytest.raises(NotImplementedError, match=match):
-        tpkg.solve(banded_from_numpy(data, K_HALF, K_HALF),
+        tpkg.solve(banded_from_numpy(data, K_HALF, K_HALF, device=CPU),
                    torch.from_numpy(b), options=opts, **kwargs)
 
 
@@ -110,7 +110,7 @@ def test_spike_pc_surface(system):
     """The PC built alone: its info, and the transpose apply not ported."""
     from spike_petsc_tpu_torch.solvers.pc import make_pc
     data, b = system
-    pc = make_pc("spike", banded_from_numpy(data, K_HALF, K_HALF),
+    pc = make_pc("spike", banded_from_numpy(data, K_HALF, K_HALF, device=CPU),
                  tpkg.Options(dict(FLAGSHIP_PC)))
     assert pc.info == dict(partitions=8, block=32, tip=K_HALF, method="inv",
                            truncated=False, spike_dtype="bfloat16")

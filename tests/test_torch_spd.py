@@ -47,7 +47,7 @@ from spike_petsc_tpu_torch.solvers import krylov as tkr
 from spike_petsc_tpu_torch.solvers.pc import PC as TPC
 from spike_petsc_tpu_torch.solvers.pc import _newton_safety_net
 
-from torch_parity import jax_spike_to_numpy, spd_band, t2n
+from torch_parity import CPU, jax_spike_to_numpy, spd_band, t2n
 
 ATOL = 1e-10
 N, HW, B = 2048, 8, 16
@@ -80,7 +80,8 @@ def jax_spd_factor(band):
 
 
 def _bands(data, k=HW):
-    return JBand(jnp.asarray(data), k, k), banded_from_numpy(data, k, k)
+    return JBand(jnp.asarray(data), k, k), banded_from_numpy(data, k, k,
+                                                             device=CPU)
 
 
 def _close(got, ref, atol=ATOL):
@@ -136,7 +137,7 @@ def test_spd_sweeps_match_pallas_interpret():
                                    3, 3).data)
     sj = jsp.spike_factor(JBand(jnp.asarray(data), 3, 3), K=4, block_b=8,
                           method="spd")
-    st = spike_factor_from_numpy(**jax_spike_to_numpy(sj))
+    st = spike_factor_from_numpy(**jax_spike_to_numpy(sj), device=CPU)
     rng = np.random.default_rng(9)
     r = rng.standard_normal((4, sj.nb, 8)).astype(np.float32)
     R = rng.standard_normal((4, sj.nb, 8, 3)).astype(np.float32)
@@ -197,7 +198,7 @@ def test_jax_spd_factor_through_convert(band, rhs, jax_spd_factor,
     """Solve parity alone: the port's solves on a JAX spd factor (the
     stored-spike factors of SPIKE_CASES)."""
     sj = jax_spd_factor(16 if truncated else 4, truncated, True)
-    st = spike_factor_from_numpy(**jax_spike_to_numpy(sj))
+    st = spike_factor_from_numpy(**jax_spike_to_numpy(sj), device=CPU)
     assert st.fact.method == "spd" and st.truncated == truncated
     _close(tsp.spike_solve(st, torch.from_numpy(rhs)),
            jsp.spike_solve(sj, jnp.asarray(rhs)))

@@ -20,7 +20,7 @@ from spike_petsc_tpu_torch.convert import (banded_from_numpy,
 from spike_petsc_tpu_torch.ops import spike as tsp
 from spike_petsc_tpu_torch.ops.band import pad_banded
 
-from torch_parity import (band_to_scipy, j2n, jax_spike_to_numpy,
+from torch_parity import (CPU, band_to_scipy, j2n, jax_spike_to_numpy,
                           random_band, t2n)
 
 ATOL = 1e-9
@@ -45,7 +45,8 @@ def test_extract_tips_match_jax(band):
     K = 4
     k, b, m = tsp._partition_geometry(N, K, KL, KU, B)
     assert (k, b, m) == jsp._partition_geometry(N, K, KL, KU, B)
-    padded = pad_banded(banded_from_numpy(band, KL, KU), K * m).data
+    padded = pad_banded(banded_from_numpy(band, KL, KU,
+                                          device=CPU), K * m).data
     jpadded = j_pad(JBand(jnp.asarray(band), KL, KU), K * m).data
     got = tsp._extract_tips(padded, K, m, k, KL, KU)
     ref = jsp._extract_tips(jpadded, K, m, k, KL, KU)
@@ -69,7 +70,8 @@ def test_spike_factor_and_solve_match_jax(band, rhs, K, store, spike_dtype,
     sj = jsp.spike_factor(JBand(jnp.asarray(band), KL, KU), K=K, block_b=B,
                           store_spikes=store, spike_dtype=jdt,
                           inverter=inverter)
-    st = tsp.spike_factor(banded_from_numpy(band, KL, KU), K=K, block_b=B,
+    st = tsp.spike_factor(banded_from_numpy(band, KL, KU,
+                                            device=CPU), K=K, block_b=B,
                           store_spikes=store, spike_dtype=tdt,
                           inverter=inverter)
     assert (st.n, st.K, st.m, st.b, st.k) == (sj.n, sj.K, sj.m, sj.b, sj.k)
@@ -100,14 +102,14 @@ def test_solve_on_jax_factor(band, rhs, store):
     """Solve parity alone: the port's spike_solve on the JAX factor."""
     sj = jsp.spike_factor(JBand(jnp.asarray(band), KL, KU), K=8, block_b=B,
                           store_spikes=store, inverter="lapack")
-    st = spike_factor_from_numpy(**jax_spike_to_numpy(sj))
+    st = spike_factor_from_numpy(**jax_spike_to_numpy(sj), device=CPU)
     x = tsp.spike_solve(st, torch.from_numpy(rhs))
     _close(x, jsp.spike_solve(sj, jnp.asarray(rhs)))
     # impl="cuda" on a CPU tensor runs the kernel's plain version
     _close(tsp.spike_solve(st, torch.from_numpy(rhs), impl="cuda"),
            jsp.spike_solve(sj, jnp.asarray(rhs)))
     with pytest.raises(ValueError, match="unknown impl"):
-        tsp.spike_solve(st, torch.from_numpy(rhs), impl="xla")
+        tsp.spike_solve(st, torch.from_numpy(rhs), impl="mosaic")
 
 
 @pytest.mark.parametrize("kwargs", [dict(method="lu"), dict(method="cr"),
@@ -116,11 +118,13 @@ def test_solve_on_jax_factor(band, rhs, store):
                                     dict(reduced="cr")])
 def test_unported_options_raise(band, kwargs):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsp.spike_factor(banded_from_numpy(band, KL, KU), K=4, block_b=B,
+        tsp.spike_factor(banded_from_numpy(band, KL, KU,
+                                           device=CPU), K=4, block_b=B,
                          **kwargs)
 
 
 def test_reduced_cyclic_reduction_not_ported():
     data = random_band(300 * 16, 1, 1, seed=2)
     with pytest.raises(NotImplementedError, match="cyclic reduction"):
-        tsp.spike_factor(banded_from_numpy(data, 1, 1), K=300, block_b=16)
+        tsp.spike_factor(banded_from_numpy(data, 1, 1,
+                                           device=CPU), K=300, block_b=16)

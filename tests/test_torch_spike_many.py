@@ -22,7 +22,7 @@ from spike_petsc_tpu_torch.ops import spike as tsp
 from spike_petsc_tpu_torch.ops.band import banded_matvec
 from spike_petsc_tpu_torch.ops.blocktri import BlockTriFactor
 
-from torch_parity import jax_spike_to_numpy, random_band
+from torch_parity import CPU, jax_spike_to_numpy, random_band
 
 N, HW, K, B = 600, 5, 4, 8
 
@@ -41,7 +41,8 @@ def _rhs(r, seed=22, dtype=np.float64):
 def test_spike_solve_many_matches_jax_xla_and_fused_pallas(band, store, r):
     sj = jsp.spike_factor(JBand(jnp.asarray(band), HW, HW), K=K, block_b=B,
                           store_spikes=store)
-    st = tsp.spike_factor(banded_from_numpy(band, HW, HW), K=K, block_b=B,
+    st = tsp.spike_factor(banded_from_numpy(band, HW, HW,
+                                            device=CPU), K=K, block_b=B,
                           store_spikes=store)
     rhs = _rhs(r)
     got = tsp.spike_solve_many(st, torch.from_numpy(rhs))
@@ -52,7 +53,7 @@ def test_spike_solve_many_matches_jax_xla_and_fused_pallas(band, store, r):
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-12,
                                    err_msg=impl)
     # the solution solves the system
-    res = banded_matvec(banded_from_numpy(band, HW, HW), got) \
+    res = banded_matvec(banded_from_numpy(band, HW, HW, device=CPU), got) \
         - torch.from_numpy(rhs)
     assert float(res.abs().max()) < 1e-10
 
@@ -63,7 +64,7 @@ def test_spike_solve_many_on_jax_bf16_spike_factor(band):
     b32 = band.astype(np.float32)
     sj = jsp.spike_factor(JBand(jnp.asarray(b32), HW, HW), K=K, block_b=B,
                           store_spikes=True, spike_dtype=jnp.bfloat16)
-    st = spike_factor_from_numpy(**jax_spike_to_numpy(sj))
+    st = spike_factor_from_numpy(**jax_spike_to_numpy(sj), device=CPU)
     assert st.V.dtype == torch.bfloat16 and st.fact.F.dtype == torch.float32
     rhs = _rhs(5, dtype=np.float32)
     got = tsp.spike_solve_many(st, torch.from_numpy(rhs))
@@ -75,7 +76,8 @@ def test_spike_solve_many_on_jax_bf16_spike_factor(band):
 
 @pytest.mark.parametrize("K_,store", [(1, False), (K, False), (K, True)])
 def test_columns_equal_single_rhs_solves(band, K_, store):
-    st = tsp.spike_factor(banded_from_numpy(band, HW, HW), K=K_, block_b=B,
+    st = tsp.spike_factor(banded_from_numpy(band, HW, HW,
+                                            device=CPU), K=K_, block_b=B,
                           store_spikes=store)
     rhs = torch.from_numpy(_rhs(3, seed=23))
     got = tsp.spike_solve_many(st, rhs)
@@ -88,7 +90,7 @@ def test_columns_equal_single_rhs_solves(band, K_, store):
         tsp.spike_solve_many(st, rhs, impl="cuda").numpy(), got.numpy(),
         atol=0)
     with pytest.raises(ValueError, match="unknown impl"):
-        tsp.spike_solve_many(st, rhs, impl="xla")
+        tsp.spike_solve_many(st, rhs, impl="mosaic")
 
 
 def test_multi_rhs_f32_solve_carries_f32(band):
@@ -96,7 +98,8 @@ def test_multi_rhs_f32_solve_carries_f32(band):
     f32 solve must match the port's own f64 solve of the same factor (the
     factor and spikes promoted exactly) to f32 level.  A carry rounded to
     bf16, as JAX's DEFAULT precision does on a TPU, misses by ~1e-3."""
-    sf = tsp.spike_factor(banded_from_numpy(band.astype(np.float32), HW, HW),
+    sf = tsp.spike_factor(banded_from_numpy(band.astype(np.float32), HW, HW,
+                                            device=CPU),
                           K=K, block_b=B, store_spikes=True,
                           spike_dtype=torch.bfloat16)
     assert sf.fact.F.dtype == torch.float32 and sf.V.dtype == torch.bfloat16

@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+# the port's conversions default to the card; the CPU tests name the CPU
+CPU = torch.device("cpu")
+
 
 def random_band(n, kl, ku, seed=0, dtype=np.float64, dominant=True):
     """A random band in diagonal-offset storage, edge rows' out-of-range
