@@ -50,8 +50,11 @@ In order, it:
      plain versions (f32 and bf16 factors, nb = 1, r = 32, 1 and 100), the
      multi-RHS f32 carry, ``solve(... ksp_type="cg", pc_type="cholesky")``
      at rtol 1e-8 and ``solve_many`` on 32 right-hand sides through the
-     entry points with launch counts, the card against the CPU in f64 on a
-     small band, and the timings of that path;
+     entry points with launch counts (cg serving: 2 iterations in every
+     column and exactly 3 launches of the multi-RHS spd sweep), the card
+     against the CPU in f64 on a small band, and the timings of that path
+     (the multi-RHS spd sweep's time beside its time before the redesign,
+     its microseconds per serial step and its cluster shape);
   8. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
      path, error, time, plain time, bound and library time) and, last, the
      line ``{"ok": true, "device": {...}}``.
@@ -87,6 +90,10 @@ SPD_OPTIONS = {"pc_cholesky_partitions": SPD_K,
                "pc_cholesky_block": SPD_BLOCK,
                "pc_cholesky_truncated": 1, "pc_cholesky_store_spikes": 1}
 CG_ITS_MAX = 5             # the JAX config-2 test's bound
+CG_SERVE_ITS = 2           # cg serving on config 2: every column, 2 its
+# kernel #5 before its redesign (PERF.md §6, row #5, in brackets: H100
+# 80GB HBM3, 700 W), printed beside this run's time
+MANY_SPD_BEFORE_MS = {"f32": 4.3266, "bf16": 4.3867}
 # f64-grade refinement on the flagship band (f64 operator, f32 factors):
 # the recipe of spike_petsc_tpu/testbed.py (-ksp_type richardson
 # -pc_spike_factor_dtype f32), rtol 1e-12 and maxit 20 as bench.py's stage
@@ -854,8 +861,12 @@ def phase_spd_serving(band, device):
           f"cg serving reasons {res.reason.tolist()}")
     check(float(relres.max()) <= SERVE_RELRES_MAX,
           f"cg serving relres {float(relres.max())}")
-    check(launches["fused_sweep_many_spd"] > 0,
-          f"the spd multi-RHS sweep did not run on cg serving: {launches}")
+    check(min(its) == max(its) == CG_SERVE_ITS,
+          f"cg serving: its {its}, expected {CG_SERVE_ITS} in every column")
+    # one PC apply before the loop and one an iteration
+    check(launches["fused_sweep_many_spd"] == CG_SERVE_ITS + 1,
+          f"the spd multi-RHS sweep ran {launches['fused_sweep_many_spd']} "
+          f"times on cg serving, expected {CG_SERVE_ITS + 1}")
     return launches
 
 
@@ -940,6 +951,19 @@ def phase_spd_timing(band, rhs, ssf, device):
             reps=3), gb)
     bounds["fused_sweep_spd"] = sweep_bound(ssf.fact)
     bounds["fused_sweep_many_spd"] = sweep_bound(ssf.fact, NRHS)
+    cfg = cfms.kernel_config(SPD_BLOCK)
+    steps = 2 * ssf.nb - 1
+    f32_ms, bf16_ms = (t[f"fused_sweep_many_spd_cuda_{d}"][0]
+                       for d in ("f32", "bf16"))
+    print(f"fused_sweep_many_spd (config 2: K={SPD_K} nb={ssf.nb} "
+          f"b={SPD_BLOCK} r={NRHS}): f32 {f32_ms:.4f} ms, "
+          f"{f32_ms * 1e3 / steps:.3f} us per step of {steps}; bf16 "
+          f"{bf16_ms:.4f} ms; cluster {cfg['cluster']} blocks, "
+          f"{cfg['cols']} columns per cluster, ring depth {cfg['depth']}; "
+          f"bound {bounds['fused_sweep_many_spd'][0]:.4f} ms "
+          f"({bounds['fused_sweep_many_spd'][1]}); before the redesign "
+          f"(PERF.md) f32 {MANY_SPD_BEFORE_MS['f32']} ms, bf16 "
+          f"{MANY_SPD_BEFORE_MS['bf16']} ms")
     show("cholesky_spike_solve_many_r32",
          time_ms(lambda: spike_solve_many(ssf, B), iters=3))
     server = make_solver_many(band, ksp_type="cg", pc_type="cholesky",

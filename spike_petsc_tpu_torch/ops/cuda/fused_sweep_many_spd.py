@@ -10,6 +10,8 @@ Pallas kernel ``_fused_kernel_many_spd``).  The plain version is
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..blocktri import BlockTriFactor, blocktri_solve
@@ -20,6 +22,7 @@ from .fused_sweep_spd import (check_spd_factor, fused_sweep_spd_feasible,
 KERNEL = CudaKernel("fused_sweep_many_spd", {
     "fused_sweep_many_spd_f32": [P, P, P, P, I, I, I, I, P],
     "fused_sweep_many_spd_bf16": [P, P, P, P, I, I, I, I, P],
+    "fused_sweep_many_spd_config": [I, I, P],
 })
 
 _ENTRY = {torch.float32: "fused_sweep_many_spd_f32",
@@ -33,6 +36,20 @@ def fused_sweep_many_spd_feasible(fact, b: int,
     bf16, b of 64 or 128, an f32 right-hand side), any nb and any number of
     columns."""
     return fused_sweep_spd_feasible(fact, b, rhs_dtype)
+
+
+def kernel_config(b: int, dtype=torch.float32) -> dict:
+    """The built kernel's launch shape for block size ``b`` and factors of
+    ``dtype``: blocks per cluster, columns per cluster, ring depth, shared
+    memory per block, and the clusters the card runs at once (CUDA's
+    occupancy query).  Builds the kernel; needs the card."""
+    out = (ctypes.c_int * 5)()
+    code = KERNEL.lib().fused_sweep_many_spd_config(
+        b, int(dtype == torch.bfloat16), out)
+    if code != 0:
+        raise RuntimeError(f"fused_sweep_many_spd_config: CUDA error {code}")
+    return dict(zip(("cluster", "cols", "depth", "smem_bytes",
+                     "max_active_clusters"), out))
 
 
 def blocktri_solve_fused_many_spd_cuda(fact: BlockTriFactor,
@@ -59,10 +76,17 @@ def blocktri_solve_fused_many_spd_cuda(fact: BlockTriFactor,
         raise ValueError(f"rhs shape {tuple(rhs.shape)} is not "
                          f"{(K, nb, b)} + (r,) with r >= 1")
     r = rhs.shape[3]
+    # the kernel copies 16-byte rows of 4 columns: other r take zero
+    # columns up to a multiple of 4, sliced off the result
+    rp = -(-r // 4) * 4
+    if rp != r:
+        rhs = torch.nn.functional.pad(rhs, (0, rp - r))
     rhs = rhs.contiguous()
-    x = torch.empty((K, nb, b, r), dtype=torch.float32, device=rhs.device)
+    if rhs.data_ptr() % 16:
+        rhs = rhs.clone()
+    x = torch.empty((K, nb, b, rp), dtype=torch.float32, device=rhs.device)
     stream = torch.cuda.current_stream(rhs.device).cuda_stream
     KERNEL.launch(_ENTRY[fact.F.dtype], fact.F.data_ptr(),
                   fact.Sinv.data_ptr(), rhs.data_ptr(), x.data_ptr(), K, nb,
-                  b, r, stream)
-    return x
+                  b, rp, stream)
+    return x if rp == r else x[..., :r].contiguous()

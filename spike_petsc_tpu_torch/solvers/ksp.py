@@ -16,11 +16,15 @@ Ported: a ``BandedMatrix``, ``BlockTridiagonal`` or callable operator, a
 BandedMatrix PC matrix, ``gmres``, ``bcgs``, ``cg``, ``richardson`` (with
 ``-ksp_richardson_scale``) and ``preonly``, the batched engines
 of ``krylov_many``, the ``none``, ``spike`` and ``cholesky`` PCs, and no
-null space.  Options whose code paths are not yet ported raise.
+null space.  ``solve(..., monitor=True)`` prints the residual history
+after the solve (``-ksp_monitor``) and ``view=True`` the solver hierarchy
+before it (``-ksp_view``), as the JAX package prints them.  Options whose
+code paths are not yet ported raise.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -79,11 +83,13 @@ def _reject_unported(opts: Options, transpose: bool, nullspace) -> None:
 def make_solver(A, *, pmat=None, options: Optional[Options] = None,
                 ksp_type: Optional[str] = None, pc_type: Optional[str] = None,
                 pc: Optional[PC] = None, n_hint: Optional[int] = None,
-                transpose: bool = False, nullspace=None,
+                jit: bool = True, transpose: bool = False, nullspace=None,
                 **params) -> Callable:
     """Compose (operator, preconditioner, method) once; return
     ``solve(b, x0=None) -> KSPResult``.  The operator's prepared layout and
-    the PC's factorization are built here, once."""
+    the PC's factorization are built here, once.  ``jit`` is accepted for
+    the JAX package's signature and changes nothing: PyTorch runs eagerly,
+    so the closure is the same either way."""
     opts = options or Options()
     _reject_unported(opts, transpose, nullspace)
     ksp_type = ksp_type or opts.get_string("ksp_type", "gmres")
@@ -112,8 +118,9 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
 def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
                      ksp_type: Optional[str] = None,
                      pc_type: Optional[str] = None, pc: Optional[PC] = None,
-                     n_hint: Optional[int] = None, transpose: bool = False,
-                     nullspace=None, **params) -> Callable:
+                     n_hint: Optional[int] = None, jit: bool = True,
+                     transpose: bool = False, nullspace=None,
+                     **params) -> Callable:
     """Compose a batched multi-RHS solver: ``solve(B [n, r], X0=None)``
     returns a column-batched KSPResult (x [n, r]; its, reason, rnorm per
     column).
@@ -122,7 +129,8 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
     is applied as a true ``[n, r]`` block (``as_matvec_many``) and the PC
     through its native ``apply_many`` where it has one, else a column loop
     of ``apply``.  ``ksp_type`` (default ``bcgs``) is one of
-    ``krylov_many.MANY_SOLVERS``."""
+    ``krylov_many.MANY_SOLVERS``.  ``jit`` is accepted and changes nothing,
+    as in :func:`make_solver`."""
     from .krylov_many import MANY_SOLVERS
     opts = options or Options()
     _reject_unported(opts, transpose, nullspace)
@@ -173,11 +181,22 @@ def solve_many(A, B, X0=None, *, pmat=None, options: Optional[Options] = None,
 
 def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,
           ksp_type: Optional[str] = None, pc_type: Optional[str] = None,
-          pc: Optional[PC] = None, transpose: bool = False,
+          pc: Optional[PC] = None, monitor: bool = False,
+          view: bool = False, transpose: bool = False,
           **params) -> KSPResult:
     """One-shot options-driven solve (KSPSolve equivalent).  ``pmat`` is the
-    preconditioning matrix when it differs from A (KSPSetOperators(A, B))."""
+    preconditioning matrix when it differs from A (KSPSetOperators(A, B)).
+    ``view=True`` prints the configured solver hierarchy before solving
+    (``-ksp_view``); ``monitor=True`` prints the residual history and the
+    converged reason after it (``-ksp_monitor``)."""
     opts = options or Options()
+    if pc is None:
+        name = pc_type or opts.get_string("pc_type", "none")
+        pc = make_pc(name, A if pmat is None else pmat, opts)
+    if view:
+        kt = ksp_type or opts.get_string("ksp_type", "gmres")
+        print(view_str(kt, _params_from_options(opts, params), pc,
+                       n=b.shape[0]))
     solver = make_solver(A, pmat=pmat, options=opts, ksp_type=ksp_type,
                          pc_type=pc_type, pc=pc, n_hint=b.shape[0],
                          transpose=transpose, **params)
@@ -186,4 +205,57 @@ def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,
         raise RuntimeError(
             f"KSPSolve did not converge: {reason_str(res.reason)} after "
             f"{res.its} iterations (rnorm {res.rnorm:.3e})")
+    if monitor:
+        print_monitor(res, bnorm=float(torch.linalg.norm(b)))
     return res
+
+
+def view_str(ksp_type: str, params: dict, pc: Optional[PC],
+             n: Optional[int] = None) -> str:
+    """-ksp_view text: the configured solver hierarchy, PETSc
+    KSPView/PCView style."""
+    lines = ["KSP Object:", f"  type: {ksp_type}"]
+    if ksp_type in ("gmres", "fgmres"):
+        lines.append(f"    restart={params.get('restart', 30)}, modified "
+                     "Gram-Schmidt, Givens-rotation least squares")
+    if ksp_type == "chebyshev":
+        lines.append("    eigenvalue bounds from preset/power estimates")
+    lines.append(f"  maximum iterations={params.get('maxit')}")
+    lines.append(f"  tolerances: relative={params.get('rtol'):g}, "
+                 f"absolute={params.get('atol'):g}, "
+                 f"divergence={params.get('divtol'):g}")
+    side = params.get("side", "right" if ksp_type == "fgmres" else "left")
+    lines.append(f"  {side} preconditioning")
+    if n is not None:
+        lines.append(f"  operator size: {n} x {n}")
+    if pc is None or pc.name == "none":
+        lines.append("PC Object:\n  type: none")
+    else:
+        lines.append("PC Object:")
+        lines.append(pc.describe(1))
+    return "\n".join(lines)
+
+
+def print_monitor(res: KSPResult, bnorm=None) -> None:
+    """-ksp_monitor style residual printout of a single-RHS result; where
+    the solver recorded unpreconditioned norms (``true_history``), both
+    columns, as PETSc's -ksp_monitor_true_residual prints them.
+
+    ``bnorm``: ||b|| for the ||r(i)||/||b|| column; without it the initial
+    true residual is used."""
+    h = res.history.tolist()
+    th = None if res.true_history is None else res.true_history.tolist()
+    tb = None
+    if th is not None:
+        tb = float(bnorm) if bnorm is not None else float(th[0])
+        if not math.isfinite(tb) or tb <= 0:
+            tb = 1.0
+    for i in range(int(res.its) + 1):
+        if math.isfinite(h[i]):
+            if th is not None and math.isfinite(th[i]):
+                print(f"{i:5d} KSP preconditioned resid norm {h[i]:.12e} "
+                      f"true resid norm {th[i]:.12e} ||r(i)||/||b|| "
+                      f"{th[i] / tb:.12e}")
+            else:
+                print(f"{i:5d} KSP Residual norm {h[i]:.12e}")
+    print(f"Converged reason: {reason_str(res.reason)} after {int(res.its)} its")

@@ -31,12 +31,23 @@ class PC:
     name: str
     apply: Callable
     info: dict = dfield(default_factory=dict)
+    inner: Optional["PC"] = None
     # native multi-RHS apply ([n, r] -> [n, r]) where the PC type has one
     # (the spike PC: spike_solve_many streams the factors once for all r
     # columns); None: callers apply ``apply`` column by column
     apply_many: Optional[Callable] = dfield(default=None, repr=False)
     # host-side builder for the M^{-T} apply (PCApplyTranspose)
     make_transpose: Optional[Callable] = dfield(default=None, repr=False)
+
+    def describe(self, indent: int = 0) -> str:
+        """PCView-style description: ``PC <name>: key=value, ...``, then
+        the inner PC's, one level deeper."""
+        pad = "  " * indent
+        s = f"{pad}PC {self.name}: " + ", ".join(
+            f"{k}={v}" for k, v in self.info.items())
+        if self.inner is not None:
+            s += "\n" + self.inner.describe(indent + 1)
+        return s
 
 
 def _as_banded(pmat, opts: Options) -> BandedMatrix:

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -50,6 +50,10 @@ class KSPResult:
     ``[n, r]``; ``its``, ``reason`` and ``rnorm`` as ``[r]`` CPU tensors;
     and ``history`` ``[maxit+1, r]``, NaN beyond each column's ``its``
     (``[2, r]`` for ``preonly_many``).
+
+    ``true_history`` holds the unpreconditioned residual norms where a
+    solver records them (``-ksp_monitor_true_residual``, not yet ported):
+    always ``None`` for now.
     """
 
     x: torch.Tensor
@@ -57,6 +61,21 @@ class KSPResult:
     reason: Union[int, torch.Tensor]
     rnorm: Union[float, torch.Tensor]
     history: torch.Tensor
+    true_history: Optional[torch.Tensor] = None
+
+    @property
+    def converged(self):
+        """``reason > 0``: a bool, or a ``[r]`` bool tensor for a
+        column-batched result."""
+        return self.reason > 0
+
+    def history_trimmed(self) -> torch.Tensor:
+        """``history[:its + 1]``; for a column-batched result, up to the
+        largest ``its`` (rows past a column's own ``its`` stay NaN)."""
+        its = self.its
+        if isinstance(its, torch.Tensor):
+            its = int(its.max())
+        return self.history[:its + 1]
 
     def __repr__(self):  # pragma: no cover
         if isinstance(self.its, torch.Tensor):

@@ -314,6 +314,28 @@ def test_fused_sweep_many_spd_kernel_matches_plain(cuda_device, b, K, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,K,n", [(64, 1, 64 * 40), (128, 1, 128 * 9),
+                                   (128, 2, 2 * 128 * 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [16, 33])
+def test_fused_sweep_many_spd_cluster_edges(cuda_device, b, K, n, dtype, r):
+    """Shapes where the split of a partition over a thread block cluster has
+    edges: one partition (K = 1: one cluster per column chunk), a full and a
+    ragged last column chunk (r = 16, 33), b = 128 at nb = 2 (one forward
+    and one backward step)."""
+    sf = _spd_factor(b, K, n, seed=24)
+    fact = cast_factor(sf.fact, dtype)
+    rhs = torch.randn((K, sf.nb, b, r), device=cuda_device)
+    ref = cfms.blocktri_solve_fused_many_spd_cuda(fact, rhs, impl="plain")
+    launches = cfms.KERNEL.launches
+    got = cfms.blocktri_solve_fused_many_spd_cuda(fact, rhs)
+    torch.cuda.synchronize()
+    assert cfms.KERNEL.launches == launches + 1
+    assert got.shape == rhs.shape and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.cuda
 def test_spd_kernels_refuse_what_they_do_not_take(cuda_device):
     band = banded_from_numpy(spd_band(4096, 16, seed=20), 16, 16,
                              device=cuda_device)                     # f64
