@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Time versions of the multi-RHS spd sweep kernel on one CUDA card.
 
-    python3 experiments/torch_lab_many_spd.py LABEL=SOURCE[:FLAG,FLAG] ...
+    python3 experiments/torch_lab_many_spd.py LABEL=SOURCE[:NAME=VALUE,...] ...
 
 Each argument names a CUDA source with the C interface of
 ``spike_petsc_tpu_torch/csrc/fused_sweep_many_spd.cu`` (the entry points
-``fused_sweep_many_spd_f32`` and ``_bf16``), optionally with extra nvcc
-flags (for instance ``-DMANY_SPD_CLUSTER=2``).  Every source is built with
-the port's nvcc flags into ``build/lab/``, all builds started together.
+``fused_sweep_many_spd_f32`` and ``_bf16``), optionally with constants to
+change: each NAME=VALUE rewrites the source's one ``constexpr int NAME =
+...;`` line (for instance ``kCluster=4,kCols=16``) in a copy under
+``build/lab/``.  Every version is built there with the port's nvcc flags,
+all builds started together.
 Then, at BASELINE config 2 (n = 1e6, bandwidth 33, K = 16, b = 64,
 nb = 977, r = 32; the factor the ``cholesky`` PC builds), each version in
 the order given (a bare LABEL repeats an earlier one, to run versions in
@@ -18,8 +20,8 @@ microseconds per serial step (time / (2 nb - 1)), the error and whether it
 is within the tolerance (a version that is not, such as one with a phase
 taken out to time the rest, is still timed).  The card's name and power
 limit come first; each version that has the
-``fused_sweep_many_spd_config`` entry also prints its cluster shape, ring
-depth, shared memory and how many clusters the card runs at once.
+``fused_sweep_many_spd_config`` entry also prints its cluster shape and
+ring depth.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -44,15 +47,29 @@ P, I = ctypes.c_void_p, ctypes.c_int
 
 
 def parse(args):
-    """[(label, source, flags)]; a bare LABEL repeats an earlier one."""
+    """[(label, source, {name: value})]; a bare LABEL repeats an earlier
+    one."""
     known, out = {}, []
     for arg in args:
         label, _, spec = arg.partition("=")
         if spec:
-            src, _, flags = spec.partition(":")
-            known[label] = (label, Path(src), [f for f in flags.split(",")
-                                               if f])
+            src, _, consts = spec.partition(":")
+            known[label] = (label, Path(src), dict(
+                c.split("=", 1) for c in consts.split(",") if c))
         out.append(known[label])
+    return out
+
+
+def variant(label, src, consts) -> Path:
+    """A copy of `src` under build/lab/ with each constant set."""
+    text = src.read_text()
+    for name, value in consts.items():
+        text, n = re.subn(rf"(constexpr int {name} = )[^;]+;",
+                          rf"\g<1>{value};", text)
+        if n != 1:
+            raise ValueError(f"{label}: {n} lines define {name} in {src}")
+    out = LAB_DIR / f"{label}.cu"
+    out.write_text(text)
     return out
 
 
@@ -60,11 +77,12 @@ def build(versions):
     """{label: ctypes library}, one nvcc per distinct label."""
     LAB_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for label, src, flags in versions:
+    for label, src, consts in versions:
         if label in procs:
             continue
         out = LAB_DIR / f"{label}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(out), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out),
+               str(variant(label, src, consts))]
         procs[label] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -82,11 +100,10 @@ def build(versions):
         if hasattr(lib, "fused_sweep_many_spd_config"):   # not the parent's
             lib.fused_sweep_many_spd_config.argtypes = [I, I, P]
             for b, bf16 in ((64, 0), (64, 1)):
-                out = (ctypes.c_int * 5)()
+                out = (ctypes.c_int * 3)()
                 lib.fused_sweep_many_spd_config(b, bf16, out)
                 print(f"  {label} b={b} {'bf16' if bf16 else 'f32'}: "
-                      f"cluster {out[0]}, cols {out[1]}, depth {out[2]}, "
-                      f"smem {out[3]} B, max active clusters {out[4]}")
+                      f"cluster {out[0]}, cols {out[1]}, depth {out[2]}")
         libs[label] = lib
     return libs
 
@@ -116,7 +133,7 @@ def main() -> int:
     print(json.dumps({"shape": [SPD_K, sf.nb, SPD_BLOCK, NRHS],
                       "bound_ms": bound_ms, "bound_by": bound_by}))
     stream = torch.cuda.current_stream(device).cuda_stream
-    for label, _, flags in versions:
+    for label, _, consts in versions:
         lib = libs[label]
         for dt, fact in facts.items():
             fn = getattr(lib, f"fused_sweep_many_spd_{dt}")
@@ -133,7 +150,7 @@ def main() -> int:
             diff, err = kernel_err(x, refs[dt])
             ms, spread = time_ms(run, reps=7, iters=5)
             print(json.dumps({
-                "label": label, "flags": flags, "dtype": dt, "ms": ms,
+                "label": label, "consts": consts, "dtype": dt, "ms": ms,
                 "spread_ms": spread,
                 "us_per_step": ms * 1e3 / (2 * sf.nb - 1),
                 "max_abs_err": diff, "rel_err": err,

@@ -56,33 +56,25 @@
 //     through shared memory and each carry row goes out in 16-byte pieces;
 //   * bf16 factors are promoted to f32 at the read (a 16-bit shift).  No
 //     TF32 and no bf16 rounding of the carry: the carry is f32 end to end.
-// C, RC and the copy warps are compile-time constants chosen by measurement
-// (experiments/torch_lab_many_spd.py builds other values with
-// -DMANY_SPD_CLUSTER=... -DMANY_SPD_COLS=... -DMANY_SPD_COPY_WARPS=...).
-// b = 128 takes a cluster of at least 4, so that a ring slot (two slabs)
-// leaves room for three slots.
+// C, RC and the copy warps are constants chosen by measurement (kCluster,
+// kCols, kCopyWarps).  b = 128 takes a cluster of at least 4, so that a
+// ring slot (two slabs) leaves room for three slots.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
-#ifndef MANY_SPD_CLUSTER
-#define MANY_SPD_CLUSTER 2
-#endif
-#ifndef MANY_SPD_COLS
-#define MANY_SPD_COLS 8
-#endif
-
 namespace cg = cooperative_groups;
 
 namespace {
 
+constexpr int kCluster = 2;              // blocks a cluster (b = 64)
+constexpr int kCluster128 = kCluster < 4 ? 4 : kCluster;   // (b = 128)
+constexpr int kCols = 8;                 // columns a cluster
+constexpr int kCopyWarps = 4;
 constexpr int kThreads = 256;            // the compute warps
-#ifndef MANY_SPD_COPY_WARPS
-#define MANY_SPD_COPY_WARPS 4
-#endif
-constexpr int kCopy = 32 * MANY_SPD_COPY_WARPS;   // the copy warps' threads
+constexpr int kCopy = 32 * kCopyWarps;   // the copy warps' threads
 constexpr int kRingBytes = 170 * 1024;   // the ring at one block an SM
 constexpr int kHalfSmem = 113 * 1024;    // a block's share at two an SM
 constexpr int kMaxDepth = 8;
@@ -522,40 +514,14 @@ int run(const void* F, const void* Sinv, const void* r, void* x, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: cluster size C, columns per cluster RC, ring depth D, shared memory
-// bytes a block, and how many clusters the card can run at once
+// out: cluster size C, columns per cluster RC, ring depth D
 template <int B, int C, int RC, int PACK>
 int describe(int* out) {
-  auto kernel = fused_sweep_many_spd_kernel<B, C, RC, PACK>;
-  const size_t smem = Cfg<B, C, RC, PACK>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * 1024);
-  cfg.blockDim = dim3(kThreads + kCopy);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   out[0] = C;
   out[1] = RC;
   out[2] = Cfg<B, C, RC, PACK>::kDepth;
-  out[3] = static_cast<int>(smem);
-  out[4] = clusters;
-  return static_cast<int>(err);
+  return 0;
 }
-
-constexpr int kCluster = MANY_SPD_CLUSTER;
-constexpr int kCluster128 = kCluster < 4 ? 4 : kCluster;
-constexpr int kCols = MANY_SPD_COLS;
 
 template <int PACK>
 int launch(const void* F, const void* Sinv, const void* r, void* x, int K,

@@ -40,16 +40,14 @@ def fused_sweep_many_spd_feasible(fact, b: int,
 
 def kernel_config(b: int, dtype=torch.float32) -> dict:
     """The built kernel's launch shape for block size ``b`` and factors of
-    ``dtype``: blocks per cluster, columns per cluster, ring depth, shared
-    memory per block, and the clusters the card runs at once (CUDA's
-    occupancy query).  Builds the kernel; needs the card."""
-    out = (ctypes.c_int * 5)()
+    ``dtype``: blocks per cluster, columns per cluster and ring depth, the
+    source's constants.  Builds the kernel (nvcc); makes no CUDA call."""
+    out = (ctypes.c_int * 3)()
     code = KERNEL.lib().fused_sweep_many_spd_config(
         b, int(dtype == torch.bfloat16), out)
     if code != 0:
-        raise RuntimeError(f"fused_sweep_many_spd_config: CUDA error {code}")
-    return dict(zip(("cluster", "cols", "depth", "smem_bytes",
-                     "max_active_clusters"), out))
+        raise ValueError(f"fused_sweep_many_spd_config: no kernel for b={b}")
+    return dict(zip(("cluster", "cols", "depth"), out))
 
 
 def blocktri_solve_fused_many_spd_cuda(fact: BlockTriFactor,

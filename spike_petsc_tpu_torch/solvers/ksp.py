@@ -112,6 +112,7 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
     def _solve(b, x0=None):
         return method(matvec, b, x0, pc_apply, **kw)
 
+    _solve.pc = pc          # the composed PC, for solve's -ksp_view
     return _solve
 
 
@@ -190,16 +191,13 @@ def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,
     (``-ksp_view``); ``monitor=True`` prints the residual history and the
     converged reason after it (``-ksp_monitor``)."""
     opts = options or Options()
-    if pc is None:
-        name = pc_type or opts.get_string("pc_type", "none")
-        pc = make_pc(name, A if pmat is None else pmat, opts)
-    if view:
-        kt = ksp_type or opts.get_string("ksp_type", "gmres")
-        print(view_str(kt, _params_from_options(opts, params), pc,
-                       n=b.shape[0]))
     solver = make_solver(A, pmat=pmat, options=opts, ksp_type=ksp_type,
                          pc_type=pc_type, pc=pc, n_hint=b.shape[0],
                          transpose=transpose, **params)
+    if view:
+        kt = ksp_type or opts.get_string("ksp_type", "gmres")
+        print(view_str(kt, _params_from_options(opts, params), solver.pc,
+                       n=b.shape[0]))
     res = solver(b, x0)
     if opts.get_bool("ksp_error_if_not_converged", False) and res.reason <= 0:
         raise RuntimeError(

@@ -132,6 +132,23 @@ def test_gmres_family_take_monitor_and_view(capsys, ksp):
     assert sum("KSP Residual norm" in ln for ln in out) == res.its + 1
 
 
+@pytest.mark.parametrize("ksp,opts", [
+    ("tfqmr", {}), ("gmres", {"ksp_monitor_true_residual": "1"})],
+    ids=["unknown-ksp", "unported-flag"])
+def test_view_refuses_before_building_the_pc(capsys, monkeypatch, ksp, opts):
+    """What ``solve`` cannot run raises before any factorization, and
+    ``view`` prints nothing for it."""
+    built = []
+    monkeypatch.setattr(tpkg.solvers.ksp, "make_pc",
+                        lambda *a, **k: built.append(a))
+    _, tb, b = _problem(False)
+    with pytest.raises(NotImplementedError):
+        tpkg.solve(tb, torch.from_numpy(b), ksp_type=ksp, pc_type="spike",
+                   options=tpkg.Options(dict(SPIKE, **opts)), view=True,
+                   monitor=True)
+    assert not built and capsys.readouterr().out == ""
+
+
 def _same(r1, r2):
     assert torch.equal(r1.x, r2.x)
     assert torch.equal(torch.as_tensor(r1.its), torch.as_tensor(r2.its))
