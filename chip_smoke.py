@@ -50,11 +50,12 @@ In order, it:
      plain versions (f32 and bf16 factors, nb = 1, r = 32, 1 and 100), the
      multi-RHS f32 carry, ``solve(... ksp_type="cg", pc_type="cholesky")``
      at rtol 1e-8 and ``solve_many`` on 32 right-hand sides through the
-     entry points with launch counts (cg serving: 2 iterations in every
-     column and exactly 3 launches of the multi-RHS spd sweep), the card
-     against the CPU in f64 on a small band, and the timings of that path
-     (the multi-RHS spd sweep's time beside its time before the redesign,
-     its microseconds per serial step and its cluster shape);
+     entry points with launch counts (cg: exactly its + 1 launches of the
+     spd sweep; cg serving: 2 iterations in every column and exactly 3
+     launches of the multi-RHS spd sweep), the card against the CPU in f64
+     on a small band, and the timings of that path (each spd sweep's time
+     beside its time before its redesign, its microseconds per serial step
+     and its cluster shape);
   8. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
      path, error, time, plain time, bound and library time) and, last, the
      line ``{"ok": true, "device": {...}}``.
@@ -94,6 +95,9 @@ CG_SERVE_ITS = 2           # cg serving on config 2: every column, 2 its
 # kernel #5 before its redesign (PERF.md §6, row #5, in brackets: H100
 # 80GB HBM3, 700 W), printed beside this run's time
 MANY_SPD_BEFORE_MS = {"f32": 4.3266, "bf16": 4.3867}
+# kernel #3 before its redesign (PERF.md §6, row #3, in brackets: H100
+# 80GB HBM3, 700 W), printed beside this run's time
+SPD_BEFORE_MS = {"f32": 1.3904, "bf16": 1.2257}
 # f64-grade refinement on the flagship band (f64 operator, f32 factors):
 # the recipe of spike_petsc_tpu/testbed.py (-ksp_type richardson
 # -pc_spike_factor_dtype f32), rtol 1e-12 and maxit 20 as bench.py's stage
@@ -826,8 +830,12 @@ def phase_spd_main_path(band, rhs):
     check(res.x.shape == (SPD_N,) and bool(torch.isfinite(res.x).all()),
           "cg solution shape / finiteness")
     check(xerr <= 1e-3 and true_rel <= 1e-4, "cg solution accuracy")
-    check(launches["band_matvec"] > 0 and launches["fused_sweep_spd"] > 0,
-          f"a kernel did not run on the cg path: {launches}")
+    check(launches["band_matvec"] > 0,
+          f"the band kernel did not run on the cg path: {launches}")
+    # one PC apply before the loop and one an iteration
+    check(launches["fused_sweep_spd"] == res.its + 1,
+          f"the spd sweep ran {launches['fused_sweep_spd']} times on cg, "
+          f"expected {res.its + 1}")
     return launches
 
 
@@ -951,8 +959,22 @@ def phase_spd_timing(band, rhs, ssf, device):
             reps=3), gb)
     bounds["fused_sweep_spd"] = sweep_bound(ssf.fact)
     bounds["fused_sweep_many_spd"] = sweep_bound(ssf.fact, NRHS)
-    cfg = cfms.kernel_config(SPD_BLOCK)
     steps = 2 * ssf.nb - 1
+    cfg = cfss.kernel_config(SPD_BLOCK)
+    f32_ms, bf16_ms = (t[f"fused_sweep_spd_cuda_{d}"][0]
+                       for d in ("f32", "bf16"))
+    print(f"fused_sweep_spd (config 2: K={SPD_K} nb={ssf.nb} "
+          f"b={SPD_BLOCK}): f32 {f32_ms:.4f} ms, "
+          f"{f32_ms * 1e3 / steps:.3f} us per step of {steps}; bf16 "
+          f"{bf16_ms:.4f} ms, {bf16_ms * 1e3 / steps:.3f} us per step; "
+          f"cluster {cfg['cluster']} blocks, {cfg['compute_warps']} compute "
+          f"and {cfg['copy_warps']} copy warps a block, ring depth "
+          f"{cfg['depth']} slots of {cfg['steps_per_slot']} steps; bound "
+          f"{bounds['fused_sweep_spd'][0]:.4f} ms "
+          f"({bounds['fused_sweep_spd'][1]}); before the redesign "
+          f"(PERF.md) f32 {SPD_BEFORE_MS['f32']} ms, bf16 "
+          f"{SPD_BEFORE_MS['bf16']} ms")
+    cfg = cfms.kernel_config(SPD_BLOCK)
     f32_ms, bf16_ms = (t[f"fused_sweep_many_spd_cuda_{d}"][0]
                        for d in ("f32", "bf16"))
     print(f"fused_sweep_many_spd (config 2: K={SPD_K} nb={ssf.nb} "

@@ -9,6 +9,8 @@ kernel ``_fused_kernel_spd``).  The plain version is
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..blocktri import BlockTriFactor, blocktri_solve
@@ -17,6 +19,7 @@ from ._build import CudaKernel, I, P
 KERNEL = CudaKernel("fused_sweep_spd", {
     "fused_sweep_spd_f32": [P, P, P, P, I, I, I, P],
     "fused_sweep_spd_bf16": [P, P, P, P, I, I, I, P],
+    "fused_sweep_spd_config": [I, I, P],
 })
 
 _ENTRY = {torch.float32: "fused_sweep_spd_f32",
@@ -73,6 +76,20 @@ def check_spd_factor(fact: BlockTriFactor, device, what: str) -> tuple:
     return K, nb, b
 
 
+def kernel_config(b: int, dtype=torch.float32) -> dict:
+    """The built kernel's launch shape for block size ``b`` and factors of
+    ``dtype``: blocks per cluster, compute and copy warps per block, ring
+    slots and steps per slot, the source's constants.  Builds the kernel
+    (nvcc); makes no CUDA call."""
+    out = (ctypes.c_int * 5)()
+    code = KERNEL.lib().fused_sweep_spd_config(
+        b, int(dtype == torch.bfloat16), out)
+    if code != 0:
+        raise ValueError(f"fused_sweep_spd_config: no kernel for b={b}")
+    return dict(zip(("cluster", "compute_warps", "copy_warps", "depth",
+                     "steps_per_slot"), out))
+
+
 def blocktri_solve_fused_spd_cuda(fact: BlockTriFactor, rhs: torch.Tensor,
                                   impl: str = "auto") -> torch.Tensor:
     """Batched symmetric block-Thomas solve, both sweeps in one kernel
@@ -94,6 +111,8 @@ def blocktri_solve_fused_spd_cuda(fact: BlockTriFactor, rhs: torch.Tensor,
     if rhs.shape != (K, nb, b):
         raise ValueError(f"rhs shape {tuple(rhs.shape)} != {(K, nb, b)}")
     rhs = rhs.contiguous()
+    if rhs.data_ptr() % 16:         # the kernel copies 16-byte pieces
+        rhs = rhs.clone()
     x = torch.empty((K, nb, b), dtype=torch.float32, device=rhs.device)
     stream = torch.cuda.current_stream(rhs.device).cuda_stream
     KERNEL.launch(_ENTRY[fact.F.dtype], fact.F.data_ptr(),

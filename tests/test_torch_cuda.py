@@ -296,6 +296,31 @@ def test_fused_sweep_spd_kernel_matches_plain(cuda_device, b, K, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,K,n,offset", [
+    (64, 1, 64 * 40, 0), (128, 1, 128 * 9, 0), (128, 2, 2 * 128 * 2, 0),
+    (64, 4, 4 * 64, 0), (64, 16, 16 * 64 * 3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_sweep_spd_cluster_edges(cuda_device, b, K, n, offset, dtype):
+    """Shapes where the split of a partition over a thread block cluster has
+    edges: one partition (K = 1: the cluster is the whole grid) at b = 64
+    and 128, b = 128 at nb = 2 (one forward and one backward step), nb = 1
+    (no forward step), and a right-hand side whose data_ptr is not 16-byte
+    aligned (the kernel copies 16-byte pieces; the wrapper copies it)."""
+    sf = _spd_factor(b, K, n, seed=25)
+    fact = cast_factor(sf.fact, dtype)
+    buf = torch.randn(K * sf.nb * b + offset, device=cuda_device)
+    r = buf[offset:].view(K, sf.nb, b)
+    assert (r.data_ptr() % 16 != 0) == bool(offset)
+    ref = cfss.blocktri_solve_fused_spd_cuda(fact, r, impl="plain")
+    launches = cfss.KERNEL.launches
+    got = cfss.blocktri_solve_fused_spd_cuda(fact, r)
+    torch.cuda.synchronize()
+    assert cfss.KERNEL.launches == launches + 1
+    assert got.shape == r.shape and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,K,n", SPD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r", [1, 17, 32, 100])
