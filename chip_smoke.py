@@ -98,6 +98,9 @@ MANY_SPD_BEFORE_MS = {"f32": 4.3266, "bf16": 4.3867}
 # kernel #3 before its redesign (PERF.md §6, row #3, in brackets: H100
 # 80GB HBM3, 700 W), printed beside this run's time
 SPD_BEFORE_MS = {"f32": 1.3904, "bf16": 1.2257}
+# kernel #4 before its redesign (PERF.md §6, row #4, in brackets: H100
+# 80GB HBM3, 700 W), printed beside this run's time
+MANY_BEFORE_MS = {"f32": 1.4496, "bf16": 1.2226}
 # f64-grade refinement on the flagship band (f64 operator, f32 factors):
 # the recipe of spike_petsc_tpu/testbed.py (-ksp_type richardson
 # -pc_spike_factor_dtype f32), rtol 1e-12 and maxit 20 as bench.py's stage
@@ -115,6 +118,7 @@ GRID_KT = 8                # block rows per thread block of the grid matvec
 PEAK_BYTES_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
 PEAK_F64_FLOPS = 34e12     # f64 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # TF32 on the tensor cores, dense (kernel #4)
 REPLACES = {
     "band_matvec": "spike_petsc_tpu/ops/pallas/band_matvec.py:66",
     "fused_sweep": "spike_petsc_tpu/ops/pallas/fused_sweep.py:109",
@@ -206,16 +210,17 @@ def roofline(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
                                                            "operations")
 
 
-def sweep_bound(fact, r=1):
+def sweep_bound(fact, r=1, peak_flops=PEAK_F32_FLOPS):
     """The roofline of a fused block-Thomas solve of ``r`` right-hand
     sides: the factor's stored matrices (F, U, Sinv for ``inv``; F, Sinv
     for ``spd``) and the f32 vectors in and out; 3 nb - 2 matrix-vector
-    products per partition and column."""
+    products per partition and column, at ``peak_flops`` (the CUDA cores'
+    f32 rate unless the kernel runs its products on the tensor cores)."""
     K, nb, b, _ = fact.F.shape
     mats = 3 if fact.method == "inv" else 2
     nbytes = (mats * fact.F.numel() * fact.F.element_size()
               + 2 * K * nb * b * r * 4)
-    return roofline(nbytes, 2 * K * (3 * nb - 2) * b * b * r)
+    return roofline(nbytes, 2 * K * (3 * nb - 2) * b * b * r, peak_flops)
 
 
 def band_csr(band):
@@ -687,7 +692,10 @@ def phase_timing(band, rhs, sf, device):
             lambda: cfs.blocktri_solve_fused_cuda(fact, rblk, impl="plain"),
             iters=3), gb)
     bounds["fused_sweep"] = sweep_bound(sf.fact)
-    bounds["fused_sweep_many"] = sweep_bound(sf.fact, NRHS)
+    # #4 runs its products on the tensor cores (3xTF32 / 2xTF32)
+    bounds["fused_sweep_many"] = sweep_bound(sf.fact, NRHS, PEAK_TF32_FLOPS)
+    many_bf16_bound = sweep_bound(cast_factor(sf.fact, torch.bfloat16), NRHS,
+                                  PEAK_TF32_FLOPS)
 
     # serving: the multi-RHS sweep, the solve and the bcgs solve at r = 32
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
@@ -705,6 +713,24 @@ def phase_timing(band, rhs, sf, device):
             lambda: cfm.blocktri_solve_fused_many_cuda(fact, rm,
                                                        impl="plain"),
             iters=2), gb)
+    steps = 3 * sf.nb - 2
+    f32_ms, bf16_ms = (t[f"fused_sweep_many_cuda_{d}"][0]
+                       for d in ("f32", "bf16"))
+    cfgs = {d: cfm.kernel_config(BLOCK, dt) for d, dt in
+            (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    cfg = cfgs["f32"]
+    print(f"fused_sweep_many (flagship: K={K} nb={sf.nb} b={BLOCK} "
+          f"r={NRHS}): f32 {f32_ms:.4f} ms, {f32_ms * 1e3 / steps:.3f} us "
+          f"per step of {steps}; bf16 {bf16_ms:.4f} ms, "
+          f"{bf16_ms * 1e3 / steps:.3f} us per step; cluster "
+          f"{cfg['cluster']} blocks of {cfg['cols']} columns, {cfg['warps']} "
+          f"consumer warps and 1 producer warp a block, ring depth "
+          + ", ".join(f"{c['depth']} matrices ({d})"
+                      for d, c in cfgs.items())
+          + f"; bound f32 {bounds['fused_sweep_many'][0]:.4f} ms "
+          f"({bounds['fused_sweep_many'][1]}), bf16 {many_bf16_bound[0]:.4f} "
+          f"ms ({many_bf16_bound[1]}); before the redesign (PERF.md) f32 "
+          f"{MANY_BEFORE_MS['f32']} ms, bf16 {MANY_BEFORE_MS['bf16']} ms")
     show("spike_solve_many_r32", time_ms(lambda: spike_solve_many(sf, B),
                                          iters=3))
     print(f"  spike_solve_many per RHS: "

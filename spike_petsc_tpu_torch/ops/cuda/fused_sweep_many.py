@@ -8,6 +8,8 @@ version is ``ops.blocktri.blocktri_solve`` on ``[K, nb, b, r]``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..blocktri import BlockTriFactor, blocktri_solve
@@ -16,11 +18,15 @@ from ._build import CudaKernel, I, P
 KERNEL = CudaKernel("fused_sweep_many", {
     "fused_sweep_many_f32": [P, P, P, P, P, I, I, I, I, P],
     "fused_sweep_many_bf16": [P, P, P, P, P, I, I, I, I, P],
+    "fused_sweep_many_config": [I, I, P],
 })
 
 _ENTRY = {torch.float32: "fused_sweep_many_f32",
           torch.bfloat16: "fused_sweep_many_bf16"}
 _BLOCK_SIZES = (64, 128)
+# the columns of one thread block cluster (two blocks of 16): the wrapper
+# pads r with zero columns to a multiple of it
+CLUSTER_COLS = 32
 
 
 def fused_sweep_many_feasible(fact, b: int,
@@ -34,6 +40,21 @@ def fused_sweep_many_feasible(fact, b: int,
         return False
     return (fact.F.dtype in _ENTRY and b in _BLOCK_SIZES
             and rhs_dtype == torch.float32)
+
+
+def kernel_config(b: int, dtype=torch.float32) -> dict:
+    """The built kernel's launch shape for block size ``b`` and factors of
+    ``dtype``: blocks per cluster, columns per block, consumer warps a block
+    (beside one producer warp), ring depth in matrices and shared memory
+    bytes, from the source's constants.  Builds the kernel (nvcc); makes no
+    CUDA call."""
+    out = (ctypes.c_int * 5)()
+    code = KERNEL.lib().fused_sweep_many_config(
+        b, int(dtype == torch.bfloat16), out)
+    if code != 0:
+        raise ValueError(f"fused_sweep_many_config: no kernel for b={b}")
+    return dict(zip(("cluster", "cols", "warps", "depth", "smem_bytes"),
+                    out))
 
 
 def blocktri_solve_fused_many_cuda(fact: BlockTriFactor, rhs: torch.Tensor,
@@ -66,10 +87,19 @@ def blocktri_solve_fused_many_cuda(fact: BlockTriFactor, rhs: torch.Tensor,
     if rhs.dim() != 4 or rhs.shape[:3] != (K, nb, b) or rhs.shape[3] < 1:
         raise ValueError(f"rhs shape {tuple(rhs.shape)} is not "
                          f"{(K, nb, b)} + (r,) with r >= 1")
+    # the TMA reads the matrices from 16-byte aligned addresses
+    mats = tuple(m.clone() if m.data_ptr() % 16 else m for m in mats)
+    # a cluster takes 32 columns: other r take zero columns up to a
+    # multiple of 32, sliced off the result
     r = rhs.shape[3]
+    rp = -(-r // CLUSTER_COLS) * CLUSTER_COLS
+    if rp != r:
+        rhs = torch.nn.functional.pad(rhs, (0, rp - r))
     rhs = rhs.contiguous()
-    x = torch.empty((K, nb, b, r), dtype=torch.float32, device=rhs.device)
+    if rhs.data_ptr() % 16:
+        rhs = rhs.clone()
+    x = torch.empty((K, nb, b, rp), dtype=torch.float32, device=rhs.device)
     stream = torch.cuda.current_stream(rhs.device).cuda_stream
     KERNEL.launch(_ENTRY[fact.F.dtype], *(m.data_ptr() for m in mats),
-                  rhs.data_ptr(), x.data_ptr(), K, nb, b, r, stream)
-    return x
+                  rhs.data_ptr(), x.data_ptr(), K, nb, b, rp, stream)
+    return x if rp == r else x[..., :r].contiguous()

@@ -33,7 +33,8 @@ from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
 from spike_petsc_tpu_torch.ops.spike import (spike_factor, spike_solve,
                                              spike_solve_many)
 
-from torch_parity import cuda_device, random_band, spd_band  # noqa: F401
+from torch_parity import (cuda_device, random_band, spd_band,  # noqa: F401
+                          sweep_tf32)
 
 TOL = 1e-5
 
@@ -145,6 +146,59 @@ def test_fused_sweep_many_column_chunks_agree(cuda_device, r):
     rhs = torch.randn((8, sf.nb, 128, r), device=cuda_device)
     ref = cfm.blocktri_solve_fused_many_cuda(sf.fact, rhs, impl="plain")
     got = cfm.blocktri_solve_fused_many_cuda(sf.fact, rhs)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,K,n,r,offset", [
+    (128, 8, 8 * 128 * 5, 17, 0), (128, 8, 8 * 128 * 5, 37, 0),
+    (128, 8, 8 * 128 * 5, 100, 0), (128, 8, 8 * 128 * 5, 1, 0),
+    (128, 4, 4 * 128, 32, 0), (128, 1, 128 * 9, 32, 0),
+    (64, 16, 16 * 64 * 3, 32, 0), (64, 1, 64, 17, 0),
+    (128, 8, 8 * 128 * 5, 32, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_sweep_many_cluster_edges(cuda_device, b, K, n, r, offset,
+                                        dtype):
+    """Shapes where the kernel's clusters of two 16-column blocks have
+    edges: an odd number of 16-column chunks (r = 37, 100) and r = 17 and
+    r = 1 (the wrapper pads to a multiple of 32 and slices), nb = 1 (no
+    forward step), K = 1 (one partition), b = 64 (one at K = 1, nb = 1),
+    and a right-hand side whose data_ptr is not 16-byte aligned (the
+    wrapper copies it)."""
+    sf = _factor(b, K, n, seed=26)
+    fact = cast_factor(sf.fact, dtype)
+    buf = torch.randn(K * sf.nb * b * r + offset, device=cuda_device)
+    rhs = buf[offset:].view(K, sf.nb, b, r)
+    assert (rhs.data_ptr() % 16 != 0) == bool(offset)
+    ref = cfm.blocktri_solve_fused_many_cuda(fact, rhs, impl="plain")
+    launches = cfm.KERNEL.launches
+    got = cfm.blocktri_solve_fused_many_cuda(fact, rhs)
+    torch.cuda.synchronize()
+    assert cfm.KERNEL.launches == launches + 1
+    assert got.shape == rhs.shape and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,dtype,passes", [(64, torch.float32, 3),
+                                            (128, torch.float32, 3),
+                                            (128, torch.bfloat16, 2)])
+def test_fused_sweep_many_needs_the_lo_terms(cuda_device, b, dtype, passes):
+    """F scaled by 16 (F ~ 1): the kernel's TF32 products keep f32
+    accuracy only with their lo terms.  One TF32 pass would miss 1e-5 here
+    (asserted on the emulated sweep of tests/torch_parity.py, which
+    tests/test_torch_tf32_split.py holds against the f64 solve on the CPU);
+    the kernel, 3xTF32 on f32 factors and 2xTF32 on bf16 ones, must not."""
+    sf = _factor(b, 4, 4 * 4 * b, seed=31)
+    fact = cast_factor(sf.fact, dtype)
+    fact = type(fact)(F=fact.F * 16, U=fact.U, Sinv=fact.Sinv,
+                      method=fact.method)
+    rhs = torch.randn((4, sf.nb, b, 32), device=cuda_device)
+    ref = cfm.blocktri_solve_fused_many_cuda(fact, rhs, impl="plain")
+    assert _rel(sweep_tf32(fact, rhs, 1), ref) > TOL
+    assert _rel(sweep_tf32(fact, rhs, passes), ref) <= TOL
+    got = cfm.blocktri_solve_fused_many_cuda(fact, rhs)
     torch.cuda.synchronize()
     assert _rel(got, ref) <= TOL
 

@@ -97,3 +97,40 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     return torch.device("cuda", 0)
+
+
+def tf32_round(t):
+    """f32 -> the nearest TF32 value (10 explicit mantissa bits, ties away
+    from zero), as ``cvt.rna.tf32.f32`` rounds: half a TF32 unit is added to
+    the bit pattern's magnitude and the low 13 bits are cleared."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t):
+    """(hi, lo): hi the TF32 rounding of f32 ``t``, lo that of ``t - hi``."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
+def sweep_tf32(fact, rhs, passes):
+    """The block-Thomas solve of ``rhs [K, nb, b, r]`` by an ``inv`` factor
+    with every matrix-vector product done as the multi-RHS sweep kernel
+    (``csrc/fused_sweep_many.cu``) does it on the tensor cores: the matrix
+    M and the f32 vector v split into TF32 parts, and the first ``passes``
+    of M_hi v_hi, M_hi v_lo, M_lo v_hi summed (the products exact, the sum
+    rounded to f32).  The kernel takes 3 for f32 factors and 2 for bf16 ones
+    (M_lo is 0: bf16 is exact in TF32).  The carry stays f32."""
+    def mv(M, v):
+        mh, ml = tf32_split(M)
+        vh, vl = tf32_split(v)
+        terms = ((mh, vh), (mh, vl), (ml, vh))[:passes]
+        return sum(a.double() @ b.double() for a, b in terms).float()
+    nb = fact.F.shape[-3]
+    ys = [rhs[:, 0].float()]
+    for i in range(1, nb):
+        ys.append(rhs[:, i].float() - mv(fact.F[:, i], ys[-1]))
+    xs = [mv(fact.Sinv[:, nb - 1], ys[-1])]
+    for i in range(nb - 2, -1, -1):
+        xs.append(mv(fact.Sinv[:, i], ys[i] - mv(fact.U[:, i], xs[-1])))
+    return torch.stack(xs[::-1], dim=1)
