@@ -5,7 +5,8 @@
 
 In order, it:
   1. prints the card (nvidia-smi name and power limit, torch's device name);
-  2. builds the CUDA kernels from csrc/ (one nvcc per source, in parallel);
+  2. builds the CUDA kernels from csrc/ (one nvcc per source, in parallel)
+     and the host matching engine (g++);
   3. factors the flagship band (n = 1e6, bandwidth 201, K = 64, b = 128,
      stored bf16 spikes, newton_fixed) and holds each kernel against its
      plain PyTorch version on the same inputs: the banded matvec at the
@@ -43,7 +44,20 @@ In order, it:
      the serving stage's device busy time (torch.profiler), and the card's
      device-to-device copy rate; the refinement solve with the f64 kernel
      against the plain f64 operator, with its device busy time;
-  7. frees the flagship and runs the SPD path (BASELINE config 2: a
+  7. frees the flagship and runs BASELINE config 3 through the port's
+     testbed CLI, ``spike_petsc_tpu_torch.testbed.main(argv)`` in this
+     process: the ill-scaled nonsymmetric band at n = 1e6 (k = 6), MC64
+     job 5 scaling and permutation and RCM on the host, the 0.9999 band
+     extracted, bcgs at rtol 1e-8 with the ``banded`` PC (its inner spike
+     PC at 64 partitions, b = 128) on the card; it checks the printed
+     bandwidths (6 after both passes), the operator line, <= 3 iterations,
+     the true f32 relative residual (<= 1e-6), the native matching
+     engine, and the launches of #2 and #1 exactly (bcgs: 2 its + 1 and
+     4 its); the same pipeline at n = 20000 on the card (f32) against the
+     CPU (f64); the factor and the solve by CUDA events, the solve's device
+     busy time, #1 and #2 against their plain versions on this path's
+     inputs and #2 at w = 13 beside its bound and the CSR product;
+  8. frees config 3 and runs the SPD path (BASELINE config 2: a
      symmetric dominant band, n = 1e6, bandwidth 33, f32; the ``cholesky``
      PC with 16 partitions, b = 64, the truncated reduced system and stored
      spikes): the symmetric fused sweep and its multi-RHS form against their
@@ -56,7 +70,7 @@ In order, it:
      on a small band, and the timings of that path (each spd sweep's time
      beside its time before its redesign, its microseconds per serial step
      and its cluster shape);
-  8. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
+  9. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
      path, error, time, plain time, bound and library time) and, last, the
      line ``{"ok": true, "device": {...}}``.
 
@@ -70,6 +84,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 N, HALF_BW, K, BLOCK = 1_000_000, 100, 64, 128
 PC_OPTIONS = {"pc_spike_partitions": K, "pc_spike_block": BLOCK,
@@ -114,6 +129,21 @@ F64_KERNEL_TOL = 1e-13     # the f64 band kernel against its plain version
 F64_CSR_TOL = 3e-13        # either against an f64 CSR product (the JAX
 #                            test's bound for its emulated-f64 kernel)
 GRID_KT = 8                # block rows per thread block of the grid matvec
+# BASELINE config 3 through the port's testbed CLI (bench.py:863-956,
+# stage_ordering): illscaled n = 1e6, MC64 job 5 with scaling, RCM, the
+# 0.9999 band (k = 6), the banded PC's inner spike at K = 64, b = 128
+# (kernel #1 takes b = 64 or 128 only; the default block is the tip size)
+CONFIG3_ARGV = (
+    "-problem illscaled:1000000:6:6 -mat_ordering_type wbm "
+    "-mat_ordering_scale 1 -mat_ordering_type2 rcm -banded_pre_mat 1 "
+    "-pc_banded_kmax 50 -pc_banded_frac 0.9999 -ksp_type bcgs "
+    "-ksp_rtol 1e-8 -ksp_max_it 50 -pc_type banded "
+    "-banded_pc_spike_partitions 64 -banded_pc_spike_block 128 "
+    "-ksp_converged_reason -log_view").split()
+CONFIG3_K, CONFIG3_BLOCK = 64, 128
+CONFIG3_ITS_MAX = 3        # the TPU took 2 (BENCH_r05.json)
+CONFIG3_RELRES_MAX = 1e-6  # true f32 relative residual
+CONFIG3_REF_TOL = 1e-5     # card f32 against CPU f64, max|dx| / max|x|
 # NVIDIA's data sheet for the H100 SXM (700 W): the bound of each kernel
 PEAK_BYTES_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
@@ -271,12 +301,19 @@ def phase_card():
 def phase_build():
     from spike_petsc_tpu_torch.ops.cuda import KERNELS
     from spike_petsc_tpu_torch.ops.cuda._build import build_all
+    from spike_petsc_tpu_torch.native import loader
     seconds, logs = build_all(KERNELS)
     print(f"build: {seconds:.2f} s for {len(KERNELS)} kernels")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # the host matching engine (g++ at first use), built here so that the
+    # config-3 stage times hold no compile
+    t0 = time.perf_counter()
+    engine = loader.engine()
+    print(f"build: native matching engine {engine} in "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernels(band, rhs, sf, device):
@@ -1126,6 +1163,164 @@ def f64_band(band):
                                               device=a64.device))
 
 
+def run_testbed(argv, record):
+    """``spike_petsc_tpu_torch.testbed.main(argv)`` in this process, its
+    standard output captured: (exit code, output)."""
+    import contextlib
+    import io
+    from spike_petsc_tpu_torch import testbed
+    from spike_petsc_tpu_torch.utils import profiling
+    profiling.clear()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = testbed.main(argv, record=record)
+    return rc, out.getvalue()
+
+
+def phase_config3(device):
+    """BASELINE config 3 end to end through the testbed CLI at n = 1e6:
+    the host pre-pass (MC64 scaling and permutation, RCM, the banded
+    extraction), then bcgs with the banded PC on the card; the launches of
+    #2 and #1 counted around the run and held to what bcgs makes: per
+    iteration two operator applies and two PC applies, each PC apply two
+    sweeps (the spikes are not stored, so the correction sweeps again),
+    and one operator apply for the final residual (x0 = 0 needs none
+    first)."""
+    import re
+    import torch
+    from spike_petsc_tpu_torch.native import loader
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.solvers.types import CONVERGED_RTOL
+    rec = {}
+    t0 = time.perf_counter()
+    reset_launches()
+    rc, out = run_testbed(CONFIG3_ARGV, rec)
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        print(f"  testbed| {line}")
+    engine = loader.engine()
+    print(f"config 3: testbed exit code {rc}, {wall:.2f} s in all; "
+          f"matching engine: {engine}")
+    check(rc == 0, f"config 3 testbed exit code {rc}")
+    check(engine == "native", "the native matching engine did not load")
+    bws = re.findall(r"(?:Reduced|Increased) bandwidth from (\d+) to (\d+)",
+                     out)
+    check(len(bws) == 2 and int(bws[0][1]) == 6 and int(bws[1][1]) == 6
+          and "Reduced bandwidth from" in out.split("using rcm")[0],
+          f"config 3 bandwidths after wbm and rcm: {bws}")
+    check("Bandwidth of 100% band: 6 " in out, "config 3 extracted band")
+    check("Device operator: band storage kl=6 ku=6" in out,
+          "config 3 device operator")
+    res, op, b = rec["result"], rec["operator"], rec["b"]
+    err = float(out.split("Error in solution:")[1].split()[0])
+    true_rel = float(torch.linalg.norm(banded_matvec(op, res.x) - b)
+                     / torch.linalg.norm(b))
+    expected = {name: 0 for name in launches}
+    expected["band_matvec"] = 2 * res.its + 1
+    expected["fused_sweep"] = 2 * 2 * res.its
+    print(f"bcgs+banded (config 3, n={op.n}): {res.its} its, reason "
+          f"{res.reason}, true relres (f32) {true_rel:.3e}, error in "
+          f"solution {err:g} (TPU v5e yardstick: 2 its, relres 8.6e-8)")
+    print(f"launches on the config-3 path: {launches}")
+    print(f"expected launches (bcgs: {res.its} its x (2 operator + 2 PC "
+          f"applies of 2 sweeps) + 1 final residual): {expected}")
+    check(res.reason == CONVERGED_RTOL and res.its <= CONFIG3_ITS_MAX,
+          f"config 3 bcgs: {res.its} its, reason {res.reason}")
+    check(res.x.shape == (op.n,) and bool(torch.isfinite(res.x).all()),
+          "config 3 solution shape / finiteness")
+    check(true_rel <= CONFIG3_RELRES_MAX, f"config 3 relres {true_rel}")
+    check(launches == expected, f"config 3 launches {launches}")
+    return rec, launches
+
+
+def phase_config3_reference(device):
+    """The config-3 pipeline at n = 20000 (partitions 8, block 128) on the
+    card in f32 with the kernels and on the CPU in f64: the iteration
+    counts within 1, the solutions (the same permuted system) within
+    CONFIG3_REF_TOL."""
+    argv = [a.replace("1000000", "20000") for a in CONFIG3_ARGV]
+    argv[argv.index("-banded_pc_spike_partitions") + 1] = "8"
+    got, ref = {}, {}
+    rc_card, _ = run_testbed(argv, got)
+    rc_cpu, _ = run_testbed(argv + ["-x64", "1", "-platform", "cpu"], ref)
+    xg, xr = got["result"].x, ref["result"].x
+    err = float((xg.double().cpu() - xr).abs().max() / xr.abs().max())
+    print(f"config 3 n=20000: card f32 {got['result'].its} its vs CPU f64 "
+          f"{ref['result'].its} its, max|x_card - x_cpu| / max|x_cpu| "
+          f"{err:.3e} (limit {CONFIG3_REF_TOL})")
+    check(rc_card == rc_cpu == 0 and xg.is_cuda and not xr.is_cuda
+          and xr.dtype.itemsize == 8, "config 3 reference runs")
+    check(abs(got["result"].its - ref["result"].its) <= 1
+          and err <= CONFIG3_REF_TOL,
+          "config 3: card and CPU reference disagree")
+
+
+def phase_config3_timing(rec, device, t):
+    """The config-3 factor (the extracted band, K = 64, b = 128) and the
+    bcgs solve, by CUDA events; the solve's device busy time; #1 and #2
+    against their plain versions on this path's inputs; #2 at w = 13 beside
+    its bound and the CSR product."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix, Options, make_solver
+    from spike_petsc_tpu_torch import sparse as hsp
+    from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
+    from spike_petsc_tpu_torch.ops.spike import spike_factor
+    show = shower(t)
+    op, pmat, b = rec["operator"], rec["pmat"], rec["b"]
+    ext = hsp.extract_banded(pmat, kmax=50, frac=0.9999)
+    data, kl, ku = hsp.csr_to_banded_arrays(ext.matrix, kl=ext.k, ku=ext.k)
+    band = BandedMatrix(data=torch.as_tensor(data, dtype=torch.float32,
+                                             device=device), kl=kl, ku=ku)
+    show("config3_factor", time_ms(lambda: spike_factor(
+        band, K=CONFIG3_K, block_b=CONFIG3_BLOCK), reps=3))
+    solver = make_solver(op, pmat=pmat, options=Options.from_argv(
+        CONFIG3_ARGV))
+    show("config3_bcgs_solve", time_ms(lambda: solver(b), reps=3))
+    busy, items = device_profile(lambda: solver(b))
+    wall = t["config3_bcgs_solve"][0]
+    print(f"  config3_bcgs_solve device busy {busy:.3f} ms of {wall:.3f} ms "
+          f"wall: idle share {1 - busy / wall:.3f}")
+    for key, count, ms in items:
+        print(f"    {ms:8.3f} ms  {count:5d} x  {key}")
+
+    errs = {}
+    sf = spike_factor(band, K=CONFIG3_K, block_b=CONFIG3_BLOCK)
+    rblk = torch.nn.functional.pad(b, (0, sf.K * sf.m - op.n)).reshape(
+        sf.K, sf.nb, sf.b)
+    _, errs["fused_sweep"] = kernel_err(
+        cfs.blocktri_solve_fused_cuda(sf.fact, rblk),
+        cfs.blocktri_solve_fused_cuda(sf.fact, rblk, impl="plain"))
+    prep = cbm.prepare_banded_mv(op)
+    x = torch.randn(op.n, device=device)
+    _, errs["band_matvec"] = kernel_err(
+        cbm.banded_matvec_prepared(prep, x),
+        cbm.banded_matvec_prepared(prep, x, impl="plain"))
+    print(f"config 3 kernels against their plain versions (K={sf.K} "
+          f"nb={sf.nb} b={sf.b}; n={op.n} w={op.width}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    check(max(errs.values()) <= KERNEL_TOL, f"config 3 kernels {errs}")
+    nbytes = op.n * op.width * 4 + 2 * op.n * 4
+    gb = nbytes / 1e9
+    show("config3_band_matvec_cuda", time_ms(
+        lambda: cbm.banded_matvec_prepared(prep, x), iters=20), gb)
+    show("config3_band_matvec_plain", time_ms(
+        lambda: cbm.banded_matvec_prepared(prep, x, impl="plain"), iters=5),
+        gb)
+    csr = band_csr(op)
+    _, err = kernel_err(csr @ x, cbm.banded_matvec_prepared(prep, x))
+    check(err <= KERNEL_TOL, f"config 3 CSR product disagrees: {err}")
+    show("config3_band_matvec_library", time_ms(lambda: csr @ x, iters=20),
+         gb)
+    bound = roofline(nbytes, 2 * op.n * op.width)
+    print(f"band_matvec (config 3: n={op.n} w={op.width}): "
+          f"{t['config3_band_matvec_cuda'][0]:.4f} ms, plain "
+          f"{t['config3_band_matvec_plain'][0]:.4f} ms, CSR "
+          f"{t['config3_band_matvec_library'][0]:.4f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+
+
 def phase_refine(a64, b64):
     """f64-grade refinement through ``solve``: richardson + the spike PC
     with f32 factors on the f64 flagship band, rtol 1e-12, launch counts
@@ -1362,6 +1557,15 @@ def main() -> int:
     bounds.update(phase_alternate_timing(band, a64, b64, rhs, sf, device, t))
     del band, rhs, sf, res, a64, b64
     torch.cuda.empty_cache()
+
+    # BASELINE config 3 through the testbed CLI
+    t3 = time.perf_counter()
+    rec3, _ = phase_config3(device)
+    phase_config3_reference(device)
+    phase_config3_timing(rec3, device, t)
+    del rec3
+    torch.cuda.empty_cache()
+    print(f"config 3 phases: {time.perf_counter() - t3:.1f} s")
 
     # the SPD path (BASELINE config 2)
     from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many_spd as cfms

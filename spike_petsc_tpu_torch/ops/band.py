@@ -97,6 +97,12 @@ def banded_matvec(b: BandedMatrix, x: torch.Tensor) -> torch.Tensor:
     return y[:, 0] if squeeze else y
 
 
+def banded_diagonal(b: BandedMatrix) -> torch.Tensor:
+    """Main diagonal of A (MatGetDiagonal equivalent,
+    reference/src/testbed.c:223)."""
+    return b.data[:, b.kl]
+
+
 def pad_banded(b: BandedMatrix, n_pad: int,
                unit_diagonal: bool = True) -> BandedMatrix:
     """Pad to ``n_pad`` rows; padding rows get a unit diagonal so the padded

@@ -12,14 +12,18 @@
                    options=Options({"pc_spike_factor_dtype": "f32"}),
                    rtol=1e-12)
 
-Ported: a ``BandedMatrix``, ``BlockTridiagonal`` or callable operator, a
-BandedMatrix PC matrix, ``gmres``, ``bcgs``, ``cg``, ``richardson`` (with
-``-ksp_richardson_scale``) and ``preonly``, the batched engines
-of ``krylov_many``, the ``none``, ``spike`` and ``cholesky`` PCs, and no
-null space.  ``solve(..., monitor=True)`` prints the residual history
-after the solve (``-ksp_monitor``) and ``view=True`` the solver hierarchy
-before it (``-ksp_view``), as the JAX package prints them.  Options whose
-code paths are not yet ported raise.
+Ported: a ``BandedMatrix``, ``BlockTridiagonal``, host SciPy sparse (a
+band+outliers split or a sparse CSR product), dense or callable operator,
+a BandedMatrix or host PC matrix, ``gmres``, ``bcgs``, ``cg``,
+``richardson`` (with ``-ksp_richardson_scale``) and ``preonly``, the
+batched engines of ``krylov_many``, the ``none``, ``jacobi``, ``lu``,
+``spike``, ``cholesky``, ``bjacobi`` and ``banded`` PCs, and no null
+space. A host operator or PC matrix is placed where the right-hand side
+lies, in its dtype (``make_solver(..., device=, dtype=)``). ``solve(...,
+monitor=True)`` prints the residual history after the solve
+(``-ksp_monitor``) and ``view=True`` the solver hierarchy before it
+(``-ksp_view``), as the JAX package prints them. Options whose code
+paths are not yet ported raise.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops.band import BandedMatrix
+from ..ops.blocktri import BlockTridiagonal
 from ..utils.options import Options
 from ..utils.registry import SOLVERS
 from . import krylov  # noqa: F401  (registers the ported solvers)
@@ -41,6 +47,13 @@ _DEFAULTS = dict(rtol=1e-5, atol=1e-50, divtol=1e4, maxit=10000, restart=30)
 _UNPORTED_FLAGS = ("ksp_diagonal_scale", "ksp_nullspace_constant",
                    "ksp_monitor_true_residual", "ksp_compute_eigenvalues",
                    "ksp_compute_singularvalues")
+
+
+# the JAX package's KSP types that this package does not have yet; any other
+# unknown name is a KeyError from the registry (bad usage)
+_NOT_YET_PORTED = ("bcgsl", "bicg", "cgls", "cgne", "cgnr", "cgs",
+                   "chebyshev", "cr", "fgmres", "gcr", "lgmres", "lsqr",
+                   "minres", "pipecg", "symmlq", "tfqmr")
 
 
 def _params_from_options(opts: Options, overrides: dict) -> dict:
@@ -80,30 +93,49 @@ def _reject_unported(opts: Options, transpose: bool, nullspace) -> None:
             f"{', '.join(flags)} not yet ported to spike_petsc_tpu_torch")
 
 
+def _placement(A, device, dtype):
+    """(device, dtype) of the operator: a band's or blocktri's own, a
+    tensor's own, else the caller's (for a host operator: where ``b``
+    lies), the card by default."""
+    if isinstance(A, BandedMatrix):
+        return A.device, A.dtype
+    if isinstance(A, BlockTridiagonal):
+        return A.D.device, A.D.dtype
+    if isinstance(A, torch.Tensor):
+        return A.device, A.dtype
+    return torch.device(device or "cuda"), dtype
+
+
 def make_solver(A, *, pmat=None, options: Optional[Options] = None,
                 ksp_type: Optional[str] = None, pc_type: Optional[str] = None,
                 pc: Optional[PC] = None, n_hint: Optional[int] = None,
                 jit: bool = True, transpose: bool = False, nullspace=None,
-                **params) -> Callable:
+                device=None, dtype=None, **params) -> Callable:
     """Compose (operator, preconditioner, method) once; return
     ``solve(b, x0=None) -> KSPResult``.  The operator's prepared layout and
-    the PC's factorization are built here, once.  ``jit`` is accepted for
-    the JAX package's signature and changes nothing: PyTorch runs eagerly,
-    so the closure is the same either way."""
+    the PC's factorization are built here, once.  A host operator or PC
+    matrix is placed on the operator's device and dtype, which for a host
+    operator are ``device`` (default the card) and ``dtype`` (default the
+    matrix's own).  ``jit`` is accepted for the JAX package's signature and
+    changes nothing: PyTorch runs eagerly, so the closure is the same
+    either way."""
     opts = options or Options()
     _reject_unported(opts, transpose, nullspace)
+    device, dtype = _placement(A, device, dtype)
     ksp_type = ksp_type or opts.get_string("ksp_type", "gmres")
-    if not SOLVERS.has(ksp_type):
+    if ksp_type in _NOT_YET_PORTED:
         raise NotImplementedError(
             f"ksp type {ksp_type!r} is not yet ported to spike_petsc_tpu_torch "
             f"(ported: {', '.join(SOLVERS.names())})")
     if pc is None:
         name = pc_type or opts.get_string("pc_type", "none")
-        pc = make_pc(name, A if pmat is None else pmat, opts)
+        pc = make_pc(name, A if pmat is None else pmat, opts, device=device,
+                     dtype=dtype)
     # -mat_matvec_impl auto|banded_pallas|banded_cuda|blocktri|xla: the
     # operator's SpMV route
     matvec, _, _ = as_matvec(
-        A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"))
+        A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"),
+        device=device, dtype=dtype)
     pc_apply = pc.apply if pc.name != "none" else None
     method = SOLVERS.get(ksp_type)
     kw = _params_from_options(opts, params)
@@ -121,7 +153,7 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
                      pc_type: Optional[str] = None, pc: Optional[PC] = None,
                      n_hint: Optional[int] = None, jit: bool = True,
                      transpose: bool = False, nullspace=None,
-                     **params) -> Callable:
+                     device=None, dtype=None, **params) -> Callable:
     """Compose a batched multi-RHS solver: ``solve(B [n, r], X0=None)``
     returns a column-batched KSPResult (x [n, r]; its, reason, rnorm per
     column).
@@ -130,11 +162,12 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
     is applied as a true ``[n, r]`` block (``as_matvec_many``) and the PC
     through its native ``apply_many`` where it has one, else a column loop
     of ``apply``.  ``ksp_type`` (default ``bcgs``) is one of
-    ``krylov_many.MANY_SOLVERS``.  ``jit`` is accepted and changes nothing,
-    as in :func:`make_solver`."""
+    ``krylov_many.MANY_SOLVERS``.  ``jit``, ``device`` and ``dtype`` are as
+    in :func:`make_solver`."""
     from .krylov_many import MANY_SOLVERS
     opts = options or Options()
     _reject_unported(opts, transpose, nullspace)
+    device, dtype = _placement(A, device, dtype)
     ksp_type = ksp_type or opts.get_string("ksp_type", "bcgs")
     if ksp_type not in MANY_SOLVERS:
         raise ValueError(
@@ -144,9 +177,11 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
     method = MANY_SOLVERS[ksp_type]
     if pc is None:
         name = pc_type or opts.get_string("pc_type", "none")
-        pc = make_pc(name, A if pmat is None else pmat, opts)
+        pc = make_pc(name, A if pmat is None else pmat, opts, device=device,
+                     dtype=dtype)
     matvec_many, _, _ = as_matvec_many(
-        A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"))
+        A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"),
+        device=device, dtype=dtype)
     if pc.name == "none":
         pc_apply_many = None
     elif pc.apply_many is not None:
@@ -176,7 +211,7 @@ def solve_many(A, B, X0=None, *, pmat=None, options: Optional[Options] = None,
     solver = make_solver_many(A, pmat=pmat, options=options,
                               ksp_type=ksp_type, pc_type=pc_type, pc=pc,
                               n_hint=B.shape[0], transpose=transpose,
-                              **params)
+                              device=B.device, dtype=B.dtype, **params)
     return solver(B, X0)
 
 
@@ -193,7 +228,8 @@ def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,
     opts = options or Options()
     solver = make_solver(A, pmat=pmat, options=opts, ksp_type=ksp_type,
                          pc_type=pc_type, pc=pc, n_hint=b.shape[0],
-                         transpose=transpose, **params)
+                         transpose=transpose, device=b.device, dtype=b.dtype,
+                         **params)
     if view:
         kt = ksp_type or opts.get_string("ksp_type", "gmres")
         print(view_str(kt, _params_from_options(opts, params), solver.pc,

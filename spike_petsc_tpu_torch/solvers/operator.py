@@ -4,13 +4,17 @@ The KSP layer only ever sees ``matvec: [n] -> [n]`` (or, for the batched
 engines, ``matvec_many: [n, r] -> [n, r]``).  Ported: BandedMatrix (plain
 shifted-axpy route, the banded CUDA kernel and its f64 form, or a one-time
 block-tridiagonal conversion with the blocktri CUDA kernel),
-BlockTridiagonal and callables.
+BlockTridiagonal, callables, host SciPy sparse matrices (a band+outliers
+split whose band part takes the band route, or a ``torch.sparse_csr_tensor``
+product) and dense 2-D matrices (a dense product).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ..ops.band import BandedMatrix, banded_matvec
@@ -22,6 +26,7 @@ from ..ops.cuda.band_matvec_f64 import (banded_matvec_prepared_f64,
                                         prepare_banded_mv_f64)
 from ..ops.cuda.blocktri_matvec import (blocktri_matvec_cuda,
                                         blocktri_matvec_feasible)
+from ..ops.split import split_if_profitable, split_matvec
 
 _IMPLS = ("auto", "banded_pallas", "banded_cuda", "blocktri", "xla")
 _BT_BLOCK = 128          # block size of the band -> blocktri conversion
@@ -106,10 +111,13 @@ def _band_route(a: BandedMatrix, impl: str) -> str:
     return "xla"
 
 
-def as_matvec(a, n_hint: int = None,
-              impl: str = "auto") -> Tuple[Callable, int, object]:
-    """Return (matvec, n, dtype) for a BandedMatrix, a BlockTridiagonal or a
-    callable.  ``impl`` selects the BandedMatrix route (``_band_route``)."""
+def as_matvec(a, n_hint: int = None, impl: str = "auto", device=None,
+              dtype=None) -> Tuple[Callable, int, object]:
+    """Return (matvec, n, dtype) for a BandedMatrix, a BlockTridiagonal, a
+    callable, a host SciPy sparse matrix or a dense 2-D matrix.  ``impl``
+    selects the band route (``_band_route``), also of a split's band part.
+    A host or dense matrix is placed on ``device`` (default the card) in
+    ``dtype`` (default its own)."""
     _check_impl(impl)
     if isinstance(a, BandedMatrix):
         route = _band_route(a, impl)
@@ -139,14 +147,38 @@ def as_matvec(a, n_hint: int = None,
         if n_hint is None:
             raise ValueError("callable operator requires n_hint (vector size)")
         return a, n_hint, None
+    return _as_matvec_other(a, impl, torch.device(device or "cuda"), dtype)
+
+
+def _as_matvec_other(a, impl, device, dtype) -> Tuple[Callable, int, object]:
+    """A host SciPy sparse matrix: the band+outliers split where
+    ``split_plan`` finds it profitable (its band part on the band route,
+    the outliers by ``index_add_``), else a sparse CSR product; a dense
+    2-D matrix: a dense product."""
+    if sp.issparse(a):
+        n = a.shape[0]
+        sm = split_if_profitable(a, dtype=dtype, device=device)
+        if sm is not None:
+            band_mv, _, _ = as_matvec(sm.band, impl=impl)
+            return (_tag(lambda x: split_matvec(sm, x, band_mv),
+                         f"split_{band_mv._route}"), n, sm.dtype)
+        csr = a.tocsr()
+        mat = torch.sparse_csr_tensor(
+            torch.as_tensor(csr.indptr, dtype=torch.int64),
+            torch.as_tensor(csr.indices, dtype=torch.int64),
+            torch.as_tensor(csr.data), size=csr.shape).to(
+                device=device, dtype=dtype)
+        return _tag(lambda x: mat @ x, "sparse_csr"), n, mat.dtype
+    if isinstance(a, (np.ndarray, torch.Tensor)) and a.ndim == 2:
+        arr = torch.as_tensor(a).to(device=device, dtype=dtype)
+        return _tag(lambda x: arr @ x, "dense"), arr.shape[0], arr.dtype
     raise NotImplementedError(
         f"operators of type {type(a).__name__} are not yet ported to "
-        "spike_petsc_tpu_torch (BandedMatrix, BlockTridiagonal and "
-        "callables are)")
+        "spike_petsc_tpu_torch")
 
 
-def as_matvec_many(a, n_hint: int = None,
-                   impl: str = "auto") -> Tuple[Callable, int, object]:
+def as_matvec_many(a, n_hint: int = None, impl: str = "auto", device=None,
+                   dtype=None) -> Tuple[Callable, int, object]:
     """Return (matvec_many: [n, r] -> [n, r], n, dtype): a true multi-RHS
     operator apply for the batched Krylov engines (``krylov_many``).
 
@@ -157,6 +189,7 @@ def as_matvec_many(a, n_hint: int = None,
         conversion, then ``blocktri_matvec`` on ``[nb, b, r]`` as batched
         products: the blocks stream once for all r columns.  A
         BlockTridiagonal operator takes the same product;
+      * ``dense_many``: a dense 2-D matrix, ``A @ X``;
       * ``vmap_<route>``: everything else applies the single-RHS route
         column by column, so a narrow CUDA band still runs the banded
         kernel.
@@ -185,7 +218,11 @@ def as_matvec_many(a, n_hint: int = None,
         def mv_bt(X):
             return blocktri_matvec(a, X.reshape(nb, b, -1)).reshape(nb * b, -1)
         return _tag(mv_bt, "blocktri_many"), nb * b, a.dtype
-    mv, n, dt = as_matvec(a, n_hint=n_hint, impl=impl)
+    if isinstance(a, (np.ndarray, torch.Tensor)) and a.ndim == 2:
+        mv, n, dt = as_matvec(a, impl=impl, device=device, dtype=dtype)
+        return _tag(mv, "dense_many"), n, dt
+    mv, n, dt = as_matvec(a, n_hint=n_hint, impl=impl, device=device,
+                          dtype=dtype)
 
     def mv_cols(X):
         return torch.stack([mv(X[:, j]) for j in range(X.shape[1])], dim=1)

@@ -3,9 +3,16 @@
 A PC is a small object with an ``apply`` closure over device factorization
 state (and, where the type has one, a multi-RHS ``apply_many``); factories
 are registered by name and read their parameters from a prefix-scoped
-options database.  Ported: ``none``, ``spike`` and ``cholesky`` (the
-symmetric ``spd`` factorization of the spike family; forward apply and
-multi-RHS apply, with the Newton safety net).
+options database.  Ported: ``none``, ``jacobi``, ``lu``, ``spike``,
+``cholesky`` (the symmetric ``spd`` factorization of the spike family),
+``bjacobi`` and ``banded`` (PCBANDED: a norm-fraction band extracted from a
+host matrix, preconditioned by an inner PC under the ``banded_`` prefix);
+forward apply and, where the type has one, multi-RHS apply, with the Newton
+safety net.  Transpose applies are not yet ported.
+
+A host (SciPy or NumPy) preconditioning matrix is placed on the device and
+in the dtype that ``make_pc`` is given (``make_solver`` gives the
+operator's); without them, on the card in the matrix's own dtype.
 """
 
 from __future__ import annotations
@@ -15,11 +22,15 @@ from dataclasses import dataclass, field as dfield
 from functools import partial
 from typing import Callable, Optional
 
+import numpy as np
+import scipy.sparse as sp
 import torch
 
-from ..ops.band import BandedMatrix, banded_matvec
+from .. import sparse as hsp
+from ..ops.band import BandedMatrix, banded_diagonal, banded_matvec
 from ..ops.cuda.fused_sweep_spd import require_spd_feasible, spd_block_for
-from ..ops.spike import spike_factor, spike_solve, spike_solve_many
+from ..ops.spike import (_batched_solver, spike_factor, spike_solve,
+                         spike_solve_many)
 from ..utils.options import Options
 from ..utils.registry import PRECONDITIONERS, register_pc
 
@@ -50,29 +61,113 @@ class PC:
         return s
 
 
+@dataclass(frozen=True)
+class HostMatrix:
+    """A host preconditioning matrix and where the PC built from it lives."""
+
+    csr: sp.csr_matrix
+    device: torch.device
+    dtype: torch.dtype
+
+    def tensor(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(arr).to(device=self.device, dtype=self.dtype)
+
+
+def _place(pmat, device=None, dtype=None):
+    """A host matrix as a ``HostMatrix`` on ``device`` (default the card)
+    in ``dtype`` (default its own); anything else unchanged."""
+    if not (sp.issparse(pmat) or isinstance(pmat, np.ndarray)):
+        return pmat
+    csr = hsp.as_csr(pmat)
+    if dtype is None:
+        dtype = torch.from_numpy(np.zeros(0, csr.dtype)).dtype
+    return HostMatrix(csr=csr, device=torch.device(device or "cuda"),
+                      dtype=dtype)
+
+
 def _as_banded(pmat, opts: Options) -> BandedMatrix:
     if isinstance(pmat, BandedMatrix):
         return pmat
+    if isinstance(pmat, HostMatrix):
+        # host sparse/dense -> band storage (full bandwidth)
+        data, kl, ku = hsp.csr_to_banded_arrays(pmat.csr)
+        return BandedMatrix(data=pmat.tensor(data), kl=kl, ku=ku)
     raise NotImplementedError(
         f"preconditioning matrices of type {type(pmat).__name__} are not yet "
-        "ported to spike_petsc_tpu_torch (BandedMatrix is)")
+        "ported to spike_petsc_tpu_torch (BandedMatrix and host SciPy/NumPy "
+        "matrices are)")
+
+
+# the JAX package's PC types that this package does not have yet; any other
+# unknown name is a KeyError from the registry (bad usage)
+_NOT_YET_PORTED = ("asm", "composite", "fieldsplit", "ksp", "mg", "sor")
 
 
 def make_pc(name: str, pmat, options: Optional[Options] = None,
-            prefix: str = "") -> PC:
-    """Build a preconditioner by registry name, PETSc ``PCSetType`` style."""
+            prefix: str = "", *, device=None, dtype=None) -> PC:
+    """Build a preconditioner by registry name, PETSc ``PCSetType`` style.
+    A host ``pmat`` is placed on ``device`` in ``dtype`` (see the module
+    docstring)."""
     opts = (options or Options()).scoped(prefix)
-    if not PRECONDITIONERS.has(name):
+    if name in _NOT_YET_PORTED:
         raise NotImplementedError(
             f"pc type {name!r} is not yet ported to spike_petsc_tpu_torch "
             f"(ported: {', '.join(PRECONDITIONERS.names())})")
-    return PRECONDITIONERS.get(name)(pmat, opts)
+    return PRECONDITIONERS.get(name)(_place(pmat, device, dtype), opts)
+
+
+def _no_transpose(name: str) -> Callable:
+    def make():
+        raise NotImplementedError(
+            f"pc '{name}' transpose apply is not yet ported")
+    return make
 
 
 @register_pc("none")
 def pc_none(pmat, opts: Options) -> PC:
     pc = PC(name="none", apply=lambda x: x)
     pc.make_transpose = lambda: pc                  # identity is symmetric
+    return pc
+
+
+@register_pc("jacobi")
+def pc_jacobi(pmat, opts: Options) -> PC:
+    """Diagonal scaling (PCJACOBI).
+
+    ``-pc_jacobi_type diagonal|rowmax|rowsum`` (PCJacobiSetType): scale by
+    the inverse diagonal (default), the row's max |a_ij|, or the row's
+    sum of |a_ij|.  ``-pc_jacobi_abs`` (PCJacobiSetUseAbs): use
+    |diagonal|.  The PC matrix is diagonal, hence self-transpose."""
+    jtype = opts.get_string("pc_jacobi_type", "diagonal")
+    if jtype not in ("diagonal", "rowmax", "rowsum"):
+        raise ValueError(f"unknown -pc_jacobi_type {jtype!r}: expected "
+                         "diagonal, rowmax, or rowsum")
+    if isinstance(pmat, BandedMatrix):
+        if jtype == "rowmax":
+            d = pmat.data.abs().amax(dim=1)
+        elif jtype == "rowsum":
+            d = pmat.data.abs().sum(dim=1)
+        else:
+            d = banded_diagonal(pmat)
+    elif isinstance(pmat, HostMatrix):
+        acsr = pmat.csr
+        if jtype == "rowmax":
+            d = abs(acsr).max(axis=1).toarray().ravel()
+        elif jtype == "rowsum":
+            d = np.asarray(abs(acsr).sum(axis=1)).ravel()
+        else:
+            d = acsr.diagonal()
+        d = pmat.tensor(d)
+    else:
+        raise NotImplementedError(
+            f"pc 'jacobi' on a {type(pmat).__name__} is not yet ported")
+    if jtype == "diagonal" and opts.get_bool("pc_jacobi_abs", False):
+        d = d.abs()
+    one = torch.ones_like(d)
+    dinv = torch.where(d != 0, 1.0 / torch.where(d != 0, d, one), one)
+    pc = PC(name="jacobi", apply=lambda x: dinv * x,
+            apply_many=lambda X: dinv[:, None] * X)
+    pc.make_transpose = lambda: pc                  # diagonal is symmetric
     return pc
 
 
@@ -191,17 +286,13 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
     if fb:
         info["inverter_fallback"] = "blocked"
 
-    def _no_transpose():
-        raise NotImplementedError(
-            f"pc '{name}' transpose apply is not yet ported")
-
     apply = partial(spike_solve, sf)
     apply_many = partial(spike_solve_many, sf)
     if cast:
         apply = _cast_apply(apply, factor_dtype, orig_dtype)
         apply_many = _cast_apply(apply_many, factor_dtype, orig_dtype)
     return PC(name=name, apply=apply, info=info, apply_many=apply_many,
-              make_transpose=_no_transpose)
+              make_transpose=_no_transpose(name))
 
 
 @register_pc("spike")
@@ -223,3 +314,95 @@ def pc_cholesky(pmat, opts: Options) -> PC:
     an f64 band without ``-pc_cholesky_factor_dtype f32``) raises here."""
     return _spike_pc(pmat, opts, name="cholesky", default_K=1,
                      default_method="spd")
+
+
+@register_pc("lu")
+def pc_lu(pmat, opts: Options) -> PC:
+    """Direct banded factorization (single-partition block-Thomas) — the
+    role PETSc's -pc_type lu plays in the reference's canned recipe
+    (reference/src/makefile:18).  ``-pc_lu_method`` (``inv``),
+    ``-pc_lu_block`` (default the tip size) and ``-pc_lu_inverter`` apply;
+    shifts and ``-pc_lu_store_lt`` are not yet ported."""
+    band = _as_banded(pmat, opts)
+    _reject_unported(opts, "lu")
+    method = opts.get_string("pc_lu_method", "inv")
+    block = opts.get_int("pc_lu_block", None)
+    inverter = opts.get_string("pc_lu_inverter", "auto")
+
+    def factor(inv):
+        return spike_factor(band, K=1, block_b=block, method=method,
+                            inverter=inv)
+
+    sf = factor(inverter)
+    info = dict(block=sf.b, method=method)
+    sf, fb = _newton_safety_net(band, sf, inverter, None, None,
+                                lambda: factor("blocked"))
+    if fb:
+        info["inverter_fallback"] = "blocked"
+    return PC(name="lu", apply=partial(spike_solve, sf), info=info,
+              apply_many=partial(spike_solve_many, sf),
+              make_transpose=_no_transpose("lu"))
+
+
+@register_pc("bjacobi")
+def pc_bjacobi(pmat, opts: Options) -> PC:
+    """Per-partition solves with interface coupling dropped entirely — the
+    cheapest member of the spike family.  ``-pc_bjacobi_blocks`` (default
+    16), ``-pc_bjacobi_block``, ``-pc_bjacobi_method``,
+    ``-pc_bjacobi_inverter``.  On the card each apply is the sweep
+    dispatch of ``spike_solve`` (the fused sweep kernel where its rule
+    admits the factor)."""
+    band = _as_banded(pmat, opts)
+    K = opts.get_int("pc_bjacobi_blocks", 16)
+    K = max(1, min(K, band.n // (2 * max(band.kl, band.ku, 1))))
+    block = opts.get_int("pc_bjacobi_block", None)
+    method = opts.get_string("pc_bjacobi_method", "inv")
+    inverter = opts.get_string("pc_bjacobi_inverter", "auto")
+
+    def factor(inv):
+        return spike_factor(band, K=K, block_b=block, method=method,
+                            truncated=True, inverter=inv)
+
+    sf, _ = _newton_safety_net(band, factor(inverter), inverter, None, None,
+                               lambda: factor("blocked"), exact=False)
+
+    def apply(x):
+        rp = torch.zeros(sf.K * sf.m, dtype=x.dtype, device=x.device)
+        rp[:sf.n] = x
+        sweep = _batched_solver(sf, "auto", x)
+        return sweep(rp.reshape(sf.K, sf.nb, sf.b)).reshape(-1)[:sf.n]
+
+    return PC(name="bjacobi", apply=apply,
+              info=dict(blocks=K, block=sf.b, method=method),
+              make_transpose=_no_transpose("bjacobi"))
+
+
+@register_pc("banded")
+def pc_banded(pmat, opts: Options) -> PC:
+    """PCBANDED: extract the norm-fraction band of a host pmat, precondition
+    with an embedded PC on the band (reference/src/matbanded.c:165-192).
+
+    Options: -pc_banded_kmax (default 50), -pc_banded_frac (default 0.95)
+    (reference/src/matbanded.c:156-157, 261-262); the embedded PC is
+    configured under the ``banded_`` prefix (default: spike), mirroring
+    PCCreate_Banded's prefix plumbing (reference/src/matbanded.c:278-281).
+    The band is built on the host matrix's device and dtype.
+    """
+    kmax = opts.get_int("pc_banded_kmax", 50)
+    frac = opts.get_real("pc_banded_frac", 0.95)
+    if isinstance(pmat, BandedMatrix):
+        raise TypeError("pc 'banded' extracts a band from a general sparse "
+                        "pmat; the operator is already banded")
+    if not isinstance(pmat, HostMatrix):
+        raise NotImplementedError(
+            f"pc 'banded' on a {type(pmat).__name__} is not yet ported")
+    ext = hsp.extract_banded(pmat.csr, kmax=kmax, frac=frac)
+    data, kl, ku = hsp.csr_to_banded_arrays(ext.matrix, kl=ext.k, ku=ext.k)
+    band = BandedMatrix(data=pmat.tensor(data), kl=kl, ku=ku)
+    inner_opts = opts.scoped("banded_")
+    inner = make_pc(inner_opts.get_string("pc_type", "spike"), band,
+                    inner_opts)
+    return PC(name="banded", apply=inner.apply,
+              info=dict(k=ext.k, frac=round(ext.frac, 6), kmax=kmax),
+              inner=inner, apply_many=inner.apply_many,
+              make_transpose=_no_transpose("banded"))

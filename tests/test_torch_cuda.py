@@ -655,3 +655,118 @@ def test_refinement_runs_the_f64_kernel(cuda_device):
     relres = float(torch.linalg.norm(banded_matvec(band, res.x) - b)
                    / torch.linalg.norm(b))
     assert relres <= 1e-12 and float((res.x - 1).abs().max()) <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# The testbed pipeline's PCs and operators on the card
+# ---------------------------------------------------------------------------
+
+def _illscaled_pipeline(n=20000):
+    """The config-3 host pipeline at a small size: wbm with scaling, rcm,
+    the 0.9999 band (k = 6)."""
+    from spike_petsc_tpu_torch import sparse as hsp
+    from spike_petsc_tpu_torch.models import problems
+    from spike_petsc_tpu_torch.ordering import get_ordering
+    a = problems.illscaled_nonsym(n, 6, 6, seed=0)
+    a = get_ordering(a, "wbm").apply(a, scale=True)
+    a = get_ordering(a, "rcm").apply(a)
+    data, kl, ku = hsp.csr_to_banded_arrays(a)
+    return a, data, kl, ku
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,opts", [
+    ("jacobi", {}), ("lu", {}), ("bjacobi", {"pc_bjacobi_blocks": 8}),
+    ("spike", {"pc_spike_partitions": 8}), ("banded", {})])
+def test_host_pmat_pc_lands_on_the_operator(cuda_device, name, opts):
+    """make_solver places a PC built from a host pmat on the operator's
+    device and dtype (f32 on the card), and it applies as its f64 CPU
+    twin does."""
+    from spike_petsc_tpu_torch import make_solver
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    a, data, kl, ku = _illscaled_pipeline()
+    band = banded_from_numpy(data.astype(np.float32), kl, ku,
+                             device=cuda_device)
+    solver = make_solver(band, pmat=a, pc_type=name, options=Options(opts))
+    r = torch.randn(band.n, device=cuda_device)
+    got = solver.pc.apply(r)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    ref = make_pc(name, a, Options(opts), device="cpu",
+                  dtype=torch.float64).apply(r.double().cpu())
+    assert _rel(got.double().cpu(), ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,launched", [(128, True), (None, False)])
+def test_banded_pc_inner_spike_sweep(cuda_device, block, launched):
+    """The banded PC's inner spike apply launches #1 twice (a sweep and the
+    recompute sweep) at b = 128 and runs plain at the default block (the
+    tip size, 6), where the kernel's rule refuses the factor."""
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    a, _, _, _ = _illscaled_pipeline()
+    opts = {"banded_pc_spike_partitions": 8, "pc_banded_frac": 0.9999}
+    if block is not None:
+        opts["banded_pc_spike_block"] = block
+    pc = make_pc("banded", a, Options(opts), device=cuda_device,
+                 dtype=torch.float32)
+    assert pc.inner.info["block"] == (block or 6)
+    r = torch.randn(a.shape[0], device=cuda_device)
+    before = cfs.KERNEL.launches
+    got = pc.apply(r)
+    torch.cuda.synchronize()
+    assert cfs.KERNEL.launches == before + (2 if launched else 0)
+    ref = make_pc("banded", a, Options(opts), device="cpu",
+                  dtype=torch.float64).apply(r.double().cpu())
+    assert _rel(got.double().cpu(), ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_bjacobi_runs_the_fused_sweep(cuda_device):
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    a, _, _, _ = _illscaled_pipeline()
+    pc = make_pc("bjacobi", a, Options({"pc_bjacobi_blocks": 8,
+                                        "pc_bjacobi_block": 64}),
+                 device=cuda_device, dtype=torch.float32)
+    before = cfs.KERNEL.launches
+    pc.apply(torch.randn(a.shape[0], device=cuda_device))
+    torch.cuda.synchronize()
+    assert cfs.KERNEL.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_split_operator_band_part_runs_the_band_kernel(cuda_device):
+    from spike_petsc_tpu_torch.models import problems
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec
+    a = problems.general_sparse(5000, seed=4)
+    mv, n, dt = as_matvec(a, device=cuda_device, dtype=torch.float32)
+    assert mv._route == "split_banded_cuda" and dt == torch.float32
+    x = np.random.default_rng(3).standard_normal(n)
+    before = cbm.KERNEL.launches
+    got = mv(torch.as_tensor(x, dtype=torch.float32, device=cuda_device))
+    torch.cuda.synchronize()
+    assert cbm.KERNEL.launches == before + 1
+    ref = a @ x
+    assert float(np.abs(got.double().cpu().numpy() - ref).max()
+                 / np.abs(ref).max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_testbed_config3_on_the_card(cuda_device, capsys):
+    """The testbed's config-3 pipeline at n = 20000 on the card: bandwidth
+    6 after both passes, bcgs converged, both kernels launched."""
+    from spike_petsc_tpu_torch import testbed
+    rec = {}
+    before = cbm.KERNEL.launches, cfs.KERNEL.launches
+    rc = testbed.main(
+        "-problem illscaled:20000:6:6 -mat_ordering_type wbm "
+        "-mat_ordering_scale 1 -mat_ordering_type2 rcm -banded_pre_mat 1 "
+        "-pc_banded_frac 0.9999 -ksp_type bcgs -ksp_rtol 1e-8 "
+        "-pc_type banded -banded_pc_spike_partitions 8 "
+        "-banded_pc_spike_block 128".split(), record=rec)
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "to 6\n" in out and "Device operator: band storage kl=6 ku=6" in out
+    its = rec["result"].its
+    assert cbm.KERNEL.launches - before[0] == 2 * its + 1
+    assert cfs.KERNEL.launches - before[1] == 4 * its
+    assert rec["operator"].data.is_cuda and rec["b"].dtype == torch.float32

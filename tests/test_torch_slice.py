@@ -90,7 +90,7 @@ def test_restarted_gmres_without_pc_matches_jax(system):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(ksp_type="tfqmr", pc_type="spike"), "ksp type 'tfqmr'"),
-    (dict(ksp_type="gmres", pc_type="jacobi"), "pc type 'jacobi'"),
+    (dict(ksp_type="gmres", pc_type="asm"), "pc type 'asm'"),
     (dict(ksp_type="gmres", pc_type="spike", transpose=True), "transpose"),
     (dict(ksp_type="gmres", pc_type="none",
           options={"ksp_gmres_cgs_refinement_type": "never"}), "never"),

@@ -134,3 +134,49 @@ def sweep_tf32(fact, rhs, passes):
     for i in range(nb - 2, -1, -1):
         xs.append(mv(fact.Sinv[:, i], ys[i] - mv(fact.U[:, i], xs[-1])))
     return torch.stack(xs[::-1], dim=1)
+
+
+# testbed parity: the JAX testbed under tests/conftest.py (x64 on, the CPU)
+# against the port's on the same argv plus these flags (f64, the CPU)
+TESTBED_PORT_FLAGS = ["-x64", "1", "-platform", "cpu"]
+TESTBED_EXACT = ("Matrix:", "Reordered matrix using", "Reduced bandwidth",
+                 "Increased bandwidth", "Norm of diagonal",
+                 "Zeros on the permuted diagonal", "Bandwidth of",
+                 "Device operator:", "Matrix is", "Converged reason")
+
+
+def _parse_testbed(out):
+    lines = out.splitlines()
+    exact = [ln for ln in lines if ln.startswith(TESTBED_EXACT)]
+    hist = [float(ln.split()[-1]) for ln in lines
+            if "KSP Residual norm" in ln]
+    err = float(out.split("Error in solution:")[1].split()[0])
+    ksp = out.split("KSP iterations:")[1].split()
+    return exact, hist, err, (int(ksp[0]), ksp[2]), float(ksp[4])
+
+
+def compare_testbeds(jmain, tmain, argv, capsys):
+    """Run the JAX ``jmain`` and the port's ``tmain`` on ``argv`` (plus
+    ``-ksp_converged_reason``; the port also gets TESTBED_PORT_FLAGS) and
+    compare what they print: exactly, the exit code, the TESTBED_EXACT
+    lines, the iteration count and the reason; to 1e-8 of the initial
+    residual norm, the residual history and the final rnorm; to 1e-8 of
+    ||u|| = sqrt(n), the error in the solution.  Returns (rc, port's
+    stdout)."""
+    argv = argv + ["-ksp_converged_reason"]
+    rc_j = jmain(argv)
+    out_j = capsys.readouterr().out
+    rc_t = tmain(argv + TESTBED_PORT_FLAGS)
+    out_t = capsys.readouterr().out
+    assert rc_t == rc_j
+    exact_j, hist_j, err_j, ksp_j, rn_j = _parse_testbed(out_j)
+    exact_t, hist_t, err_t, ksp_t, rn_t = _parse_testbed(out_t)
+    assert exact_t == exact_j
+    assert ksp_t == ksp_j                       # iterations and reason
+    assert len(hist_t) == len(hist_j)
+    np.testing.assert_allclose(hist_t, hist_j, rtol=0,
+                               atol=1e-8 * hist_j[0])
+    assert abs(rn_t - rn_j) <= 1e-8 * hist_j[0]
+    n = int(exact_j[0].split("n=")[1].split(",")[0])
+    assert abs(err_t - err_j) <= 1e-8 * np.sqrt(n)
+    return rc_t, out_t
