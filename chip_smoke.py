@@ -43,7 +43,13 @@ In order, it:
      that call, with CUDA events (median and spread of the repetitions),
      the serving stage's device busy time (torch.profiler), and the card's
      device-to-device copy rate; the refinement solve with the f64 kernel
-     against the plain f64 operator, with its device busy time;
+     against the plain f64 operator, with its device busy time; then the
+     transpose-free KSP types on the flagship, the spike PC built once
+     (``make_pc``) and passed to each ``solve``: fgmres, lgmres, gcr, cgs,
+     tfqmr, bcgsl, chebyshev (``-ksp_chebyshev_esteig``), gmres with a
+     right PC and with ``-ksp_monitor_true_residual``, each with its
+     reason, an iteration bound, the true f32 relres and launches of #1
+     and #2;
   7. frees the flagship and runs BASELINE config 3 through the port's
      testbed CLI, ``spike_petsc_tpu_torch.testbed.main(argv)`` in this
      process: the ill-scaled nonsymmetric band at n = 1e6 (k = 6), MC64
@@ -56,7 +62,14 @@ In order, it:
      4 its); the same pipeline at n = 20000 on the card (f32) against the
      CPU (f64); the factor and the solve by CUDA events, the solve's device
      busy time, #1 and #2 against their plain versions on this path's
-     inputs and #2 at w = 13 beside its bound and the CSR product;
+     inputs and #2 at w = 13 beside its bound and the CSR product; then
+     BASELINE config 1 through the testbed CLI: gmres + lu with
+     ``-ksp_monitor_true_residual`` on the tridiagonal Laplacian at
+     n = 1e5 in f32 (the lu PC's card block 64, one partition of 1563
+     block rows: 'auto' runs the two-pass sweeps #9, never #1), the
+     launches of #9 and #2 held exactly, the solution against an f64
+     host solve, n = 1e4 on the card against the CPU in f32, the factor,
+     the solve and #9 at K = 1 beside its plain version and its bound;
   8. frees config 3 and runs the SPD path (BASELINE config 2: a
      symmetric dominant band, n = 1e6, bandwidth 33, f32; the ``cholesky``
      PC with 16 partitions, b = 64, the truncated reduced system and stored
@@ -69,7 +82,10 @@ In order, it:
      launches of the multi-RHS spd sweep), the card against the CPU in f64
      on a small band, and the timings of that path (each spd sweep's time
      beside its time before its redesign, its microseconds per serial step
-     and its cluster shape);
+     and its cluster shape), the symmetric KSP types (cr, minres, symmlq,
+     pipecg) with the cholesky PC built once, launches of #3 and #2, and
+     every KSP type on 20 000-row bands, the card in f32 against the CPU in
+     f64;
   9. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
      path, error, time, plain time, bound and library time) and, last, the
      line ``{"ok": true, "device": {...}}``.
@@ -144,6 +160,58 @@ CONFIG3_K, CONFIG3_BLOCK = 64, 128
 CONFIG3_ITS_MAX = 3        # the TPU took 2 (BENCH_r05.json)
 CONFIG3_RELRES_MAX = 1e-6  # true f32 relative residual
 CONFIG3_REF_TOL = 1e-5     # card f32 against CPU f64, max|dx| / max|x|
+# BASELINE config 1 through the testbed CLI: the reference's canned recipe
+# (reference/src/makefile:18: gmres + lu + -ksp_monitor_true_residual) on
+# the tridiagonal Laplacian at n = 1e5, f32 on the card.  The lu PC gets
+# block 64 there (k = 1), one partition of nb = 1563 block rows, which #1's
+# shared-memory rule refuses: 'auto' runs the two-pass sweeps #9
+CONFIG1_ARGV = ("-problem tridiag -ksp_type gmres -pc_type lu "
+                "-ksp_rtol 1e-10 -ksp_monitor_true_residual "
+                "-ksp_converged_reason -log_view").split()
+CONFIG1_N, CONFIG1_BLOCK = 100_000, 64
+CONFIG1_ITS_MAX = 40       # f32 on the CPU took 26 (both packages)
+# ||x - x64|| / ||x64|| against an f64 host solve of the same (f32-rounded)
+# system.  kappa(A) = 4n^2/pi^2 ~ 4.05e9 at n = 1e5: the f32 solve ends at a
+# true relres of ~5e-5 (eps_f32 ||A|| ||x|| / ||b||), and its error is the
+# smoothest modes'.  The port's f32 CPU runs reached 2.9e-3 (block 64) and
+# 4.4e-4 to 8.9e-4 (block 1); the bound is ~7x the larger.  It scales with
+# kappa, so the n = 1e4 reference holds 1/100 of it
+CONFIG1_REL_MAX = 2e-2
+CONFIG1_REF_N = 10_000
+CONFIG1_REF_REL_MAX = 2e-4
+# the transpose-free KSP types on the flagship (the spike PC built once)
+# and on config 2 (the cholesky PC built once): (type, options, the largest
+# iteration count it may take, rtol).  The flagship's gmres takes 2; bcgsl
+# counts ell = 2 an MR cycle; chebyshev's interval [0.1, 1.1] lambda_max
+# from a 2-step Arnoldi estimate shrinks a residual by ~1.9 an iteration
+# around lambda = 1 (27 its in an f32 CPU run at n = 5e4).  One PC apply
+# leaves an f32 relres of ~1e-7 to 5e-7 on these bands, and rtol 1e-8 lies
+# below it: types whose monitored norm is a short recurrence of the true
+# residual then run on roundoff.  In f32 CPU runs at n = 2e4 and 5e4: gcr's
+# norm (||r||^2 - <Ap, r>^2 / ||Ap||^2, noise ~sqrt(eps) ||r||) stopped
+# after 1 and 31 its (f64: 2); on config 2 cr's and pipecg's recurrences
+# stalled at 1.0e-7 to 2.4e-7 (cr broke down, pipecg ran to maxit).  Those
+# run at rtol 1e-6.  The reference sub-phase compares f32 with f64
+# iteration counts: at rtol 1e-8 f32 rounding sets them (gcr 31 against 2,
+# bcgsl 4 against 2, chebyshev 31 against 27 in an f32 CPU run at n = 2e4),
+# so it runs at 1e-6.  gcr's f32 norm is noise once a step cuts the
+# residual by more than sqrt(eps_f32) ~ 3.5e-4, as the spike PC's first
+# step does (it stopped after 1 step by CONVERGED_ATOL, the norm cancelled
+# to 0, where f64 took 2), so its reference takes the jacobi PC, whose steps
+# cut the residual by ~6 (8 its in f32 and in f64, 9e-7 apart)
+KSP_TYPE_CASES = (
+    ("fgmres", {}, 3, 1e-8), ("lgmres", {}, 3, 1e-8), ("gcr", {}, 3, 1e-6),
+    ("cgs", {}, 3, 1e-8), ("tfqmr", {}, 3, 1e-8), ("bcgsl", {}, 6, 1e-8),
+    ("chebyshev", {"ksp_chebyshev_esteig": "",
+                   "ksp_chebyshev_esteig_steps": 2}, 40, 1e-8),
+    ("gmres", {"ksp_pc_side": "right"}, 3, 1e-8),
+    ("gmres", {"ksp_monitor_true_residual": 1}, 3, 1e-8))
+SPD_KSP_TYPE_CASES = (("cr", {}, 5, 1e-6), ("minres", {}, 5, 1e-6),
+                      ("symmlq", {}, 5, 1e-6), ("pipecg", {}, 5, 1e-6))
+KSP_TYPE_REF_RTOL = 1e-6
+KSP_TYPE_REF_PC = {"gcr": "jacobi"}
+KSP_TYPE_RELRES_MAX = 1e-4    # true f32 relres from banded_matvec
+KSP_TYPE_REF_TOL = 1e-5       # card f32 against CPU f64, max|dx| / max|x|
 # NVIDIA's data sheet for the H100 SXM (700 W): the bound of each kernel
 PEAK_BYTES_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
@@ -1321,6 +1389,240 @@ def phase_config3_timing(rec, device, t):
           f"{bound[0]:.4f} ms ({bound[1]})")
 
 
+def config1_expected(its, launches, restart=30):
+    """The launches left-preconditioned gmres makes under the true-residual
+    monitor with x0 = 0: PC applies (two #9 sweeps each) for ||M^-1 b||, the
+    first residual, each iteration and each restart's residual; operator
+    applies (#2) for the first residual and its true norm, two an iteration
+    (the Arnoldi step and the true residual of the iterate) and one a
+    restart."""
+    cycles = -(-its // restart)
+    expected = {name: 0 for name in launches}
+    expected["sweeps"] = 2 * (2 + its + cycles - 1)
+    expected["band_matvec"] = 2 + 2 * its + cycles - 1
+    return expected
+
+
+def host_solve_f64(op, b):
+    """x64: scipy.linalg.solve_banded of the operator's band and b, both
+    promoted exactly to f64 on the host."""
+    import numpy as np
+    import scipy.linalg
+    data = op.data.double().cpu().numpy()
+    n, kl, ku = op.n, op.kl, op.ku
+    ab = np.zeros((kl + ku + 1, n))
+    for d in range(-kl, ku + 1):
+        rows = np.arange(max(0, -d), min(n, n - d))
+        ab[ku - d, rows + d] = data[rows, d + kl]
+    return scipy.linalg.solve_banded((kl, ku), ab,
+                                      b.double().cpu().numpy())
+
+
+def phase_config1(device, t, bounds):
+    """BASELINE config 1 end to end through the testbed CLI at n = 1e5 in
+    f32 (gmres + lu, -ksp_monitor_true_residual): the launches of #9 and #2
+    counted around the run and held to what gmres makes (#1 none); the
+    solution against an f64 host solve of the same system; then the factor,
+    the solve and #9 at this shape (K = 1, nb = 1563, b = 64) beside its
+    plain version and its bound."""
+    import numpy as np
+    import torch
+    from spike_petsc_tpu_torch import Options, make_solver
+    from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
+    from spike_petsc_tpu_torch.ops.cuda.fused_sweep import (
+        fused_sweep_feasible)
+    from spike_petsc_tpu_torch.ops.spike import spike_factor
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    rec = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, out = run_testbed(CONFIG1_ARGV, rec)
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    lines = out.splitlines()
+    for line in lines[:3] + ["..."] + lines[-8:]:
+        print(f"  testbed| {line}")
+    res, op, b = rec["result"], rec["operator"], rec["b"]
+    x64 = host_solve_f64(op, b)
+    rel = float(np.linalg.norm(res.x.double().cpu().numpy() - x64)
+                / np.linalg.norm(x64))
+    expected = config1_expected(res.its, launches)
+    print(f"gmres+lu (config 1, n={op.n}, f32): testbed exit code {rc}, "
+          f"{res.its} its, reason {res.reason}, {wall:.2f} s in all; "
+          f"||x - x64|| / ||x64|| {rel:.3e} (limit {CONFIG1_REL_MAX}); "
+          f"true relres (f32) {float(res.true_history[res.its]) / float(torch.linalg.norm(b)):.3e}")
+    print(f"launches on the config-1 path: {launches}")
+    print(f"expected launches (gmres: {res.its} its; 2 sweeps a PC apply, "
+          f"{res.its} + 2 applies; 2 + 2 its operator applies): {expected}")
+    check(rc == 0 and res.reason > 0 and res.its <= CONFIG1_ITS_MAX,
+          f"config 1: exit code {rc}, {res.its} its, reason {res.reason}")
+    check(res.x.shape == (CONFIG1_N,) and bool(torch.isfinite(res.x).all()),
+          "config 1 solution shape / finiteness")
+    check(rel <= CONFIG1_REL_MAX, f"config 1 error {rel}")
+    check(launches["sweeps"] > 0 and launches["fused_sweep"] == 0
+          and launches["band_matvec"] > 0, f"config 1 launches {launches}")
+    check(launches == expected, f"config 1 launches {launches}")
+
+    show = shower(t)
+    show("config1_factor", time_ms(lambda: make_pc("lu", op, Options()),
+                                   reps=3))
+    solver = make_solver(op, options=Options.from_argv(CONFIG1_ARGV))
+    show("config1_gmres_solve", time_ms(lambda: solver(b), reps=3))
+    sf = spike_factor(op, K=1, block_b=CONFIG1_BLOCK)
+    check(solver.pc.info["block"] == CONFIG1_BLOCK
+          and (sf.K, sf.nb) == (1, -(-CONFIG1_N // CONFIG1_BLOCK))
+          and not fused_sweep_feasible(sf.fact, sf.b)
+          and csw.sweeps_feasible(sf.fact, sf.b),
+          f"config 1 factor K={sf.K} nb={sf.nb} b={sf.b}")
+    r = torch.randn((1, sf.nb, sf.b), generator=torch.Generator(
+        device=device).manual_seed(SEED + 17), device=device)
+    diff, err = kernel_err(csw.blocktri_solve_batched_cuda(sf.fact, r),
+                           csw.blocktri_solve_batched_cuda(sf.fact, r,
+                                                           impl="plain"))
+    print(f"sweeps (config 1: K=1 nb={sf.nb} b={sf.b}) against its plain "
+          f"version: max abs err {diff:.3e}, relative {err:.3e}")
+    check(err <= KERNEL_TOL, f"config 1 sweeps err {err}")
+    gb = 3 * sf.fact.F.numel() * 4 / 1e9
+    show("config1_sweeps_cuda", time_ms(
+        lambda: csw.blocktri_solve_batched_cuda(sf.fact, r), iters=10), gb)
+    show("config1_sweeps_plain", time_ms(
+        lambda: csw.blocktri_solve_batched_cuda(sf.fact, r, impl="plain"),
+        iters=2))
+    # F, U, Sinv once, r in, y out and back in, x out
+    bound = roofline(3 * sf.fact.F.numel() * 4 + 4 * sf.nb * sf.b * 4,
+                     2 * (3 * sf.nb - 2) * sf.b * sf.b)
+    bounds["config1_sweeps"] = bound
+    ms = t["config1_sweeps_cuda"][0]
+    print(f"sweeps (config 1: K=1 nb={sf.nb} b={sf.b}): {ms:.4f} ms for "
+          f"the two launches, {1e3 * ms / (2 * sf.nb):.3f} us a block row "
+          f"of a sweep; plain {t['config1_sweeps_plain'][0]:.4f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]}), bound / time "
+          f"{bound[0] / ms:.3f}")
+    busy, items = device_profile(lambda: solver(b))
+    wall = t["config1_gmres_solve"][0]
+    print(f"  config1_gmres_solve device busy {busy:.3f} ms of {wall:.3f} ms "
+          f"wall: idle share {1 - busy / wall:.3f}")
+    for key, count, ms in items:
+        print(f"    {ms:8.3f} ms  {count:5d} x  {key}")
+    return launches
+
+
+def phase_config1_reference(device):
+    """Config 1 at n = 1e4 with -pc_lu_block 64 on both sides: the card in
+    f32 against the port's CPU plain path in f32; the iteration counts
+    within 1, the solutions within CONFIG1_REF_REL_MAX.  Here nb = 157, so
+    one partition's vector fits #1's shared memory and #1 runs, not #9."""
+    import torch
+    argv = ([a.replace("tridiag", f"tridiag:{CONFIG1_REF_N}")
+             for a in CONFIG1_ARGV] + ["-pc_lu_block", str(CONFIG1_BLOCK)])
+    got, ref = {}, {}
+    reset_launches()
+    rc_card, _ = run_testbed(argv, got)
+    ran = {k: v for k, v in read_launches().items() if v}
+    rc_cpu, _ = run_testbed(argv + ["-platform", "cpu"], ref)
+    xg, xr = got["result"].x, ref["result"].x
+    err = float(torch.linalg.norm((xg.cpu() - xr).double())
+                / torch.linalg.norm(xr.double()))
+    print(f"config 1 n={CONFIG1_REF_N}: card f32 {got['result'].its} its "
+          f"(launches {ran}) vs CPU f32 {ref['result'].its} its, "
+          f"||x_card - x_cpu|| / ||x_cpu|| {err:.3e} (limit "
+          f"{CONFIG1_REF_REL_MAX})")
+    check(rc_card == rc_cpu == 0 and xg.is_cuda and not xr.is_cuda
+          and ran.get("fused_sweep", 0) > 0, "config 1 reference runs")
+    check(abs(got["result"].its - ref["result"].its) <= 1
+          and err <= CONFIG1_REF_REL_MAX,
+          "config 1: card and CPU reference disagree")
+
+
+def _ksp_case_name(ksp, opts):
+    extra = ",".join(f"{k[4:]}" + (f"={v}" if v not in ("", 1) else "")
+                     for k, v in opts.items())
+    return ksp + (f"[{extra}]" if extra else "")
+
+
+def phase_ksp_types(band, rhs, pc, cases, kernels):
+    """Each KSP type of ``cases`` through ``solve(band, rhs, pc=pc, ...)``
+    at its rtol, the PC built once; its launch counts read around it; the
+    reason, its bound on the iterations, the true f32 relres and a launch
+    of each of ``kernels`` held."""
+    import torch
+    from spike_petsc_tpu_torch import Options, solve
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.solvers.types import reason_str
+    bnorm = torch.linalg.norm(rhs)
+    rows = {}
+    for ksp, opts, its_max, rtol in cases:
+        name = _ksp_case_name(ksp, opts)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = solve(band, rhs, ksp_type=ksp, pc=pc,
+                    options=Options(dict(opts)), rtol=rtol)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in read_launches().items() if v}
+        relres = float(torch.linalg.norm(banded_matvec(band, res.x) - rhs)
+                       / bnorm)
+        print(f"ksp {name} rtol={rtol:g}: {res.its} its, "
+              f"{reason_str(res.reason)}, wall "
+              f"{wall:.2f} ms, true relres (f32) {relres:.3e}, launches "
+              f"{launches}")
+        check(res.reason > 0 and res.its <= its_max,
+              f"ksp {name}: {res.its} its (at most {its_max}), reason "
+              f"{res.reason}")
+        check(bool(torch.isfinite(res.x).all())
+              and relres <= KSP_TYPE_RELRES_MAX, f"ksp {name} relres {relres}")
+        check(all(launches.get(k, 0) > 0 for k in kernels),
+              f"ksp {name}: a kernel of {kernels} did not run: {launches}")
+        if opts.get("ksp_monitor_true_residual"):
+            check(res.true_history is not None and bool(
+                torch.isfinite(res.true_history[:res.its + 1]).all()),
+                  f"ksp {name}: no true history")
+        rows[name] = (res.its, res.reason, wall, launches)
+    return rows
+
+
+def phase_ksp_types_reference(device):
+    """Each type on a 20 000-row band (the flagship's kind, w = 41, and
+    config 2's, w = 33) with its PC built once a side (gcr: the jacobi
+    PC, KSP_TYPE_REF_PC), at rtol 1e-6: the card in f32 against the CPU in
+    f64; the iteration counts within 1, the
+    solutions within KSP_TYPE_REF_TOL of max|x|."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix, Options, solve
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    nonsym, nrhs = flagship_band(20_000, 20, device, seed=SEED + 3)
+    spd, srhs = spd_band(20_000, SPD_HALF_BW, device, seed=SEED + 14)
+    opts = dict(PC_OPTIONS, pc_spike_partitions=8, pc_spike_block=64)
+    worst = 0.0
+    for band, rhs, pc_name, pc_opts, cases in (
+            (nonsym, nrhs, "spike", opts, KSP_TYPE_CASES),
+            (spd, srhs, "cholesky", SPD_OPTIONS, SPD_KSP_TYPE_CASES)):
+        cpu = BandedMatrix(data=band.data.double().cpu(), kl=band.kl,
+                           ku=band.ku)
+        pcs = {dev: make_pc(pc_name, b, Options(dict(pc_opts)))
+               for dev, b in (("card", band), ("cpu", cpu))}
+        for ksp, kopts, _, _ in cases:
+            own = KSP_TYPE_REF_PC.get(ksp)
+            got = solve(band, rhs, ksp_type=ksp, pc_type=own,
+                        pc=None if own else pcs["card"],
+                        options=Options(dict(kopts)), rtol=KSP_TYPE_REF_RTOL)
+            ref = solve(cpu, rhs.double().cpu(), ksp_type=ksp, pc_type=own,
+                        pc=None if own else pcs["cpu"],
+                        options=Options(dict(kopts)), rtol=KSP_TYPE_REF_RTOL)
+            err = float((got.x.double().cpu() - ref.x).abs().max()
+                        / ref.x.abs().max())
+            worst = max(worst, err)
+            name = _ksp_case_name(ksp, kopts)
+            name += f"+{own}" if own else ""
+            print(f"ksp {name} n=20000 w={band.width}: card {got.its} its vs "
+                  f"CPU f64 {ref.its} its, max|x_card - x_cpu| / max|x_cpu| "
+                  f"{err:.3e}")
+            check(got.reason > 0 and ref.reason > 0
+                  and abs(got.its - ref.its) <= 1 and err <= KSP_TYPE_REF_TOL,
+                  f"ksp {name}: card and CPU reference disagree")
+    return worst
+
+
 def phase_refine(a64, b64):
     """f64-grade refinement through ``solve``: richardson + the spike PC
     with f32 factors on the f64 flagship band, rtol 1e-12, launch counts
@@ -1555,7 +1857,18 @@ def main() -> int:
     alt_launches = phase_alternate_path(band, rhs, sf)
     t, bounds = phase_timing(band, rhs, sf, device)
     bounds.update(phase_alternate_timing(band, a64, b64, rhs, sf, device, t))
-    del band, rhs, sf, res, a64, b64
+    del a64, b64
+    torch.cuda.empty_cache()
+
+    # the transpose-free KSP types on the flagship, the spike PC built once
+    from spike_petsc_tpu_torch import Options
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    tk = time.perf_counter()
+    pc = make_pc("spike", band, Options(dict(PC_OPTIONS)))
+    phase_ksp_types(band, rhs, pc, KSP_TYPE_CASES,
+                    ("fused_sweep", "band_matvec"))
+    print(f"KSP types on the flagship: {time.perf_counter() - tk:.1f} s")
+    del band, rhs, sf, res, pc
     torch.cuda.empty_cache()
 
     # BASELINE config 3 through the testbed CLI
@@ -1566,6 +1879,13 @@ def main() -> int:
     del rec3
     torch.cuda.empty_cache()
     print(f"config 3 phases: {time.perf_counter() - t3:.1f} s")
+
+    # BASELINE config 1 (gmres + lu) through the testbed CLI: #9 at K = 1
+    t1 = time.perf_counter()
+    phase_config1(device, t, bounds)
+    phase_config1_reference(device)
+    torch.cuda.empty_cache()
+    print(f"config 1 phases: {time.perf_counter() - t1:.1f} s")
 
     # the SPD path (BASELINE config 2)
     from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many_spd as cfms
@@ -1580,6 +1900,15 @@ def main() -> int:
     spd_t, spd_bounds = phase_spd_timing(sband, srhs, ssf, device)
     t.update(spd_t)
     bounds.update(spd_bounds)
+    tk = time.perf_counter()
+    spc = make_pc("cholesky", sband, Options(dict(SPD_OPTIONS)))
+    phase_ksp_types(sband, srhs, spc, SPD_KSP_TYPE_CASES,
+                    ("fused_sweep_spd", "band_matvec"))
+    del sband, srhs, ssf, spc
+    torch.cuda.empty_cache()
+    phase_ksp_types_reference(device)
+    print(f"KSP types on config 2 and the references: "
+          f"{time.perf_counter() - tk:.1f} s")
 
     # each kernel's launches from the run of the path it carries; the
     # library call where one PyTorch call computes the same function

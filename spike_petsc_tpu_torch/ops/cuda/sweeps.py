@@ -15,6 +15,7 @@ import torch
 
 from ..blocktri import BlockTriFactor, blocktri_solve
 from ._build import CudaKernel, I, P
+from .fused_sweep import _BLOCK_SIZES as _FUSED_BLOCK_SIZES
 
 KERNEL = CudaKernel("sweeps", {
     "sweeps_fwd_f32": [P, P, P, I, I, I, P],
@@ -36,6 +37,17 @@ def sweeps_feasible(fact, b: int, rhs_dtype=torch.float32) -> bool:
         return False
     return (fact.F.dtype in _SUFFIX and b in _BLOCK_SIZES
             and rhs_dtype == torch.float32)
+
+
+def inv_block_for(k: int) -> int:
+    """The smallest block size the ``inv`` sweep kernels take (#1 in
+    ``fused_sweep.py`` and the two-pass #9 here share 64 and 128) that
+    covers a coupling tip of k rows; the tip size itself where neither does
+    (k > 128), which both rules then refuse, so the plain sweep runs."""
+    for b in sorted(set(_BLOCK_SIZES) & set(_FUSED_BLOCK_SIZES)):
+        if b >= k:
+            return b
+    return k
 
 
 def blocktri_solve_batched_cuda(fact: BlockTriFactor, rhs: torch.Tensor,

@@ -13,10 +13,12 @@ and SPD paths run:
 * the reduced interface system is block-tridiagonal with 2k x 2k blocks and
   K-1 block rows, factored by block-Thomas, or, ``truncated``, only its
   diagonal blocks, inverted (exact in the diagonally dominant limit);
-* a solve is one partition sweep (a fused CUDA kernel on the card, chosen
-  by the factor's method, or with ``impl="pallas"`` the two-pass sweep
-  kernels), a reduced solve, and the stored-spike correction
-  ``x = g - V xt - W xb`` (or a second sweep when spikes are not stored);
+* a solve is one partition sweep (on the card ``sweep_route`` picks the
+  fused CUDA kernel of the factor's method, or for an ``inv`` partition too
+  long for its shared memory the two-pass sweep kernels, which
+  ``impl="pallas"`` also names), a reduced solve, and the stored-spike
+  correction ``x = g - V xt - W xb`` (or a second sweep when spikes are
+  not stored);
 * ``spike_solve_many`` does the same for ``[n, r]`` right-hand sides, the
   factors streamed once for all r (the multi-RHS fused kernels on the card).
 """
@@ -36,11 +38,9 @@ from .blocktri import (BlockTridiagonal, BlockTriFactor, _sweep_matvec,
 from .cuda.fused_sweep import blocktri_solve_fused_cuda, fused_sweep_feasible
 from .cuda.fused_sweep_many import (blocktri_solve_fused_many_cuda,
                                     fused_sweep_many_feasible)
-from .cuda.fused_sweep_many_spd import (blocktri_solve_fused_many_spd_cuda,
-                                        fused_sweep_many_spd_feasible)
-from .cuda.fused_sweep_spd import (blocktri_solve_fused_spd_cuda,
-                                   fused_sweep_spd_feasible)
-from .cuda.sweeps import blocktri_solve_batched_cuda
+from .cuda.fused_sweep_many_spd import blocktri_solve_fused_many_spd_cuda
+from .cuda.fused_sweep_spd import blocktri_solve_fused_spd_cuda
+from .cuda.sweeps import blocktri_solve_batched_cuda, sweeps_feasible
 
 
 @dataclass(frozen=True)
@@ -293,16 +293,11 @@ def _reduced_solve(sf: SpikeFactor, g_bot: torch.Tensor, g_top: torch.Tensor):
     return xbot_prev, xtop_next
 
 
-# the fused sweep kernel of each factor method: (wrapper, feasibility rule)
-_SWEEPS = {
-    "inv": (blocktri_solve_fused_cuda, fused_sweep_feasible),
-    "spd": (blocktri_solve_fused_spd_cuda, fused_sweep_spd_feasible),
-}
-_SWEEPS_MANY = {
-    "inv": (blocktri_solve_fused_many_cuda, fused_sweep_many_feasible),
-    "spd": (blocktri_solve_fused_many_spd_cuda,
-            fused_sweep_many_spd_feasible),
-}
+# the fused sweep kernel of each factor method, single and multi-RHS
+_SWEEPS = {"inv": blocktri_solve_fused_cuda,
+           "spd": blocktri_solve_fused_spd_cuda}
+_SWEEPS_MANY = {"inv": blocktri_solve_fused_many_cuda,
+                "spd": blocktri_solve_fused_many_spd_cuda}
 
 
 # the JAX package's impl names: 'xla' is the plain sweep, 'pallas_fused' the
@@ -321,24 +316,45 @@ def _require_inv_factors(sf: SpikeFactor, impl: str) -> None:
             f"or refactor with spike_factor(..., method='inv'))")
 
 
+def sweep_route(fact, b: int, rhs_dtype, on_cuda: bool,
+                many: bool = False) -> str:
+    """The partition sweep ``impl='auto'`` runs: ``"fused"`` (the fused
+    kernel of the factor's method: #1 for ``inv``, #3 for ``spd``; #4 and #5
+    with ``many``), ``"sweeps"`` (the two-pass kernels #9, single RHS,
+    ``inv`` factors) or ``"plain"``.  A CPU right-hand side takes the plain
+    sweep.  On the card, ``spd`` factors take their fused kernel, which
+    raises where its rule refuses them; ``inv`` factors take #1 where its
+    rule admits them, else #9 where its rule does (any nb, so a long single
+    partition), else the plain sweep: only f64 factors or a block outside
+    64 and 128 come there, and no multi-RHS two-pass kernel exists."""
+    if not on_cuda:
+        return "plain"
+    if fact.method == "spd":
+        return "fused"
+    fused = fused_sweep_many_feasible if many else fused_sweep_feasible
+    if fused(fact, b, rhs_dtype):
+        return "fused"
+    if not many and sweeps_feasible(fact, b, rhs_dtype):
+        return "sweeps"
+    return "plain"
+
+
 def _batched_solver(sf: SpikeFactor, impl: str, rhs: torch.Tensor,
-                    sweeps=_SWEEPS):
+                    many: bool = False):
     """The partition sweep ``r -> x`` for ``sf``'s factor method.  'auto'
-    takes the plain sweep for a CPU right-hand side and the method's fused
-    CUDA kernel for a CUDA one, as the JAX dispatch takes its Pallas kernel
-    on the TPU.  On the card, ``spd`` factors the kernel's rule refuses
-    raise (only ``impl='plain'`` runs their plain sweep there); ``inv``
-    factors the rule refuses take the plain sweep.  The JAX names ``xla``
-    and ``pallas_fused`` mean ``plain`` and ``cuda``."""
+    takes the route of :func:`sweep_route`, as the JAX dispatch takes its
+    Pallas kernels on the TPU.  The JAX names ``xla`` and ``pallas_fused``
+    mean ``plain`` and ``cuda``."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown impl {impl!r}: expected "
                          f"{', '.join(_IMPLS)}")
     impl = _JAX_NAMES.get(impl, impl)
-    solve, feasible = sweeps[sf.fact.method]
+    solve = (_SWEEPS_MANY if many else _SWEEPS)[sf.fact.method]
     if impl == "auto":
-        impl = ("cuda" if rhs.is_cuda and (
-            sf.fact.method == "spd" or feasible(sf.fact, sf.b, rhs.dtype))
-            else "plain")
+        route = sweep_route(sf.fact, sf.b, rhs.dtype, rhs.is_cuda, many=many)
+        if route == "sweeps":
+            return lambda r: blocktri_solve_batched_cuda(sf.fact, r)
+        impl = "cuda" if route == "fused" else "plain"
     return lambda r: solve(sf.fact, r, impl=impl)
 
 
@@ -346,9 +362,10 @@ def spike_solve(sf: SpikeFactor, rhs: torch.Tensor,
                 impl: str = "auto") -> torch.Tensor:
     """Solve A x = rhs with a SPIKE factorization.  rhs: [n].
 
-    impl: "auto" (on a CUDA tensor the fused CUDA sweep of the factor's
-    method: #1 for ``inv`` where it applies, else plain; #3 for ``spd``,
-    raising where it does not apply), "cuda" (the kernel; raises where it
+    impl: "auto" (on a CUDA tensor the route of :func:`sweep_route`: for
+    ``inv`` factors #1 where its rule admits them, else the two-pass #9
+    where its rule does, else plain; #3 for ``spd``, raising where it does
+    not apply), "cuda" (the fused kernel; raises where it
     does not apply), "plain" (the plain PyTorch sweeps on any device), or
     the JAX names: "xla" (plain), "pallas_fused" (cuda) and "pallas" (the
     two-pass sweep kernels #9 of ``ops/cuda/sweeps.py``, one launch per
@@ -422,7 +439,7 @@ def spike_solve_many(sf: SpikeFactor, rhs: torch.Tensor,
     if impl == "pallas":
         _require_inv_factors(sf, impl)
         impl = "cuda"
-    batched_solve = _batched_solver(sf, impl, rhs, _SWEEPS_MANY)
+    batched_solve = _batched_solver(sf, impl, rhs, many=True)
 
     g = batched_solve(rblk)                                  # [K, nb, b, r]
     if K == 1:

@@ -1,18 +1,33 @@
 """Krylov solvers (the KSP layer), PyTorch.
 
-Ported: restarted GMRES with left preconditioning, classical Gram-Schmidt
-with one unconditional refinement pass (``cgs_refinement="always"``) and
-classical Givens rotations, BiCGStab (``bcgs``/``fbcgs``/``bicgstab``),
-preconditioned CG (``cg``), preconditioned Richardson (``richardson``, the
-iterative-refinement loop) and one PC application (``preonly``), as in
-``spike_petsc_tpu.solvers.krylov``.
+Ported, as in ``spike_petsc_tpu.solvers.krylov``, with the same arguments,
+defaults, converged reasons and history semantics:
 
-The JAX version stages the whole solve in ``lax.while_loop``.  Here the
-vectors and the Krylov basis stay on the operator's device, and the small
-Hessenberg column comes to the host once per iteration: the Givens rotations,
-the convergence test and the least-squares solve run there in the vectors'
-dtype.  That is one device synchronization per iteration, and it keeps
-iteration counts and residual histories equal to the reference.
+* the GMRES family: restarted ``gmres`` (left or right PC; the
+  preconditioned, unpreconditioned or default convergence norm; classical
+  Gram-Schmidt with the ``never``, ``ifneeded`` or ``always`` refinement;
+  the true-residual monitor), ``fgmres`` (flexible, right PC) and
+  ``lgmres`` (restart cycles augmented with earlier error approximations);
+* BiCGStab (``bcgs``/``fbcgs``/``bicgstab``), BiCGStab(l) (``bcgsl``),
+  ``cgs``, ``tfqmr`` and ``gcr`` for general operators;
+* ``cg``, ``pipecg``, ``cr``, ``minres`` and ``symmlq`` for symmetric ones;
+* ``chebyshev``, ``richardson`` and ``preonly``;
+* the Arnoldi spectrum estimate behind ``-ksp_compute_eigenvalues`` and
+  ``-ksp_chebyshev_esteig`` (``arnoldi_hessenberg``,
+  ``estimate_extreme_eigs``, ``chebyshev_esteig_bounds``).
+
+The types that iterate on A^T (``bicg``, ``cgne``/``cgnr``/``cgls``,
+``lsqr``) are not yet ported.
+
+The JAX versions stage each solve in ``lax.while_loop``.  Here the vectors
+(and the Krylov bases) stay on the operator's device, and the small scalars
+that a decision needs come to the host once per iteration: the residual
+norm for the convergence test, with the breakdown tests' magnitudes stacked
+beside it.  GMRES brings its Hessenberg column to the host, where the
+Givens rotations and the least-squares solve run in the vectors' dtype.
+Where the JAX loop computes a step and discards it (a gate on a terminal
+reason), the port does not compute it.  Iteration counts and residual
+histories equal the reference's.
 """
 
 from __future__ import annotations
@@ -39,6 +54,196 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.dot(x, x))
 
 
+def _safe(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where it is nonzero, else 1 (a guarded divisor)."""
+    return torch.where(t != 0, t, torch.ones_like(t))
+
+
+def _host(*scalars: torch.Tensor) -> list:
+    """Device scalars to host floats, in one synchronization."""
+    return torch.stack([s.reshape(()) for s in scalars]).tolist()
+
+
+def _tiny(dtype: torch.dtype) -> float:
+    return torch.finfo(dtype).tiny
+
+
+def _history(maxit: int, dtype: torch.dtype) -> torch.Tensor:
+    return torch.full((maxit + 1,), float("nan"), dtype=dtype)
+
+
+def _checker(bnorm: float, *, rtol, atol, divtol, maxit) -> Callable:
+    def check(rn, its):
+        return default_convergence_check(rn, bnorm, its, rtol=rtol,
+                                         atol=atol, divtol=divtol,
+                                         maxit=maxit)
+    return check
+
+
+def _breakdown(reason: int, broke: bool) -> int:
+    """A breakdown overrides an iterating reason only."""
+    if broke and reason == CONVERGED_ITERATING:
+        return DIVERGED_BREAKDOWN
+    return reason
+
+
+def _result(matvec, b, x, its, reason, history, true_history=None):
+    """The result with the true final residual norm."""
+    return KSPResult(x=x, its=its, reason=reason,
+                     rnorm=float(_norm(b - matvec(x))), history=history,
+                     true_history=true_history)
+
+
+def _orthogonalize(V: torch.Tensor, w: torch.Tensor, cgs_refinement: str):
+    """Classical Gram-Schmidt of ``w`` against the rows of ``V`` with
+    PETSc's refinement policy (``KSPGMRESSetCGSRefinementType``):
+    ``"always"`` one unconditional second pass, ``"never"`` a single pass,
+    ``"ifneeded"`` a second pass only when the DGKS test
+    ``||w_after|| < ||w_before|| / sqrt(2)`` finds cancellation (decided on
+    the host, so a skipped pass costs nothing).  Returns ``(w, h, ||w||)``
+    with ``h`` the projection row."""
+    if cgs_refinement == "never":
+        h = V @ w
+        w = w - h @ V
+        return w, h, _norm(w)
+    if cgs_refinement == "always":
+        h = V @ w
+        w = w - h @ V
+        h2 = V @ w
+        w = w - h2 @ V
+        return w, h + h2, _norm(w)
+    if cgs_refinement != "ifneeded":
+        raise ValueError(
+            f"unknown cgs_refinement {cgs_refinement!r}: expected never, "
+            "ifneeded, or always (-ksp_gmres_cgs_refinement_type)")
+    h = V @ w
+    wnorm0 = _norm(w)
+    w = w - h @ V
+    hj1 = _norm(w)
+    after, before = _host(hj1, wnorm0)
+    if after < 0.7071067811865476 * before:
+        h2 = V @ w
+        w = w - h2 @ V
+        return w, h + h2, _norm(w)
+    return w, h, hj1
+
+
+# ---------------------------------------------------------------------------
+# Arnoldi spectrum estimation (KSPComputeEigenvalues / KSPChebyshevEstEig)
+# ---------------------------------------------------------------------------
+
+def arnoldi_hessenberg(matvec: Callable, v0: torch.Tensor, m: int,
+                       pc_apply: Optional[Callable] = None):
+    """m-step Arnoldi factorization of the left-preconditioned operator
+    M^-1 A started from ``v0``; returns ``(H, k)`` with H the ``(m+1, m)``
+    Hessenberg (a host numpy array in the vectors' dtype) and ``k`` the
+    number of completed columns (< m on exact breakdown, where the Krylov
+    space became invariant and the Ritz values of ``H[:k, :k]`` are exact
+    eigenvalues).  One classical Gram-Schmidt pass a step, as in JAX; the
+    columns past a breakdown stay zero."""
+    psolve = pc_apply or _identity_pc
+    npdt = _NP_DTYPES[v0.dtype]
+    tiny = _tiny(v0.dtype)
+    n0 = _norm(v0)
+    V = torch.zeros((m + 1,) + tuple(v0.shape), dtype=v0.dtype,
+                    device=v0.device)
+    V[0] = v0 / _safe(n0)
+    H = np.zeros((m + 1, m), npdt)
+    k = 0
+    for j in range(m):
+        w = psolve(matvec(V[j]))
+        h = V[:j + 1] @ w
+        w = w - h @ V[:j + 1]
+        hj1 = _norm(w)
+        col = torch.cat([h, hj1[None]]).cpu().numpy()
+        H[:j + 2, j] = col
+        k += 1
+        if not col[-1] > 1e3 * tiny:
+            break
+        V[j + 1] = w / _safe(hj1)
+    return H, k
+
+
+def estimate_extreme_eigs(matvec: Callable, n: int, dtype=torch.float32, *,
+                          m: int = 10, pc_apply: Optional[Callable] = None,
+                          seed: int = 0, v0=None, device=None):
+    """Ritz-value estimate of M^-1 A's spectrum: ``m`` Arnoldi steps on the
+    operator's device, the eigenvalues of the small Hessenberg on the host.
+    Returns the complex Ritz values (length <= m).  ``v0`` defaults to a
+    seeded standard normal vector (the JAX package's draws) on ``device``
+    (default the card).  Set-up work, as PETSc's estimate in KSPSetUp."""
+    m = max(1, min(int(m), int(n)))
+    if v0 is None:
+        v0 = torch.as_tensor(
+            np.random.default_rng(seed).standard_normal(n)).to(
+                device=torch.device(device or "cuda"), dtype=dtype)
+    H, k = arnoldi_hessenberg(matvec, v0, m, pc_apply)
+    if k == 0:
+        return np.zeros(0, complex)
+    return np.linalg.eigvals(H[:k, :k])
+
+
+#: PETSc's default -ksp_chebyshev_esteig transform: bounds from the Ritz
+#: extremes as (a*lmin + b*lmax, c*lmin + d*lmax).  The 0.1 floor keeps the
+#: smoother robust when the smallest eigenvalues are underestimated by a
+#: short Arnoldi run; 1.1 adds headroom above the largest Ritz value.
+ESTEIG_DEFAULT_TRANSFORM = (0.0, 0.1, 0.0, 1.1)
+
+
+def chebyshev_esteig_bounds(eigs, transform=ESTEIG_DEFAULT_TRANSFORM):
+    """Map Ritz values to chebyshev [emin, emax] via the 4-parameter PETSc
+    transform (KSPChebyshevEstEigSet semantics)."""
+    re = np.real(np.asarray(eigs))
+    if re.size == 0:
+        raise ValueError("no Ritz values: Arnoldi broke down at step 0 "
+                         "(zero starting vector?)")
+    lmin, lmax = float(re.min()), float(re.max())
+    a, b, c, d = transform
+    return a * lmin + b * lmax, c * lmin + d * lmax
+
+
+# ---------------------------------------------------------------------------
+# GMRES family
+# ---------------------------------------------------------------------------
+
+class _Givens:
+    """The rotated Hessenberg of one restart cycle, on the host in the
+    vectors' dtype: classical Givens rotations, the rotated right-hand side
+    ``g`` and the triangular least-squares solve."""
+
+    def __init__(self, restart: int, beta: float, npdt):
+        self.npdt = npdt
+        self.H = np.zeros((restart + 1, restart), npdt)
+        self.g = np.zeros(restart + 1, npdt)
+        self.g[0] = npdt(beta)
+        self.cs = np.ones(restart, npdt)
+        self.sn = np.zeros(restart, npdt)
+
+    def add_column(self, j: int, col: np.ndarray) -> float:
+        """Rotate column ``j`` (``col[:j+2]``) into the triangle; return the
+        new residual estimate |g[j+1]|."""
+        cs, sn, npdt = self.cs, self.sn, self.npdt
+        col = np.concatenate([col, np.zeros(self.H.shape[0] - col.size,
+                                            npdt)])
+        for i in range(j):
+            t1 = cs[i] * col[i] + sn[i] * col[i + 1]
+            t2 = -sn[i] * col[i] + cs[i] * col[i + 1]
+            col[i], col[i + 1] = t1, t2
+        denom = np.sqrt(col[j] ** 2 + col[j + 1] ** 2)
+        c_new, s_new = ((col[j] / denom, col[j + 1] / denom)
+                        if denom > 0 else (npdt(1), npdt(0)))
+        col[j], col[j + 1] = denom, 0
+        self.g[j], self.g[j + 1] = c_new * self.g[j], -s_new * self.g[j]
+        self.H[:, j] = col
+        cs[j], sn[j] = c_new, s_new
+        return float(abs(self.g[j + 1]))
+
+    def solve(self, j: int, device) -> torch.Tensor:
+        y = scipy.linalg.solve_triangular(self.H[:j, :j], self.g[:j],
+                                          lower=False)
+        return torch.from_numpy(np.ascontiguousarray(y)).to(device)
+
+
 def gmres(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None,
           pc_apply: Optional[Callable] = None, *, restart: int = 30,
@@ -46,40 +251,77 @@ def gmres(matvec: Callable, b: torch.Tensor,
           maxit: int = 10000, side: str = "left", monitor_true: bool = False,
           norm_type: str = "default",
           cgs_refinement: str = "always") -> KSPResult:
-    """Restarted GMRES with left preconditioning (PETSc KSPGMRES defaults:
-    restart 30, rtol 1e-5, preconditioned residual monitoring).
+    """Restarted GMRES with left (default) or right preconditioning (PETSc
+    KSPGMRES defaults: restart 30, rtol 1e-5, classical Givens least
+    squares, the preconditioned residual monitored under a left PC).
 
-    Ported options: ``side="left"``, ``norm_type`` "default" or
-    "preconditioned", ``cgs_refinement="always"``; the others raise.
-    """
-    if side != "left":
-        raise NotImplementedError(f"gmres(side={side!r}) is not yet ported")
-    if monitor_true or norm_type not in ("default", "preconditioned"):
-        raise NotImplementedError(
-            "gmres true-residual monitoring is not yet ported")
-    if cgs_refinement != "always":
-        raise NotImplementedError(
-            f"gmres(cgs_refinement={cgs_refinement!r}) is not yet ported")
+    ``monitor_true=True`` records the unpreconditioned residual norm of
+    every iteration in ``result.true_history`` (``-ksp_monitor_true_residual``)
+    at one extra matvec (and PC apply under a right PC) an iteration.
+    ``norm_type`` "unpreconditioned" converges on that true norm under a left
+    PC; "preconditioned" with a right PC is an error, as in PETSc.
+    ``cgs_refinement``: see :func:`_orthogonalize`."""
     return _gmres_like(matvec, b, x0, pc_apply, restart=restart, rtol=rtol,
-                       atol=atol, divtol=divtol, maxit=maxit)
+                       atol=atol, divtol=divtol, maxit=maxit, flexible=False,
+                       right=(side == "right"), monitor_true=monitor_true,
+                       norm_type=norm_type, cgs_refinement=cgs_refinement)
+
+
+def fgmres(matvec: Callable, b: torch.Tensor,
+           x0: Optional[torch.Tensor] = None,
+           pc_apply: Optional[Callable] = None, *, restart: int = 30,
+           rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
+           maxit: int = 10000, monitor_true: bool = False,
+           norm_type: str = "default", cgs_refinement: str = "always",
+           **_) -> KSPResult:
+    """Flexible GMRES: right-preconditioned, storing the preconditioned
+    basis, so the PC may change between iterations (an inner Krylov
+    solve).  ``norm_type`` "unpreconditioned" is a no-op (the true residual
+    is monitored already) and "preconditioned" an error, as in PETSc."""
+    return _gmres_like(matvec, b, x0, pc_apply, restart=restart, rtol=rtol,
+                       atol=atol, divtol=divtol, maxit=maxit, flexible=True,
+                       right=True, monitor_true=monitor_true,
+                       norm_type=norm_type, cgs_refinement=cgs_refinement)
 
 
 def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
-                maxit):
+                maxit, flexible, right, monitor_true=False,
+                norm_type="default", cgs_refinement="always"):
     psolve = pc_apply or _identity_pc
     n, dtype, device = b.shape[0], b.dtype, b.device
     npdt = _NP_DTYPES[dtype]
+    if norm_type not in ("default", "preconditioned", "unpreconditioned"):
+        raise ValueError(f"unknown norm_type {norm_type!r}")
+    if norm_type == "preconditioned" and right:
+        raise ValueError("norm_type='preconditioned' is incompatible with "
+                         "right preconditioning (fgmres / side='right')")
+    unprec = norm_type == "unpreconditioned" and not right
+    track_true = monitor_true or unprec
     x = torch.zeros_like(b) if x0 is None else x0.clone()
-    bnorm = float(_norm(psolve(b)))
-    history = torch.full((maxit + 1,), float("nan"), dtype=dtype)
+    bnorm = float(_norm(b) if (right or unprec) else _norm(psolve(b)))
+    check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
+    history = _history(maxit, dtype)
+    true_history = _history(maxit, dtype) if track_true else None
 
-    def check(rn, its):
-        return default_convergence_check(rn, bnorm, its, rtol=rtol,
-                                         atol=atol, divtol=divtol,
-                                         maxit=maxit)
+    def residual(x):
+        r = b - matvec(x)
+        return r if right else psolve(r)
 
-    r = psolve(b - matvec(x))
+    def update(giv, j, V, Z):
+        """The correction of a cycle's first j directions."""
+        y = giv.solve(j, device)
+        if flexible:
+            return y @ Z[:j]
+        dx = y @ V[:j]
+        return psolve(dx) if right else dx
+
+    r = residual(x)
     rnorm = float(_norm(r))
+    if track_true:
+        true0 = float(_norm(b - matvec(x)))
+        true_history[0] = true0
+        if unprec:
+            rnorm = true0
     history[0] = rnorm
     its = 0
     reason = check(rnorm, its)
@@ -87,49 +329,101 @@ def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
         beta = _norm(r)
         V = torch.zeros((restart + 1, n), dtype=dtype, device=device)
         V[0] = r / torch.where(beta > 0, beta, torch.ones_like(beta))
-        H = np.zeros((restart + 1, restart), npdt)
-        g = np.zeros(restart + 1, npdt)
-        g[0] = npdt(beta.item())
-        cs = np.ones(restart, npdt)
-        sn = np.zeros(restart, npdt)
+        Z = (torch.zeros((restart, n), dtype=dtype, device=device)
+             if flexible else None)
+        giv = _Givens(restart, beta.item(), npdt)
         j = 0
         while j < restart and reason == CONVERGED_ITERATING:
-            w = psolve(matvec(V[j]))
-            # classical Gram-Schmidt against V[0..j], one refinement pass
-            Vj = V[:j + 1]
-            h = Vj @ w
-            w = w - h @ Vj
-            h2 = Vj @ w
-            w = w - h2 @ Vj
-            hj1 = _norm(w)
+            if flexible:
+                Z[j] = psolve(V[j])
+                w = matvec(Z[j])
+            elif right:
+                w = matvec(psolve(V[j]))
+            else:
+                w = psolve(matvec(V[j]))
+            w, h, hj1 = _orthogonalize(V[:j + 1], w, cgs_refinement)
             V[j + 1] = w / torch.where(hj1 > 0, hj1, torch.ones_like(hj1))
-            col = np.zeros(restart + 1, npdt)
-            col[:j + 2] = torch.cat([h + h2, hj1[None]]).cpu().numpy()
-            # accumulated Givens rotations, then the one eliminating col[j+1]
-            for i in range(j):
-                t1 = cs[i] * col[i] + sn[i] * col[i + 1]
-                t2 = -sn[i] * col[i] + cs[i] * col[i + 1]
-                col[i], col[i + 1] = t1, t2
-            denom = np.sqrt(col[j] ** 2 + col[j + 1] ** 2)
-            c_new, s_new = ((col[j] / denom, col[j + 1] / denom)
-                            if denom > 0 else (npdt(1), npdt(0)))
-            col[j], col[j + 1] = denom, 0
-            g[j], g[j + 1] = c_new * g[j], -s_new * g[j]
-            H[:, j] = col
-            cs[j], sn[j] = c_new, s_new
-            rnorm = float(abs(g[j + 1]))
+            col = torch.cat([h, hj1[None]]).cpu().numpy()
+            rnorm = giv.add_column(j, col)
+            j += 1
+            its += 1
+            if track_true:
+                # the current iterate's true residual: one extra matvec
+                true_rn = float(_norm(b - matvec(x + update(giv, j, V, Z))))
+                true_history[its] = true_rn
+                if unprec:
+                    rnorm = true_rn
+            history[its] = rnorm
+            reason = check(rnorm, its)
+        x = x + update(giv, j, V, Z)
+        if reason == CONVERGED_ITERATING:
+            r = residual(x)
+    return KSPResult(x=x, its=its, reason=reason, rnorm=rnorm,
+                     history=history, true_history=true_history)
+
+
+def lgmres(matvec: Callable, b: torch.Tensor,
+           x0: Optional[torch.Tensor] = None,
+           pc_apply: Optional[Callable] = None, *, restart: int = 30,
+           aug: int = 2, rtol: float = 1e-5, atol: float = 1e-50,
+           divtol: float = 1e4, maxit: int = 10000,
+           cgs_refinement: str = "always", **_) -> KSPResult:
+    """LGMRES (Baker-Jessup-Manteuffel; PETSc KSPLGMRES): restarted,
+    left-preconditioned GMRES whose cycles append the ``aug`` most recent
+    normalized error approximations (each cycle's correction) to the search
+    space, ``restart`` directions in all.  The first cycle is plain
+    GMRES(restart); ``aug=0`` is gmres."""
+    psolve = pc_apply or _identity_pc
+    n, dtype, device = b.shape[0], b.dtype, b.device
+    npdt = _NP_DTYPES[dtype]
+    aug = max(0, min(int(aug), restart - 1))
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    bnorm = float(_norm(psolve(b)))
+    check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
+    history = _history(maxit, dtype)
+
+    def residual(x):
+        return psolve(b - matvec(x))
+
+    r = residual(x)
+    rnorm = float(_norm(r))
+    history[0] = rnorm
+    its = 0
+    reason = check(rnorm, its)
+    augs = []                      # normalized corrections, newest first
+    while reason == CONVERGED_ITERATING:
+        beta = _norm(r)
+        mk = restart - len(augs)   # Krylov directions this cycle
+        V = torch.zeros((restart + 1, n), dtype=dtype, device=device)
+        V[0] = r / torch.where(beta > 0, beta, torch.ones_like(beta))
+        Z = torch.zeros((restart, n), dtype=dtype, device=device)
+        giv = _Givens(restart, beta.item(), npdt)
+        j = 0
+        while j < restart and reason == CONVERGED_ITERATING:
+            Z[j] = V[j] if j < mk else augs[j - mk]
+            w = psolve(matvec(Z[j]))
+            w, h, hj1 = _orthogonalize(V[:j + 1], w, cgs_refinement)
+            V[j + 1] = w / torch.where(hj1 > 0, hj1, torch.ones_like(hj1))
+            rnorm = giv.add_column(j, torch.cat([h, hj1[None]]).cpu().numpy())
             j += 1
             its += 1
             history[its] = rnorm
             reason = check(rnorm, its)
-        # least squares on the rotated (upper triangular) Hessenberg
-        y = scipy.linalg.solve_triangular(H[:j, :j], g[:j], lower=False)
-        x = x + torch.from_numpy(np.ascontiguousarray(y)).to(device) @ V[:j]
+        dx = giv.solve(j, device) @ Z[:j]
+        x = x + dx
+        if aug:
+            dxn = _norm(dx)
+            if dxn.item() > 0:
+                augs = [dx / dxn] + augs[:aug - 1]
         if reason == CONVERGED_ITERATING:
-            r = psolve(b - matvec(x))
+            r = residual(x)
     return KSPResult(x=x, its=its, reason=reason, rnorm=rnorm,
                      history=history)
 
+
+# ---------------------------------------------------------------------------
+# General operators: BiCGStab, BiCGStab(l), CGS, TFQMR, GCR
+# ---------------------------------------------------------------------------
 
 def bicgstab(matvec: Callable, b: torch.Tensor,
              x0: Optional[torch.Tensor] = None,
@@ -146,15 +440,10 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
     dtype = b.dtype
-    tiny = torch.finfo(dtype).tiny
-    bnorm = float(_norm(b))
-    history = torch.full((maxit + 1,), float("nan"), dtype=dtype)
-
-    def check(rn, its):
-        return default_convergence_check(rn, bnorm, its, rtol=rtol,
-                                         atol=atol, divtol=divtol,
-                                         maxit=maxit)
-
+    tiny = _tiny(dtype)
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    history = _history(maxit, dtype)
     r = b if x0_zero else b - matvec(x)
     rtilde = r
     rnorm = float(_norm(r))
@@ -169,25 +458,303 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
         p = r + beta * (p - omega * v)
         phat = psolve(p)
         v = matvec(phat)
-        denom = torch.dot(rtilde, v)
-        alpha = rho_new / torch.where(denom != 0, denom, 1.0)
+        alpha = rho_new / _safe(torch.dot(rtilde, v))
         sr = r - alpha * v
         shat = psolve(sr)
         t = matvec(shat)
-        tt, ts = torch.dot(t, t), torch.dot(t, sr)
-        omega = ts / torch.where(tt != 0, tt, 1.0)
+        omega = torch.dot(t, sr) / _safe(torch.dot(t, t))
         x = x + alpha * phat + omega * shat
         r = sr - omega * t
         rho = rho_new
-        rn, rho_abs = torch.stack([_norm(r), rho_new.abs()]).tolist()
+        rn, rho_abs = _host(_norm(r), rho_new.abs())
         its += 1
         history[its] = rn
-        reason = check(rn, its)
-        if reason == CONVERGED_ITERATING and rho_abs < tiny:
-            reason = DIVERGED_BREAKDOWN
-    return KSPResult(x=x, its=its, reason=reason,
-                     rnorm=float(_norm(b - matvec(x))), history=history)
+        reason = _breakdown(check(rn, its), rho_abs < tiny)
+    return _result(matvec, b, x, its, reason, history)
 
+
+def bcgsl(matvec: Callable, b: torch.Tensor,
+          x0: Optional[torch.Tensor] = None,
+          pc_apply: Optional[Callable] = None, *, ell: int = 2,
+          rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
+          maxit: int = 10000, **_) -> KSPResult:
+    """BiCGStab(ell) (Sleijpen-Fokkema; PETSc KSPBCGSL, default ell = 2):
+    each cycle runs ell BiCG steps, then an ell-dimensional minimal-residual
+    update.  The PC is right-folded (B = A M^-1, x = x0 + M^-1 y), so the
+    monitored norm is the true residual, recorded once a cycle at index
+    ``its`` (its advances by ell a cycle; the entries between stay NaN).  A
+    step whose residual ends the solve ends the cycle there, as the JAX
+    gate does."""
+    if ell < 1:
+        raise ValueError(f"bcgsl requires ell >= 1, got {ell}")
+    L = int(ell)
+    psolve = pc_apply or _identity_pc
+
+    def bmv(v):
+        return matvec(psolve(v))
+
+    dtype = b.dtype
+    tiny = _tiny(dtype)
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    r0 = b if x0 is None else b - matvec(x0)
+    rt = r0
+    history = _history(maxit, dtype)
+    rnorm0 = float(_norm(r0))
+    history[0] = rnorm0
+    reason = check(rnorm0, 0)
+    R = [r0] + [torch.zeros_like(b) for _ in range(L)]
+    U = [torch.zeros_like(b) for _ in range(L + 1)]
+    y = torch.zeros_like(b)
+    rho0 = torch.ones((), dtype=dtype, device=b.device)
+    alpha = torch.zeros((), dtype=dtype, device=b.device)
+    omega = torch.ones((), dtype=dtype, device=b.device)
+    its = 0
+    while reason == CONVERGED_ITERATING:
+        rho0 = -omega * rho0
+        live = True
+        # ---- BiCG part: ell shadow steps --------------------------------
+        for j in range(L):
+            rho1 = torch.dot(rt, R[j])
+            beta = alpha * rho1 / _safe(rho0)
+            Un = [R[i] - beta * U[i] for i in range(j + 1)] + U[j + 1:]
+            Un[j + 1] = bmv(Un[j])
+            gamma = torch.dot(rt, Un[j + 1])
+            alpha = rho1 / _safe(gamma)
+            Rn = [R[i] - alpha * Un[i + 1] for i in range(j + 1)] + R[j + 1:]
+            Rn[j + 1] = bmv(Rn[j])
+            y = y + alpha * Un[0]
+            rn, rho_abs, gamma_abs = _host(_norm(Rn[0]), rho0.abs(),
+                                           gamma.abs())
+            U, R, rho0 = Un, Rn, rho1
+            its += 1
+            reason = _breakdown(check(rn, its),
+                                rho_abs < tiny or gamma_abs < tiny)
+            if reason != CONVERGED_ITERATING:
+                live = False
+                break
+        if live:
+            # ---- MR part: minimize ||r_0 - sum gamma_j r_j|| by modified
+            # Gram-Schmidt on r_1..r_ell (ell is tiny) ---------------------
+            Rm = list(R)
+            tau = [[None] * (L + 1) for _ in range(L + 1)]
+            sigma = [None] * (L + 1)
+            gp = [None] * (L + 1)                      # gamma'
+            for j in range(1, L + 1):
+                for i in range(1, j):
+                    tau[i][j] = torch.dot(Rm[i], Rm[j]) / _safe(sigma[i])
+                    Rm[j] = Rm[j] - tau[i][j] * Rm[i]
+                sigma[j] = torch.dot(Rm[j], Rm[j])
+                gp[j] = torch.dot(Rm[j], Rm[0]) / _safe(sigma[j])
+            zero = torch.zeros((), dtype=dtype, device=b.device)
+            g = [None] * (L + 1)
+            g[L] = gp[L]
+            for j in range(L - 1, 0, -1):
+                g[j] = gp[j] - sum((tau[j][i] * g[i]
+                                    for i in range(j + 1, L + 1)), zero)
+            gpp = [None] * L
+            for j in range(1, L):
+                gpp[j] = g[j + 1] + sum((tau[j][i] * g[i + 1]
+                                         for i in range(j + 1, L)), zero)
+            # ---- polynomial update ----------------------------------------
+            y = y + g[1] * Rm[0]
+            Rn = list(Rm)
+            Rn[0] = Rm[0] - gp[L] * Rm[L]
+            U = list(U)
+            U[0] = U[0] - g[L] * U[L]
+            for j in range(1, L):
+                U[0] = U[0] - g[j] * U[j]
+                y = y + gpp[j] * Rn[j]
+                Rn[0] = Rn[0] - gp[j] * Rn[j]
+            R = Rn
+            omega = g[L]
+            rn, sigma_min = _host(_norm(R[0]),
+                                  torch.stack(sigma[1:]).abs().min())
+            reason = _breakdown(check(rn, its), sigma_min < tiny)
+        history[min(its, maxit)] = rn
+    x = psolve(y) if x0 is None else x0 + psolve(y)
+    return _result(matvec, b, x, its, reason, history)
+
+
+def cgs(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+        pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
+        atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
+        **_) -> KSPResult:
+    """Conjugate Gradients Squared (Sonneveld; PETSc KSPCGS): transpose-free
+    BiCG with the polynomial squared, two matvecs an iteration.  The PC is
+    right-folded (B = A M^-1, x = x0 + M^-1 y), so the monitored history is
+    the true residual of the original system."""
+    psolve = pc_apply or _identity_pc
+
+    def bmv(v):
+        return matvec(psolve(v))
+
+    dtype = b.dtype
+    tiny = _tiny(dtype)
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    r = b if x0 is None else b - matvec(x0)
+    rt0 = r
+    rho = torch.dot(rt0, r)
+    history = _history(maxit, dtype)
+    rnorm0, rho_abs = _host(_norm(r), rho.abs())
+    history[0] = rnorm0
+    its = 0
+    reason = _breakdown(check(rnorm0, its), rho_abs < tiny)
+    y = torch.zeros_like(b)
+    u = p = r
+    while reason == CONVERGED_ITERATING:
+        v = bmv(p)
+        sigma = torch.dot(rt0, v)
+        alpha = rho / _safe(sigma)
+        q = u - alpha * v
+        uq = u + q
+        y = y + alpha * uq
+        r = r - alpha * bmv(uq)
+        rho_new = torch.dot(rt0, r)
+        beta = rho_new / _safe(rho)
+        u = r + beta * q
+        p = u + beta * (q + beta * p)
+        rho = rho_new
+        rn, sigma_abs, rho_abs = _host(_norm(r), sigma.abs(), rho_new.abs())
+        its += 1
+        history[its] = rn
+        reason = _breakdown(check(rn, its),
+                            sigma_abs < tiny or rho_abs < tiny)
+    x = psolve(y) if x0 is None else x0 + psolve(y)
+    return _result(matvec, b, x, its, reason, history)
+
+
+def tfqmr(matvec: Callable, b: torch.Tensor,
+          x0: Optional[torch.Tensor] = None,
+          pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
+          atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
+          **_) -> KSPResult:
+    """Transpose-Free QMR (Freund; PETSc KSPTFQMR): CGS's search space with
+    quasi-minimal-residual smoothing, two matvecs an iteration.  The PC is
+    right-folded as in ``cgs``; the monitored history is Freund's bound
+    tau sqrt(2k + 1) (what PETSc's monitor shows), and ``rnorm`` the true
+    final residual."""
+    psolve = pc_apply or _identity_pc
+
+    def bmv(v):
+        return matvec(psolve(v))
+
+    dtype = b.dtype
+    tiny = _tiny(dtype)
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    r0 = b if x0 is None else b - matvec(x0)
+    rt0 = r0
+    tau = _norm(r0)
+    rho = torch.dot(rt0, r0)
+    v = uhat = bmv(r0)
+    history = _history(maxit, dtype)
+    tau0, rho_abs = _host(tau, rho.abs())
+    history[0] = tau0
+    its = 0
+    reason = _breakdown(check(tau0, its), rho_abs < tiny)
+
+    def half(ym, Aym, w, tau, theta, eta, d, yacc, alpha):
+        """One QMR half-step: residual update, smoothing, solution step."""
+        w1 = w - alpha * Aym
+        theta1 = _norm(w1) / torch.clamp(tau, min=tiny)
+        c1 = 1.0 / torch.sqrt(1.0 + theta1 ** 2)
+        tau1 = tau * theta1 * c1
+        eta1 = (c1 ** 2) * alpha
+        sa = torch.where(alpha.abs() > tiny, alpha, torch.ones_like(alpha))
+        d1 = ym + ((theta ** 2) * eta / sa) * d
+        return w1, tau1, theta1, eta1, d1, yacc + eta1 * d1
+
+    yacc = d = torch.zeros_like(b)
+    w = y1 = r0
+    theta = torch.zeros((), dtype=dtype, device=b.device)
+    eta = torch.zeros((), dtype=dtype, device=b.device)
+    while reason == CONVERGED_ITERATING:
+        sigma = torch.dot(rt0, v)
+        alpha = rho / _safe(sigma)
+        y2 = y1 - alpha * v
+        By2 = bmv(y2)
+        # half-step m = 2k-1 uses B y1 (uhat), not the direction v
+        w, tau, theta, eta, d, yacc = half(y1, uhat, w, tau, theta, eta, d,
+                                           yacc, alpha)
+        w, tau, theta, eta, d, yacc = half(y2, By2, w, tau, theta, eta, d,
+                                           yacc, alpha)
+        rho_new = torch.dot(rt0, w)
+        beta = rho_new / _safe(rho)
+        y1 = w + beta * y2
+        uhat = bmv(y1)
+        v = uhat + beta * (By2 + beta * v)
+        rho = rho_new
+        its += 1
+        # Freund's bound ||r_m|| <= tau_m sqrt(m + 1) at m = 2k
+        rn, sigma_abs, rho_abs = _host(
+            tau * math.sqrt(2.0 * its + 1.0), sigma.abs(), rho_new.abs())
+        history[its] = rn
+        reason = _breakdown(check(rn, its),
+                            sigma_abs < tiny or rho_abs < tiny)
+    x = psolve(yacc) if x0 is None else x0 + psolve(yacc)
+    return _result(matvec, b, x, its, reason, history)
+
+
+def gcr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+        pc_apply: Optional[Callable] = None, *, restart: int = 30,
+        rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
+        maxit: int = 10000, **_) -> KSPResult:
+    """Generalized Conjugate Residuals with restarts (PETSc KSPGCR): takes
+    a PC that changes between iterations, and updates x and the true
+    residual every iteration.  Stores ``restart`` directions p and A p
+    (cleared at each restart boundary); the monitored norm comes from
+    ``||r'||^2 = ||r||^2 - <Ap, r>^2 / ||Ap||^2`` with ||r|| measured fresh
+    each iteration."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
+    x = torch.zeros_like(b) if x0_zero else x0.clone()
+    dtype = b.dtype
+    tiny = _tiny(dtype)
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    r = b if x0_zero else b - matvec(x)
+    history = _history(maxit, dtype)
+    rnorm0 = float(_norm(r))
+    history[0] = rnorm0
+    its = 0
+    reason = check(rnorm0, its)
+    m = max(1, int(restart))
+    P = torch.zeros((m,) + tuple(b.shape), dtype=dtype, device=b.device)
+    AP = torch.zeros_like(P)
+    while reason == CONVERGED_ITERATING:
+        slot = its % m
+        if slot == 0:                      # restart boundary: drop them
+            P.zero_()
+            AP.zero_()
+        p = psolve(r)
+        Ap = matvec(p)
+        beta = AP @ Ap                     # empty slots give 0
+        p = p - beta @ P
+        Ap = Ap - beta @ AP
+        nn, ar, rr = torch.dot(Ap, Ap), torch.dot(Ap, r), torch.dot(r, r)
+        nrm = torch.sqrt(nn)
+        safe = _safe(nrm)
+        p = p / safe
+        Ap = Ap / safe
+        alpha = ar / _safe(nn) * safe
+        x = x + alpha * p
+        r = r - alpha * Ap
+        P[slot] = p
+        AP[slot] = Ap
+        rn_t = torch.sqrt(torch.clamp(rr - ar.abs() ** 2 / _safe(nn),
+                                      min=0.0))
+        rn, nrm_h = _host(rn_t, nrm)
+        its += 1
+        history[its] = rn
+        reason = _breakdown(check(rn, its), nrm_h <= 1e3 * tiny)
+    return _result(matvec, b, x, its, reason, history)
+
+
+# ---------------------------------------------------------------------------
+# Symmetric operators: CG, pipelined CG, CR, MINRES, SYMMLQ
+# ---------------------------------------------------------------------------
 
 def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
        pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
@@ -200,14 +767,9 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
-    bnorm = float(_norm(b))
-    history = torch.full((maxit + 1,), float("nan"), dtype=b.dtype)
-
-    def check(rn, its):
-        return default_convergence_check(rn, bnorm, its, rtol=rtol,
-                                         atol=atol, divtol=divtol,
-                                         maxit=maxit)
-
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    history = _history(maxit, b.dtype)
     r = b if x0_zero else b - matvec(x)
     p = psolve(r)
     rz = torch.dot(r, p)
@@ -217,21 +779,331 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     reason = check(rnorm, its)
     while reason == CONVERGED_ITERATING:
         w = matvec(p)
-        pw = torch.dot(p, w)
-        alpha = rz / torch.where(pw != 0, pw, 1.0)
+        alpha = rz / _safe(torch.dot(p, w))
         x = x + alpha * p
         r = r - alpha * w
         z = psolve(r)
         rz_new = torch.dot(r, z)
-        beta = rz_new / torch.where(rz != 0, rz, 1.0)
+        beta = rz_new / _safe(rz)
         p = z + beta * p
         rz = rz_new
         rn = float(_norm(r))
         its += 1
         history[its] = rn
         reason = check(rn, its)
-    return KSPResult(x=x, its=its, reason=reason,
-                     rnorm=float(_norm(b - matvec(x))), history=history)
+    return _result(matvec, b, x, its, reason, history)
+
+
+def pipecg(matvec: Callable, b: torch.Tensor,
+           x0: Optional[torch.Tensor] = None,
+           pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
+           atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
+           **_) -> KSPResult:
+    """Pipelined conjugate gradients (Ghysels-Vanroose; PETSc KSPPIPECG):
+    CG in exact arithmetic, restructured so that an iteration's three inner
+    products do not wait on its PC apply and matvec (the next stage's
+    m = M^-1 w and n = A m), carrying s = A p, q = M^-1 A p and
+    z = A M^-1 A p beside p.  SPD operator and PC."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
+    x = torch.zeros_like(b) if x0_zero else x0.clone()
+    dtype = b.dtype
+    tiny = _tiny(dtype)
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    r = b if x0_zero else b - matvec(x)
+    u = psolve(r)
+    w = matvec(u)
+    gamma, delta, rr = torch.dot(r, u), torch.dot(w, u), torch.dot(r, r)
+    history = _history(maxit, dtype)
+    rnorm0 = float(torch.sqrt(rr))
+    history[0] = rnorm0
+    its = 0
+    reason = check(rnorm0, its)
+    m = psolve(w)
+    n = matvec(m)
+    z = q = s = p = torch.zeros_like(b)
+    gamma_p = alpha_p = None
+    while reason == CONVERGED_ITERATING:
+        if its == 0:
+            beta = torch.zeros((), dtype=dtype, device=b.device)
+            denom = delta
+        else:
+            beta = gamma / _safe(gamma_p)
+            denom = delta - beta * gamma / _safe(alpha_p)
+        alpha = gamma / _safe(denom)
+        z = n + beta * z
+        q = m + beta * q
+        s = w + beta * s
+        p = u + beta * p
+        x = x + alpha * p
+        r = r - alpha * s
+        u = u - alpha * q
+        w = w - alpha * z
+        gamma_p, alpha_p = gamma, alpha
+        gamma, delta, rr = torch.dot(r, u), torch.dot(w, u), torch.dot(r, r)
+        m = psolve(w)
+        n = matvec(m)
+        rn, denom_abs = _host(torch.sqrt(rr), denom.abs())
+        its += 1
+        history[its] = rn
+        reason = _breakdown(check(rn, its), denom_abs < tiny)
+    return _result(matvec, b, x, its, reason, history)
+
+
+def cr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+       pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
+       atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
+       **_) -> KSPResult:
+    """Preconditioned Conjugate Residuals (PETSc KSPCR) for symmetric
+    operators with an SPD PC: minimizes ``||b - A x||_{M^-1}`` with CG's
+    short recurrences, one matvec and one PC apply an iteration; zero
+    curvature ``<w, M^-1 w>`` reports DIVERGED_BREAKDOWN."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
+    x = torch.zeros_like(b) if x0_zero else x0.clone()
+    dtype = b.dtype
+    tiny = _tiny(dtype)
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    r = b if x0_zero else b - matvec(x)
+    z = p = psolve(r)
+    w = matvec(z)
+    rho = torch.dot(z, w)
+    history = _history(maxit, dtype)
+    rnorm0 = float(_norm(r))
+    history[0] = rnorm0
+    its = 0
+    reason = check(rnorm0, its)
+    while reason == CONVERGED_ITERATING:
+        q = psolve(w)                      # M^-1 A p
+        wq = torch.dot(w, q)
+        alpha = rho / _safe(wq)
+        x = x + alpha * p
+        r = r - alpha * w
+        z = z - alpha * q
+        Az = matvec(z)
+        rho_new = torch.dot(z, Az)
+        beta = rho_new / _safe(rho)
+        p = z + beta * p
+        w = Az + beta * w                  # A p by recurrence
+        rho = rho_new
+        rn, wq_abs = _host(_norm(r), wq.abs())
+        its += 1
+        history[its] = rn
+        reason = _breakdown(check(rn, its), wq_abs < tiny)
+    return _result(matvec, b, x, its, reason, history)
+
+
+def minres(matvec: Callable, b: torch.Tensor,
+           x0: Optional[torch.Tensor] = None,
+           pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
+           atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
+           **_) -> KSPResult:
+    """Preconditioned MINRES (Paige-Saunders; PETSc KSPMINRES) for
+    symmetric, possibly indefinite operators with an SPD PC: the Lanczos
+    recurrence with a Givens QR of the tridiagonal.  The monitored norm is
+    the preconditioned residual ||r||_{M^-1} (the phibar recurrence),
+    tested against ||b||_{M^-1}; ``rnorm`` is the true final residual.  A
+    negative beta^2 (an indefinite PC) or a Lanczos breakdown reports
+    DIVERGED_BREAKDOWN, whatever the convergence test says."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
+    x = torch.zeros_like(b) if x0_zero else x0.clone()
+    dtype = b.dtype
+    tiny = _tiny(dtype)
+    r1 = b if x0_zero else b - matvec(x)
+    y = psolve(r1)
+    beta1_sq = torch.dot(r1, y)
+    beta1 = torch.sqrt(torch.clamp(beta1_sq, min=0))
+    bnorm_t = torch.sqrt(torch.clamp(torch.dot(b, psolve(b)), min=0))
+    beta1_h, bnorm, beta1_sq_h = _host(beta1, bnorm_t, beta1_sq)
+    check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
+    history = _history(maxit, dtype)
+    history[0] = beta1_h
+    its = 0
+    reason = (DIVERGED_BREAKDOWN if beta1_sq_h < 0
+              else check(beta1_h, its))
+    zero = torch.zeros((), dtype=dtype, device=b.device)
+    r2 = r1
+    w = w2 = torch.zeros_like(b)
+    beta, oldb, dbar, epsln, sn = beta1, zero, zero, zero, zero
+    cs = -torch.ones((), dtype=dtype, device=b.device)
+    phibar = beta1
+    while reason == CONVERGED_ITERATING:
+        ibeta = 1.0 / _safe(beta)
+        v = y * ibeta
+        y = matvec(v)
+        if its >= 1:
+            y = y - (beta / _safe(oldb)) * r1
+        alfa = torch.dot(v, y)
+        y = y - (alfa * ibeta) * r2
+        r1, r2 = r2, y
+        y = psolve(r2)
+        beta_sq = torch.dot(r2, y)
+        oldb, beta = beta, torch.sqrt(torch.clamp(beta_sq, min=0))
+        # Givens QR of the Lanczos tridiagonal, one column an iteration
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        gamma = torch.sqrt(gbar * gbar + beta * beta)
+        lanczos_break = gamma < tiny
+        gamma = torch.where(lanczos_break, torch.ones_like(gamma), gamma)
+        cs = gbar / gamma
+        sn = beta / gamma
+        phi = cs * phibar
+        phibar = sn * phibar
+        w1, w2 = w2, w
+        w = (v - oldeps * w1 - delta * w2) / gamma
+        x = x + phi * w
+        rn, bsq, broke = _host(phibar, beta_sq, lanczos_break.to(dtype))
+        its += 1
+        history[its] = rn
+        reason = check(rn, its)
+        if bsq < 0 or broke:
+            reason = DIVERGED_BREAKDOWN
+    return _result(matvec, b, x, its, reason, history)
+
+
+def symmlq(matvec: Callable, b: torch.Tensor,
+           x0: Optional[torch.Tensor] = None,
+           pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
+           atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
+           **_) -> KSPResult:
+    """SYMMLQ (Paige-Saunders; PETSc KSPSYMMLQ) for symmetric, possibly
+    indefinite operators with an SPD PC: an LQ factorization of the Lanczos
+    tridiagonal, iterates minimizing the error norm.  Convergence is tested
+    on the residual of the transferred CG point (symmlq.m's ``cgnorm``)
+    against ||r0||_{M^-1}, and the solution takes the CG-point transfer
+    step at the end.  A negative beta^2 reports DIVERGED_BREAKDOWN."""
+    psolve = pc_apply or _identity_pc
+    x00 = torch.zeros_like(b) if x0 is None else x0
+    dtype = b.dtype
+    tiny = _tiny(dtype)
+    # the x0 = 0 problem A dx = r0 (SYMMLQ's natural form)
+    r0 = b - matvec(x00)
+    y0 = psolve(r0)
+    beta1_sq = torch.dot(r0, y0)
+    beta1 = torch.sqrt(torch.clamp(beta1_sq, min=0))
+    sfe = torch.where(beta1 > 0, beta1, torch.ones_like(beta1))
+    v1 = y0 / sfe
+    yA = matvec(v1)
+    alfa0 = torch.dot(v1, yA)
+    r2 = yA - (alfa0 / sfe) * r0
+    y = psolve(r2)
+    beta_sq0 = torch.dot(r2, y)
+    beta = torch.sqrt(torch.clamp(beta_sq0, min=0))
+    beta1_h, b1sq, b0sq = _host(beta1, beta1_sq, beta_sq0)
+    check = _checker(beta1_h, rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    history = _history(maxit, dtype)
+    history[0] = beta1_h
+    its = 0
+    reason = (DIVERGED_BREAKDOWN if b1sq < 0 or b0sq < 0
+              else check(beta1_h, its))
+    x = torch.zeros_like(b)
+    w = torch.zeros_like(b)
+    r1 = r0
+    oldb, gbar, dbar, rhs1 = beta1, alfa0, beta, beta1
+    rhs2 = bstep = torch.zeros((), dtype=dtype, device=b.device)
+    snprod = torch.ones((), dtype=dtype, device=b.device)
+    while reason == CONVERGED_ITERATING:
+        ibeta = 1.0 / torch.where(beta > 0, beta, torch.ones_like(beta))
+        v = y * ibeta
+        y = matvec(v)
+        y = y - (beta / _safe(oldb)) * r1
+        alfa = torch.dot(v, y)
+        y = y - (alfa * ibeta) * r2
+        r1, r2 = r2, y
+        y = psolve(r2)
+        oldb = beta
+        beta_sq = torch.dot(r2, y)
+        beta = torch.sqrt(torch.clamp(beta_sq, min=0))
+        # LQ factorization: the previous rotation folds into this column
+        gamma = torch.clamp(torch.sqrt(gbar ** 2 + oldb ** 2), min=tiny)
+        cs = gbar / gamma
+        sn = oldb / gamma
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        # LQ-point update
+        z = rhs1 / gamma
+        x = x + (z * cs) * w + (z * sn) * v
+        w = sn * w - cs * v
+        rhs1 = rhs2 - delta * z
+        rhs2 = -epsln * z
+        # the component along M^-1 r0 accumulates apart (symmlq.m's
+        # bstep, added after the loop); the CG point's residual norm
+        # drives convergence
+        bstep = snprod * cs * z + bstep
+        snprod = snprod * sn
+        diag = torch.where(gbar.abs() > 0, gbar.abs(),
+                           torch.full_like(gbar, tiny))
+        cgnorm = snprod * beta1 * beta / diag
+        rn, bsq = _host(cgnorm, beta_sq)
+        its += 1
+        history[its] = rn
+        reason = check(rn, its)
+        if bsq < 0:
+            reason = DIVERGED_BREAKDOWN
+    if its > 0:
+        # the LQ point to the CG point: a last step along w and the
+        # accumulated component along M^-1 r0
+        denom = torch.where(gbar.abs() > tiny, gbar,
+                            torch.full_like(gbar, tiny))
+        zbar = rhs1 / denom
+        x = x + zbar * w + ((snprod * zbar + bstep) / sfe) * y0
+    return _result(matvec, b, x00 + x, its, reason, history)
+
+
+# ---------------------------------------------------------------------------
+# Chebyshev, Richardson, preonly
+# ---------------------------------------------------------------------------
+
+def chebyshev(matvec: Callable, b: torch.Tensor,
+              x0: Optional[torch.Tensor] = None,
+              pc_apply: Optional[Callable] = None, *, emin: float = 0.1,
+              emax: float = 1.1, rtol: float = 1e-5, atol: float = 1e-50,
+              divtol: float = 1e4, maxit: int = 10000, **_) -> KSPResult:
+    """Chebyshev semi-iteration over the preconditioned spectrum interval
+    [emin, emax] (PETSc KSPCHEBYSHEV): no inner products in the iteration;
+    the residual norm comes to the host once an iteration for the
+    convergence test."""
+    psolve = pc_apply or _identity_pc
+    x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
+    x = torch.zeros_like(b) if x0_zero else x0.clone()
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    theta = 0.5 * (emax + emin)
+    delta = 0.5 * (emax - emin)
+    sigma1 = theta / delta if delta != 0 else 0.0
+    r = b if x0_zero else b - matvec(x)
+    history = _history(maxit, b.dtype)
+    rnorm0 = float(_norm(r))
+    history[0] = rnorm0
+    its = 0
+    reason = check(rnorm0, its)
+    p = torch.zeros_like(b)
+    rho = torch.zeros((), dtype=b.dtype, device=b.device)
+    while reason == CONVERGED_ITERATING:
+        z = psolve(r)
+        if its == 0:
+            rho_new = torch.full_like(rho, 1.0 / sigma1)
+            p = z / theta
+        else:
+            rho_new = 1.0 / (2.0 * sigma1 - rho)
+            p = (rho_new * rho) * p + (2.0 * rho_new / delta) * z
+        rho = rho_new
+        x = x + p
+        r = r - matvec(p)
+        rn = float(_norm(r))
+        its += 1
+        history[its] = rn
+        reason = check(rn, its)
+    return _result(matvec, b, x, its, reason, history)
 
 
 def richardson(matvec: Callable, b: torch.Tensor,
@@ -247,14 +1119,9 @@ def richardson(matvec: Callable, b: torch.Tensor,
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
-    bnorm = float(_norm(b))
-    history = torch.full((maxit + 1,), float("nan"), dtype=b.dtype)
-
-    def check(rn, its):
-        return default_convergence_check(rn, bnorm, its, rtol=rtol,
-                                         atol=atol, divtol=divtol,
-                                         maxit=maxit)
-
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    history = _history(maxit, b.dtype)
     r = b if x0_zero else b - matvec(x)
     rnorm = float(_norm(r))
     history[0] = rnorm
@@ -267,8 +1134,7 @@ def richardson(matvec: Callable, b: torch.Tensor,
         its += 1
         history[its] = rn
         reason = check(rn, its)
-    return KSPResult(x=x, its=its, reason=reason,
-                     rnorm=float(_norm(b - matvec(x))), history=history)
+    return _result(matvec, b, x, its, reason, history)
 
 
 def preonly(matvec: Callable, b: torch.Tensor,
@@ -280,15 +1146,17 @@ def preonly(matvec: Callable, b: torch.Tensor,
     the history is ``[||b||, ||b - A x||]`` whatever the caller's maxit."""
     psolve = pc_apply or _identity_pc
     x = psolve(b) if x0 is None else x0 + psolve(b - matvec(x0))
-    rn, bn = torch.stack([_norm(b - matvec(x)), _norm(b)]).tolist()
+    rn, bn = _host(_norm(b - matvec(x)), _norm(b))
     history = torch.tensor([bn, rn], dtype=b.dtype)
     reason = CONVERGED_ITS if math.isfinite(rn) else DIVERGED_NANORINF
     return KSPResult(x=x, its=1, reason=reason, rnorm=rn, history=history)
 
 
-register_ksp("gmres", gmres)
-register_ksp("cg", cg)
-register_ksp("richardson", richardson)
-register_ksp("preonly", preonly)
-for _name in ("bcgs", "fbcgs", "bicgstab"):
-    register_ksp(_name, bicgstab)
+for _name, _fn in (("gmres", gmres), ("fgmres", fgmres), ("lgmres", lgmres),
+                   ("bcgs", bicgstab), ("fbcgs", bicgstab),
+                   ("bicgstab", bicgstab), ("bcgsl", bcgsl), ("cgs", cgs),
+                   ("tfqmr", tfqmr), ("gcr", gcr), ("cg", cg),
+                   ("pipecg", pipecg), ("cr", cr), ("minres", minres),
+                   ("symmlq", symmlq), ("chebyshev", chebyshev),
+                   ("richardson", richardson), ("preonly", preonly)):
+    register_ksp(_name, _fn)

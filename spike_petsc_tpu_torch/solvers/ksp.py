@@ -12,25 +12,36 @@
                    options=Options({"pc_spike_factor_dtype": "f32"}),
                    rtol=1e-12)
 
+    # a singular Neumann Laplacian: the minimal-norm solution
+    result = solve(L, b, ksp_type="cg", pc_type="jacobi",
+                   options=Options({"ksp_nullspace_constant": 1}))
+
 Ported: a ``BandedMatrix``, ``BlockTridiagonal``, host SciPy sparse (a
 band+outliers split or a sparse CSR product), dense or callable operator,
-a BandedMatrix or host PC matrix, ``gmres``, ``bcgs``, ``cg``,
-``richardson`` (with ``-ksp_richardson_scale``) and ``preonly``, the
-batched engines of ``krylov_many``, the ``none``, ``jacobi``, ``lu``,
-``spike``, ``cholesky``, ``bjacobi`` and ``banded`` PCs, and no null
-space. A host operator or PC matrix is placed where the right-hand side
-lies, in its dtype (``make_solver(..., device=, dtype=)``). ``solve(...,
-monitor=True)`` prints the residual history after the solve
+a BandedMatrix or host PC matrix, every KSP type of ``krylov`` (those that
+iterate on A^T are not yet ported), the batched engines of
+``krylov_many``, the ``none``, ``jacobi``, ``lu``, ``spike``, ``cholesky``,
+``bjacobi`` and ``banded`` PCs, null spaces (``nullspace=``,
+``transpose_nullspace=``, ``-ksp_nullspace_constant``), and the flags
+``-ksp_monitor_true_residual``, ``-ksp_compute_eigenvalues``,
+``-ksp_chebyshev_eigenvalues``, ``-ksp_chebyshev_esteig[_steps]``,
+``-ksp_lgmres_augment``, ``-ksp_bcgsl_ell`` and
+``-ksp_richardson_scale``. A host operator or PC matrix is placed where the
+right-hand side lies, in its dtype (``make_solver(..., device=, dtype=)``).
+``solve(..., monitor=True)`` prints the residual history after the solve
 (``-ksp_monitor``) and ``view=True`` the solver hierarchy before it
 (``-ksp_view``), as the JAX package prints them. Options whose code
-paths are not yet ported raise.
+paths are not yet ported (``-ksp_diagonal_scale``,
+``-ksp_compute_singularvalues``, ``transpose=True``) raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..ops.band import BandedMatrix
@@ -39,21 +50,19 @@ from ..utils.options import Options
 from ..utils.registry import SOLVERS
 from . import krylov  # noqa: F401  (registers the ported solvers)
 from .operator import as_matvec, as_matvec_many
+from .nullspace import make_nullspace
 from .pc import PC, make_pc
 from .types import KSPResult, reason_str
 
 _DEFAULTS = dict(rtol=1e-5, atol=1e-50, divtol=1e4, maxit=10000, restart=30)
 
-_UNPORTED_FLAGS = ("ksp_diagonal_scale", "ksp_nullspace_constant",
-                   "ksp_monitor_true_residual", "ksp_compute_eigenvalues",
-                   "ksp_compute_singularvalues")
+_UNPORTED_FLAGS = ("ksp_diagonal_scale", "ksp_compute_singularvalues")
 
 
-# the JAX package's KSP types that this package does not have yet; any other
-# unknown name is a KeyError from the registry (bad usage)
-_NOT_YET_PORTED = ("bcgsl", "bicg", "cgls", "cgne", "cgnr", "cgs",
-                   "chebyshev", "cr", "fgmres", "gcr", "lgmres", "lsqr",
-                   "minres", "pipecg", "symmlq", "tfqmr")
+# the JAX package's KSP types that this package does not have yet (they
+# iterate on A^T); any other unknown name is a KeyError from the registry
+# (bad usage)
+_NOT_YET_PORTED = ("bicg", "cgls", "cgne", "cgnr", "lsqr")
 
 
 def _params_from_options(opts: Options, overrides: dict) -> dict:
@@ -69,6 +78,8 @@ def _params_from_options(opts: Options, overrides: dict) -> dict:
         value = opts.get_string(key, None)
         if value:
             p[param] = value
+    if opts.get_bool("ksp_monitor_true_residual", False):
+        p["monitor_true"] = True
     p.update({k: v for k, v in overrides.items() if v is not None})
     return p
 
@@ -82,12 +93,10 @@ def _richardson_scale(opts: Options, ksp_type: str, kw: dict) -> None:
             kw.setdefault("scale", scale)
 
 
-def _reject_unported(opts: Options, transpose: bool, nullspace) -> None:
+def _reject_unported(opts: Options, transpose: bool) -> None:
     flags = [f"-{f}" for f in _UNPORTED_FLAGS if opts.get_bool(f, False)]
     if transpose:
         flags.append("transpose=True")
-    if nullspace is not None:
-        flags.append("nullspace")
     if flags:
         raise NotImplementedError(
             f"{', '.join(flags)} not yet ported to spike_petsc_tpu_torch")
@@ -106,11 +115,62 @@ def _placement(A, device, dtype):
     return torch.device(device or "cuda"), dtype
 
 
+def _nullspaces(opts: Options, nullspace, transpose_nullspace, n,
+                device, dtype):
+    """(ns, tns): the null space (``nullspace``, else the constant one
+    under ``-ksp_nullspace_constant``) and the transpose null space (by
+    default the null space itself, the symmetric case)."""
+    if nullspace is None and opts.get_bool("ksp_nullspace_constant", False):
+        nullspace = make_nullspace(n, constant=True, dtype=dtype,
+                                   device=device)
+    tns = transpose_nullspace if transpose_nullspace is not None \
+        else nullspace
+    return nullspace, tns
+
+
+def _projected(fn: Optional[Callable], ns) -> Optional[Callable]:
+    """``fn`` with its outputs projected by ``ns`` (None: unchanged)."""
+    if fn is None or ns is None:
+        return fn
+    return lambda v: ns.remove(fn(v))
+
+
+def _chebyshev_bounds(opts: Options, kw: dict, matvec, n, dtype, device,
+                      pc_apply) -> None:
+    """``-ksp_chebyshev_eigenvalues emin,emax`` pins chebyshev's bounds;
+    ``-ksp_chebyshev_esteig [a,b,c,d]`` estimates them from the Ritz values
+    of a set-up Arnoldi run on M^-1 A (``-ksp_chebyshev_esteig_steps``,
+    default 10; KSPChebyshevEstEig), transformed as
+    ``(a lmin + b lmax, c lmin + d lmax)``.  Explicit bounds win, and the
+    caller's ``emin`` wins over both, as in JAX."""
+    if "emin" in kw:
+        return
+    ev = opts.get_list("ksp_chebyshev_eigenvalues")
+    if ev is not None:
+        if len(ev) != 2:
+            raise ValueError("-ksp_chebyshev_eigenvalues expects "
+                             f"'emin,emax', got {ev!r}")
+        kw["emin"], kw["emax"] = float(ev[0]), float(ev[1])
+    elif opts.has("ksp_chebyshev_esteig"):
+        tr = opts.get_list("ksp_chebyshev_esteig") or []
+        if tr and len(tr) != 4:
+            raise ValueError("-ksp_chebyshev_esteig expects 'a,b,c,d' (or no "
+                             f"value for the default transform), got {tr!r}")
+        transform = (tuple(float(t) for t in tr) if tr
+                     else krylov.ESTEIG_DEFAULT_TRANSFORM)
+        eigs = krylov.estimate_extreme_eigs(
+            matvec, n, dtype, m=opts.get_int("ksp_chebyshev_esteig_steps", 10),
+            pc_apply=pc_apply, device=device)
+        kw["emin"], kw["emax"] = krylov.chebyshev_esteig_bounds(eigs,
+                                                                transform)
+
+
 def make_solver(A, *, pmat=None, options: Optional[Options] = None,
                 ksp_type: Optional[str] = None, pc_type: Optional[str] = None,
                 pc: Optional[PC] = None, n_hint: Optional[int] = None,
                 jit: bool = True, transpose: bool = False, nullspace=None,
-                device=None, dtype=None, **params) -> Callable:
+                transpose_nullspace=None, device=None, dtype=None,
+                **params) -> Callable:
     """Compose (operator, preconditioner, method) once; return
     ``solve(b, x0=None) -> KSPResult``.  The operator's prepared layout and
     the PC's factorization are built here, once.  A host operator or PC
@@ -118,9 +178,16 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
     operator are ``device`` (default the card) and ``dtype`` (default the
     matrix's own).  ``jit`` is accepted for the JAX package's signature and
     changes nothing: PyTorch runs eagerly, so the closure is the same
-    either way."""
+    either way.
+
+    ``nullspace`` (``solvers.nullspace.NullSpace``, or
+    ``-ksp_nullspace_constant`` for the constant vector): b is projected by
+    ``transpose_nullspace`` (default ``nullspace``), every matvec output by
+    it too (residual space is range(A), orthogonal to the left null space),
+    every PC output and the returned x by ``nullspace`` (PETSc's
+    MatNullSpaceRemove in KSP_PCApply and KSPSolve)."""
     opts = options or Options()
-    _reject_unported(opts, transpose, nullspace)
+    _reject_unported(opts, transpose)
     device, dtype = _placement(A, device, dtype)
     ksp_type = ksp_type or opts.get_string("ksp_type", "gmres")
     if ksp_type in _NOT_YET_PORTED:
@@ -133,16 +200,34 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
                      dtype=dtype)
     # -mat_matvec_impl auto|banded_pallas|banded_cuda|blocktri|xla: the
     # operator's SpMV route
-    matvec, _, _ = as_matvec(
+    matvec, n, op_dtype = as_matvec(
         A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"),
         device=device, dtype=dtype)
-    pc_apply = pc.apply if pc.name != "none" else None
+    ns, tns = _nullspaces(opts, nullspace, transpose_nullspace, n, device,
+                          op_dtype or dtype or torch.float32)
+    matvec = _projected(matvec, tns)
+    pc_apply = _projected(pc.apply if pc.name != "none" else None, ns)
     method = SOLVERS.get(ksp_type)
     kw = _params_from_options(opts, params)
     _richardson_scale(opts, ksp_type, kw)
+    if ksp_type == "chebyshev":
+        _chebyshev_bounds(opts, kw, matvec, n, op_dtype or dtype, device,
+                          pc_apply)
+    if ksp_type == "lgmres":
+        # -ksp_lgmres_augment: the error approximations appended to each
+        # restart cycle (KSPLGMRESSetAugDim)
+        kw.setdefault("aug", opts.get_int("ksp_lgmres_augment", 2))
+    if ksp_type == "bcgsl":
+        # -ksp_bcgsl_ell: the MR-polynomial degree (KSPBCGSLSetEll)
+        kw.setdefault("ell", opts.get_int("ksp_bcgsl_ell", 2))
 
     def _solve(b, x0=None):
-        return method(matvec, b, x0, pc_apply, **kw)
+        if tns is not None:
+            b = tns.remove(b)            # consistency: drop the left-null part
+        res = method(matvec, b, x0, pc_apply, **kw)
+        if ns is not None:               # the minimal-norm representative
+            res = dataclasses.replace(res, x=ns.remove(res.x))
+        return res
 
     _solve.pc = pc          # the composed PC, for solve's -ksp_view
     return _solve
@@ -153,7 +238,8 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
                      pc_type: Optional[str] = None, pc: Optional[PC] = None,
                      n_hint: Optional[int] = None, jit: bool = True,
                      transpose: bool = False, nullspace=None,
-                     device=None, dtype=None, **params) -> Callable:
+                     transpose_nullspace=None, device=None, dtype=None,
+                     **params) -> Callable:
     """Compose a batched multi-RHS solver: ``solve(B [n, r], X0=None)``
     returns a column-batched KSPResult (x [n, r]; its, reason, rnorm per
     column).
@@ -162,11 +248,12 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
     is applied as a true ``[n, r]`` block (``as_matvec_many``) and the PC
     through its native ``apply_many`` where it has one, else a column loop
     of ``apply``.  ``ksp_type`` (default ``bcgs``) is one of
-    ``krylov_many.MANY_SOLVERS``.  ``jit``, ``device`` and ``dtype`` are as
-    in :func:`make_solver`."""
+    ``krylov_many.MANY_SOLVERS``.  ``jit``, ``device``, ``dtype``,
+    ``nullspace`` and ``transpose_nullspace`` are as in :func:`make_solver`
+    (``NullSpace.remove`` takes ``[n, r]`` blocks)."""
     from .krylov_many import MANY_SOLVERS
     opts = options or Options()
-    _reject_unported(opts, transpose, nullspace)
+    _reject_unported(opts, transpose)
     device, dtype = _placement(A, device, dtype)
     ksp_type = ksp_type or opts.get_string("ksp_type", "bcgs")
     if ksp_type not in MANY_SOLVERS:
@@ -179,9 +266,12 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
         name = pc_type or opts.get_string("pc_type", "none")
         pc = make_pc(name, A if pmat is None else pmat, opts, device=device,
                      dtype=dtype)
-    matvec_many, _, _ = as_matvec_many(
+    matvec_many, n, op_dtype = as_matvec_many(
         A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"),
         device=device, dtype=dtype)
+    ns, tns = _nullspaces(opts, nullspace, transpose_nullspace, n, device,
+                          op_dtype or dtype or torch.float32)
+    matvec_many = _projected(matvec_many, tns)
     if pc.name == "none":
         pc_apply_many = None
     elif pc.apply_many is not None:
@@ -190,13 +280,19 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
         def pc_apply_many(R):
             return torch.stack([pc.apply(R[:, j]) for j in range(R.shape[1])],
                                dim=1)
+    pc_apply_many = _projected(pc_apply_many, ns)
     kw = _params_from_options(opts, params)
     for extra in ("norm_type", "monitor_true"):    # not in the batched
         kw.pop(extra, None)                        # engines' surface
     _richardson_scale(opts, ksp_type, kw)
 
     def _solve(B, X0=None):
-        return method(matvec_many, B, X0, pc_apply_many, **kw)
+        if tns is not None:
+            B = tns.remove(B)
+        res = method(matvec_many, B, X0, pc_apply_many, **kw)
+        if ns is not None:
+            res = dataclasses.replace(res, x=ns.remove(res.x))
+        return res
 
     return _solve
 
@@ -241,7 +337,27 @@ def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,
             f"{res.its} iterations (rnorm {res.rnorm:.3e})")
     if monitor:
         print_monitor(res, bnorm=float(torch.linalg.norm(b)))
+    if opts.get_bool("ksp_compute_eigenvalues", False):
+        print_eigenvalues(A, b, res, solver.pc, opts)
     return res
+
+
+def print_eigenvalues(A, b, res: KSPResult, pc: PC, opts: Options) -> None:
+    """-ksp_compute_eigenvalues: Ritz estimates of the preconditioned
+    operator's spectrum after the solve, from an Arnoldi run of
+    ``min(n, max(its, 2), 30)`` steps on the same operator and PC started
+    from b (PETSc reads them from the solver's own Hessenberg; for GMRES
+    the estimates are the same, and this serves every KSP type)."""
+    mv, n, dt = as_matvec(A, n_hint=b.shape[0],
+                          impl=opts.get_string("mat_matvec_impl", "auto"),
+                          device=b.device, dtype=b.dtype)
+    dt = dt or b.dtype
+    eigs = krylov.estimate_extreme_eigs(
+        mv, n, dt, m=min(n, max(int(res.its), 2), 30),
+        pc_apply=pc.apply if pc.name != "none" else None, v0=b.to(dt))
+    print("Iteratively computed eigenvalues")
+    for e in eigs[np.argsort(eigs.real)]:
+        print(f"{e.real:g} + {e.imag:g}i")
 
 
 def view_str(ksp_type: str, params: dict, pc: Optional[PC],

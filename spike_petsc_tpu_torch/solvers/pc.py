@@ -8,7 +8,9 @@ options database.  Ported: ``none``, ``jacobi``, ``lu``, ``spike``,
 ``bjacobi`` and ``banded`` (PCBANDED: a norm-fraction band extracted from a
 host matrix, preconditioned by an inner PC under the ``banded_`` prefix);
 forward apply and, where the type has one, multi-RHS apply, with the Newton
-safety net.  Transpose applies are not yet ported.
+safety net.  Transpose applies are not yet ported.  On the card a factor
+that names no block gets the smallest block the sweep kernels take
+(``default_block``).
 
 A host (SciPy or NumPy) preconditioning matrix is placed on the device and
 in the dtype that ``make_pc`` is given (``make_solver`` gives the
@@ -29,6 +31,7 @@ import torch
 from .. import sparse as hsp
 from ..ops.band import BandedMatrix, banded_diagonal, banded_matvec
 from ..ops.cuda.fused_sweep_spd import require_spd_feasible, spd_block_for
+from ..ops.cuda.sweeps import inv_block_for
 from ..ops.spike import (_batched_solver, spike_factor, spike_solve,
                          spike_solve_many)
 from ..utils.options import Options
@@ -235,6 +238,24 @@ def _reject_unported(opts: Options, name: str) -> None:
             f"{', '.join(unported)} not yet ported to spike_petsc_tpu_torch")
 
 
+def default_block(block, k: int, method: str, on_cuda: bool):
+    """The block of a factor of tip size ``k``: ``block`` where the options
+    name one; else on the CPU None (the tip size, as in JAX), and on the
+    card the smallest block the sweep kernels of ``method`` take that covers
+    the tip (``spd_block_for``, ``inv_block_for``: 64 or 128).  Partition
+    rows round up to a multiple of the block, so on the card the partition
+    boundaries of a K > 1 PC are not those of the CPU."""
+    if block is not None or not on_cuda:
+        return block
+    return spd_block_for(k) if method == "spd" else inv_block_for(k)
+
+
+def _block_option(band: BandedMatrix, opts: Options, name: str,
+                  method: str):
+    return default_block(opts.get_int(f"pc_{name}_block", None),
+                         max(band.kl, band.ku, 1), method, band.data.is_cuda)
+
+
 def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
               default_method: str = "inv") -> PC:
     band = _as_banded(pmat, opts)
@@ -242,11 +263,9 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
     k = max(band.kl, band.ku, 1)
     K = opts.get_int(f"pc_{name}_partitions", default_K)
     K = max(1, min(K, band.n // (2 * k)))   # partitions must cover 2k rows
-    block = opts.get_int(f"pc_{name}_block", None)
     method = opts.get_string(f"pc_{name}_method", default_method)
+    block = _block_option(band, opts, name, method)
     on_card = method == "spd" and band.data.is_cuda
-    if on_card and block is None:
-        block = spd_block_for(k)        # a block size the spd kernels take
     truncated = opts.get_bool(f"pc_{name}_truncated", False)
     store = opts.get_bool(f"pc_{name}_store_spikes", False)
     inverter = opts.get_string(f"pc_{name}_inverter", "auto")
@@ -321,12 +340,14 @@ def pc_lu(pmat, opts: Options) -> PC:
     """Direct banded factorization (single-partition block-Thomas) — the
     role PETSc's -pc_type lu plays in the reference's canned recipe
     (reference/src/makefile:18).  ``-pc_lu_method`` (``inv``),
-    ``-pc_lu_block`` (default the tip size) and ``-pc_lu_inverter`` apply;
-    shifts and ``-pc_lu_store_lt`` are not yet ported."""
+    ``-pc_lu_block`` (default the tip size; on the card 64 or 128, the
+    smallest block the sweep kernels take, so that a long single partition
+    runs the two-pass kernels #9) and ``-pc_lu_inverter`` apply; shifts and
+    ``-pc_lu_store_lt`` are not yet ported."""
     band = _as_banded(pmat, opts)
     _reject_unported(opts, "lu")
     method = opts.get_string("pc_lu_method", "inv")
-    block = opts.get_int("pc_lu_block", None)
+    block = _block_option(band, opts, "lu", method)
     inverter = opts.get_string("pc_lu_inverter", "auto")
 
     def factor(inv):
@@ -348,15 +369,15 @@ def pc_lu(pmat, opts: Options) -> PC:
 def pc_bjacobi(pmat, opts: Options) -> PC:
     """Per-partition solves with interface coupling dropped entirely — the
     cheapest member of the spike family.  ``-pc_bjacobi_blocks`` (default
-    16), ``-pc_bjacobi_block``, ``-pc_bjacobi_method``,
-    ``-pc_bjacobi_inverter``.  On the card each apply is the sweep
-    dispatch of ``spike_solve`` (the fused sweep kernel where its rule
-    admits the factor)."""
+    16), ``-pc_bjacobi_block`` (default as ``-pc_lu_block``),
+    ``-pc_bjacobi_method``, ``-pc_bjacobi_inverter``.  On the card each
+    apply is the sweep dispatch of ``spike_solve`` (``sweep_route``: #1
+    where its rule admits the factor, else #9)."""
     band = _as_banded(pmat, opts)
     K = opts.get_int("pc_bjacobi_blocks", 16)
     K = max(1, min(K, band.n // (2 * max(band.kl, band.ku, 1))))
-    block = opts.get_int("pc_bjacobi_block", None)
     method = opts.get_string("pc_bjacobi_method", "inv")
+    block = _block_option(band, opts, "bjacobi", method)
     inverter = opts.get_string("pc_bjacobi_inverter", "auto")
 
     def factor(inv):

@@ -631,6 +631,41 @@ def test_alternate_kernels_refuse_what_they_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
+def test_long_single_partition_takes_the_two_pass_sweeps(cuda_device):
+    """BASELINE config 1's shape: the lu PC on the tridiagonal Laplacian at
+    n = 1e5 (k = 1) gets block 64 on the card, one partition of nb = 1563
+    block rows, which #1's shared-memory rule refuses; #9 at K = 1 agrees
+    with its plain version, and 'auto' (spike_solve, the PC's apply) runs
+    it, two launches a solve, and never #1."""
+    from spike_petsc_tpu_torch.ops.cuda.fused_sweep import (
+        fused_sweep_feasible)
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    n = 100_000
+    band = banded_from_numpy(np.tile(np.float32([-1, 2, -1]), (n, 1)), 1, 1,
+                             device=cuda_device)
+    sf = spike_factor(band, K=1, block_b=64)
+    assert (sf.K, sf.nb, sf.b) == (1, 1563, 64)
+    assert not fused_sweep_feasible(sf.fact, 64)
+    assert csw.sweeps_feasible(sf.fact, 64)
+    r = torch.randn((1, sf.nb, 64), device=cuda_device)
+    ref = csw.blocktri_solve_batched_cuda(sf.fact, r, impl="plain")
+    got = csw.blocktri_solve_batched_cuda(sf.fact, r)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= TOL
+    pc = make_pc("lu", band, Options())
+    assert pc.info["block"] == 64
+    rhs = torch.randn(n, device=cuda_device)
+    before = csw.KERNEL.launches, cfs.KERNEL.launches
+    x = spike_solve(sf, rhs)
+    y = pc.apply(rhs)
+    torch.cuda.synchronize()
+    assert csw.KERNEL.launches == before[0] + 4
+    assert cfs.KERNEL.launches == before[1]
+    assert _rel(x, spike_solve(sf, rhs, impl="plain")) <= TOL
+    assert _rel(y, x) <= TOL
+
+
+@pytest.mark.cuda
 def test_refinement_runs_the_f64_kernel(cuda_device):
     """richardson + spike with f32 factors on an f64 CUDA band: 'auto' is
     the f64 band kernel, which runs on every residual, and the fused sweep
@@ -681,7 +716,8 @@ def _illscaled_pipeline(n=20000):
 def test_host_pmat_pc_lands_on_the_operator(cuda_device, name, opts):
     """make_solver places a PC built from a host pmat on the operator's
     device and dtype (f32 on the card), and it applies as its f64 CPU
-    twin does."""
+    twin does.  The card's default block (64 or 128) moves a K > 1 PC's
+    partition boundaries, so the twin takes the same block."""
     from spike_petsc_tpu_torch import make_solver
     from spike_petsc_tpu_torch.solvers.pc import make_pc
     a, data, kl, ku = _illscaled_pipeline()
@@ -691,17 +727,23 @@ def test_host_pmat_pc_lands_on_the_operator(cuda_device, name, opts):
     r = torch.randn(band.n, device=cuda_device)
     got = solver.pc.apply(r)
     assert got.device.type == "cuda" and got.dtype == torch.float32
-    ref = make_pc(name, a, Options(opts), device="cpu",
+    ref_opts = dict(opts)
+    if "block" in solver.pc.info:
+        ref_opts[f"pc_{name}_block"] = solver.pc.info["block"]
+    ref = make_pc(name, a, Options(ref_opts), device="cpu",
                   dtype=torch.float64).apply(r.double().cpu())
     assert _rel(got.double().cpu(), ref) <= 1e-4
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block,launched", [(128, True), (None, False)])
+@pytest.mark.parametrize("block,launched", [(128, True), (None, True),
+                                            (6, False)])
 def test_banded_pc_inner_spike_sweep(cuda_device, block, launched):
     """The banded PC's inner spike apply launches #1 twice (a sweep and the
-    recompute sweep) at b = 128 and runs plain at the default block (the
-    tip size, 6), where the kernel's rule refuses the factor."""
+    recompute sweep) at b = 128 and at the card's default block (64, the
+    smallest kernel block covering the tip of 6), and runs plain at b = 6
+    (the tip size, the CPU's default), where the kernel's rule refuses the
+    factor.  The CPU twin takes the card's block."""
     from spike_petsc_tpu_torch.solvers.pc import make_pc
     a, _, _, _ = _illscaled_pipeline()
     opts = {"banded_pc_spike_partitions": 8, "pc_banded_frac": 0.9999}
@@ -709,12 +751,13 @@ def test_banded_pc_inner_spike_sweep(cuda_device, block, launched):
         opts["banded_pc_spike_block"] = block
     pc = make_pc("banded", a, Options(opts), device=cuda_device,
                  dtype=torch.float32)
-    assert pc.inner.info["block"] == (block or 6)
+    assert pc.inner.info["block"] == (block or 64)
     r = torch.randn(a.shape[0], device=cuda_device)
     before = cfs.KERNEL.launches
     got = pc.apply(r)
     torch.cuda.synchronize()
     assert cfs.KERNEL.launches == before + (2 if launched else 0)
+    opts["banded_pc_spike_block"] = pc.inner.info["block"]
     ref = make_pc("banded", a, Options(opts), device="cpu",
                   dtype=torch.float64).apply(r.double().cpu())
     assert _rel(got.double().cpu(), ref) <= 1e-4

@@ -239,9 +239,10 @@ def test_single_rhs_bcgs_matches_jax(pc_type, opts):
 @pytest.mark.parametrize("kwargs,exc,match", [
     (dict(ksp_type="tfqmr"), ValueError, "no batched engine"),
     (dict(transpose=True), NotImplementedError, "transpose"),
-    (dict(nullspace=object()), NotImplementedError, "nullspace"),
-    (dict(options={"ksp_nullspace_constant": 1}), NotImplementedError,
-     "ksp_nullspace_constant"),
+    (dict(transpose=True, options={"ksp_nullspace_constant": 1}),
+     NotImplementedError, "transpose"),
+    (dict(options={"ksp_diagonal_scale": 1}), NotImplementedError,
+     "ksp_diagonal_scale"),
 ])
 def test_make_solver_many_rejects(kwargs, exc, match):
     kwargs = dict(kwargs)

@@ -133,7 +133,7 @@ def test_gmres_family_take_monitor_and_view(capsys, ksp):
 
 
 @pytest.mark.parametrize("ksp,opts", [
-    ("tfqmr", {}), ("gmres", {"ksp_monitor_true_residual": "1"})],
+    ("bicg", {}), ("gmres", {"ksp_compute_singularvalues": "1"})],
     ids=["unknown-ksp", "unported-flag"])
 def test_view_refuses_before_building_the_pc(capsys, monkeypatch, ksp, opts):
     """What ``solve`` cannot run raises before any factorization, and

@@ -146,13 +146,22 @@ TESTBED_EXACT = ("Matrix:", "Reordered matrix using", "Reduced bandwidth",
 
 
 def _parse_testbed(out):
+    """(exact lines, monitored norms, true norms, error, (its, reason),
+    rnorm).  The norms are those of the ``KSP Residual norm`` lines, or of
+    the ``-ksp_monitor_true_residual`` lines (preconditioned and true)."""
     lines = out.splitlines()
     exact = [ln for ln in lines if ln.startswith(TESTBED_EXACT)]
     hist = [float(ln.split()[-1]) for ln in lines
             if "KSP Residual norm" in ln]
+    true = []
+    for ln in lines:
+        if "KSP preconditioned resid norm" in ln:
+            words = ln.split()
+            hist.append(float(words[5]))
+            true.append(float(words[9]))
     err = float(out.split("Error in solution:")[1].split()[0])
     ksp = out.split("KSP iterations:")[1].split()
-    return exact, hist, err, (int(ksp[0]), ksp[2]), float(ksp[4])
+    return exact, hist, true, err, (int(ksp[0]), ksp[2]), float(ksp[4])
 
 
 def compare_testbeds(jmain, tmain, argv, capsys):
@@ -160,7 +169,8 @@ def compare_testbeds(jmain, tmain, argv, capsys):
     ``-ksp_converged_reason``; the port also gets TESTBED_PORT_FLAGS) and
     compare what they print: exactly, the exit code, the TESTBED_EXACT
     lines, the iteration count and the reason; to 1e-8 of the initial
-    residual norm, the residual history and the final rnorm; to 1e-8 of
+    residual norm, the residual history (and the true one, under
+    ``-ksp_monitor_true_residual``) and the final rnorm; to 1e-8 of
     ||u|| = sqrt(n), the error in the solution.  Returns (rc, port's
     stdout)."""
     argv = argv + ["-ksp_converged_reason"]
@@ -169,13 +179,17 @@ def compare_testbeds(jmain, tmain, argv, capsys):
     rc_t = tmain(argv + TESTBED_PORT_FLAGS)
     out_t = capsys.readouterr().out
     assert rc_t == rc_j
-    exact_j, hist_j, err_j, ksp_j, rn_j = _parse_testbed(out_j)
-    exact_t, hist_t, err_t, ksp_t, rn_t = _parse_testbed(out_t)
+    exact_j, hist_j, true_j, err_j, ksp_j, rn_j = _parse_testbed(out_j)
+    exact_t, hist_t, true_t, err_t, ksp_t, rn_t = _parse_testbed(out_t)
     assert exact_t == exact_j
     assert ksp_t == ksp_j                       # iterations and reason
     assert len(hist_t) == len(hist_j)
     np.testing.assert_allclose(hist_t, hist_j, rtol=0,
                                atol=1e-8 * hist_j[0])
+    assert len(true_t) == len(true_j)
+    if true_j:
+        np.testing.assert_allclose(true_t, true_j, rtol=0,
+                                   atol=1e-8 * true_j[0])
     assert abs(rn_t - rn_j) <= 1e-8 * hist_j[0]
     n = int(exact_j[0].split("n=")[1].split(",")[0])
     assert abs(err_t - err_j) <= 1e-8 * np.sqrt(n)
