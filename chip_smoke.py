@@ -69,7 +69,11 @@ In order, it:
      block rows: 'auto' runs the two-pass sweeps #9, never #1), the
      launches of #9 and #2 held exactly, the solution against an f64
      host solve, n = 1e4 on the card against the CPU in f32, the factor,
-     the solve and #9 at K = 1 beside its plain version and its bound;
+     the solve and #9 at K = 1 beside its plain version and its bound, the
+     chunks of its plan (the chunked scan over the card's SMs), its time
+     at other chunk counts and at one block (C = 1), #9 beside #1 on the
+     n = 1e4 factor that #1 admits, and #2 at config 1's operator beside
+     its bound;
   8. frees config 3 and runs the SPD path (BASELINE config 2: a
      symmetric dominant band, n = 1e6, bandwidth 33, f32; the ``cholesky``
      PC with 16 partitions, b = 64, the truncated reduced system and stored
@@ -179,6 +183,17 @@ CONFIG1_ITS_MAX = 40       # f32 on the CPU took 26 (both packages)
 CONFIG1_REL_MAX = 2e-2
 CONFIG1_REF_N = 10_000
 CONFIG1_REF_REL_MAX = 2e-4
+# the two-pass sweeps (#9) at few long partitions, where they take the
+# chunked scan (C > 1 chunks a partition): (K, nb, b, the band's half width)
+# of dominant random bands beside config 1's factor (K = 1, nb = 1563,
+# b = 64); nb = 301 with b = 128 is ragged under its plan's C, and K = 2
+# and 4 spread their partitions' chunks over the card
+SWEEPS_CHUNKED_SHAPES = ((1, 301, 128, 60), (2, 400, 64, 20),
+                         (4, 400, 64, 20))
+# chunk counts #9 is timed at on config 1's factor, beside the plan's,
+# and its time there with one block a partition (PERF.md)
+CONFIG1_CHUNKS = (16, 33, 66, 100, 132)
+CONFIG1_SWEEPS_BEFORE_MS = 2.2506
 # the transpose-free KSP types on the flagship (the spike PC built once)
 # and on config 2 (the cholesky PC built once): (type, options, the largest
 # iteration count it may take, rtol).  The flagship's gmres takes 2; bcgsl
@@ -270,6 +285,18 @@ def spd_band(n, half_bw, device, seed=SEED):
     data[:, k] = data.abs().sum(dim=1) + 1
     band = BandedMatrix(data=data, kl=k, ku=k)
     return band, banded_matvec(band, torch.ones(n, device=device))
+
+
+def laplacian_factor(n, device):
+    """The factor config 1's ``lu`` PC builds on the card: the tridiagonal
+    Laplacian (2 on the diagonal, -1 beside it) at n, one partition, block
+    64, f32."""
+    import numpy as np
+    from spike_petsc_tpu_torch.convert import banded_from_numpy
+    from spike_petsc_tpu_torch.ops.spike import spike_factor
+    band = banded_from_numpy(np.tile(np.float32([-1, 2, -1]), (n, 1)), 1, 1,
+                             device=device)
+    return spike_factor(band, K=1, block_b=CONFIG1_BLOCK)
 
 
 def time_ms(fn, reps=REPS, iters=1):
@@ -1138,8 +1165,12 @@ def phase_alternate_kernels(band, rhs, sf, device):
     matvec against their plain versions: the f64 band matvec (#6) on the
     flagship band in f64 and on a ragged band, and both against an f64 CSR
     product of the band; the two-pass sweeps (#9) on the flagship factor
-    in f32 and bf16 and at nb = 1; the grid block-tridiagonal matvec (#8)
-    on the flagship conversion and at a ragged nb."""
+    in f32 and bf16 and at nb = 1 (one block a partition, C = 1), and at
+    the shapes where its plan chunks each partition (C > 1): config 1's
+    factor (K = 1, nb = 1563, b = 64), K = 1 at b = 128 with nb = 301
+    (ragged chunks), K = 2 and K = 4, each in f32 and bf16; the grid
+    block-tridiagonal matvec (#8) on the flagship conversion and at a
+    ragged nb."""
     import torch
     from spike_petsc_tpu_torch import BandedMatrix
     from spike_petsc_tpu_torch.ops.blocktri import (BlockTridiagonal,
@@ -1184,19 +1215,41 @@ def phase_alternate_kernels(band, rhs, sf, device):
     check(small.nb == 1, "small factor must have nb = 1")
     rblk = torch.nn.functional.pad(rhs, (0, K * sf.m - N)).reshape(
         K, sf.nb, BLOCK)
-    for label, fact, r in (
-            ("flagship f32", sf.fact, rblk),
-            ("flagship bf16", cast_factor(sf.fact, torch.bfloat16), rblk),
-            ("nb=1 f32", small.fact,
-             torch.randn((K, 1, BLOCK), generator=gen, device=device))):
+    lap = laplacian_factor(CONFIG1_N, device).fact
+    cases = [
+        ("flagship f32", sf.fact, rblk, False),
+        ("flagship bf16", cast_factor(sf.fact, torch.bfloat16), rblk, False),
+        ("nb=1 f32", small.fact,
+         torch.randn((K, 1, BLOCK), generator=gen, device=device), False),
+        ("config 1 f32", lap, None, True),
+        ("config 1 bf16", cast_factor(lap, torch.bfloat16), None, True)]
+    for k, nb, b, hw in SWEEPS_CHUNKED_SHAPES:
+        band_c, _ = flagship_band(k * nb * b, hw, device, seed=SEED + nb + k)
+        fact_c = spike_factor(band_c, K=k, block_b=b).fact
+        cases += [(f"K={k} nb={nb} b={b} f32", fact_c, None, True),
+                  (f"K={k} nb={nb} b={b} bf16",
+                   cast_factor(fact_c, torch.bfloat16), None, True)]
+    sms = csw.device_sms(device)
+    for label, fact, r, chunked in cases:
+        k, nb, b, _ = fact.F.shape
+        if r is None:
+            r = torch.randn((k, nb, b), generator=gen, device=device)
+        C = csw.sweeps_chunks(k, nb, b, sms)
         diff, err = kernel_err(
             csw.blocktri_solve_batched_cuda(fact, r),
             csw.blocktri_solve_batched_cuda(fact, r, impl="plain"))
         torch.cuda.synchronize()
-        print(f"sweeps {label} {tuple(fact.F.shape)}: max abs err "
-              f"{diff:.3e}, relative {err:.3e}")
+        print(f"sweeps {label} {tuple(fact.F.shape)}: C={C} chunks a "
+              f"partition ({'ragged' if nb % C else 'even'}), {k * C} "
+              f"blocks; max abs err {diff:.3e}, relative {err:.3e}")
         check(err <= KERNEL_TOL, f"sweeps {label} err {err}")
+        check((C > 1) == chunked and k * C <= sms,
+              f"sweeps {label}: plan C={C} on {sms} SMs")
         errs.setdefault("sweeps", diff)
+    check(any(nb % csw.sweeps_chunks(k, nb, b, sms)
+              for k, nb, b, _ in SWEEPS_CHUNKED_SHAPES),
+          "no chunked shape is ragged under its plan")
+    del lap, cases
 
     ragged_bt = BandedMatrix(
         data=torch.rand((100_003, 198), generator=gen, device=device) - 0.5,
@@ -1424,10 +1477,16 @@ def phase_config1(device, t, bounds):
     counted around the run and held to what gmres makes (#1 none); the
     solution against an f64 host solve of the same system; then the factor,
     the solve and #9 at this shape (K = 1, nb = 1563, b = 64) beside its
-    plain version and its bound."""
+    plain version and its bound, with its plan's chunk count C (> 1) and
+    its time at other counts and at C = 1; then #9 and #1 timed on the
+    n = 1e4 factor (nb = 157), which #1 admits; #2 at this path's operator
+    (n = 1e5, w = 3) a launch at a time, beside the CSR product and its
+    bound."""
     import numpy as np
     import torch
     from spike_petsc_tpu_torch import Options, make_solver
+    from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
     from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
     from spike_petsc_tpu_torch.ops.cuda.fused_sweep import (
         fused_sweep_feasible)
@@ -1493,11 +1552,72 @@ def phase_config1(device, t, bounds):
                      2 * (3 * sf.nb - 2) * sf.b * sf.b)
     bounds["config1_sweeps"] = bound
     ms = t["config1_sweeps_cuda"][0]
+    sms = csw.device_sms(device)
+    C = csw.sweeps_chunks(sf.K, sf.nb, sf.b, sms)
+    check(C > 1, f"config 1: the plan keeps one block ({sms} SMs)")
     print(f"sweeps (config 1: K=1 nb={sf.nb} b={sf.b}): {ms:.4f} ms for "
-          f"the two launches, {1e3 * ms / (2 * sf.nb):.3f} us a block row "
-          f"of a sweep; plain {t['config1_sweeps_plain'][0]:.4f} ms; bound "
-          f"{bound[0]:.4f} ms ({bound[1]}), bound / time "
-          f"{bound[0] / ms:.3f}")
+          f"the two launches, C={C} chunks of at most "
+          f"{-(-sf.nb // C)} block rows on {sf.K * C} SMs; plain "
+          f"{t['config1_sweeps_plain'][0]:.4f} ms; bound {bound[0]:.4f} ms "
+          f"({bound[1]}), bound / time {bound[0] / ms:.3f}; before the "
+          f"chunked scan (PERF.md) {CONFIG1_SWEEPS_BEFORE_MS} ms")
+    # the plan's C among others, and C = 1 (one block: the kernel before
+    # the chunked scan), in this call
+    for c in sorted({1, C, *(c for c in CONFIG1_CHUNKS if c <= sms)}):
+        tc = time_ms(lambda: csw.blocktri_solve_batched_cuda(
+            sf.fact, r, chunks=c), iters=10)
+        print(f"  sweeps config 1 at C={c}: {tc[0]:.4f} ms median, spread "
+              f"{tc[1]:.4f} ms{' (the plan)' if c == C else ''}")
+    # #9 beside #1 on a single partition that #1 admits (the n = 1e4
+    # reference's factor); the route gives it to #1
+    ref = laplacian_factor(CONFIG1_REF_N, device)
+    check(fused_sweep_feasible(ref.fact, ref.b), "#1 must admit nb = 157")
+    r2 = torch.randn((1, ref.nb, ref.b), generator=torch.Generator(
+        device=device).manual_seed(SEED + 18), device=device)
+    plain2 = csw.blocktri_solve_batched_cuda(ref.fact, r2, impl="plain")
+    _, e9 = kernel_err(csw.blocktri_solve_batched_cuda(ref.fact, r2), plain2)
+    _, e1 = kernel_err(cfs.blocktri_solve_fused_cuda(ref.fact, r2), plain2)
+    torch.cuda.synchronize()
+    check(max(e9, e1) <= KERNEL_TOL, f"n=1e4 sweeps err {e9}, {e1}")
+    show("config1_ref_sweeps_cuda", time_ms(
+        lambda: csw.blocktri_solve_batched_cuda(ref.fact, r2), iters=20))
+    show("config1_ref_fused_sweep_cuda", time_ms(
+        lambda: cfs.blocktri_solve_fused_cuda(ref.fact, r2), iters=20))
+    # device time a call: CUDA events time these short calls at the host's
+    # launch rate
+    d9 = device_profile(lambda: [csw.blocktri_solve_batched_cuda(
+        ref.fact, r2) for _ in range(20)])[0] / 20
+    d1 = device_profile(lambda: [cfs.blocktri_solve_fused_cuda(
+        ref.fact, r2) for _ in range(20)])[0] / 20
+    print(f"sweeps (#9, C={csw.sweeps_chunks(1, ref.nb, ref.b, sms)}) "
+          f"against fused_sweep (#1) on the n={CONFIG1_REF_N} factor (K=1 "
+          f"nb={ref.nb} b={ref.b}, which #1 admits and the route gives to "
+          f"#1): #9 {t['config1_ref_sweeps_cuda'][0]:.4f} ms a call, "
+          f"{d9:.4f} ms of device time; #1 "
+          f"{t['config1_ref_fused_sweep_cuda'][0]:.4f} ms, {d1:.4f} ms of "
+          f"device time; relative errors {e9:.3e}, {e1:.3e}")
+    # #2 at this path's operator (n = 1e5, w = 3), a launch at a time
+    prep = cbm.prepare_banded_mv(op)
+    xv = torch.randn(op.n, generator=torch.Generator(device=device)
+                     .manual_seed(SEED + 19), device=device)
+    _, e2 = kernel_err(cbm.banded_matvec_prepared(prep, xv),
+                       cbm.banded_matvec_prepared(prep, xv, impl="plain"))
+    check(e2 <= KERNEL_TOL, f"config 1 band_matvec err {e2}")
+    nbytes = op.n * op.width * 4 + 2 * op.n * 4
+    csr = band_csr(op)
+    ms2 = device_profile(lambda: [cbm.banded_matvec_prepared(prep, xv)
+                                  for _ in range(50)])[0] / 50
+    lib2 = device_profile(lambda: [csr @ xv for _ in range(50)])[0] / 50
+    call2 = time_ms(lambda: cbm.banded_matvec_prepared(prep, xv), iters=50)
+    bound2 = roofline(nbytes, 2 * op.n * op.width)
+    print(f"band_matvec (config 1: n={op.n} w={op.width}): {ms2:.4f} ms of "
+          f"device time a launch (torch.profiler, 50 launches), "
+          f"{call2[0]:.4f} ms a call by CUDA events (the host's launch "
+          f"rate); CSR {lib2:.4f} ms of device time; bound {bound2[0]:.4f} "
+          f"ms ({bound2[1]}), bound / device time "
+          f"{bound2[0] / ms2 if ms2 else float('nan'):.3f}; "
+          f"relative error {e2:.3e}")
+    del csr
     busy, items = device_profile(lambda: solver(b))
     wall = t["config1_gmres_solve"][0]
     print(f"  config1_gmres_solve device busy {busy:.3f} ms of {wall:.3f} ms "

@@ -20,7 +20,8 @@ from spike_petsc_tpu_torch import BandedMatrix, Options, solve
 from spike_petsc_tpu_torch.convert import banded_from_numpy
 from spike_petsc_tpu_torch.ops.band import banded_matvec
 from spike_petsc_tpu_torch.ops.blocktri import (BlockTridiagonal,
-                                                band_to_blocktri, cast_factor)
+                                                band_to_blocktri,
+                                                blocktri_solve, cast_factor)
 from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
 from spike_petsc_tpu_torch.ops.cuda import band_matvec_f64 as cbm64
 from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
@@ -541,6 +542,75 @@ def test_sweeps_kernels_match_plain(cuda_device, b, K, n, dtype):
     assert _rel(got, fused) <= TOL
 
 
+def _laplacian_factor(n, device):
+    """BASELINE config 1's factor on the card: the tridiagonal Laplacian,
+    one partition, block 64 (the lu PC's)."""
+    band = banded_from_numpy(np.tile(np.float32([-1, 2, -1]), (n, 1)), 1, 1,
+                             device=device)
+    return spike_factor(band, K=1, block_b=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["config1", "K1_nb301_b128", "K2_nb400",
+                                   "K4_nb400", "flagship"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sweeps_chunked_scan_matches_plain(cuda_device, shape, dtype):
+    """#9 at the shapes chip_smoke.py holds it at: its plan chunks config
+    1's one partition of 1563 block rows, K = 1 at b = 128 with nb = 301
+    (ragged chunks), K = 2 and 4 at nb = 400 (C > 1); the flagship's
+    K = 64, nb = 123 keeps one block a partition (C = 1).  Two launches a
+    solve, against the plain sweep."""
+    if shape == "config1":
+        fact = _laplacian_factor(100_000, cuda_device).fact
+    else:
+        K, nb, b = {"K1_nb301_b128": (1, 301, 128), "K2_nb400": (2, 400, 64),
+                    "K4_nb400": (4, 400, 64),
+                    "flagship": (64, 123, 128)}[shape]
+        fact = _factor(b, K, K * nb * b, seed=29).fact
+    fact = cast_factor(fact, dtype)
+    K, nb, b, _ = fact.F.shape
+    sms = csw.device_sms(cuda_device)
+    C = csw.sweeps_chunks(K, nb, b, sms)
+    assert (C == 1) == (shape == "flagship") and K * C <= max(sms, K)
+    if shape == "K1_nb301_b128":
+        assert nb % C
+    r = torch.randn((K, nb, b), device=cuda_device)
+    ref = blocktri_solve(fact, r)
+    launches = csw.KERNEL.launches
+    got = csw.blocktri_solve_batched_cuda(fact, r)
+    torch.cuda.synchronize()
+    assert csw.KERNEL.launches == launches + 2
+    assert got.shape == r.shape and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,K,nb,chunks", [
+    (64, 1, 8, 8), (64, 2, 9, 2), (64, 3, 10, 3), (128, 1, 7, 7),
+    (128, 2, 13, 5), (64, 1, 40, 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sweeps_chunked_scan_edges(cuda_device, b, K, nb, chunks, dtype):
+    """Chunks of one block row (nb = C: phase 1 is each chunk's first step
+    only), C = 2 (no chained step), C = 3 (one), ragged chunks; against the
+    plain sweep and the plain model of the split."""
+    fact = cast_factor(_factor(b, K, K * nb * b, seed=30 + nb).fact, dtype)
+    r = torch.randn((K, nb, b), device=cuda_device)
+    got = csw.blocktri_solve_batched_cuda(fact, r, chunks=chunks)
+    torch.cuda.synchronize()
+    assert _rel(got, blocktri_solve(fact, r)) <= TOL
+    assert _rel(got, csw.blocktri_solve_chunked_model(fact, r, chunks)) <= TOL
+
+
+@pytest.mark.cuda
+def test_sweeps_chunks_out_of_range_raise(cuda_device):
+    fact = _factor(64, 2, 2 * 64 * 6, seed=31).fact
+    r = torch.randn((2, 6, 64), device=cuda_device)
+    sms = csw.device_sms(cuda_device)
+    for chunks in (0, 7, sms):                  # C > nb; K C > the SMs
+        with pytest.raises(ValueError, match="chunked scan takes"):
+            csw.blocktri_solve_batched_cuda(fact, r, chunks=chunks)
+
+
 @pytest.mark.cuda
 def test_spike_solve_pallas_runs_the_two_pass_sweeps(cuda_device):
     """``spike_solve(impl="pallas")`` launches #9 twice (stored spikes: one
@@ -634,9 +704,10 @@ def test_alternate_kernels_refuse_what_they_do_not_take(cuda_device):
 def test_long_single_partition_takes_the_two_pass_sweeps(cuda_device):
     """BASELINE config 1's shape: the lu PC on the tridiagonal Laplacian at
     n = 1e5 (k = 1) gets block 64 on the card, one partition of nb = 1563
-    block rows, which #1's shared-memory rule refuses; #9 at K = 1 agrees
-    with its plain version, and 'auto' (spike_solve, the PC's apply) runs
-    it, two launches a solve, and never #1."""
+    block rows, which #1's shared-memory rule refuses; #9 at K = 1 takes
+    its chunked scan there (C > 1), agrees with its plain version, and
+    'auto' (spike_solve, the PC's apply) runs it, two launches a solve, and
+    never #1."""
     from spike_petsc_tpu_torch.ops.cuda.fused_sweep import (
         fused_sweep_feasible)
     from spike_petsc_tpu_torch.solvers.pc import make_pc
@@ -647,6 +718,7 @@ def test_long_single_partition_takes_the_two_pass_sweeps(cuda_device):
     assert (sf.K, sf.nb, sf.b) == (1, 1563, 64)
     assert not fused_sweep_feasible(sf.fact, 64)
     assert csw.sweeps_feasible(sf.fact, 64)
+    assert csw.sweeps_chunks(1, 1563, 64, csw.device_sms(cuda_device)) > 1
     r = torch.randn((1, sf.nb, 64), device=cuda_device)
     ref = csw.blocktri_solve_batched_cuda(sf.fact, r, impl="plain")
     got = csw.blocktri_solve_batched_cuda(sf.fact, r)
