@@ -90,7 +90,24 @@ In order, it:
      pipecg) with the cholesky PC built once, launches of #3 and #2, and
      every KSP type on 20 000-row bands, the card in f32 against the CPU in
      f64;
-  9. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
+  9. the transpose stack (``phase_transpose_*``): on the flagship the
+     spike PC's transpose built from the band and from the L blocks kept
+     at factor time (``-pc_spike_store_lt 1``), each setup timed; #1 on
+     the regular-form transposed factor against its plain version and
+     against the plain transpose sweeps of the marker form, timed beside
+     #1 on the forward factor; ``solve(A, b, transpose=True)`` (gmres,
+     rtol 1e-8) on the banded and the blocktri operator with its launches
+     held exactly, its wall and device time beside the forward solve's;
+     bicg, lsqr and cgls with their launches held exactly;
+     ``-ksp_compute_singularvalues``; the A^T types and the transposed
+     gmres at n = 20000, the card in f32 against the CPU in f64; config 3
+     through the testbed CLI with ``-ksp_type bicg`` (#1 and #2 held
+     exactly); config 1's system transposed (gmres + lu, #9 at K = 1, 2
+     (its + 2) launches, #1 none, against an f64 host solve); config 2's
+     cg with ``transpose=True`` (the PC's own spd factor, #3 its + 1
+     launches, the forward solve's answer); and, in the config-1 phase,
+     one ``copy_`` of the bytes #2 moves there, the card's floor for them;
+ 10. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
      path, error, time, plain time, bound and library time) and, last, the
      line ``{"ok": true, "device": {...}}``.
 
@@ -227,6 +244,17 @@ KSP_TYPE_REF_RTOL = 1e-6
 KSP_TYPE_REF_PC = {"gcr": "jacobi"}
 KSP_TYPE_RELRES_MAX = 1e-4    # true f32 relres from banded_matvec
 KSP_TYPE_REF_TOL = 1e-5       # card f32 against CPU f64, max|dx| / max|x|
+# the transpose stack (phase_transpose_*): the A^T types on the flagship
+# at rtol 1e-8, each with the spike PC built once.  In f32 CPU runs of the
+# JAX package at n = 2e4 (w = 41, the flagship's PC options at K = 8,
+# b = 64) bicg, cgne, cgls and lsqr reached rtol 1e-8 in 2 its (their
+# monitored norms ended at 3e-9 to 6e-9 of ||b||), gmres with
+# transpose=True in 2, and each true f32 relres was 9e-8 to 2e-7
+TRANSPOSE_KSP_CASES = (("bicg", 4), ("lsqr", 4), ("cgls", 4))
+TRANSPOSE_REF_CASES = ("bicg", "cgne", "cgnr", "cgls", "lsqr", "gmres")
+# config 3 with bicg: the JAX testbed in f32 on the CPU took 2 its at
+# n = 2e4 and 2e5 (true relres 8e-8)
+CONFIG3_BICG_ITS_MAX = 3
 # NVIDIA's data sheet for the H100 SXM (700 W): the bound of each kernel
 PEAK_BYTES_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
@@ -1618,6 +1646,17 @@ def phase_config1(device, t, bounds):
           f"{bound2[0] / ms2 if ms2 else float('nan'):.3f}; "
           f"relative error {e2:.3e}")
     del csr
+    # the card's floor for moving #2's bytes at this size: one copy_ that
+    # reads and writes as many bytes in all as #2 moves (2.0 MB here)
+    src = torch.empty(nbytes // 8, device=device)
+    dst = torch.empty_like(src)
+    copy_ms = device_profile(lambda: [dst.copy_(src)
+                                      for _ in range(50)])[0] / 50
+    print(f"copy_ of {nbytes / 2e6:.3f} MB (reads and writes "
+          f"{nbytes / 1e6:.3f} MB in all, the bytes of #2 at n={op.n} "
+          f"w={op.width}): {copy_ms:.4f} ms of device time a launch "
+          f"(torch.profiler, 50 launches), beside #2's {ms2:.4f} ms")
+    del src, dst
     busy, items = device_profile(lambda: solver(b))
     wall = t["config1_gmres_solve"][0]
     print(f"  config1_gmres_solve device busy {busy:.3f} ms of {wall:.3f} ms "
@@ -1741,6 +1780,326 @@ def phase_ksp_types_reference(device):
                   and abs(got.its - ref.its) <= 1 and err <= KSP_TYPE_REF_TOL,
                   f"ksp {name}: card and CPU reference disagree")
     return worst
+
+
+def gmres_expected(its, launches, sweep, matvec, sweeps_per_apply=1,
+                   restart=30):
+    """The launches of left-preconditioned gmres from x0 = 0 without the
+    true-residual monitor: PC applies (``sweeps_per_apply`` launches of
+    ``sweep`` each) for ||M^-1 b||, the first residual, each iteration and
+    each restart's residual; operator applies (``matvec``) for the first
+    residual, each iteration and each restart's residual."""
+    cycles = -(-its // restart)
+    expected = {name: 0 for name in launches}
+    expected[sweep] = sweeps_per_apply * (2 + its + cycles - 1)
+    expected[matvec] = 1 + its + cycles - 1
+    return expected
+
+
+def transpose_types_expected(ksp, its, launches):
+    """The launches of the A^T types from x0 = 0 with the flagship's spike
+    PC (stored spikes: one #1 sweep an apply, forward or transposed) and
+    the band operator (#2 for A and for A^T).  bicg: two PC applies before
+    the loop and two an iteration, two operator applies an iteration and
+    one for the final residual; lsqr: M^-T A^T u0, then per iteration
+    A M^-1 v and M^-T A^T u, then x = M^-1 y and the final residual; cgls:
+    M^-1 b and A^T M^-T c, then per iteration M^-1 A p and A^T M^-T s, then
+    the final residual."""
+    expected = {name: 0 for name in launches}
+    expected["fused_sweep"] = 2 * its + 2
+    expected["band_matvec"] = 2 * its + (1 if ksp == "bicg" else 2)
+    return expected
+
+
+def transposed_rhs(band, device):
+    """b = A^T 1, so that A^T x = b has x = 1."""
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec_t
+    return banded_matvec_t(band, torch.ones(band.n, device=device))
+
+
+def phase_transpose_flagship(band, rhs, sf, pc, device, t):
+    """The transpose stack on the flagship: the spike PC's transpose built
+    from the band and from the L blocks kept at factor time
+    (``-pc_spike_store_lt 1``), each setup timed; #1 on the regular-form
+    transposed factor against its plain version and against the plain
+    transpose sweeps of the marker form on the forward factor (the same
+    function), timed beside #1 on the forward factor; ``solve(A, b,
+    transpose=True)`` (gmres, rtol 1e-8) on the banded and the blocktri
+    operator, the launches held exactly, timed beside the forward solve
+    with each one's device busy time; bicg, lsqr and cgls, launches held
+    exactly; ``-ksp_compute_singularvalues`` on the transposed gmres."""
+    import contextlib
+    import io
+    import torch
+    from spike_petsc_tpu_torch import Options, make_solver, solve
+    from spike_petsc_tpu_torch.ops.band import banded_matvec_t, banded_matvec
+    from spike_petsc_tpu_torch.ops.blocktri import blocktri_solve_transpose
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
+    from spike_petsc_tpu_torch.ops.spike import spike_transpose
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    from spike_petsc_tpu_torch.solvers.types import CONVERGED_RTOL, reason_str
+    show = shower(t)
+    t0 = time.perf_counter()
+    pct = pc.transpose()
+    torch.cuda.synchronize()
+    setup_band = (time.perf_counter() - t0) * 1e3
+    pc_lt = make_pc("spike", band,
+                    Options(dict(PC_OPTIONS, pc_spike_store_lt=1)))
+    t0 = time.perf_counter()
+    pct_lt = pc_lt.transpose()
+    torch.cuda.synchronize()
+    setup_lt = (time.perf_counter() - t0) * 1e3
+    check(pc.transpose() is pct and pct.transpose() is pc
+          and pct.name == "spike_transpose", "PC.transpose cache/involution")
+    print(f"transposed spike PC setup (flagship): from the band "
+          f"{setup_band:.1f} ms, from the kept L blocks (store_lt) "
+          f"{setup_lt:.1f} ms")
+
+    # #1 on the regular-form factor: the same shapes as the forward one
+    factT = spike_transpose(sf, band=band).fact
+    check(all(getattr(factT, m).is_contiguous() for m in ("F", "U", "Sinv"))
+          and cfs.fused_sweep_feasible(factT, sf.b),
+          "the regular-form transpose must be a contiguous factor #1 takes")
+    r = torch.randn((K, sf.nb, BLOCK), generator=torch.Generator(
+        device=device).manual_seed(SEED + 21), device=device)
+    got = cfs.blocktri_solve_fused_cuda(factT, r)
+    _, e_plain = kernel_err(got, cfs.blocktri_solve_fused_cuda(
+        factT, r, impl="plain"))
+    _, e_marker = kernel_err(got, blocktri_solve_transpose(sf.fact, r))
+    torch.cuda.synchronize()
+    print(f"fused_sweep on the regular-form transpose {tuple(factT.F.shape)}"
+          f": relative error {e_plain:.3e} against its plain version, "
+          f"{e_marker:.3e} against the marker form's plain transpose sweeps")
+    check(max(e_plain, e_marker) <= KERNEL_TOL,
+          f"#1 on the transpose: {e_plain}, {e_marker}")
+    show("fused_sweep_cuda_transpose", time_ms(
+        lambda: cfs.blocktri_solve_fused_cuda(factT, r), iters=10))
+    show("fused_sweep_cuda_forward", time_ms(
+        lambda: cfs.blocktri_solve_fused_cuda(sf.fact, r), iters=10))
+    del factT
+
+    # solve(A, b, transpose=True): gmres on the banded and blocktri routes
+    bt = transposed_rhs(band, device)
+    btnorm = float(torch.linalg.norm(bt))
+    for impl, mv in (("auto", "band_matvec"), ("blocktri", "blocktri_matvec")):
+        opts = Options({"mat_matvec_impl": impl})
+        reset_launches()
+        res = solve(band, bt, ksp_type="gmres", pc=pc, options=opts,
+                    rtol=1e-8, restart=30, maxit=30, transpose=True)
+        launches = read_launches()
+        rel = float(torch.linalg.norm(banded_matvec_t(band, res.x) - bt)
+                    / btnorm)
+        expected = gmres_expected(res.its, launches, "fused_sweep", mv)
+        print(f"gmres+spike transpose=True ({impl} operator): {res.its} its, "
+              f"{reason_str(res.reason)}, true relres of A^T x = b (f32) "
+              f"{rel:.3e}, max|x - 1| {float((res.x - 1).abs().max()):.3e}; "
+              f"launches {launches}; expected {expected}")
+        check(res.reason == CONVERGED_RTOL and res.its <= GMRES_ITS_MAX,
+              f"transposed gmres ({impl}): {res.its} its, {res.reason}")
+        check(bool(torch.isfinite(res.x).all()) and rel <= 1e-4,
+              f"transposed gmres ({impl}) relres {rel}")
+        check(launches == expected, f"transposed gmres ({impl}) launches")
+        if impl == "auto":
+            tr_launches = launches
+
+    fwd = make_solver(band, pc=pc, ksp_type="gmres", rtol=1e-8, restart=30,
+                      maxit=30)
+    trs = make_solver(band, pc=pc, ksp_type="gmres", rtol=1e-8, restart=30,
+                      maxit=30, transpose=True)
+    for name, fn in (("gmres_solve_forward", lambda: fwd(rhs)),
+                     ("gmres_solve_transpose", lambda: trs(bt))):
+        show(name, time_ms(fn, reps=3))
+        busy, items = device_profile(fn)
+        wall = t[name][0]
+        print(f"  {name} device busy {busy:.3f} ms of {wall:.3f} ms wall: "
+              f"idle share {1 - busy / wall:.3f}")
+        for key, count, ms in items:
+            print(f"    {ms:8.3f} ms  {count:5d} x  {key}")
+
+    # the types that iterate on A^T, the same PC (its transpose cached)
+    bnorm = float(torch.linalg.norm(rhs))
+    for ksp, its_max in TRANSPOSE_KSP_CASES:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = solve(band, rhs, ksp_type=ksp, pc=pc, rtol=1e-8, maxit=50)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        rel = float(torch.linalg.norm(banded_matvec(band, res.x) - rhs)
+                    / bnorm)
+        expected = transpose_types_expected(ksp, res.its, launches)
+        print(f"ksp {ksp} rtol=1e-08: {res.its} its, "
+              f"{reason_str(res.reason)}, wall {wall:.2f} ms, true relres "
+              f"(f32) {rel:.3e}, launches {launches}; expected {expected}")
+        check(res.reason > 0 and res.its <= its_max,
+              f"ksp {ksp}: {res.its} its (at most {its_max}), {res.reason}")
+        check(bool(torch.isfinite(res.x).all())
+              and rel <= KSP_TYPE_RELRES_MAX, f"ksp {ksp} relres {rel}")
+        check(launches == expected, f"ksp {ksp} launches")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = solve(band, bt, ksp_type="gmres", pc=pc, rtol=1e-8,
+                    transpose=True,
+                    options=Options({"ksp_compute_singularvalues": 1}))
+    lines = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("Iteratively computed extreme singular")]
+    print(f"gmres+spike transpose=True -ksp_compute_singularvalues: "
+          f"{res.its} its; {lines[0] if lines else 'NO LINE'}")
+    check(len(lines) == 1 and res.reason > 0, "singular-value line")
+    del pc_lt, pct_lt
+    return tr_launches
+
+
+def phase_transpose_reference(device):
+    """The A^T types and gmres with transpose=True on a 20 000-row band of
+    the flagship's kind (w = 41), the spike PC built once a side, rtol
+    1e-6: the card in f32 against the CPU in f64; the iteration counts
+    within 1, the solutions within KSP_TYPE_REF_TOL of max|x|."""
+    from spike_petsc_tpu_torch import BandedMatrix, Options, solve
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    band, rhs = flagship_band(20_000, 20, device, seed=SEED + 3)
+    cpu = BandedMatrix(data=band.data.double().cpu(), kl=band.kl, ku=band.ku)
+    opts = dict(PC_OPTIONS, pc_spike_partitions=8, pc_spike_block=64)
+    pcs = {dev: make_pc("spike", b, Options(dict(opts)))
+           for dev, b in (("card", band), ("cpu", cpu))}
+    for ksp in TRANSPOSE_REF_CASES:
+        tr = ksp == "gmres"
+        got = solve(band, rhs, ksp_type=ksp, pc=pcs["card"], transpose=tr,
+                    rtol=KSP_TYPE_REF_RTOL, maxit=100)
+        ref = solve(cpu, rhs.double().cpu(), ksp_type=ksp, pc=pcs["cpu"],
+                    transpose=tr, rtol=KSP_TYPE_REF_RTOL, maxit=100)
+        err = float((got.x.double().cpu() - ref.x).abs().max()
+                    / ref.x.abs().max())
+        name = ksp + ("[transpose]" if tr else "")
+        print(f"ksp {name} n=20000 w={band.width}: card {got.its} its vs "
+              f"CPU f64 {ref.its} its, max|x_card - x_cpu| / max|x_cpu| "
+              f"{err:.3e}")
+        check(got.reason > 0 and ref.reason > 0
+              and abs(got.its - ref.its) <= 1 and err <= KSP_TYPE_REF_TOL,
+              f"ksp {name}: card and CPU reference disagree")
+
+
+def phase_transpose_config3(device):
+    """BASELINE config 3 through the testbed CLI with ``-ksp_type bicg``:
+    the banded PC's inner spike PC transposed (#1 at nb = 123, the
+    regular form cut from its band) and A^T (#2 at w = 13); the launches
+    held exactly (#2 2 its + 1; #1 4 (its + 1): spikes not stored, two
+    sweeps an apply, two applies before the loop and two an iteration).
+    The testbed runs its host pre-pass again (it takes no pre-pass from
+    an earlier run); its -log_view table times it."""
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.solvers.types import CONVERGED_RTOL
+    argv = [("bicg" if a == "bcgs" else a) for a in CONFIG3_ARGV]
+    rec = {}
+    t0 = time.perf_counter()
+    reset_launches()
+    rc, out = run_testbed(argv, rec)
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        print(f"  testbed| {line}")
+    res, op, b = rec["result"], rec["operator"], rec["b"]
+    rel = float(torch.linalg.norm(banded_matvec(op, res.x) - b)
+                / torch.linalg.norm(b))
+    expected = {name: 0 for name in launches}
+    expected["band_matvec"] = 2 * res.its + 1
+    expected["fused_sweep"] = 4 * (res.its + 1)
+    print(f"bicg+banded (config 3, n={op.n}): testbed exit code {rc}, "
+          f"{wall:.2f} s in all, {res.its} its, reason {res.reason}, true "
+          f"relres (f32) {rel:.3e}; launches {launches}; expected "
+          f"{expected}")
+    check(rc == 0 and res.reason == CONVERGED_RTOL
+          and res.its <= CONFIG3_BICG_ITS_MAX,
+          f"config 3 bicg: exit {rc}, {res.its} its, reason {res.reason}")
+    check(bool(torch.isfinite(res.x).all()) and rel <= CONFIG3_RELRES_MAX,
+          f"config 3 bicg relres {rel}")
+    check(launches == expected, f"config 3 bicg launches {launches}")
+    return launches
+
+
+def phase_transpose_config1(device, t):
+    """BASELINE config 1's system solved transposed: gmres + lu with
+    ``transpose=True`` at rtol 1e-10 on the tridiagonal Laplacian at
+    n = 1e5 in f32.  The lu PC's K = 1 factor (block 64, nb = 1563) is
+    transposed in the regular form, which routes to #9 like the forward
+    one: #9 launched 2 (its + 2) times (one cycle), #2 its + 1, #1 never;
+    the solution against an f64 host solve of A^T x = b; the transposed
+    PC's setup, and the solve's wall and device time."""
+    import numpy as np
+    import torch
+    from spike_petsc_tpu_torch import Options, make_solver, solve
+    from spike_petsc_tpu_torch.convert import banded_from_numpy
+    from spike_petsc_tpu_torch.ops.band import banded_transpose
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    show = shower(t)
+    band = banded_from_numpy(np.tile(np.float32([-1, 2, -1]),
+                                     (CONFIG1_N, 1)), 1, 1, device=device)
+    b = transposed_rhs(band, device)
+    pc = make_pc("lu", band, Options())
+    t0 = time.perf_counter()
+    pc.transpose()
+    torch.cuda.synchronize()
+    setup = (time.perf_counter() - t0) * 1e3
+    reset_launches()
+    res = solve(band, b, ksp_type="gmres", pc=pc, rtol=1e-10,
+                transpose=True)
+    launches = read_launches()
+    x64 = host_solve_f64(banded_transpose(band), b)
+    rel = float(np.linalg.norm(res.x.double().cpu().numpy() - x64)
+                / np.linalg.norm(x64))
+    expected = gmres_expected(res.its, launches, "sweeps", "band_matvec",
+                              sweeps_per_apply=2)
+    print(f"gmres+lu transpose=True (config 1, n={CONFIG1_N}, f32): "
+          f"{res.its} its, reason {res.reason}; ||x - x64|| / ||x64|| "
+          f"{rel:.3e} (limit {CONFIG1_REL_MAX}); transposed PC setup "
+          f"{setup:.1f} ms (block {pc.info['block']}); launches {launches}; "
+          f"expected {expected}")
+    check(res.reason > 0 and res.its <= CONFIG1_ITS_MAX,
+          f"config 1 transposed: {res.its} its, reason {res.reason}")
+    check(bool(torch.isfinite(res.x).all()) and rel <= CONFIG1_REL_MAX,
+          f"config 1 transposed error {rel}")
+    check(launches == expected and launches["fused_sweep"] == 0,
+          f"config 1 transposed launches {launches}")
+    solver = make_solver(band, pc=pc, ksp_type="gmres", rtol=1e-10,
+                         transpose=True)
+    show("config1_gmres_solve_transpose", time_ms(lambda: solver(b), reps=3))
+    busy, _ = device_profile(lambda: solver(b))
+    wall = t["config1_gmres_solve_transpose"][0]
+    print(f"  config1_gmres_solve_transpose device busy {busy:.3f} ms of "
+          f"{wall:.3f} ms wall: idle share {1 - busy / wall:.3f}")
+    return launches
+
+
+def phase_transpose_config2(band, rhs, pc):
+    """Config 2 transposed: cg + cholesky with ``transpose=True``.  A real
+    spd factorization is its own transpose, so the transposed PC applies
+    the same factor: #3 launched its + 1 times, and the answer the
+    forward solve's."""
+    import torch
+    from spike_petsc_tpu_torch import solve
+    from spike_petsc_tpu_torch.solvers.types import CONVERGED_RTOL
+    fwd = solve(band, rhs, ksp_type="cg", pc=pc, rtol=1e-8, maxit=50)
+    reset_launches()
+    res = solve(band, rhs, ksp_type="cg", pc=pc, rtol=1e-8, maxit=50,
+                transpose=True)
+    launches = read_launches()
+    same_factor = pc.transpose().apply.args[0] is pc.apply.args[0]
+    dx = float((res.x - fwd.x).abs().max() / fwd.x.abs().max())
+    print(f"cg+cholesky transpose=True (config 2): {res.its} its (forward "
+          f"{fwd.its}), reason {res.reason}; the transposed PC applies the "
+          f"PC's own factor: {same_factor}; max|x_T - x| / max|x| {dx:.3e} "
+          f"(bitwise equal: {bool(torch.equal(res.x, fwd.x))}); launches "
+          f"{launches}")
+    check(res.reason == CONVERGED_RTOL and res.its == fwd.its
+          and same_factor, f"config 2 transposed cg: {res.its} its")
+    check(dx <= 1e-6, f"config 2 transposed cg differs from forward: {dx}")
+    check(launches["fused_sweep_spd"] == res.its + 1
+          and launches["fused_sweep"] == 0,
+          f"config 2 transposed launches {launches}")
+    return launches
 
 
 def phase_refine(a64, b64):
@@ -1988,8 +2347,14 @@ def main() -> int:
     phase_ksp_types(band, rhs, pc, KSP_TYPE_CASES,
                     ("fused_sweep", "band_matvec"))
     print(f"KSP types on the flagship: {time.perf_counter() - tk:.1f} s")
+    # the transpose stack on the flagship, the same PC
+    tt = time.perf_counter()
+    phase_transpose_flagship(band, rhs, sf, pc, device, t)
     del band, rhs, sf, res, pc
     torch.cuda.empty_cache()
+    phase_transpose_reference(device)
+    print(f"transpose phases on the flagship: {time.perf_counter() - tt:.1f} "
+          f"s")
 
     # BASELINE config 3 through the testbed CLI
     t3 = time.perf_counter()
@@ -1999,11 +2364,16 @@ def main() -> int:
     del rec3
     torch.cuda.empty_cache()
     print(f"config 3 phases: {time.perf_counter() - t3:.1f} s")
+    tt = time.perf_counter()
+    phase_transpose_config3(device)
+    torch.cuda.empty_cache()
+    print(f"config 3 transposed (bicg): {time.perf_counter() - tt:.1f} s")
 
     # BASELINE config 1 (gmres + lu) through the testbed CLI: #9 at K = 1
     t1 = time.perf_counter()
     phase_config1(device, t, bounds)
     phase_config1_reference(device)
+    phase_transpose_config1(device, t)
     torch.cuda.empty_cache()
     print(f"config 1 phases: {time.perf_counter() - t1:.1f} s")
 
@@ -2024,6 +2394,7 @@ def main() -> int:
     spc = make_pc("cholesky", sband, Options(dict(SPD_OPTIONS)))
     phase_ksp_types(sband, srhs, spc, SPD_KSP_TYPE_CASES,
                     ("fused_sweep_spd", "band_matvec"))
+    phase_transpose_config2(sband, srhs, spc)
     del sband, srhs, ssf, spc
     torch.cuda.empty_cache()
     phase_ksp_types_reference(device)

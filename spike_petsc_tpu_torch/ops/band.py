@@ -114,3 +114,64 @@ def pad_banded(b: BandedMatrix, n_pad: int,
         pad[:, b.kl] = 1
     return BandedMatrix(data=torch.cat([b.data, pad], dim=0), kl=b.kl,
                         ku=b.ku)
+
+
+def banded_transpose(b: BandedMatrix) -> BandedMatrix:
+    """Transpose in band storage: A^T[i, i + d] = A[i + d, i], so ``kl``
+    and ``ku`` swap.
+
+    ``dataT[i, j] = data[i + j - ku, (w - 1) - j]``: each transposed
+    diagonal is a row-shifted copy of the mirrored source diagonal, built
+    as ``w`` shifted slices for ``w <= 512`` and as one gather for wider
+    bands (:func:`_transpose_gather`), as in the JAX package.  Slots whose
+    source row leaves ``[0, n)`` are zero."""
+    if b.width <= 512:
+        return _transpose_shifted(b)
+    return _transpose_gather(b)
+
+
+def _transpose_shifted(b: BandedMatrix) -> BandedMatrix:
+    """The shifted-slice form of :func:`banded_transpose`."""
+    n, w = b.n, b.width
+    data = torch.zeros_like(b.data)
+    for j in range(w):
+        s = j - b.ku                            # the row shift
+        lo, hi = max(0, -s), min(n, n - s)
+        if lo < hi:
+            data[lo:hi, j] = b.data[lo + s:hi + s, w - 1 - j]
+    return BandedMatrix(data=data, kl=b.ku, ku=b.kl)
+
+
+def _transpose_gather(b: BandedMatrix) -> BandedMatrix:
+    """The gather form of :func:`banded_transpose`: source row ``i + d``,
+    source slot ``kl - d`` for the transposed offset ``d``."""
+    n, kl, ku, dev = b.n, b.kl, b.ku, b.device
+    offs = torch.arange(-ku, kl + 1, device=dev)[None, :]
+    src_row = torch.arange(n, device=dev)[:, None] + offs
+    valid = (src_row >= 0) & (src_row < n)
+    data = torch.where(valid, b.data[src_row.clamp(0, n - 1), kl - offs],
+                       torch.zeros((), dtype=b.dtype, device=dev))
+    return BandedMatrix(data=data, kl=ku, ku=kl)
+
+
+def banded_matvec_t(b: BandedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A^T @ x."""
+    return banded_matvec(banded_transpose(b), x)
+
+
+def banded_diagonal_scale(b: BandedMatrix, dr=None, dc=None) -> BandedMatrix:
+    """diag(dr) @ A @ diag(dc) in band storage, either factor optional
+    (MatDiagonalScale).  Row scaling multiplies each row; column scaling
+    multiplies stored slot ``d`` of row ``i`` by ``dc[i + d - kl]`` (zero
+    outside ``[0, n)``).  Returns a new matrix; the input is not mutated."""
+    data, n, kl, ku = b.data, b.n, b.kl, b.ku
+    if dr is not None:
+        data = data * torch.as_tensor(dr, dtype=data.dtype,
+                                      device=data.device)[:, None]
+    if dc is not None:
+        dcp = torch.nn.functional.pad(
+            torch.as_tensor(dc, dtype=data.dtype, device=data.device),
+            (kl, ku))
+        data = torch.stack([data[:, d] * dcp[d:d + n]
+                            for d in range(b.width)], dim=1)
+    return BandedMatrix(data=data, kl=kl, ku=ku)

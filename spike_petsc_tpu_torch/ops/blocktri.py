@@ -1,7 +1,9 @@
 """Block-tridiagonal representation and block-Thomas factorization (PyTorch).
 
 The port of the subset of ``spike_petsc_tpu.ops.blocktri`` that the
-SPIKE paths run.  A banded matrix with half-bandwidths kl, ku <= b is a
+SPIKE paths run, with the transpose solve on the forward factor (the
+``TransposedBlockTriFactor`` marker, ``blocktri_solve_transpose``) and the
+regular-form transposed factor (``transposed_factor_from_L``).  A banded matrix with half-bandwidths kl, ku <= b is a
 block-tridiagonal matrix with dense ``b x b`` blocks; block-Thomas
 factorization does, per block row,
 
@@ -72,6 +74,26 @@ class BlockTriFactor:
     @property
     def b(self) -> int:
         return self.F.shape[-1]
+
+
+@dataclass(frozen=True)
+class TransposedBlockTriFactor:
+    """Marker: solve with the TRANSPOSE of the wrapped factorization.
+
+    Carries no data of its own: the SPIKE partition solve dispatches it to
+    ``blocktri_solve_transpose``, which reuses ``base``'s stored blocks
+    (the storage-sharing form of ``ops.spike.spike_transpose``; its sweeps
+    are plain PyTorch, no kernel takes it)."""
+
+    base: BlockTriFactor
+
+    @property
+    def nb(self) -> int:
+        return self.base.nb
+
+    @property
+    def b(self) -> int:
+        return self.base.b
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +308,8 @@ def _symmetrize(s: torch.Tensor) -> torch.Tensor:
 
 def blocktri_factor_inv_waux_band(local_band: torch.Tensor, y0: torch.Tensor,
                                   kl: int, ku: int, b: int,
-                                  inverter: str = "auto"):
+                                  inverter: str = "auto",
+                                  keep_l: bool = False):
     """``blocktri_factor(method='inv')`` straight from RAW band rows, with
     the auxiliary W-spike forward sweep ``y_i = -F_i @ y_{i-1}`` carried
     alongside.
@@ -297,15 +320,21 @@ def blocktri_factor_inv_waux_band(local_band: torch.Tensor, y0: torch.Tensor,
     match ``band_to_blocktri``: block 0's L is never read and the last
     block's U is zeroed in the emitted factor.
 
-    Returns ``(fact, y)`` with ``y`` stacked ``[..., nb, b, r]``.
+    Returns ``(fact, y)`` with ``y`` stacked ``[..., nb, b, r]``; with
+    ``keep_l``, ``(fact, y, L)`` with the subdiagonal blocks each step
+    skewed, ``L`` ``[..., nb, b, b]`` (``L[0]`` zero, as
+    ``band_to_blocktri`` gives it).
     """
     nb = local_band.shape[-3]
     _, d0, u_prev = _skew_block_rows(local_band[..., 0, :, :], b, kl, ku)
     s_inv = batched_inverse(d0, inverter)
     y = y0
     f_list, sinv_list, u_list, y_list = [], [s_inv], [], [y0]
+    l_list = [torch.zeros_like(d0)] if keep_l else []
     for i in range(1, nb):
         l, d, u = _skew_block_rows(local_band[..., i, :, :], b, kl, ku)
+        if keep_l:
+            l_list.append(l)
         f = l @ s_inv
         s = d - f @ u_prev
         s_inv = batched_inverse(s, inverter)
@@ -317,7 +346,10 @@ def blocktri_factor_inv_waux_band(local_band: torch.Tensor, y0: torch.Tensor,
         u_prev = u
     # U[i] is block i's superdiagonal; U[nb-1] is a partition edge -> 0
     U = torch.stack(u_list + [torch.zeros_like(u_prev)], dim=-3)
-    return _factor_from_lists(f_list, sinv_list, U), torch.stack(y_list, -3)
+    fact = _factor_from_lists(f_list, sinv_list, U)
+    if keep_l:
+        return fact, torch.stack(y_list, -3), torch.stack(l_list, dim=-3)
+    return fact, torch.stack(y_list, -3)
 
 
 # ---------------------------------------------------------------------------
@@ -385,5 +417,95 @@ def blocktri_solve(fact: BlockTriFactor, rhs: torch.Tensor) -> torch.Tensor:
         else:
             xs.append(mv(fact.Sinv[..., i, :, :],
                          ys[i] - mv(fact.U[..., i, :, :], xs[-1])))
+    x = torch.stack(xs[::-1], dim=-3)
+    return x[..., 0] if squeeze else x
+
+
+# ---------------------------------------------------------------------------
+# Transpose solves
+# ---------------------------------------------------------------------------
+
+def transposed_factor_from_blocks(fact: BlockTriFactor,
+                                  blocks: BlockTridiagonal) -> BlockTriFactor:
+    """REGULAR-form factor for T^T from an ``inv`` forward factor and the
+    original blocks (only ``blocks.L`` is read): see
+    :func:`transposed_factor_from_L`."""
+    return transposed_factor_from_L(fact, blocks.L)
+
+
+def transposed_factor_from_L(fact: BlockTriFactor,
+                             L: torch.Tensor) -> BlockTriFactor:
+    """REGULAR-form ``inv`` factor for T^T from an ``inv`` forward factor
+    and the subdiagonal blocks ``L`` (``[..., nb, b, b]``, row 0 ignored):
+
+        F'_i = (Sinv_{i-1} U_{i-1})^T,  Sinv'_i = Sinv_i^T,
+        U'_i = L_{i+1}^T
+
+    The standard block-Thomas sweeps on it compute the transpose solve
+    (substitute z_i = Sinv_i^T w_i into the sweeps of
+    :func:`blocktri_solve_transpose`), so the sweep kernels take it as they
+    take the forward factor.  ``F'`` is computed at the sweep precision and
+    stored, with ``U'`` and ``Sinv'``, at the factor's dtype; all three are
+    materialized contiguous (a transposed view is not what the kernels
+    read).  It is a second factor-sized buffer beside the forward one."""
+    if fact.method != "inv":
+        raise ValueError("the regular-form transpose needs method='inv' "
+                         f"block-Thomas factors (got {fact.method!r})")
+    dtype = fact.F.dtype
+    prec = sweep_precision(fact.U, fact.Sinv)
+    FU = fact.Sinv[..., :-1, :, :].to(prec) @ fact.U[..., :-1, :, :].to(prec)
+    zbb = torch.zeros_like(fact.F[..., :1, :, :])
+    Fh = torch.cat([zbb, FU.transpose(-1, -2).to(dtype)], dim=-3)
+    Uh = torch.cat([L[..., 1:, :, :].transpose(-1, -2).to(fact.U.dtype),
+                    zbb], dim=-3)
+    return BlockTriFactor(F=Fh.contiguous(), U=Uh.contiguous(),
+                          Sinv=fact.Sinv.transpose(-1, -2).contiguous(),
+                          method="inv")
+
+
+def blocktri_solve_transpose(fact: BlockTriFactor,
+                             rhs: torch.Tensor) -> torch.Tensor:
+    """Solve T^T x = rhs on the FORWARD factorization, no refactorization
+    (PETSc MatSolveTranspose).
+
+    T = L U with L unit lower block-bidiagonal (subdiagonal F) and U upper
+    block-bidiagonal (diagonal S, superdiagonal U), so T^T = U^T L^T solves
+    in two sweeps over the same stored blocks, transposed:
+
+        forward:  z_0 = S_0^{-T} r_0,  z_i = S_i^{-T} (r_i - U_{i-1}^T z_{i-1})
+        backward: x_{nb-1} = z_{nb-1},  x_i = z_i - F_{i+1}^T x_{i+1}
+
+    A real ``spd`` factor is its own transpose: the forward solve.  The
+    ``lu`` method is not ported.  rhs: ``[..., nb, b]`` or
+    ``[..., nb, b, r]`` with the factor's leading dims; the result is in
+    the sweep precision.  Plain PyTorch: no kernel takes this form."""
+    if fact.method == "spd":
+        if rhs.is_complex():
+            raise NotImplementedError(
+                "blocktri_solve_transpose for complex Hermitian 'spd' "
+                "factors is not yet ported to spike_petsc_tpu_torch")
+        return blocktri_solve(fact, rhs)
+    if fact.method == "lu":
+        raise NotImplementedError(
+            "blocktri_solve_transpose(method='lu'): the 'lu' factor method "
+            "is not yet ported to spike_petsc_tpu_torch")
+    if fact.method != "inv":
+        raise ValueError(f"unsupported method {fact.method!r}")
+    squeeze = rhs.dim() == fact.F.dim() - 1
+    if squeeze:
+        rhs = rhs[..., None]
+    nb, mv = fact.nb, _sweep_matvec
+
+    def tT(a):
+        return a.transpose(-1, -2)
+
+    zs = [mv(tT(fact.Sinv[..., 0, :, :]), rhs[..., 0, :, :])]
+    for i in range(1, nb):
+        zs.append(mv(tT(fact.Sinv[..., i, :, :]),
+                     rhs[..., i, :, :] - mv(tT(fact.U[..., i - 1, :, :]),
+                                            zs[-1])))
+    xs = [zs[nb - 1]]
+    for i in range(nb - 2, -1, -1):
+        xs.append(zs[i] - mv(tT(fact.F[..., i + 1, :, :]), xs[-1]))
     x = torch.stack(xs[::-1], dim=-3)
     return x[..., 0] if squeeze else x

@@ -20,7 +20,12 @@ and SPD paths run:
   correction ``x = g - V xt - W xb`` (or a second sweep when spikes are
   not stored);
 * ``spike_solve_many`` does the same for ``[n, r]`` right-hand sides, the
-  factors streamed once for all r (the multi-RHS fused kernels on the card).
+  factors streamed once for all r (the multi-RHS fused kernels on the card);
+* ``spike_transpose`` turns a factorization of A into one of A^T on the
+  same partition factors: a regular-form ``inv`` factor (from the L blocks
+  kept by ``store_lt`` or cut from the band), which the sweep kernels take
+  as they take the forward one, or the storage-sharing marker, whose
+  transpose sweeps are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -31,10 +36,12 @@ from typing import Optional
 import torch
 
 from .band import BandedMatrix, pad_banded
-from .blocktri import (BlockTridiagonal, BlockTriFactor, _sweep_matvec,
+from .blocktri import (BlockTridiagonal, BlockTriFactor,
+                       TransposedBlockTriFactor, _sweep_matvec,
                        band_to_blocktri, blocktri_factor,
                        blocktri_factor_inv_waux_band, blocktri_solve,
-                       cast_factor, sweep_precision)
+                       blocktri_solve_transpose, cast_factor, sweep_precision,
+                       transposed_factor_from_L)
 from .cuda.fused_sweep import blocktri_solve_fused_cuda, fused_sweep_feasible
 from .cuda.fused_sweep_many import (blocktri_solve_fused_many_cuda,
                                     fused_sweep_many_feasible)
@@ -48,6 +55,7 @@ class SpikeFactor:
     """Factorization state for SPIKE solves."""
 
     fact: BlockTriFactor                  # per-partition factors, leading K
+    #                                       (or the transpose marker)
     Btip: torch.Tensor                    # [K, k, k], coupling to next
     Ctip: torch.Tensor                    # [K, k, k], coupling to prev
     red_fact: Optional[BlockTriFactor]    # exact reduced-system factorization
@@ -60,6 +68,9 @@ class SpikeFactor:
     k: int                                # tip size = max(kl, ku)
     red_Dinv: Optional[torch.Tensor] = None   # [K-1, 2k, 2k] truncated
     truncated: bool = False
+    # [K, nb, b, b] subdiagonal blocks at the factor's storage dtype
+    # (store_lt): the regular-form transpose builds from them
+    Lb: Optional[torch.Tensor] = None
 
     @property
     def nb(self) -> int:
@@ -194,10 +205,11 @@ def _reduced_from_tips(V_top, V_bot, W_top, W_bot, *, truncated: bool,
 
 def _finish_factor(fact, yw, Btip, Ctip, *, n, K, m, b, k, truncated,
                    store_spikes, store_dtype, inverter,
-                   spike_dtype) -> SpikeFactor:
+                   spike_dtype, Lb=None) -> SpikeFactor:
     """Factorization tail: spikes -> reduced system -> mixed-precision cast.
     ``yw`` is the W forward sweep from the folded factor loop (None when
-    the factor was computed without it)."""
+    the factor was computed without it); ``Lb`` the L blocks to keep
+    (store_lt), cast with the factor."""
     nb = m // b
     V = W = red_fact = red_Dinv = None
     if K > 1:
@@ -216,11 +228,13 @@ def _finish_factor(fact, yw, Btip, Ctip, *, n, K, m, b, k, truncated,
         fact = cast_factor(fact, store_dtype)
         if V is not None:
             V, W = V.to(store_dtype), W.to(store_dtype)
+        if Lb is not None:
+            Lb = Lb.to(store_dtype)
     if spike_dtype is not None and V is not None:
         V, W = V.to(spike_dtype), W.to(spike_dtype)
     return SpikeFactor(fact=fact, Btip=Btip, Ctip=Ctip, red_fact=red_fact,
                        V=V, W=W, n=n, K=K, m=m, b=b, k=k, red_Dinv=red_Dinv,
-                       truncated=truncated)
+                       truncated=truncated, Lb=Lb)
 
 
 def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
@@ -235,7 +249,10 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
     and ``method='spd'`` (symmetric block-LDL^T for a symmetric band: F and
     Sinv stored, 2/3 of ``inv``'s factor memory, U blocks ignored), the
     exact block-Thomas reduced system and the ``truncated`` one,
-    ``store_spikes``, ``store_dtype`` and ``spike_dtype``; the rest raise.
+    ``store_spikes``, ``store_dtype``, ``spike_dtype`` and ``store_lt``
+    (keep the subdiagonal blocks, ``SpikeFactor.Lb`` at ``store_dtype``, so
+    that ``spike_transpose`` builds the regular-form transpose without the
+    band; ``method='inv'`` only); the rest raise.
     """
     if method not in ("inv", "spd"):
         raise _not_ported(f"spike_factor(method={method!r})")
@@ -243,8 +260,10 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
         raise _not_ported(f"spike_factor(reduced={reduced!r})")
     if shift != "none":
         raise _not_ported(f"spike_factor(shift={shift!r})")
-    if store_lt:
-        raise _not_ported("spike_factor(store_lt=True)")
+    if store_lt and method != "inv":
+        raise ValueError(
+            "store_lt builds the regular-form transpose factor, which "
+            f"needs method='inv' block-Thomas factors (got {method!r})")
     n, kl, ku = band.n, band.kl, band.ku
     k, b, m = _partition_geometry(n, K, kl, ku, block_b)
     band = pad_banded(band, K * m)
@@ -254,20 +273,116 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
         local = band.data.reshape(K, m // b, b, band.width)
         Cb = torch.zeros((K, b, k), dtype=band.dtype, device=band.device)
         Cb[:, :k, :] = Ctip
-        fact, yw = blocktri_factor_inv_waux_band(local, Cb, kl, ku, b,
-                                                 inverter=inverter)
+        fact, yw, *kept = blocktri_factor_inv_waux_band(
+            local, Cb, kl, ku, b, inverter=inverter, keep_l=store_lt)
+        Lb = kept[0] if kept else None
     else:
-        t = band_to_blocktri(band, b)
-        L, D, U = (a.reshape(K, m // b, b, b) for a in (t.L, t.D, t.U))
-        L[:, 0] = 0                 # the couplings that leave each partition
-        U[:, -1] = 0
-        fact = blocktri_factor(BlockTridiagonal(D=D, L=L, U=U),
-                               method=method, inverter=inverter)
+        blocks = _partition_blocks(band, K, m, b)
+        fact = blocktri_factor(blocks, method=method, inverter=inverter)
         yw = None
+        Lb = blocks.L if store_lt else None
     return _finish_factor(fact, yw, Btip, Ctip, n=n, K=K, m=m, b=b, k=k,
                           truncated=truncated, store_spikes=store_spikes,
                           store_dtype=store_dtype, inverter=inverter,
-                          spike_dtype=spike_dtype)
+                          spike_dtype=spike_dtype, Lb=Lb)
+
+
+def _partition_blocks(band: BandedMatrix, K: int, m: int,
+                      b: int) -> BlockTridiagonal:
+    """The ``[K, nb, b, b]`` blocks of each partition of a band padded to
+    ``K * m`` rows, the couplings that leave a partition (``L[:, 0]``,
+    ``U[:, -1]``) zeroed."""
+    t = band_to_blocktri(band, b)
+    L, D, U = (a.reshape(K, m // b, b, b) for a in (t.L, t.D, t.U))
+    L[:, 0] = 0
+    U[:, -1] = 0
+    return BlockTridiagonal(D=D, L=L, U=U)
+
+
+def _batched_tri_solve(fact, rhs: torch.Tensor) -> torch.Tensor:
+    """The plain per-partition solve of ``rhs [K, nb, b(, r)]``,
+    dispatching on the factor type: the transpose marker to
+    ``blocktri_solve_transpose`` on its base, a block-Thomas factor to
+    ``blocktri_solve``."""
+    if isinstance(fact, TransposedBlockTriFactor):
+        return blocktri_solve_transpose(fact.base, rhs)
+    return blocktri_solve(fact, rhs)
+
+
+def spike_transpose(sf: SpikeFactor, reduced: str = "auto",
+                    inverter: str = "auto",
+                    store_spikes: Optional[bool] = None,
+                    band: Optional[BandedMatrix] = None,
+                    fast: bool = True) -> SpikeFactor:
+    """SPIKE factorization of A^T REUSING A's partition factors: no band
+    transpose, no new block inversions.  The result solves A^T x = rhs
+    through the ordinary ``spike_solve``/``spike_solve_many`` (PETSc
+    MatSolveTranspose / PCApplyTranspose).
+
+    The partition factors, in preference order (``fast=True``):
+
+    * from ``sf.Lb`` (``spike_factor(store_lt=True)``): the REGULAR-form
+      ``inv`` factor of ``transposed_factor_from_L``, which the sweep
+      kernels take as they take the forward factor;
+    * from ``band``, the ORIGINAL band: the same, its L blocks cut with
+      the forward factor's K and m (on the card a PC's default block moves
+      the partition boundaries, so they are never recomputed);
+    * otherwise (or ``fast=False``) the storage-sharing
+      ``TransposedBlockTriFactor`` marker, whose sweeps are plain PyTorch.
+
+    The coupling tips swap and transpose (A^T couples partition p forward
+    through C_{p+1}^T and backward through B_{p-1}^T); the transpose
+    spikes are one plain batched solve of their 2k columns, and the
+    reduced system is rebuilt from their tips with ``inverter`` (pass the
+    forward factor's resolved one).  ``store_spikes``: None keeps V/W iff
+    the forward factor did.  A real ``spd`` factorization is its own
+    transpose and comes back as is."""
+    if not isinstance(sf.fact, BlockTriFactor):
+        raise ValueError(
+            "spike_transpose requires block-Thomas partition factors "
+            f"(got {type(sf.fact).__name__}); refactor with method='inv'")
+    if reduced not in ("auto", "thomas"):
+        raise _not_ported(f"spike_transpose(reduced={reduced!r})")
+    K, nb, b, k = sf.K, sf.nb, sf.b, sf.k
+    dtype = sf.Btip.dtype
+    if sf.fact.method == "spd":
+        if dtype.is_complex:
+            raise _not_ported("spike_transpose of complex Hermitian 'spd' "
+                              "factors")
+        return sf
+    if fast and (sf.Lb is not None or band is not None):
+        L = sf.Lb if sf.Lb is not None else _partition_blocks(
+            pad_banded(band, K * sf.m), K, sf.m, b).L
+        factT = transposed_factor_from_L(sf.fact, L)
+    else:
+        factT = TransposedBlockTriFactor(sf.fact)
+    zk = torch.zeros((1, k, k), dtype=dtype, device=sf.Btip.device)
+    Btip_t = torch.cat([sf.Ctip[1:].transpose(-1, -2), zk]).contiguous()
+    Ctip_t = torch.cat([zk, sf.Btip[:-1].transpose(-1, -2)]).contiguous()
+    common = dict(n=sf.n, K=K, m=sf.m, b=b, k=k, truncated=sf.truncated)
+    if K == 1:
+        return SpikeFactor(fact=factT, Btip=Btip_t, Ctip=Ctip_t,
+                           red_fact=None, V=None, W=None, **common)
+    # V's right-hand side lives in the last block, W's in the first: one
+    # solve of both, 2k columns
+    rhs = torch.zeros((K, nb, b, 2 * k), dtype=dtype,
+                      device=sf.Btip.device)
+    rhs[:, nb - 1, b - k:, :k] = Btip_t
+    rhs[:, 0, :k, k:] = Ctip_t
+    VW = _batched_tri_solve(factT, rhs)
+    Vt, Wt = VW[..., :k], VW[..., k:]
+    red_fact, red_Dinv = _reduced_from_tips(
+        Vt[:, 0, :k, :], Vt[:, nb - 1, b - k:, :],
+        Wt[:, 0, :k, :], Wt[:, nb - 1, b - k:, :],
+        truncated=sf.truncated, inverter=inverter)
+    keep = (sf.V is not None) if store_spikes is None else store_spikes
+    V = W = None
+    if keep:
+        sdt = sf.V.dtype if sf.V is not None else Vt.dtype
+        V, W = Vt.contiguous().to(sdt), Wt.contiguous().to(sdt)
+    return SpikeFactor(fact=factT, Btip=Btip_t, Ctip=Ctip_t,
+                       red_fact=red_fact, red_Dinv=red_Dinv, V=V, W=W,
+                       **common)
 
 
 # ---------------------------------------------------------------------------
@@ -308,12 +423,20 @@ _JAX_NAMES = {"xla": "plain", "pallas_fused": "cuda"}
 
 
 def _require_inv_factors(sf: SpikeFactor, impl: str) -> None:
-    """``impl='pallas'`` takes ``method='inv'`` factors only, as in JAX."""
-    if sf.fact.method != "inv":
+    """The kernels take block-Thomas factors only: ``impl='pallas'``
+    ``method='inv'`` ones, the fused kernels (``'cuda'``,
+    ``'pallas_fused'``) ``inv`` or ``spd`` ones; the transpose marker none,
+    as in JAX."""
+    ok = ("inv", "spd") if impl in ("cuda", "pallas_fused") else ("inv",)
+    if not (isinstance(sf.fact, BlockTriFactor) and sf.fact.method in ok):
+        got = (f"method={sf.fact.method!r}"
+               if isinstance(sf.fact, BlockTriFactor)
+               else type(sf.fact).__name__)
         raise ValueError(
-            f"impl={impl!r} requires method='inv' block-Thomas factors; got "
-            f"method={sf.fact.method!r} (use impl='xla' or 'pallas_fused', "
-            f"or refactor with spike_factor(..., method='inv'))")
+            f"impl={impl!r} requires method={'/'.join(ok)!r} block-Thomas "
+            f"factors; got {got} (use impl='xla', or refactor with "
+            "spike_factor(..., method='inv'), or build the regular-form "
+            "transpose: spike_transpose(sf, band=...) or store_lt)")
 
 
 def sweep_route(fact, b: int, rhs_dtype, on_cuda: bool,
@@ -326,8 +449,10 @@ def sweep_route(fact, b: int, rhs_dtype, on_cuda: bool,
     raises where its rule refuses them; ``inv`` factors take #1 where its
     rule admits them, else #9 where its rule does (any nb, so a long single
     partition), else the plain sweep: only f64 factors or a block outside
-    64 and 128 come there, and no multi-RHS two-pass kernel exists."""
-    if not on_cuda:
+    64 and 128 come there, and no multi-RHS two-pass kernel exists.  A
+    regular-form transpose is an ``inv`` factor and routes as one; the
+    transpose marker takes the plain transpose sweeps."""
+    if not on_cuda or isinstance(fact, TransposedBlockTriFactor):
         return "plain"
     if fact.method == "spd":
         return "fused"
@@ -344,11 +469,16 @@ def _batched_solver(sf: SpikeFactor, impl: str, rhs: torch.Tensor,
     """The partition sweep ``r -> x`` for ``sf``'s factor method.  'auto'
     takes the route of :func:`sweep_route`, as the JAX dispatch takes its
     Pallas kernels on the TPU.  The JAX names ``xla`` and ``pallas_fused``
-    mean ``plain`` and ``cuda``."""
+    mean ``plain`` and ``cuda``.  The transpose marker runs the plain
+    transpose sweeps under 'auto' and 'plain', and raises under 'cuda'."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown impl {impl!r}: expected "
                          f"{', '.join(_IMPLS)}")
     impl = _JAX_NAMES.get(impl, impl)
+    if isinstance(sf.fact, TransposedBlockTriFactor):
+        if impl == "cuda":
+            _require_inv_factors(sf, impl)
+        return lambda r: _batched_tri_solve(sf.fact, r)
     solve = (_SWEEPS_MANY if many else _SWEEPS)[sf.fact.method]
     if impl == "auto":
         route = sweep_route(sf.fact, sf.b, rhs.dtype, rhs.is_cuda, many=many)

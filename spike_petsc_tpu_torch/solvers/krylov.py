@@ -12,12 +12,16 @@ defaults, converged reasons and history semantics:
   ``cgs``, ``tfqmr`` and ``gcr`` for general operators;
 * ``cg``, ``pipecg``, ``cr``, ``minres`` and ``symmlq`` for symmetric ones;
 * ``chebyshev``, ``richardson`` and ``preonly``;
+* the types that iterate on A^T, given ``matvec_transpose`` and
+  ``pc_apply_transpose`` (``ksp.make_solver`` builds them from the
+  operator and ``PC.transpose``): ``bicg``, ``cgnr`` (registered as
+  ``cgne``, ``cgnr`` and ``cgls``) and ``lsqr``, for real scalars;
 * the Arnoldi spectrum estimate behind ``-ksp_compute_eigenvalues`` and
   ``-ksp_chebyshev_esteig`` (``arnoldi_hessenberg``,
-  ``estimate_extreme_eigs``, ``chebyshev_esteig_bounds``).
-
-The types that iterate on A^T (``bicg``, ``cgne``/``cgnr``/``cgls``,
-``lsqr``) are not yet ported.
+  ``estimate_extreme_eigs``, ``chebyshev_esteig_bounds``), and the
+  Golub-Kahan singular-value estimate behind
+  ``-ksp_compute_singularvalues`` (``golub_kahan_bidiag``,
+  ``estimate_extreme_singular_values``).
 
 The JAX versions stage each solve in ``lax.while_loop``.  Here the vectors
 (and the Krylov bases) stay on the operator's device, and the small scalars
@@ -40,7 +44,8 @@ import scipy.linalg
 import torch
 
 from ..utils.registry import register_ksp
-from .types import (CONVERGED_ITERATING, CONVERGED_ITS, DIVERGED_BREAKDOWN,
+from .types import (CONVERGED_ITERATING, CONVERGED_ITS,
+                    CONVERGED_RTOL_NORMAL, DIVERGED_BREAKDOWN,
                     DIVERGED_NANORINF, KSPResult, default_convergence_check)
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
@@ -181,6 +186,103 @@ def estimate_extreme_eigs(matvec: Callable, n: int, dtype=torch.float32, *,
     if k == 0:
         return np.zeros(0, complex)
     return np.linalg.eigvals(H[:k, :k])
+
+
+# ---------------------------------------------------------------------------
+# Golub-Kahan singular-value estimation (KSPComputeExtremeSingularValues)
+# ---------------------------------------------------------------------------
+
+def _real_only(name: str, b: torch.Tensor) -> None:
+    """The A^T types take the pure transpose and real scalars: the JAX
+    package's conjugations reduce to the identity."""
+    if b.is_complex():
+        raise NotImplementedError(
+            f"{name} for complex scalars is not yet ported to "
+            "spike_petsc_tpu_torch")
+
+
+def _need_transpose(name: str, matvec_transpose) -> None:
+    if matvec_transpose is None:
+        raise ValueError(f"{name} requires matvec_transpose (an explicit "
+                         "operator through ksp.solve provides it; bare "
+                         "callables cannot be transposed)")
+
+
+def golub_kahan_bidiag(matvec: Callable, matvec_transpose: Callable,
+                       v0: torch.Tensor, m: int,
+                       pc_apply: Optional[Callable] = None,
+                       pc_apply_transpose: Optional[Callable] = None):
+    """m-step Golub-Kahan bidiagonalization of the left-preconditioned
+    operator B = M^-1 A started from ``v0``; returns ``(alphas, betas, k)``
+    (host numpy arrays in the vectors' dtype, length m) with
+    bidiag(alphas, betas) the (k+1, k) lower-bidiagonal factor and ``k`` the
+    number of completed steps (< m on breakdown, which appends no zero
+    column).  The scalars stay on the device; each step's two norms come to
+    the host for the breakdown test.  Real scalars only."""
+    _real_only("golub_kahan_bidiag", v0)
+    psolve = pc_apply or _identity_pc
+    psolve_t = pc_apply_transpose or _identity_pc
+
+    def bmv(v):
+        return psolve(matvec(v))
+
+    def bmv_t(v):
+        return matvec_transpose(psolve_t(v))
+
+    npdt = _NP_DTYPES[v0.dtype]
+    tiny = _tiny(v0.dtype)
+    u = v0 / _safe(_norm(v0))
+    v_un = bmv_t(u)
+    alpha = _norm(v_un)
+    v = v_un / _safe(alpha)
+    alphas, betas = np.zeros(m, npdt), np.zeros(m, npdt)
+    alphas[0] = float(alpha)
+    k = 1
+    alive = alphas[0] > 1e3 * tiny
+    for j in range(m - 1):
+        if not alive:
+            break
+        u_un = bmv(v) - alpha * u
+        beta = _norm(u_un)
+        u = u_un / _safe(beta)
+        v_un = bmv_t(u) - beta * v
+        alpha = _norm(v_un)
+        v = v_un / _safe(alpha)
+        beta_h, alpha_h = _host(beta, alpha)
+        betas[j] = beta_h
+        alive = beta_h > 1e3 * tiny and alpha_h > 1e3 * tiny
+        if alive:
+            alphas[j + 1] = alpha_h
+            k += 1
+    return alphas, betas, k
+
+
+def estimate_extreme_singular_values(matvec: Callable,
+                                     matvec_transpose: Callable, n: int,
+                                     dtype=torch.float32, *, m: int = 30,
+                                     pc_apply: Optional[Callable] = None,
+                                     pc_apply_transpose: Optional[Callable]
+                                     = None, seed: int = 0, v0=None,
+                                     device=None):
+    """Extreme singular values of M^-1 A, ``(smax, smin)``: ``m``
+    Golub-Kahan steps on the operator's device, the SVD of the small
+    bidiagonal on the host (PETSc KSPComputeExtremeSingularValues).  ``v0``
+    defaults to a seeded standard normal vector (the JAX package's draws)
+    on ``device`` (default the card)."""
+    m = max(2, min(int(m), int(n)))
+    if v0 is None:
+        v0 = torch.as_tensor(
+            np.random.default_rng(seed).standard_normal(n)).to(
+                device=torch.device(device or "cuda"), dtype=dtype)
+    alphas, betas, k = golub_kahan_bidiag(matvec, matvec_transpose, v0, m,
+                                          pc_apply, pc_apply_transpose)
+    if k == 0:
+        return 0.0, 0.0
+    B = np.zeros((k + 1, k))
+    B[np.arange(k), np.arange(k)] = alphas[:k]
+    B[np.arange(1, k + 1), np.arange(k)] = betas[:k]
+    sv = np.linalg.svd(B, compute_uv=False)
+    return float(sv.max()), float(sv.min())
 
 
 #: PETSc's default -ksp_chebyshev_esteig transform: bounds from the Ritz
@@ -1152,11 +1254,214 @@ def preonly(matvec: Callable, b: torch.Tensor,
     return KSPResult(x=x, its=1, reason=reason, rnorm=rn, history=history)
 
 
+# ---------------------------------------------------------------------------
+# The types that iterate on A^T: BiCG and the normal-equations family
+# (PETSc KSPBICG, KSPCGNE, KSPLSQR)
+# ---------------------------------------------------------------------------
+
+def bicg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+         pc_apply: Optional[Callable] = None, *,
+         matvec_transpose: Optional[Callable] = None,
+         pc_apply_transpose: Optional[Callable] = None,
+         rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
+         maxit: int = 10000, **_) -> KSPResult:
+    """Preconditioned BiConjugate Gradients (PETSc KSPBICG): the shadow
+    recurrence runs on A^T and M^-T (``matvec_transpose``,
+    ``pc_apply_transpose``).  The monitored residual is the true residual;
+    it comes to the host once per iteration with the breakdown tests'
+    |<pt, A p>| and |rho|."""
+    _need_transpose("bicg", matvec_transpose)
+    _real_only("bicg", b)
+    psolve = pc_apply or _identity_pc
+    psolve_t = pc_apply_transpose or _identity_pc
+    x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
+    x = torch.zeros_like(b) if x0_zero else x0.clone()
+    tiny = _tiny(b.dtype)
+    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+                     maxit=maxit)
+    history = _history(maxit, b.dtype)
+    r = b if x0_zero else b - matvec(x)
+    rt = r
+    p, pt = psolve(r), psolve_t(rt)
+    rho = torch.dot(rt, p)
+    rnorm0, rho_abs = _host(_norm(r), rho.abs())
+    history[0] = rnorm0
+    its = 0
+    reason = _breakdown(check(rnorm0, its), rho_abs < tiny)
+    while reason == CONVERGED_ITERATING:
+        q, qt = matvec(p), matvec_transpose(pt)
+        denom = torch.dot(pt, q)
+        alpha = rho / _safe(denom)
+        x = x + alpha * p
+        r = r - alpha * q
+        rt = rt - alpha * qt
+        z, zt = psolve(r), psolve_t(rt)
+        rho_new = torch.dot(rt, z)
+        beta = rho_new / _safe(rho)
+        p = z + beta * p
+        pt = zt + beta * pt
+        rho = rho_new
+        rn, denom_abs, rho_abs = _host(_norm(r), denom.abs(), rho_new.abs())
+        its += 1
+        history[its] = rn
+        reason = _breakdown(check(rn, its),
+                            denom_abs < tiny or rho_abs < tiny)
+    return _result(matvec, b, x, its, reason, history)
+
+
+def cgnr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+         pc_apply: Optional[Callable] = None, *,
+         matvec_transpose: Optional[Callable] = None,
+         pc_apply_transpose: Optional[Callable] = None,
+         rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
+         maxit: int = 10000, **_) -> KSPResult:
+    """CG on the normal equations in CGLS form (PETSc KSPCGNE; registered
+    as ``cgne``, ``cgnr`` and ``cgls``): minimizes ||M^-1 (b - A x)|| with
+    B = M^-1 A, carrying the least-squares residual s = M^-1 (b - A x) and
+    the normal residual r = B^T s apart, A^T A never formed.  x and b may
+    differ in length (a rectangular least-squares problem through
+    callables).  The monitored history is ||s||; CONVERGED_RTOL_NORMAL is
+    reported once ||B^T s|| <= rtol ||B^T M^-1 b|| (the normal-equations
+    test, where ||s|| stalls at the least-squares optimum)."""
+    _need_transpose("cgnr/cgne", matvec_transpose)
+    _real_only("cgnr", b)
+    psolve = pc_apply or _identity_pc
+    psolve_t = pc_apply_transpose or _identity_pc
+
+    def bmv(v):                            # B = M^-1 A
+        return psolve(matvec(v))
+
+    def bmv_t(v):                          # B^T = A^T M^-T
+        return matvec_transpose(psolve_t(v))
+
+    tiny = _tiny(b.dtype)
+    c = psolve(b)
+    bt = bmv_t(c)                          # also fixes x's length
+    if x0 is None:
+        x = torch.zeros_like(bt)
+        s, r = c, bt
+    else:
+        x = x0.clone()
+        s = psolve(b - matvec(x0))
+        r = bmv_t(s)
+    gamma = torch.dot(r, r)
+    bnorm, ntnorm0, rnorm0, gamma_h = _host(_norm(c), _norm(bt), _norm(s),
+                                            gamma)
+    check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
+    history = _history(maxit, b.dtype)
+    history[0] = rnorm0
+    its = 0
+
+    def normal_test(reason, gamma_h):
+        if reason == CONVERGED_ITERATING and \
+                math.sqrt(gamma_h) <= rtol * ntnorm0:
+            return CONVERGED_RTOL_NORMAL
+        return reason
+
+    # x0 may already sit at the normal-equations optimum
+    reason = normal_test(check(rnorm0, its), gamma_h)
+    p = r
+    while reason == CONVERGED_ITERATING:
+        q = bmv(p)
+        qq = torch.dot(q, q)
+        alpha = gamma / _safe(qq)
+        x = x + alpha * p
+        s = s - alpha * q
+        r = bmv_t(s)
+        gamma_new = torch.dot(r, r)
+        beta = gamma_new / _safe(gamma)
+        p = r + beta * p
+        gamma = gamma_new
+        rn, qq_h, gamma_h = _host(_norm(s), qq, gamma_new)
+        its += 1
+        history[its] = rn
+        reason = _breakdown(normal_test(check(rn, its), gamma_h),
+                            qq_h < tiny)
+    return _result(matvec, b, x, its, reason, history)
+
+
+def lsqr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+         pc_apply: Optional[Callable] = None, *,
+         matvec_transpose: Optional[Callable] = None,
+         pc_apply_transpose: Optional[Callable] = None,
+         rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
+         maxit: int = 10000, **_) -> KSPResult:
+    """LSQR (Paige-Saunders Golub-Kahan bidiagonalization; PETSc KSPLSQR):
+    min ||b - A x|| for square or rectangular A, right-preconditioned
+    (B = A M^-1, x = x0 + M^-1 y).  The monitored history is the residual
+    estimate phibar; CONVERGED_RTOL_NORMAL fires on the Paige-Saunders
+    test ||B^T r|| = phibar alpha |c| <= rtol ||B||_F-est ||r||, or when the
+    bidiagonalization terminates (alpha or beta below tiny).  The scalar
+    recurrences run on the device in the vectors' dtype; phibar and the
+    test's terms come to the host once per iteration."""
+    _need_transpose("lsqr", matvec_transpose)
+    _real_only("lsqr", b)
+    psolve = pc_apply or _identity_pc
+    psolve_t = pc_apply_transpose or _identity_pc
+
+    def bmv(v):                            # B = A M^-1
+        return matvec(psolve(v))
+
+    def bmv_t(u):                          # B^T = M^-T A^T
+        return psolve_t(matvec_transpose(u))
+
+    tiny = _tiny(b.dtype)
+    r0 = b if x0 is None else b - matvec(x0)
+    beta0 = _norm(r0)
+    u = r0 / _safe(beta0)
+    v_un = bmv_t(u)
+    alpha = _norm(v_un)
+    v = v_un / _safe(alpha)
+    bnorm, beta0_h, alpha0_h = _host(_norm(b), beta0, alpha)
+    check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
+    history = _history(maxit, b.dtype)
+    history[0] = beta0_h
+    its = 0
+    reason = check(beta0_h, its)
+    if reason == CONVERGED_ITERATING and alpha0_h <= tiny:
+        reason = CONVERGED_RTOL_NORMAL
+    y, w = torch.zeros_like(v), v
+    rhobar, phibar, anorm2 = alpha, beta0, alpha ** 2
+    while reason == CONVERGED_ITERATING:
+        u_un = bmv(v) - alpha * u
+        beta = _norm(u_un)
+        u = u_un / _safe(beta)
+        v_un = bmv_t(u) - beta * v
+        alpha = _norm(v_un)
+        v = v_un / _safe(alpha)
+        rho = torch.sqrt(rhobar ** 2 + beta ** 2)
+        cs = rhobar / _safe(rho)
+        sn = beta / _safe(rho)
+        theta = sn * alpha
+        rhobar = -cs * alpha
+        phi = cs * phibar
+        phibar = sn * phibar
+        y = y + (phi / _safe(rho)) * w
+        w = v - (theta / _safe(rho)) * w
+        anorm2 = anorm2 + alpha ** 2 + beta ** 2
+        normal_rn = phibar * alpha * cs.abs()
+        limit = rtol * torch.sqrt(anorm2) * torch.clamp(phibar, min=tiny)
+        rn, normal_h, limit_h, alpha_h, beta_h = _host(
+            phibar, normal_rn, limit, alpha, beta)
+        its += 1
+        history[its] = rn
+        reason = check(rn, its)
+        # Paige-Saunders stopping rule 2, then a terminated
+        # bidiagonalization: the (least-squares) optimum of the space
+        if reason == CONVERGED_ITERATING and (
+                normal_h <= limit_h or alpha_h <= tiny or beta_h <= tiny):
+            reason = CONVERGED_RTOL_NORMAL
+    x = psolve(y) if x0 is None else x0 + psolve(y)
+    return _result(matvec, b, x, its, reason, history)
+
+
 for _name, _fn in (("gmres", gmres), ("fgmres", fgmres), ("lgmres", lgmres),
                    ("bcgs", bicgstab), ("fbcgs", bicgstab),
                    ("bicgstab", bicgstab), ("bcgsl", bcgsl), ("cgs", cgs),
                    ("tfqmr", tfqmr), ("gcr", gcr), ("cg", cg),
                    ("pipecg", pipecg), ("cr", cr), ("minres", minres),
                    ("symmlq", symmlq), ("chebyshev", chebyshev),
-                   ("richardson", richardson), ("preonly", preonly)):
+                   ("richardson", richardson), ("preonly", preonly),
+                   ("bicg", bicg), ("cgne", cgnr), ("cgnr", cgnr),
+                   ("cgls", cgnr), ("lsqr", lsqr)):
     register_ksp(_name, _fn)

@@ -16,23 +16,29 @@
     result = solve(L, b, ksp_type="cg", pc_type="jacobi",
                    options=Options({"ksp_nullspace_constant": 1}))
 
+    # A^T x = b on A's factors (KSPSolveTranspose), and BiCG
+    result = solve(A, b, ksp_type="gmres", pc_type="spike", transpose=True)
+    result = solve(A, b, ksp_type="bicg", pc_type="spike")
+
 Ported: a ``BandedMatrix``, ``BlockTridiagonal``, host SciPy sparse (a
 band+outliers split or a sparse CSR product), dense or callable operator,
-a BandedMatrix or host PC matrix, every KSP type of ``krylov`` (those that
-iterate on A^T are not yet ported), the batched engines of
-``krylov_many``, the ``none``, ``jacobi``, ``lu``, ``spike``, ``cholesky``,
-``bjacobi`` and ``banded`` PCs, null spaces (``nullspace=``,
-``transpose_nullspace=``, ``-ksp_nullspace_constant``), and the flags
+a BandedMatrix or host PC matrix, every KSP type of ``krylov`` (``bicg``,
+``cgne``/``cgnr``/``cgls`` and ``lsqr`` get A^T and M^-T from the operator
+and ``PC.transpose``), the batched engines of ``krylov_many``, the
+``none``, ``jacobi``, ``lu``, ``spike``, ``cholesky``, ``bjacobi`` and
+``banded`` PCs, ``transpose=True`` (KSPSolveTranspose: A^T x = b, the
+operator transposed on the host and the PC applying M^-T on its stored
+factors), null spaces (``nullspace=``, ``transpose_nullspace=``,
+``-ksp_nullspace_constant``), and the flags
 ``-ksp_monitor_true_residual``, ``-ksp_compute_eigenvalues``,
+``-ksp_compute_singularvalues``, ``-ksp_diagonal_scale[_fix]``,
 ``-ksp_chebyshev_eigenvalues``, ``-ksp_chebyshev_esteig[_steps]``,
 ``-ksp_lgmres_augment``, ``-ksp_bcgsl_ell`` and
 ``-ksp_richardson_scale``. A host operator or PC matrix is placed where the
 right-hand side lies, in its dtype (``make_solver(..., device=, dtype=)``).
 ``solve(..., monitor=True)`` prints the residual history after the solve
 (``-ksp_monitor``) and ``view=True`` the solver hierarchy before it
-(``-ksp_view``), as the JAX package prints them. Options whose code
-paths are not yet ported (``-ksp_diagonal_scale``,
-``-ksp_compute_singularvalues``, ``transpose=True``) raise.
+(``-ksp_view``), as the JAX package prints them.
 """
 
 from __future__ import annotations
@@ -44,25 +50,21 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..ops.band import BandedMatrix
+from ..ops.band import BandedMatrix, banded_diagonal, banded_diagonal_scale
 from ..ops.blocktri import BlockTridiagonal
 from ..utils.options import Options
 from ..utils.registry import SOLVERS
 from . import krylov  # noqa: F401  (registers the ported solvers)
-from .operator import as_matvec, as_matvec_many
+from .operator import as_matvec, as_matvec_many, transpose_operator
 from .nullspace import make_nullspace
 from .pc import PC, make_pc
 from .types import KSPResult, reason_str
 
 _DEFAULTS = dict(rtol=1e-5, atol=1e-50, divtol=1e4, maxit=10000, restart=30)
 
-_UNPORTED_FLAGS = ("ksp_diagonal_scale", "ksp_compute_singularvalues")
-
-
-# the JAX package's KSP types that this package does not have yet (they
-# iterate on A^T); any other unknown name is a KeyError from the registry
-# (bad usage)
-_NOT_YET_PORTED = ("bicg", "cgls", "cgne", "cgnr", "lsqr")
+# the KSP types that iterate on A^T: make_solver gives them
+# matvec_transpose and pc_apply_transpose
+_TRANSPOSE_TYPES = ("bicg", "cgne", "cgnr", "cgls", "lsqr")
 
 
 def _params_from_options(opts: Options, overrides: dict) -> dict:
@@ -93,15 +95,6 @@ def _richardson_scale(opts: Options, ksp_type: str, kw: dict) -> None:
             kw.setdefault("scale", scale)
 
 
-def _reject_unported(opts: Options, transpose: bool) -> None:
-    flags = [f"-{f}" for f in _UNPORTED_FLAGS if opts.get_bool(f, False)]
-    if transpose:
-        flags.append("transpose=True")
-    if flags:
-        raise NotImplementedError(
-            f"{', '.join(flags)} not yet ported to spike_petsc_tpu_torch")
-
-
 def _placement(A, device, dtype):
     """(device, dtype) of the operator: a band's or blocktri's own, a
     tensor's own, else the caller's (for a host operator: where ``b``
@@ -113,6 +106,15 @@ def _placement(A, device, dtype):
     if isinstance(A, torch.Tensor):
         return A.device, A.dtype
     return torch.device(device or "cuda"), dtype
+
+
+def _transposed(A, pc: PC, nullspace, transpose_nullspace):
+    """``transpose=True``: (A^T, the PC applying M^-T, and the null-space
+    pair swapped, since A^T's null space is A's transpose null space and
+    the other way round)."""
+    pct = pc.transpose() if pc.name != "none" else pc
+    ns = transpose_nullspace if transpose_nullspace is not None else nullspace
+    return transpose_operator(A), pct, ns, nullspace
 
 
 def _nullspaces(opts: Options, nullspace, transpose_nullspace, n,
@@ -185,30 +187,47 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
     ``transpose_nullspace`` (default ``nullspace``), every matvec output by
     it too (residual space is range(A), orthogonal to the left null space),
     every PC output and the returned x by ``nullspace`` (PETSc's
-    MatNullSpaceRemove in KSP_PCApply and KSPSolve)."""
+    MatNullSpaceRemove in KSP_PCApply and KSPSolve).
+
+    ``transpose=True`` solves A^T x = b (KSPSolveTranspose): the operator
+    transposes on the host, the PC applies M^-T through ``PC.transpose()``
+    (its stored factors, no refactorization), and ``nullspace`` and
+    ``transpose_nullspace`` swap.  The types that iterate on A^T
+    (``bicg``, ``cgne``/``cgnr``/``cgls``, ``lsqr``) get the transposed
+    operator and ``PC.transpose().apply``, unless the caller passes
+    ``matvec_transpose``/``pc_apply_transpose``."""
     opts = options or Options()
-    _reject_unported(opts, transpose)
     device, dtype = _placement(A, device, dtype)
     ksp_type = ksp_type or opts.get_string("ksp_type", "gmres")
-    if ksp_type in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"ksp type {ksp_type!r} is not yet ported to spike_petsc_tpu_torch "
-            f"(ported: {', '.join(SOLVERS.names())})")
+    method = SOLVERS.get(ksp_type)
     if pc is None:
         name = pc_type or opts.get_string("pc_type", "none")
         pc = make_pc(name, A if pmat is None else pmat, opts, device=device,
                      dtype=dtype)
+    shown_pc = pc
+    if transpose:
+        A, pc, nullspace, transpose_nullspace = _transposed(
+            A, pc, nullspace, transpose_nullspace)
     # -mat_matvec_impl auto|banded_pallas|banded_cuda|blocktri|xla: the
     # operator's SpMV route
-    matvec, n, op_dtype = as_matvec(
-        A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"),
-        device=device, dtype=dtype)
+    impl = opts.get_string("mat_matvec_impl", "auto")
+    matvec, n, op_dtype = as_matvec(A, n_hint=n_hint, impl=impl,
+                                    device=device, dtype=dtype)
     ns, tns = _nullspaces(opts, nullspace, transpose_nullspace, n, device,
                           op_dtype or dtype or torch.float32)
     matvec = _projected(matvec, tns)
     pc_apply = _projected(pc.apply if pc.name != "none" else None, ns)
-    method = SOLVERS.get(ksp_type)
     kw = _params_from_options(opts, params)
+    if ksp_type in _TRANSPOSE_TYPES:
+        # A^T and M^-T, each unless the caller gave it: A^T's residual
+        # space drops null(A) (projected by ns), and the solution space of
+        # a transpose solve drops null(A^T) (by tns)
+        if "matvec_transpose" not in kw:
+            mvt, _, _ = as_matvec(transpose_operator(A), n_hint=n_hint,
+                                  impl=impl, device=device, dtype=dtype)
+            kw["matvec_transpose"] = _projected(mvt, ns)
+        if pc_apply is not None and "pc_apply_transpose" not in kw:
+            kw["pc_apply_transpose"] = _projected(pc.transpose().apply, tns)
     _richardson_scale(opts, ksp_type, kw)
     if ksp_type == "chebyshev":
         _chebyshev_bounds(opts, kw, matvec, n, op_dtype or dtype, device,
@@ -229,7 +248,8 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
             res = dataclasses.replace(res, x=ns.remove(res.x))
         return res
 
-    _solve.pc = pc          # the composed PC, for solve's -ksp_view
+    _solve.pc = shown_pc    # the composed PC (before any transpose), for
+    #                         solve's -ksp_view and its post-solve estimates
     return _solve
 
 
@@ -249,11 +269,12 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
     through its native ``apply_many`` where it has one, else a column loop
     of ``apply``.  ``ksp_type`` (default ``bcgs``) is one of
     ``krylov_many.MANY_SOLVERS``.  ``jit``, ``device``, ``dtype``,
-    ``nullspace`` and ``transpose_nullspace`` are as in :func:`make_solver`
-    (``NullSpace.remove`` takes ``[n, r]`` blocks)."""
+    ``nullspace``, ``transpose_nullspace`` and ``transpose`` are as in
+    :func:`make_solver` (``NullSpace.remove`` takes ``[n, r]`` blocks; the
+    transposed PC has no multi-RHS apply, so its columns take ``apply`` one
+    by one)."""
     from .krylov_many import MANY_SOLVERS
     opts = options or Options()
-    _reject_unported(opts, transpose)
     device, dtype = _placement(A, device, dtype)
     ksp_type = ksp_type or opts.get_string("ksp_type", "bcgs")
     if ksp_type not in MANY_SOLVERS:
@@ -266,6 +287,9 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
         name = pc_type or opts.get_string("pc_type", "none")
         pc = make_pc(name, A if pmat is None else pmat, opts, device=device,
                      dtype=dtype)
+    if transpose:
+        A, pc, nullspace, transpose_nullspace = _transposed(
+            A, pc, nullspace, transpose_nullspace)
     matvec_many, n, op_dtype = as_matvec_many(
         A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"),
         device=device, dtype=dtype)
@@ -320,8 +344,21 @@ def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,
     preconditioning matrix when it differs from A (KSPSetOperators(A, B)).
     ``view=True`` prints the configured solver hierarchy before solving
     (``-ksp_view``); ``monitor=True`` prints the residual history and the
-    converged reason after it (``-ksp_monitor``)."""
+    converged reason after it (``-ksp_monitor``).  ``transpose=True``
+    solves A^T x = b (see :func:`make_solver`).
+
+    ``-ksp_diagonal_scale`` (KSPSetDiagonalScale) scales the system
+    symmetrically by s = 1/sqrt(|diag(pmat)|): it solves
+    (S A S)(S^-1 x) = S b and returns x = S y, with the scaled system's
+    residual history, as PETSc.  It needs banded operators and no
+    ready-made ``pc``.  ``-ksp_diagonal_scale_fix`` is accepted and changes
+    nothing: the caller's operators are never mutated.
+    ``-ksp_compute_singularvalues`` prints the extreme singular values of
+    the preconditioned operator after the solve."""
     opts = options or Options()
+    unscale = None
+    if opts.get_bool("ksp_diagonal_scale", False):
+        A, pmat, b, x0, unscale = _diagonal_scale(opts, A, pmat, b, x0, pc)
     solver = make_solver(A, pmat=pmat, options=opts, ksp_type=ksp_type,
                          pc_type=pc_type, pc=pc, n_hint=b.shape[0],
                          transpose=transpose, device=b.device, dtype=b.dtype,
@@ -331,6 +368,8 @@ def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,
         print(view_str(kt, _params_from_options(opts, params), solver.pc,
                        n=b.shape[0]))
     res = solver(b, x0)
+    if unscale is not None:
+        res = dataclasses.replace(res, x=res.x * unscale)
     if opts.get_bool("ksp_error_if_not_converged", False) and res.reason <= 0:
         raise RuntimeError(
             f"KSPSolve did not converge: {reason_str(res.reason)} after "
@@ -338,26 +377,84 @@ def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,
     if monitor:
         print_monitor(res, bnorm=float(torch.linalg.norm(b)))
     if opts.get_bool("ksp_compute_eigenvalues", False):
-        print_eigenvalues(A, b, res, solver.pc, opts)
+        print_eigenvalues(A, b, res, solver.pc, opts, transpose)
+    if opts.get_bool("ksp_compute_singularvalues", False):
+        print_singular_values(A, b, res, solver.pc, opts, transpose)
     return res
 
 
-def print_eigenvalues(A, b, res: KSPResult, pc: PC, opts: Options) -> None:
+def _diagonal_scale(opts: Options, A, pmat, b, x0, pc):
+    """-ksp_diagonal_scale: (S A S, S pmat S, S b, S^-1 x0, s) with
+    s = 1/sqrt(|diag(pmat or A)|), 1 where the diagonal is 0."""
+    opts.get_bool("ksp_diagonal_scale_fix", True)
+    if pc is not None:
+        raise ValueError(
+            "-ksp_diagonal_scale with an explicitly constructed PC is "
+            "ambiguous (the PC was built from the UNSCALED operators); "
+            "pass pc_type/options and let solve build it")
+    base = A if pmat is None else pmat
+    if not (isinstance(A, BandedMatrix) and isinstance(base, BandedMatrix)):
+        raise ValueError(
+            "-ksp_diagonal_scale needs banded operators (a matrix-free "
+            "operator has no accessible diagonal); scale the system "
+            "yourself for callable operators")
+    ad = banded_diagonal(base).abs()
+    s = torch.where(ad > 0, 1.0 / torch.sqrt(torch.where(ad > 0, ad, 1)),
+                    torch.ones_like(ad))
+    A = banded_diagonal_scale(A, s, s)
+    if pmat is not None:
+        pmat = banded_diagonal_scale(pmat, s, s)
+    return A, pmat, s * b, None if x0 is None else x0 / s, s
+
+
+def _post_solve_operators(A, b, pc: PC, opts: Options, transpose: bool):
+    """(matvec, n, dtype, the operator, the PC) the post-solve estimates
+    run on: those of the system solved, A^T and M^-T under ``transpose``."""
+    op = transpose_operator(A) if transpose else A
+    mv, n, dt = as_matvec(op, n_hint=b.shape[0],
+                          impl=opts.get_string("mat_matvec_impl", "auto"),
+                          device=b.device, dtype=b.dtype)
+    pcx = pc.transpose() if transpose and pc.name != "none" else pc
+    return mv, n, dt or b.dtype, op, pcx
+
+
+def print_eigenvalues(A, b, res: KSPResult, pc: PC, opts: Options,
+                      transpose: bool = False) -> None:
     """-ksp_compute_eigenvalues: Ritz estimates of the preconditioned
     operator's spectrum after the solve, from an Arnoldi run of
     ``min(n, max(its, 2), 30)`` steps on the same operator and PC started
     from b (PETSc reads them from the solver's own Hessenberg; for GMRES
     the estimates are the same, and this serves every KSP type)."""
-    mv, n, dt = as_matvec(A, n_hint=b.shape[0],
-                          impl=opts.get_string("mat_matvec_impl", "auto"),
-                          device=b.device, dtype=b.dtype)
-    dt = dt or b.dtype
+    mv, n, dt, _, pcx = _post_solve_operators(A, b, pc, opts, transpose)
     eigs = krylov.estimate_extreme_eigs(
         mv, n, dt, m=min(n, max(int(res.its), 2), 30),
-        pc_apply=pc.apply if pc.name != "none" else None, v0=b.to(dt))
+        pc_apply=pcx.apply if pcx.name != "none" else None, v0=b.to(dt))
     print("Iteratively computed eigenvalues")
     for e in eigs[np.argsort(eigs.real)]:
         print(f"{e.real:g} + {e.imag:g}i")
+
+
+def print_singular_values(A, b, res: KSPResult, pc: PC, opts: Options,
+                          transpose: bool = False) -> None:
+    """-ksp_compute_singularvalues (KSPComputeExtremeSingularValues): the
+    extreme singular values and their ratio (a condition estimate) of the
+    preconditioned operator, from a Golub-Kahan run of
+    ``min(n, max(2 max(its, 2), 10), 60)`` steps started from b on the
+    operator, its transpose, the PC and the PC's transpose (the
+    involution under ``transpose``: the original PC)."""
+    mv, n, dt, op, pcx = _post_solve_operators(A, b, pc, opts, transpose)
+    mvt, _, _ = as_matvec(transpose_operator(op), n_hint=b.shape[0],
+                          impl=opts.get_string("mat_matvec_impl", "auto"),
+                          device=b.device, dtype=b.dtype)
+    none = pcx.name == "none"
+    smax, smin = krylov.estimate_extreme_singular_values(
+        mv, mvt, n, dt, m=min(n, max(2 * max(int(res.its), 2), 10), 60),
+        pc_apply=None if none else pcx.apply,
+        pc_apply_transpose=None if none else pcx.transpose().apply,
+        v0=b.to(dt))
+    cond = smax / smin if smin > 0 else float("inf")
+    print(f"Iteratively computed extreme singular values: "
+          f"max {smax:g} min {smin:g} max/min {cond:g}")
 
 
 def view_str(ksp_type: str, params: dict, pc: Optional[PC],

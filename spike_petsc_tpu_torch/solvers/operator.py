@@ -6,7 +6,9 @@ shifted-axpy route, the banded CUDA kernel and its f64 form, or a one-time
 block-tridiagonal conversion with the blocktri CUDA kernel),
 BlockTridiagonal, callables, host SciPy sparse matrices (a band+outliers
 split whose band part takes the band route, or a ``torch.sparse_csr_tensor``
-product) and dense 2-D matrices (a dense product).
+product) and dense 2-D matrices (a dense product); ``transpose_operator``
+transposes each of these but a callable on the host, for the KSPs that
+iterate on A^T and for ``transpose=True``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..ops.band import BandedMatrix, banded_matvec
+from ..ops.band import BandedMatrix, banded_matvec, banded_transpose
 from ..ops.blocktri import BlockTridiagonal, band_to_blocktri, blocktri_matvec
 from ..ops.cuda.band_matvec import (banded_matvec_prepared, banded_mv_feasible,
                                     prepare_banded_mv)
@@ -109,6 +111,36 @@ def _band_route(a: BandedMatrix, impl: str) -> str:
             raise _bt_refused(a)
         return "blocktri"
     return "xla"
+
+
+def transpose_operator(a):
+    """Host-side operator transpose (pure transpose, no conjugation): a
+    band in band storage (``banded_transpose``, kl and ku swapped), a
+    block-tridiagonal matrix block by block, a SciPy sparse matrix as CSR
+    (``as_matvec`` then plans the band+outliers split of A^T as it plans
+    A's), a dense matrix.  A callable cannot be transposed."""
+    if isinstance(a, BandedMatrix):
+        return banded_transpose(a)
+    if isinstance(a, BlockTridiagonal):
+        def tT(x):
+            return x.transpose(-1, -2)
+        zb = torch.zeros_like(a.D[:1])
+        return BlockTridiagonal(
+            D=tT(a.D).contiguous(),
+            L=torch.cat([zb, tT(a.U[:-1])], dim=0),
+            U=torch.cat([tT(a.L[1:]), zb], dim=0))
+    if callable(a):
+        raise TypeError(
+            "cannot transpose a bare matvec callable; pass an explicit "
+            "operator (BandedMatrix / BlockTridiagonal / sparse / dense) "
+            "or supply matvec_transpose yourself")
+    if sp.issparse(a):
+        return a.T.tocsr()
+    if isinstance(a, torch.Tensor) and a.dim() == 2:
+        return a.T.contiguous()
+    if isinstance(a, np.ndarray) and a.ndim == 2:
+        return np.ascontiguousarray(a.T)
+    raise TypeError(f"cannot transpose operator of type {type(a)!r}")
 
 
 def as_matvec(a, n_hint: int = None, impl: str = "auto", device=None,

@@ -8,8 +8,9 @@ options database.  Ported: ``none``, ``jacobi``, ``lu``, ``spike``,
 ``bjacobi`` and ``banded`` (PCBANDED: a norm-fraction band extracted from a
 host matrix, preconditioned by an inner PC under the ``banded_`` prefix);
 forward apply and, where the type has one, multi-RHS apply, with the Newton
-safety net.  Transpose applies are not yet ported.  On the card a factor
-that names no block gets the smallest block the sweep kernels take
+safety net; and the transpose apply M^{-T} of every one (``PC.transpose``,
+PCApplyTranspose), built once from the stored factors.  On the card a
+factor that names no block gets the smallest block the sweep kernels take
 (``default_block``).
 
 A host (SciPy or NumPy) preconditioning matrix is placed on the device and
@@ -19,6 +20,7 @@ operator's); without them, on the card in the matrix's own dtype.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field as dfield
 from functools import partial
@@ -32,8 +34,9 @@ from .. import sparse as hsp
 from ..ops.band import BandedMatrix, banded_diagonal, banded_matvec
 from ..ops.cuda.fused_sweep_spd import require_spd_feasible, spd_block_for
 from ..ops.cuda.sweeps import inv_block_for
+from ..ops.blocktri import TransposedBlockTriFactor
 from ..ops.spike import (_batched_solver, spike_factor, spike_solve,
-                         spike_solve_many)
+                         spike_solve_many, spike_transpose)
 from ..utils.options import Options
 from ..utils.registry import PRECONDITIONERS, register_pc
 
@@ -52,6 +55,7 @@ class PC:
     apply_many: Optional[Callable] = dfield(default=None, repr=False)
     # host-side builder for the M^{-T} apply (PCApplyTranspose)
     make_transpose: Optional[Callable] = dfield(default=None, repr=False)
+    _transposed: Optional["PC"] = dfield(default=None, repr=False)
 
     def describe(self, indent: int = 0) -> str:
         """PCView-style description: ``PC <name>: key=value, ...``, then
@@ -62,6 +66,21 @@ class PC:
         if self.inner is not None:
             s += "\n" + self.inner.describe(indent + 1)
         return s
+
+    def transpose(self) -> "PC":
+        """A PC applying M^{-T} (PETSc PCApplyTranspose), built once on the
+        host and cached; factorization PCs reuse their stored factors
+        (``spike_transpose``, no refactorization).  An involution: the
+        transposed PC's transpose is this PC."""
+        if self._transposed is None:
+            if self.make_transpose is None:
+                raise ValueError(
+                    f"pc '{self.name}' has no transpose apply "
+                    "(PCApplyTranspose unsupported for this type)")
+            self._transposed = self.make_transpose()
+            if self._transposed._transposed is None:
+                self._transposed._transposed = self
+        return self._transposed
 
 
 @dataclass(frozen=True)
@@ -117,13 +136,6 @@ def make_pc(name: str, pmat, options: Optional[Options] = None,
             f"pc type {name!r} is not yet ported to spike_petsc_tpu_torch "
             f"(ported: {', '.join(PRECONDITIONERS.names())})")
     return PRECONDITIONERS.get(name)(_place(pmat, device, dtype), opts)
-
-
-def _no_transpose(name: str) -> Callable:
-    def make():
-        raise NotImplementedError(
-            f"pc '{name}' transpose apply is not yet ported")
-    return make
 
 
 @register_pc("none")
@@ -229,8 +241,9 @@ def _cast_apply(fn: Callable, factor_dtype: torch.dtype,
 
 def _reject_unported(opts: Options, name: str) -> None:
     """Raise on spike options whose code paths are not yet ported."""
-    unported = [f"-pc_{name}_{o}" for o in ("store_lt", "check")
-                if opts.get_bool(f"pc_{name}_{o}", False)]
+    unported = []
+    if opts.get_bool(f"pc_{name}_check", False):
+        unported.append(f"-pc_{name}_check")
     if opts.get_string("pc_factor_shift_type", "none") != "none":
         unported.append("-pc_factor_shift_type")
     if unported:
@@ -268,6 +281,9 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
     on_card = method == "spd" and band.data.is_cuda
     truncated = opts.get_bool(f"pc_{name}_truncated", False)
     store = opts.get_bool(f"pc_{name}_store_spikes", False)
+    # -pc_<name>_store_lt: keep the L blocks at factor time, so that the
+    # regular-form transpose builds with no band conversion
+    store_lt = opts.get_bool(f"pc_{name}_store_lt", False)
     inverter = opts.get_string(f"pc_{name}_inverter", "auto")
     store_dtype = _DTYPES[opts.get_string(f"pc_{name}_store_dtype", "")]
     spike_dtype = _DTYPES[opts.get_string(f"pc_{name}_spike_dtype", "")]
@@ -284,8 +300,8 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
     def factor(inv):
         return spike_factor(band, K=K, block_b=block, method=method,
                             truncated=truncated, store_spikes=store,
-                            inverter=inv,
-                            store_dtype=store_dtype, spike_dtype=spike_dtype)
+                            inverter=inv, store_dtype=store_dtype,
+                            spike_dtype=spike_dtype, store_lt=store_lt)
 
     sf = factor(inverter)
     if on_card:                         # every apply runs the spd kernels
@@ -299,19 +315,39 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
         info["store_dtype"] = _dtype_name(store_dtype)
     if spike_dtype is not None and store:
         info["spike_dtype"] = _dtype_name(spike_dtype)
+    if store_lt:
+        info["store_lt"] = True
     sf, fb = _newton_safety_net(band, sf, inverter, store_dtype, spike_dtype,
                                 lambda: factor("blocked"),
                                 exact=not truncated)
     if fb:
         info["inverter_fallback"] = "blocked"
 
-    apply = partial(spike_solve, sf)
-    apply_many = partial(spike_solve_many, sf)
-    if cast:
-        apply = _cast_apply(apply, factor_dtype, orig_dtype)
-        apply_many = _cast_apply(apply_many, factor_dtype, orig_dtype)
-    return PC(name=name, apply=apply, info=info, apply_many=apply_many,
-              make_transpose=_no_transpose(name))
+    def boundary(fn):
+        return _cast_apply(fn, factor_dtype, orig_dtype) if cast else fn
+
+    fast = opts.get_bool(f"pc_{name}_transpose_fast", True)
+
+    def make_transpose():
+        sft = _transpose_factor(sf, band, fast, inverter, fb)
+        return PC(name=name + "_transpose",
+                  apply=boundary(partial(spike_solve, sft)), info=info)
+
+    return PC(name=name, apply=boundary(partial(spike_solve, sf)), info=info,
+              apply_many=boundary(partial(spike_solve_many, sf)),
+              make_transpose=make_transpose)
+
+
+def _transpose_factor(sf, band, fast: bool, inverter: str, fell_back: bool):
+    """The factorization of A^T on ``sf``'s stored factors
+    (``spike_transpose``): the regular form from the kept L blocks or the
+    (factor-dtype) band, unless ``fast`` is off
+    (``-pc_<name>_transpose_fast 0``: the storage-sharing marker).  The
+    reduced system of A^T takes the forward factor's resolved inverter:
+    'blocked' where the Newton safety net fell back, so the unguarded
+    engine never sees the matrices that broke it."""
+    return spike_transpose(sf, inverter="blocked" if fell_back else inverter,
+                           band=band if fast else None, fast=fast)
 
 
 @register_pc("spike")
@@ -342,27 +378,39 @@ def pc_lu(pmat, opts: Options) -> PC:
     (reference/src/makefile:18).  ``-pc_lu_method`` (``inv``),
     ``-pc_lu_block`` (default the tip size; on the card 64 or 128, the
     smallest block the sweep kernels take, so that a long single partition
-    runs the two-pass kernels #9) and ``-pc_lu_inverter`` apply; shifts and
-    ``-pc_lu_store_lt`` are not yet ported."""
+    runs the two-pass kernels #9), ``-pc_lu_inverter``, ``-pc_lu_store_lt``
+    and ``-pc_lu_transpose_fast`` (as for the spike PC) apply; shifts are
+    not yet ported.  The transpose of a K = 1 ``inv`` factor on the card
+    runs #9 like the forward one."""
     band = _as_banded(pmat, opts)
     _reject_unported(opts, "lu")
     method = opts.get_string("pc_lu_method", "inv")
     block = _block_option(band, opts, "lu", method)
     inverter = opts.get_string("pc_lu_inverter", "auto")
+    store_lt = opts.get_bool("pc_lu_store_lt", False)
 
     def factor(inv):
         return spike_factor(band, K=1, block_b=block, method=method,
-                            inverter=inv)
+                            inverter=inv, store_lt=store_lt)
 
     sf = factor(inverter)
     info = dict(block=sf.b, method=method)
+    if store_lt:
+        info["store_lt"] = True
     sf, fb = _newton_safety_net(band, sf, inverter, None, None,
                                 lambda: factor("blocked"))
     if fb:
         info["inverter_fallback"] = "blocked"
+    fast = opts.get_bool("pc_lu_transpose_fast", True)
+
+    def make_transpose():
+        sft = _transpose_factor(sf, band, fast, inverter, fb)
+        return PC(name="lu_transpose", apply=partial(spike_solve, sft),
+                  info=info)
+
     return PC(name="lu", apply=partial(spike_solve, sf), info=info,
               apply_many=partial(spike_solve_many, sf),
-              make_transpose=_no_transpose("lu"))
+              make_transpose=make_transpose)
 
 
 @register_pc("bjacobi")
@@ -372,7 +420,9 @@ def pc_bjacobi(pmat, opts: Options) -> PC:
     16), ``-pc_bjacobi_block`` (default as ``-pc_lu_block``),
     ``-pc_bjacobi_method``, ``-pc_bjacobi_inverter``.  On the card each
     apply is the sweep dispatch of ``spike_solve`` (``sweep_route``: #1
-    where its rule admits the factor, else #9)."""
+    where its rule admits the factor, else #9).  With the coupling dropped,
+    the transpose is the per-block transpose solves on the same factors,
+    in the storage-sharing marker form as in JAX (plain sweeps)."""
     band = _as_banded(pmat, opts)
     K = opts.get_int("pc_bjacobi_blocks", 16)
     K = max(1, min(K, band.n // (2 * max(band.kl, band.ku, 1))))
@@ -387,15 +437,23 @@ def pc_bjacobi(pmat, opts: Options) -> PC:
     sf, _ = _newton_safety_net(band, factor(inverter), inverter, None, None,
                                lambda: factor("blocked"), exact=False)
 
-    def apply(x):
-        rp = torch.zeros(sf.K * sf.m, dtype=x.dtype, device=x.device)
-        rp[:sf.n] = x
-        sweep = _batched_solver(sf, "auto", x)
-        return sweep(rp.reshape(sf.K, sf.nb, sf.b)).reshape(-1)[:sf.n]
+    def block_apply(f):
+        def apply(x):
+            rp = torch.zeros(f.K * f.m, dtype=x.dtype, device=x.device)
+            rp[:f.n] = x
+            sweep = _batched_solver(f, "auto", x)
+            return sweep(rp.reshape(f.K, f.nb, f.b)).reshape(-1)[:f.n]
+        return apply
 
-    return PC(name="bjacobi", apply=apply,
-              info=dict(blocks=K, block=sf.b, method=method),
-              make_transpose=_no_transpose("bjacobi"))
+    info = dict(blocks=K, block=sf.b, method=method)
+
+    def make_transpose():
+        sft = dataclasses.replace(sf, fact=TransposedBlockTriFactor(sf.fact))
+        return PC(name="bjacobi_transpose", apply=block_apply(sft),
+                  info=info)
+
+    return PC(name="bjacobi", apply=block_apply(sf), info=info,
+              make_transpose=make_transpose)
 
 
 @register_pc("banded")
@@ -423,7 +481,12 @@ def pc_banded(pmat, opts: Options) -> PC:
     inner_opts = opts.scoped("banded_")
     inner = make_pc(inner_opts.get_string("pc_type", "spike"), band,
                     inner_opts)
-    return PC(name="banded", apply=inner.apply,
-              info=dict(k=ext.k, frac=round(ext.frac, 6), kmax=kmax),
-              inner=inner, apply_many=inner.apply_many,
-              make_transpose=_no_transpose("banded"))
+    info = dict(k=ext.k, frac=round(ext.frac, 6), kmax=kmax)
+
+    def make_transpose():
+        it = inner.transpose()
+        return PC(name="banded_transpose", apply=it.apply, info=info,
+                  inner=it)
+
+    return PC(name="banded", apply=inner.apply, info=info, inner=inner,
+              apply_many=inner.apply_many, make_transpose=make_transpose)

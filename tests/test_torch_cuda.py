@@ -885,3 +885,90 @@ def test_testbed_config3_on_the_card(cuda_device, capsys):
     assert cbm.KERNEL.launches - before[0] == 2 * its + 1
     assert cfs.KERNEL.launches - before[1] == 4 * its
     assert rec["operator"].data.is_cuda and rec["b"].dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store_lt", [True, False], ids=["Lb", "band"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_sweep_on_the_regular_form_transpose(cuda_device, store_lt,
+                                                   dtype):
+    """#1 on the regular-form transposed factor (from the kept L blocks or
+    from the band) against the plain transpose sweeps of the marker form
+    on the forward factor, the same function; ``spike_solve`` on the
+    regular form launches #1 and the marker none."""
+    from spike_petsc_tpu_torch.ops.blocktri import blocktri_solve_transpose
+    from spike_petsc_tpu_torch.ops.spike import spike_transpose
+    K, nb, b, k = 4, 20, 128, 60
+    band = banded_from_numpy(random_band(K * nb * b, k, k - 7, seed=31,
+                                         dtype=np.float32), k, k - 7,
+                             device=cuda_device)
+    sf = spike_factor(band, K=K, block_b=b, store_lt=store_lt,
+                      store_dtype=None if dtype == torch.float32 else dtype)
+    sft = spike_transpose(sf, band=None if store_lt else band)
+    assert all(getattr(sft.fact, m).is_contiguous() and
+               getattr(sft.fact, m).dtype == dtype for m in ("F", "U", "Sinv"))
+    r = torch.randn((K, nb, b), device=cuda_device)
+    ref = blocktri_solve_transpose(sf.fact, r)
+    before = cfs.KERNEL.launches
+    got = cfs.blocktri_solve_fused_cuda(sft.fact, r)
+    torch.cuda.synchronize()
+    assert cfs.KERNEL.launches == before + 1
+    assert _rel(got, ref) <= (TOL if dtype == torch.float32 else 1e-2)
+    rhs = torch.randn(band.n, device=cuda_device)
+    before = cfs.KERNEL.launches
+    x = spike_solve(sft, rhs)
+    xm = spike_solve(spike_transpose(sf, fast=False), rhs)
+    torch.cuda.synchronize()
+    assert cfs.KERNEL.launches == before + 2   # spikes not stored: 2 sweeps
+    assert _rel(x, xm) <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+def test_two_pass_sweeps_on_a_single_partition_transpose(cuda_device):
+    """#9 on config 1's shape transposed: a nonsymmetric tridiagonal band at
+    n = 1e5, K = 1, b = 64 (nb = 1563, which #1 refuses); the regular-form
+    transpose routes to #9 like the forward factor and agrees with the
+    plain transpose sweeps."""
+    from spike_petsc_tpu_torch.ops.blocktri import blocktri_solve_transpose
+    from spike_petsc_tpu_torch.ops.spike import spike_transpose, sweep_route
+    n = 100_000
+    band = banded_from_numpy(random_band(n, 1, 1, seed=32,
+                                         dtype=np.float32), 1, 1,
+                             device=cuda_device)
+    sf = spike_factor(band, K=1, block_b=64, store_lt=True)
+    sft = spike_transpose(sf)
+    assert sweep_route(sft.fact, 64, torch.float32, True) == "sweeps"
+    r = torch.randn((1, sf.nb, 64), device=cuda_device)
+    ref = blocktri_solve_transpose(sf.fact, r)
+    got = csw.blocktri_solve_batched_cuda(sft.fact, r)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= TOL
+    rhs = torch.randn(n, device=cuda_device)
+    before = csw.KERNEL.launches, cfs.KERNEL.launches
+    x = spike_solve(sft, rhs)
+    torch.cuda.synchronize()
+    assert (csw.KERNEL.launches, cfs.KERNEL.launches) == (before[0] + 2,
+                                                          before[1])
+    assert _rel(x, spike_solve(sft, rhs, impl="plain")) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kl,ku", [(100003, 150, 80), (100000, 1, 1)])
+def test_band_matvec_kernel_on_the_transposed_band(cuda_device, n, kl, ku):
+    """#2 on ``banded_transpose`` (kl and ku swapped) against its plain
+    version and against ``banded_matvec_t``."""
+    from spike_petsc_tpu_torch.ops.band import (banded_matvec_t,
+                                                banded_transpose)
+    band = banded_from_numpy(random_band(n, kl, ku, seed=33,
+                                         dtype=np.float32, dominant=False),
+                             kl, ku, device=cuda_device)
+    bt = banded_transpose(band)
+    assert (bt.kl, bt.ku) == (ku, kl)
+    prep = cbm.prepare_banded_mv(bt)
+    x = torch.randn(n, device=cuda_device)
+    before = cbm.KERNEL.launches
+    got = cbm.banded_matvec_prepared(prep, x)
+    torch.cuda.synchronize()
+    assert cbm.KERNEL.launches == before + 1
+    assert _rel(got, cbm.banded_matvec_prepared(prep, x, impl="plain")) <= TOL
+    assert _rel(got, banded_matvec_t(band, x)) <= TOL

@@ -238,11 +238,6 @@ def test_single_rhs_bcgs_matches_jax(pc_type, opts):
 
 @pytest.mark.parametrize("kwargs,exc,match", [
     (dict(ksp_type="tfqmr"), ValueError, "no batched engine"),
-    (dict(transpose=True), NotImplementedError, "transpose"),
-    (dict(transpose=True, options={"ksp_nullspace_constant": 1}),
-     NotImplementedError, "transpose"),
-    (dict(options={"ksp_diagonal_scale": 1}), NotImplementedError,
-     "ksp_diagonal_scale"),
 ])
 def test_make_solver_many_rejects(kwargs, exc, match):
     kwargs = dict(kwargs)
@@ -254,3 +249,31 @@ def test_make_solver_many_rejects(kwargs, exc, match):
         with pytest.raises(exc, match=match):
             jksp.make_solver_many(JBand(jnp.asarray(band.data.numpy()), 2, 2),
                                   **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(transpose=True),
+    dict(transpose=True, options={"ksp_nullspace_constant": 1}),
+    dict(options={"ksp_diagonal_scale": 1}),
+], ids=["transpose", "transpose-nullspace", "diagonal-scale"])
+def test_make_solver_many_transpose_and_options_match_jax(kwargs):
+    """What make_solver_many once refused, solved as JAX solves it: A^T X = B
+    on the same band (the null-space projections swapped), and
+    ``-ksp_diagonal_scale``, which the batched composition does not read in
+    either package (``solve`` scales)."""
+    kwargs = dict(kwargs)
+    opts = kwargs.pop("options", {})
+    data = random_band(600, 2, 2, seed=44)
+    B = np.random.default_rng(45).standard_normal((600, 3))
+    kw = dict(ksp_type="bcgs", pc_type="jacobi", rtol=1e-10, maxit=300,
+              **kwargs)
+    rj = jksp.make_solver_many(JBand(jnp.asarray(data), 2, 2),
+                               options=jpkg.Options(dict(opts)), jit=False,
+                               **kw)(jnp.asarray(B))
+    rt = tpkg.make_solver_many(banded_from_numpy(data, 2, 2, device=CPU),
+                               options=tpkg.Options(dict(opts)),
+                               **kw)(torch.from_numpy(B))
+    assert rt.its.tolist() == np.asarray(rj.its).tolist()
+    assert rt.reason.tolist() == np.asarray(rj.reason).tolist()
+    assert bool(rt.converged.all())
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), atol=1e-8)

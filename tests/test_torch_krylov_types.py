@@ -310,12 +310,14 @@ def test_monitor_true_residual_prints_what_jax_prints(capsys):
 
 
 def test_registry_and_refused_lists():
-    """Every transpose-free type of the JAX registry is registered; only
-    the five that iterate on A^T are refused, and two flags."""
+    """Every type of the JAX registry is registered, the five that iterate
+    on A^T among them (each under JAX's function: cgne, cgnr and cgls are
+    one), and ``make_solver`` gives exactly those five A^T and M^-T."""
     from spike_petsc_tpu.utils.registry import SOLVERS as JSOLVERS
     from spike_petsc_tpu_torch.utils.registry import SOLVERS as TSOLVERS
-    refused = {"bicg", "cgne", "cgnr", "cgls", "lsqr"}
-    assert set(TSOLVERS.names()) == set(JSOLVERS.names()) - refused
-    assert set(tksp._NOT_YET_PORTED) == refused
-    assert set(tksp._UNPORTED_FLAGS) == {"ksp_diagonal_scale",
-                                         "ksp_compute_singularvalues"}
+    transpose_types = {"bicg", "cgne", "cgnr", "cgls", "lsqr"}
+    assert set(TSOLVERS.names()) == set(JSOLVERS.names())
+    assert set(tksp._TRANSPOSE_TYPES) == transpose_types
+    for name in transpose_types:
+        assert (TSOLVERS.get(name).__name__
+                == JSOLVERS.get(name).__name__), name

@@ -134,19 +134,25 @@ def test_gmres_family_take_monitor_and_view(capsys, ksp):
 
 @pytest.mark.parametrize("ksp,opts", [
     ("bicg", {}), ("gmres", {"ksp_compute_singularvalues": "1"})],
-    ids=["unknown-ksp", "unported-flag"])
-def test_view_refuses_before_building_the_pc(capsys, monkeypatch, ksp, opts):
-    """What ``solve`` cannot run raises before any factorization, and
-    ``view`` prints nothing for it."""
-    built = []
-    monkeypatch.setattr(tpkg.solvers.ksp, "make_pc",
-                        lambda *a, **k: built.append(a))
-    _, tb, b = _problem(False)
-    with pytest.raises(NotImplementedError):
-        tpkg.solve(tb, torch.from_numpy(b), ksp_type=ksp, pc_type="spike",
-                   options=tpkg.Options(dict(SPIKE, **opts)), view=True,
-                   monitor=True)
-    assert not built and capsys.readouterr().out == ""
+    ids=["bicg", "singularvalues"])
+def test_view_and_monitor_of_the_transpose_surface(capsys, ksp, opts):
+    """What ``solve`` once refused, with ``view`` and ``monitor``: the
+    view, the monitor lines and the singular-value line read as JAX's (the
+    numbers within 1e-6 relative)."""
+    rj, out_j, rt, out_t = _both(capsys, ksp, "spike", dict(SPIKE, **opts),
+                                 False, view=True, monitor=True)
+    assert rt.its == int(rj.its) and rt.reason == int(rj.reason) > 0
+    lj, lt = out_j.splitlines(), out_t.splitlines()
+    assert len(lt) == len(lj) and lt[0] == "KSP Object:"
+    assert sum("KSP Residual norm" in ln for ln in lt) == rt.its + 1
+    if opts:
+        assert lt[-1].startswith("Iteratively computed extreme singular")
+    number = re.compile(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?")
+    for a, c in zip(lt, lj):
+        assert number.sub("#", a) == number.sub("#", c)
+        va = [float(v) for v in number.findall(a)]
+        vc = [float(v) for v in number.findall(c)]
+        np.testing.assert_allclose(va, vc, rtol=1e-6, atol=1e-12)
 
 
 def _same(r1, r2):

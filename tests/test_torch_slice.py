@@ -89,14 +89,7 @@ def test_restarted_gmres_without_pc_matches_jax(system):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(ksp_type="bicg", pc_type="spike"), "ksp type 'bicg'"),
     (dict(ksp_type="gmres", pc_type="asm"), "pc type 'asm'"),
-    (dict(ksp_type="gmres", pc_type="spike", transpose=True), "transpose"),
-    (dict(ksp_type="gmres", pc_type="none",
-          options={"ksp_compute_singularvalues": 1}),
-     "ksp_compute_singularvalues"),
-    (dict(ksp_type="gmres", pc_type="spike",
-          options={"pc_spike_store_lt": 1}), "store_lt"),
 ])
 def test_unported_surface_raises(system, kwargs, match):
     data, b = system
@@ -107,16 +100,52 @@ def test_unported_surface_raises(system, kwargs, match):
                    torch.from_numpy(b), options=opts, **kwargs)
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(ksp_type="bicg", pc_type="spike"),
+    dict(ksp_type="gmres", pc_type="spike", transpose=True),
+    dict(ksp_type="gmres", pc_type="none",
+         options={"ksp_compute_singularvalues": 1}),
+    dict(ksp_type="gmres", pc_type="spike",
+         options={"pc_spike_store_lt": 1}),
+], ids=["bicg", "transpose", "singularvalues", "store_lt"])
+def test_transpose_surface_matches_jax(capsys, system, kwargs):
+    """The surface the port once refused, on the slice's band with the
+    flagship's PC options: the same iterations, histories and x as JAX,
+    and the same printed lines."""
+    data, b = system
+    kwargs = dict(kwargs)
+    opts = {**FLAGSHIP_PC, **kwargs.pop("options", {})}
+    rj, rt = _solve_both(data, b, opts, rtol=1e-8, maxit=200, **kwargs)
+    out = capsys.readouterr().out.splitlines()
+    assert rt.its == int(rj.its) and rt.reason == int(rj.reason) > 0
+    hj = np.asarray(rj.history)[:rt.its + 1]
+    np.testing.assert_allclose(rt.history.numpy()[:rt.its + 1], hj,
+                               rtol=1e-8, atol=1e-12 * hj[0])
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), atol=1e-8)
+    if "ksp_compute_singularvalues" in opts:
+        assert len(out) == 2 and out[0].split(":")[0] == out[1].split(":")[0]
+        np.testing.assert_allclose(
+            [float(v) for v in out[1].split()[-5::2]],
+            [float(v) for v in out[0].split()[-5::2]], rtol=1e-8)
+
+
 def test_spike_pc_surface(system):
-    """The PC built alone: its info, and the transpose apply not ported."""
+    """The PC built alone: its info, and its transpose apply (M^-T r)
+    against JAX's."""
+    from spike_petsc_tpu.solvers.pc import make_pc as jmake_pc
     from spike_petsc_tpu_torch.solvers.pc import make_pc
     data, b = system
     pc = make_pc("spike", banded_from_numpy(data, K_HALF, K_HALF, device=CPU),
                  tpkg.Options(dict(FLAGSHIP_PC)))
     assert pc.info == dict(partitions=8, block=32, tip=K_HALF, method="inv",
                            truncated=False, spike_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="transpose"):
-        pc.make_transpose()
+    jpc = jmake_pc("spike", jpkg.BandedMatrix(jnp.asarray(data), K_HALF,
+                                              K_HALF),
+                   jpkg.Options(dict(FLAGSHIP_PC)))
+    got = pc.transpose().apply(torch.from_numpy(b)).numpy()
+    ref = np.asarray(jpc.transpose().apply(jnp.asarray(b)))
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
 
 
 def test_port_imports_without_jax():

@@ -339,14 +339,25 @@ def test_safety_net_exact_and_truncated(band):
     assert not fb and calls == [1]
 
 
-def test_cholesky_pc_transpose_not_ported(band):
+def test_cholesky_pc_transpose_matches_jax(band, rhs):
+    """The cholesky PC's transpose: a real spd factorization is its own
+    transpose, so M^-T r is M^-1 r, as JAX's."""
+    from spike_petsc_tpu.solvers.pc import make_pc as jmake_pc
     from spike_petsc_tpu_torch.solvers.pc import make_pc
-    _, tb = _bands(band)
-    pc = make_pc("cholesky", tb, tpkg.Options({"pc_cholesky_partitions": 4,
-                                               "pc_cholesky_block": B}))
+    jb, tb = _bands(band)
+    opts = {"pc_cholesky_partitions": 4, "pc_cholesky_block": B}
+    pc = make_pc("cholesky", tb, tpkg.Options(dict(opts)))
     assert pc.info["method"] == "spd" and pc.apply_many is not None
-    with pytest.raises(NotImplementedError, match="transpose"):
-        pc.make_transpose()
+    pct = pc.transpose()
+    assert pct.name == "cholesky_transpose" and pct.transpose() is pc
+    got = pct.apply(torch.from_numpy(rhs))
+    np.testing.assert_allclose(got.numpy(),
+                               pc.apply(torch.from_numpy(rhs)).numpy(),
+                               rtol=0, atol=0)
+    ref = jmake_pc("cholesky", jb, jpkg.Options(dict(opts))).transpose()
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(ref.apply(jnp.asarray(rhs))),
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("k,block", [(1, 64), (16, 64), (64, 64), (65, 128),

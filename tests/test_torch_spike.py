@@ -114,13 +114,26 @@ def test_solve_on_jax_factor(band, rhs, store):
 
 @pytest.mark.parametrize("kwargs", [dict(method="lu"), dict(method="cr"),
                                     dict(shift="nonzero"),
-                                    dict(store_lt=True),
                                     dict(reduced="cr")])
 def test_unported_options_raise(band, kwargs):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tsp.spike_factor(banded_from_numpy(band, KL, KU,
                                            device=CPU), K=4, block_b=B,
                          **kwargs)
+
+
+def test_store_lt_matches_jax(band, rhs):
+    """``store_lt=True`` keeps JAX's L blocks beside the same factor, and
+    the transpose built from them solves A^T x = rhs as JAX's does."""
+    kw = dict(K=4, block_b=B, store_lt=True)
+    sj = jsp.spike_factor(JBand(jnp.asarray(band), KL, KU), **kw)
+    st = tsp.spike_factor(banded_from_numpy(band, KL, KU, device=CPU), **kw)
+    _close(st.Lb, sj.Lb)
+    for name in ("F", "U", "Sinv"):
+        _close(getattr(st.fact, name), getattr(sj.fact, name))
+    _close(tsp.spike_solve(tsp.spike_transpose(st), torch.from_numpy(rhs)),
+           jsp.spike_solve(jsp.spike_transpose(sj), jnp.asarray(rhs),
+                           impl="xla"))
 
 
 def test_reduced_cyclic_reduction_not_ported():
