@@ -107,7 +107,22 @@ In order, it:
      cg with ``transpose=True`` (the PC's own spd factor, #3 its + 1
      launches, the forward solve's answer); and, in the config-1 phase,
      one ``copy_`` of the bytes #2 moves there, the card's floor for them;
- 10. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
+ 10. the rest of the factor surface (``phase_zerodiag``,
+     ``phase_cr_flagship``, ``phase_methods_flagship``, ``phase_grouped``,
+     ``phase_factor_surface_reference``): the reference's zero-diagonal
+     matrix at n = 1e6 through the testbed, gmres with the spike PC
+     (K = 64, b = 64: #1) and the lu PC (b = 64: #9 at nb = 15625), each
+     with ``-pc_factor_shift_type nonzero`` (raised pivots counted) and
+     without, launches held exactly; the flagship at K = 512, whose 511
+     reduced block rows 'auto' factors by cyclic reduction (#1 at nb = 16
+     against its plain version, timed beside its bound; ``spike_solve``
+     with the CR reduced system against the Thomas one, wall, device time
+     and launches); the flagship's spike PC with ``-pc_spike_method lu``
+     and ``cr`` (the plain sweeps: #1 launched 0 times) and
+     ``-pc_spike_inverter newton_pan``; ``spike_factor_grouped`` (8 groups)
+     against ``spike_factor``, with each one's peak device memory; and
+     small cases on the card in f64 against the CPU;
+ 11. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
      path, error, time, plain time, bound and library time) and, last, the
      line ``{"ok": true, "device": {...}}``.
 
@@ -255,6 +270,55 @@ TRANSPOSE_REF_CASES = ("bicg", "cgne", "cgnr", "cgls", "lsqr", "gmres")
 # config 3 with bicg: the JAX testbed in f32 on the CPU took 2 its at
 # n = 2e4 and 2e5 (true relres 8e-8)
 CONFIG3_BICG_ITS_MAX = 3
+# the rest of the factor surface (phase_zerodiag, phase_cr_flagship,
+# phase_methods_flagship, phase_grouped, phase_factor_surface_reference).
+# A: the reference's zero-diagonal scenario (testbed.c:266-272, makefile:18:
+# -pc_factor_shift_type nonzero) at full size in f32 through the testbed,
+# the spike PC at K = 64, b = 64 (#1 at nb = 245) and the lu PC at b = 64
+# (#9 at K = 1, nb = 15625), each with and without the shift.  The block is
+# named so that a CPU reference has the same geometry.  rtol 1e-9 is the
+# JAX test's; in f32 on the CPU both packages reach it with the shift in
+# 2-3 its at n = 2e4 and 2e5 (the monitored norm is the preconditioned
+# one).  Without the shift both converge as well: at n = 2e4 in 1-2 its,
+# at n = 2e5 the JAX package in 31 (spike) and 29 (lu) its, the port in 1
+# and 2; hence the iteration bound
+ZERODIAG_N = 1_000_000
+ZERODIAG_PCS = {
+    "spike": "-pc_type spike -pc_spike_partitions 64 -pc_spike_block 64",
+    "lu": "-pc_type lu -pc_lu_block 64"}
+ZERODIAG_ARGV = ("-problem zerodiag:{n} -ksp_type gmres {pc} {shift} "
+                 "-ksp_rtol 1e-9 -ksp_converged_reason -ksp_view")
+ZERODIAG_ITS_MAX = 40
+# ||x - u|| / ||u|| in f32: the matrix's condition grows as n (its
+# eigenvalues are 2 cos(k pi / (n + 1))), and so does the f32 error.  The
+# JAX package in f32 on the CPU (spike, lu; shifted): 2.0e-4, 3.7e-5 at
+# n = 2e4 and 4.5e-3, 3.9e-4 at n = 2e5 (the port: 2.7e-5, 7.4e-5 and
+# 6.6e-4, 1.1e-3; unshifted, both packages 3e-4 or less); the spike PC's
+# growing as ~n^1.35 extrapolates to ~4e-2 at n = 1e6
+ZERODIAG_REL_MAX = 0.1
+# the sweep kernel of each shifted zero-diagonal PC against the plain sweep
+# in f64 on the same factor, max|kernel - f64| / max|f64|.  The factor is
+# ill-conditioned (pivots raised to 1e-8 of the matrix's scale), so two f32
+# sweeps that sum in different orders differ by far more than KERNEL_TOL.
+# On an H100 80GB HBM3 (700 W): #1 3.9e-5 and #9 6.0e-4 (their plain f32
+# versions 3.4e-5 and 3.8e-3)
+ZERODIAG_SWEEP_TOL = {"fused_sweep": 1e-4, "sweeps": 2e-3}
+# B: the flagship at K = 512 (nb = 16): K - 1 = 511 = 2^9 - 1 reduced
+# block rows, which 'auto' factors by cyclic reduction
+CR_K = 512
+# C: the partition methods on the flagship (K = 64, b = 128): lu and cr
+# factors take the plain sweeps (#1's rule refuses them), newton_pan is an
+# inv factor (#1 and the safety net's probe)
+METHOD_CASES = (("lu", {"pc_spike_method": "lu"}),
+                ("cr", {"pc_spike_method": "cr"}),
+                ("newton_pan", {"pc_spike_inverter": "newton_pan"}))
+# D: spike_factor_grouped on the flagship
+GROUPS = 8
+GROUPED_FACTOR_TOL = 1e-6      # factor blocks, max|d| / max|monolithic|
+GROUPED_SOLVE_TOL = 1e-5       # the solves, max|dx| / max|x|
+# E: card (f64) against the port's CPU path (f64)
+FACTOR_REF_N = 20_000
+FACTOR_REF_TOL = 1e-6
 # NVIDIA's data sheet for the H100 SXM (700 W): the bound of each kernel
 PEAK_BYTES_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
@@ -2306,6 +2370,407 @@ def phase_alternate_timing(band, a64, b64, rhs, sf, device, t):
     return bounds
 
 
+# ---------------------------------------------------------------------------
+# the rest of the factor surface: pivot shifts, the lu and cr methods,
+# cyclic reduction for K > 255, newton_pan, spike_factor_grouped
+# ---------------------------------------------------------------------------
+
+def profile_launches(fn):
+    """(device busy ms, CUDA launches) of one call of ``fn``, from
+    torch.profiler (every launch, the port's own kernels included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    items = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in items) / 1e3,
+            sum(e.count for e in items))
+
+
+def pc_factor(pc):
+    """The SpikeFactor a spike-family PC applies (``partial(spike_solve,
+    sf)``)."""
+    return pc.apply.args[0]
+
+
+def zerodiag_argv(pc, shifted, n=ZERODIAG_N):
+    return ZERODIAG_ARGV.format(
+        n=n, pc=ZERODIAG_PCS[pc],
+        shift="-pc_factor_shift_type nonzero" if shifted else "").split()
+
+
+def testbed_pc_line(out):
+    """The PC's line of the testbed's -ksp_view."""
+    return next((ln.strip() for ln in out.splitlines()
+                 if ln.strip().startswith(("PC spike:", "PC lu:"))), "")
+
+
+def phase_zerodiag(device, t, bounds):
+    """A: the reference's zero-diagonal scenario at n = 1e6 in f32 through
+    ``testbed.main``: tridiagonal [-1, 0, -1], every pivot zero; gmres with
+    the spike PC (K = 64, b = 64: #1 at nb = 245, two sweeps an apply, the
+    spikes not stored) and with the lu PC (b = 64: #9 at K = 1, nb = 15625),
+    each with ``-pc_factor_shift_type nonzero`` and without.  Each run's
+    launches of #1, #9 and #2 held exactly to what gmres makes; the shifted
+    runs raise pivots (``shifted_pivots`` > 0) and end within
+    ZERODIAG_REL_MAX of u = 1; the unshifted ones converge too (even b:
+    the diagonal blocks are nonsingular, and the inverter pivots inside
+    each), as the JAX package's do on the CPU.  Then the sweep kernel of
+    each shifted PC and #2 at this band, each against its plain version
+    and timed beside its bound."""
+    import math
+    import re
+    import torch
+    from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
+    from spike_petsc_tpu_torch.utils import profiling
+    show = shower(t)
+    out_launches = {}
+    for pc_name, sweep in (("spike", "fused_sweep"), ("lu", "sweeps")):
+        for shifted in (True, False):
+            label = f"{pc_name}{'_shift' if shifted else ''}"
+            argv = zerodiag_argv(pc_name, shifted)
+            rec = {}
+            reset_launches()
+            t0 = time.perf_counter()
+            rc, out = run_testbed(argv, rec)
+            launches = read_launches()
+            wall = time.perf_counter() - t0
+            res, op = rec["result"], rec["operator"]
+            err = float(out.split("Error in solution:")[1].split()[0])
+            rel = err / math.sqrt(ZERODIAG_N)
+            found = re.search(r"shifted_pivots=(\d+)", out)
+            shifted_pivots = int(found.group(1)) if found else None
+            expected = gmres_expected(res.its, launches, sweep,
+                                      "band_matvec", sweeps_per_apply=2)
+            print(f"zerodiag {label} (n={ZERODIAG_N}, f32, testbed): exit "
+                  f"code {rc}, {res.its} its, reason {res.reason}, error in "
+                  f"solution {err:.6g} (||x - u|| / ||u|| {rel:.3e}, limit "
+                  f"{ZERODIAG_REL_MAX}), {wall:.2f} s in all")
+            print(f"  testbed| {testbed_pc_line(out)}")
+            print(f"  launches {launches}; expected {expected}")
+            check(rc == 0 and res.reason > 0 and res.its <= ZERODIAG_ITS_MAX,
+                  f"zerodiag {label}: exit code {rc}, {res.its} its, reason "
+                  f"{res.reason}")
+            check(bool(torch.isfinite(res.x).all())
+                  and rel <= ZERODIAG_REL_MAX,
+                  f"zerodiag {label}: relative error {rel}")
+            check(launches == expected and launches[sweep] > 0,
+                  f"zerodiag {label} launches {launches}")
+            check((shifted_pivots is not None and shifted_pivots > 0)
+                  == shifted, f"zerodiag {label}: shifted_pivots "
+                  f"{shifted_pivots}")
+            if shifted:
+                out_launches[pc_name] = launches
+                t[f"zerodiag_{label}_factor"] = (
+                    profiling.stage_times()["PCSetUp"] * 1e3, 0.0)
+                print(f"  zerodiag_{label}_factor: "
+                      f"{t[f'zerodiag_{label}_factor'][0]:.1f} ms (the "
+                      "testbed's PCSetUp stage)")
+                zerodiag_kernels(pc_factor(rec["pc"]), rec["b"], sweep, t,
+                                 bounds)
+            del rec
+    prep = cbm.prepare_banded_mv(op)
+    x = torch.randn(op.n, device=device)
+    _, err = kernel_err(cbm.banded_matvec_prepared(prep, x),
+                        cbm.banded_matvec_prepared(prep, x, impl="plain"))
+    check(err <= KERNEL_TOL, f"band_matvec at the zero-diagonal band: {err}")
+    show("zerodiag_band_matvec", time_ms(
+        lambda: cbm.banded_matvec_prepared(prep, x), iters=20))
+    bounds["zerodiag_band_matvec"] = roofline(
+        op.n * op.width * 4 + 2 * op.n * 4, 2 * op.n * op.width)
+    print(f"  band_matvec (zero-diagonal: n={op.n} w={op.width}) against "
+          f"its plain version {err:.3e}; bound "
+          f"{bounds['zerodiag_band_matvec'][0]:.4f} ms "
+          f"({bounds['zerodiag_band_matvec'][1]})")
+    return out_launches
+
+
+def zerodiag_kernels(sf, b, sweep, t, bounds):
+    """The sweep kernel of a zero-diagonal PC (#1 for the spike PC, #9 for
+    the lu PC) on that PC's shifted factor and right-hand side, timed
+    beside its bound (#9's: #1's bytes plus the y round trip).  The kernel
+    is held within ZERODIAG_SWEEP_TOL of the plain sweep in f64 on the
+    same factor; its plain f32 version's distance from that sweep is
+    printed beside it."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as tnf
+    from spike_petsc_tpu_torch.ops.blocktri import blocktri_solve
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
+    from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
+    show = shower(t)
+    rblk = tnf.pad(b, (0, sf.K * sf.m - sf.n)).reshape(sf.K, sf.nb, sf.b)
+    kern = (cfs.blocktri_solve_fused_cuda if sweep == "fused_sweep"
+            else csw.blocktri_solve_batched_cuda)
+    got, plain = kern(sf.fact, rblk), kern(sf.fact, rblk, impl="plain")
+    f64 = dataclasses.replace(sf.fact, F=sf.fact.F.double(),
+                              U=sf.fact.U.double(),
+                              Sinv=sf.fact.Sinv.double())
+    ref = blocktri_solve(f64, rblk.double())
+    _, err = kernel_err(got, ref)
+    _, err_plain = kernel_err(plain, ref)
+    _, err_pair = kernel_err(got, plain)
+    tol = ZERODIAG_SWEEP_TOL[sweep]
+    del f64, ref
+    name = f"zerodiag_{sweep}"
+    show(name, time_ms(lambda: kern(sf.fact, rblk), iters=10))
+    if sweep == "fused_sweep":
+        bounds[name] = sweep_bound(sf.fact)
+    else:
+        K, nb, bb = sf.K, sf.nb, sf.b
+        bounds[name] = roofline(3 * sf.fact.F.numel() * 4 + 4 * K * nb * bb * 4,
+                                2 * K * (3 * nb - 2) * bb * bb)
+    print(f"  {sweep} (zero-diagonal: K={sf.K} nb={sf.nb} b={sf.b}, "
+          f"shifted factor) against the f64 sweep {err:.3e} (limit "
+          f"{tol:.3e}), its plain f32 version against the f64 sweep "
+          f"{err_plain:.3e}, kernel against plain f32 {err_pair:.3e}; bound "
+          f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), bound / time "
+          f"{bounds[name][0] / t[name][0]:.3f}")
+    check(err <= tol, f"{sweep} at the zero-diagonal factor: {err} from the "
+          f"f64 sweep, limit {tol}")
+
+
+def phase_cr_flagship(band, rhs, device, t, bounds):
+    """B: the flagship at K = 512 partitions (nb = 16): 511 reduced block
+    rows, which 'auto' factors by cyclic reduction.  gmres + spike through
+    ``solve`` (rtol 1e-8, restart 30), the PC built in the counted run: #1
+    once a PC apply and once for the safety net's probe, #2 once an
+    operator apply; #1 at this shape against its plain version and timed
+    beside its bound; ``spike_solve`` with the CR reduced system against
+    the Thomas one (``reduced='thomas'``), in turns, wall (CUDA events),
+    device time and launches (torch.profiler) a solve.  Returns the
+    K = 512 #1 error."""
+    import torch
+    import torch.nn.functional as tnf
+    from spike_petsc_tpu_torch import Options, solve
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
+    from spike_petsc_tpu_torch.ops.cyclic import CRFactor
+    from spike_petsc_tpu_torch.ops.spike import spike_factor, spike_solve
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    show = shower(t)
+    opts = dict(PC_OPTIONS, pc_spike_partitions=CR_K)
+    reset_launches()
+    t0 = time.perf_counter()
+    pc = make_pc("spike", band, Options(dict(opts)))
+    res = solve(band, rhs, ksp_type="gmres", pc=pc, rtol=1e-8, restart=30)
+    launches = read_launches()
+    wall = (time.perf_counter() - t0) * 1e3
+    sf = pc_factor(pc)
+    relres = float(torch.linalg.norm(banded_matvec(band, res.x) - rhs)
+                   / torch.linalg.norm(rhs))
+    expected = gmres_expected(res.its, launches, "fused_sweep",
+                              "band_matvec")
+    expected["fused_sweep"] += 1                 # the safety net's probe
+    print(f"gmres+spike K={CR_K} (flagship, nb={sf.nb}, reduced "
+          f"{type(sf.red_fact).__name__}, {len(sf.red_fact.levels)} levels, "
+          f"n_pad {sf.red_fact.n_pad}): {res.its} its, reason {res.reason}, "
+          f"true relres (f32) {relres:.3e}, {wall:.1f} ms with the factor; "
+          f"launches {launches}; expected {expected}")
+    check(isinstance(sf.red_fact, CRFactor) and sf.red_fact.n_pad == CR_K - 1,
+          f"K={CR_K}: the reduced factor is {type(sf.red_fact).__name__}")
+    check(res.reason > 0 and res.its <= GMRES_ITS_MAX and relres <= 1e-4,
+          f"K={CR_K}: {res.its} its, reason {res.reason}, relres {relres}")
+    check(launches == expected, f"K={CR_K} launches {launches}")
+
+    rblk = tnf.pad(rhs, (0, sf.K * sf.m - sf.n)).reshape(sf.K, sf.nb, BLOCK)
+    diff, err = kernel_err(cfs.blocktri_solve_fused_cuda(sf.fact, rblk),
+                           cfs.blocktri_solve_fused_cuda(sf.fact, rblk,
+                                                         impl="plain"))
+    print(f"fused_sweep (K={CR_K} nb={sf.nb} b={BLOCK}) against its plain "
+          f"version: max abs {diff:.3e}, relative {err:.3e}")
+    check(err <= KERNEL_TOL, f"fused_sweep at K={CR_K}: {err}")
+    gb = 3 * sf.fact.F.numel() * 4 / 1e9
+    show("fused_sweep_cuda_k512", time_ms(
+        lambda: cfs.blocktri_solve_fused_cuda(sf.fact, rblk), iters=10), gb)
+    bms, bby = sweep_bound(sf.fact)
+    print(f"  fused_sweep K={CR_K} bound {bms:.4f} ms ({bby}), bound / time "
+          f"{bms / t['fused_sweep_cuda_k512'][0]:.3f}")
+    bounds["fused_sweep_k512"] = (bms, bby)
+
+    t0 = time.perf_counter()
+    sft = spike_factor(band, K=CR_K, block_b=BLOCK, store_spikes=True,
+                       spike_dtype=torch.bfloat16, inverter="newton_fixed",
+                       reduced="thomas")
+    torch.cuda.synchronize()
+    print(f"  spike_factor K={CR_K} reduced='thomas': "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    xc, xt = spike_solve(sf, rhs), spike_solve(sft, rhs)
+    _, dx = kernel_err(xc, xt)
+    print(f"  spike_solve K={CR_K}: CR against Thomas reduced solves "
+          f"{dx:.3e}")
+    check(dx <= 1e-4, f"K={CR_K} CR and Thomas reduced solves differ: {dx}")
+    best = {}
+    for label, f in (("cr", sf), ("thomas", sft), ("thomas", sft),
+                     ("cr", sf)):
+        ms = time_ms(lambda: spike_solve(f, rhs), iters=5)
+        print(f"  spike_solve_k512_{label} turn: {ms[0]:.4f} ms median")
+        if label not in best or ms[0] < best[label][0]:
+            best[label] = ms
+    for label, f in (("cr", sf), ("thomas", sft)):
+        show(f"spike_solve_k512_{label}", best[label])
+        busy, count = profile_launches(lambda: spike_solve(f, rhs))
+        t[f"spike_solve_k512_{label}_device"] = (busy, 0.0)
+        print(f"  spike_solve_k512_{label}: device busy {busy:.3f} ms, "
+              f"{count} launches a solve")
+    del sft
+    return diff
+
+
+def phase_methods_flagship(band, rhs, device, t):
+    """C: the partition methods on the flagship (K = 64, b = 128) through
+    ``solve`` (gmres, rtol 1e-8), each PC built once (``make_pc``, timed):
+    ``-pc_spike_method lu`` and ``cr``, whose factors #1's rule refuses, so
+    their sweeps are plain (#1 launched 0 times, #2 once an operator
+    apply); ``-pc_spike_inverter newton_pan`` (an inv factor: #1 once an
+    apply and once for the safety net's probe).  Each solve timed, and the
+    plain sweeps' host launches counted (torch.profiler)."""
+    import torch
+    from spike_petsc_tpu_torch import Options, solve
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    show = shower(t)
+    for name, extra in METHOD_CASES:
+        opts = Options(dict(PC_OPTIONS, **extra))
+        reset_launches()
+        t0 = time.perf_counter()
+        pc = make_pc("spike", band, opts)
+        torch.cuda.synchronize()
+        factor_ms = (time.perf_counter() - t0) * 1e3
+        res = solve(band, rhs, ksp_type="gmres", pc=pc, rtol=1e-8)
+        launches = read_launches()
+        relres = float(torch.linalg.norm(banded_matvec(band, res.x) - rhs)
+                       / torch.linalg.norm(rhs))
+        expected = gmres_expected(res.its, launches, "fused_sweep",
+                                  "band_matvec")
+        if name == "newton_pan":
+            expected["fused_sweep"] += 1         # the safety net's probe
+        else:
+            expected["fused_sweep"] = 0          # plain sweeps
+        print(f"gmres+spike -pc_spike_{'inverter' if name == 'newton_pan' else 'method'} "
+              f"{name} (flagship K={K}): {res.its} its, reason "
+              f"{res.reason}, true relres (f32) {relres:.3e}; PC set-up "
+              f"{factor_ms:.1f} ms ({pc.describe()}); launches {launches}; "
+              f"expected {expected}")
+        check(res.reason > 0 and res.its <= GMRES_ITS_MAX and relres <= 1e-4,
+              f"method {name}: {res.its} its, reason {res.reason}, relres "
+              f"{relres}")
+        check(launches == expected, f"method {name} launches {launches}")
+        t[f"method_{name}_factor"] = (factor_ms, 0.0)
+        show(f"method_{name}_solve", time_ms(
+            lambda: solve(band, rhs, ksp_type="gmres", pc=pc, rtol=1e-8),
+            reps=2))
+        busy, count = profile_launches(lambda: pc.apply(rhs))
+        print(f"  method {name}: one PC apply {busy:.3f} ms of device time, "
+              f"{count} launches")
+        del pc, res
+        torch.cuda.empty_cache()
+
+
+def phase_grouped(band, rhs, device):
+    """D: ``spike_factor_grouped`` (8 groups of 8 partitions) against
+    ``spike_factor`` on the flagship: the factor blocks within
+    GROUPED_FACTOR_TOL, the solves within GROUPED_SOLVE_TOL, and the peak
+    device memory of each (``torch.cuda.max_memory_allocated`` above what
+    was allocated before it, reset in between)."""
+    import torch
+    from spike_petsc_tpu_torch.ops.spike import (spike_factor,
+                                                 spike_factor_grouped,
+                                                 spike_solve)
+    kw = dict(block_b=BLOCK, store_spikes=True, spike_dtype=torch.bfloat16,
+              inverter="newton_fixed")
+    peaks, facts, secs = {}, {}, {}
+    for label in ("monolithic", "grouped", "monolithic_again"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        f = (spike_factor_grouped(band, K, GROUPS, **kw)
+             if label == "grouped" else spike_factor(band, K, **kw))
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        peaks[label] = (torch.cuda.max_memory_allocated() - before) / 2**30
+        facts[label] = f
+        if label == "monolithic_again":
+            del facts[label]
+    sm, sg = facts["monolithic"], facts["grouped"]
+    fdiff = max(kernel_err(getattr(sg.fact, nm), getattr(sm.fact, nm))[1]
+                for nm in ("F", "U", "Sinv"))
+    fdiff = max(fdiff, kernel_err(sg.V, sm.V)[1], kernel_err(sg.W, sm.W)[1],
+                kernel_err(sg.red_fact.Sinv, sm.red_fact.Sinv)[1])
+    _, xdiff = kernel_err(spike_solve(sg, rhs), spike_solve(sm, rhs))
+    stored = sum(a.numel() * a.element_size() for a in (
+        sm.fact.F, sm.fact.U, sm.fact.Sinv, sm.V, sm.W)) / 2**30
+    print(f"spike_factor_grouped (flagship, K={K}, {GROUPS} groups): factor "
+          f"blocks within {fdiff:.3e} of spike_factor's, solves within "
+          f"{xdiff:.3e}; peak device memory above the band: monolithic "
+          f"{peaks['monolithic']:.3f} GiB (again {peaks['monolithic_again']:.3f}),"
+          f" grouped {peaks['grouped']:.3f} GiB; the stored factor and "
+          f"spikes {stored:.3f} GiB; {secs['monolithic']:.2f} s, "
+          f"{secs['grouped']:.2f} s")
+    check(fdiff <= GROUPED_FACTOR_TOL and xdiff <= GROUPED_SOLVE_TOL,
+          f"grouped factor {fdiff}, solve {xdiff}")
+    return peaks
+
+
+def phase_factor_surface_reference(device):
+    """E: the small cases on the card (f64: the plain sweeps, #6 for the
+    operator) against the port's CPU path (f64), within FACTOR_REF_TOL of
+    max|x|: the zero-diagonal testbed at n = 2e4 (spike and lu PCs, shifted;
+    iteration counts equal), K = 300 on a w = 41 band (the CR reduced
+    system), and the lu, cr and newton_pan PCs at K = 8."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix, Options, solve
+    from spike_petsc_tpu_torch.ops.cyclic import CRFactor
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    for pc_name in ZERODIAG_PCS:
+        argv = zerodiag_argv(pc_name, True, n=FACTOR_REF_N) + ["-x64", "1"]
+        got, ref = {}, {}
+        rc_c, _ = run_testbed(argv, got)
+        rc_h, _ = run_testbed(argv + ["-platform", "cpu"], ref)
+        rg, rh = got["result"], ref["result"]
+        _, dx = kernel_err(rg.x.cpu(), rh.x)
+        print(f"zerodiag {pc_name} shifted n={FACTOR_REF_N} f64: card "
+              f"{rg.its} its vs CPU {rh.its} its, max|x_card - x_cpu| / "
+              f"max|x_cpu| {dx:.3e}")
+        check(rc_c == rc_h == 0 and rg.its == rh.its and dx <= FACTOR_REF_TOL,
+              f"zerodiag {pc_name} card against CPU: {rg.its}/{rh.its} its, "
+              f"{dx}")
+    band, _ = flagship_band(FACTOR_REF_N, 20, device, seed=SEED + 31)
+    a64 = BandedMatrix(data=band.data.double(), kl=20, ku=20)
+    cpu = BandedMatrix(data=a64.data.cpu(), kl=20, ku=20)
+    b64 = torch.ones(FACTOR_REF_N, dtype=torch.float64, device=device)
+    for label, opts in (
+            ("K=300", {"pc_spike_partitions": 300, "pc_spike_block": 64}),
+            ("lu", {"pc_spike_partitions": 8, "pc_spike_block": 64,
+                    "pc_spike_method": "lu"}),
+            ("cr", {"pc_spike_partitions": 8, "pc_spike_block": 64,
+                    "pc_spike_method": "cr"}),
+            ("newton_pan", {"pc_spike_partitions": 8, "pc_spike_block": 64,
+                            "pc_spike_inverter": "newton_pan"})):
+        pc = make_pc("spike", a64, Options(dict(opts)))
+        got = solve(a64, b64, ksp_type="gmres", pc=pc, rtol=1e-12)
+        ref = solve(cpu, b64.cpu(), ksp_type="gmres", pc_type="spike",
+                    options=Options(dict(opts)), rtol=1e-12)
+        _, dx = kernel_err(got.x.cpu(), ref.x)
+        red = type(pc_factor(pc).red_fact).__name__
+        print(f"spike {label} n={FACTOR_REF_N} w=41 f64 (reduced {red}): "
+              f"card {got.its} its vs CPU {ref.its} its, max|x_card - x_cpu|"
+              f" / max|x_cpu| {dx:.3e}")
+        check(got.its == ref.its and got.reason > 0 and dx <= FACTOR_REF_TOL,
+              f"spike {label} card against CPU: {got.its}/{ref.its} its, "
+              f"{dx}")
+        if label == "K=300":
+            check(isinstance(pc_factor(pc).red_fact, CRFactor),
+                  f"K=300 reduced factor {red}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2350,11 +2815,30 @@ def main() -> int:
     # the transpose stack on the flagship, the same PC
     tt = time.perf_counter()
     phase_transpose_flagship(band, rhs, sf, pc, device, t)
-    del band, rhs, sf, res, pc
-    torch.cuda.empty_cache()
-    phase_transpose_reference(device)
     print(f"transpose phases on the flagship: {time.perf_counter() - tt:.1f} "
           f"s")
+    # the rest of the factor surface on the flagship: K = 512 (a CR
+    # reduced system), the lu, cr and newton_pan PCs, the grouped factor
+    tf = time.perf_counter()
+    errs["fused_sweep"] = max(errs["fused_sweep"],
+                              phase_cr_flagship(band, rhs, device, t, bounds))
+    print(f"  K={CR_K} phase: {time.perf_counter() - tf:.1f} s")
+    tm = time.perf_counter()
+    phase_methods_flagship(band, rhs, device, t)
+    print(f"  methods phase: {time.perf_counter() - tm:.1f} s")
+    tm = time.perf_counter()
+    phase_grouped(band, rhs, device)
+    print(f"  grouped phase: {time.perf_counter() - tm:.1f} s")
+    del band, rhs, sf, res, pc
+    torch.cuda.empty_cache()
+    tt = time.perf_counter()
+    phase_transpose_reference(device)
+    print(f"transpose reference: {time.perf_counter() - tt:.1f} s")
+    tm = time.perf_counter()
+    phase_factor_surface_reference(device)
+    print(f"factor-surface phases (flagship and references): "
+          f"{time.perf_counter() - tf:.1f} s (references "
+          f"{time.perf_counter() - tm:.1f} s)")
 
     # BASELINE config 3 through the testbed CLI
     t3 = time.perf_counter()
@@ -2376,6 +2860,12 @@ def main() -> int:
     phase_transpose_config1(device, t)
     torch.cuda.empty_cache()
     print(f"config 1 phases: {time.perf_counter() - t1:.1f} s")
+
+    # the reference's zero-diagonal scenario with pivot shifts, n = 1e6
+    tz = time.perf_counter()
+    phase_zerodiag(device, t, bounds)
+    torch.cuda.empty_cache()
+    print(f"zero-diagonal phase: {time.perf_counter() - tz:.1f} s")
 
     # the SPD path (BASELINE config 2)
     from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many_spd as cfms

@@ -9,12 +9,18 @@ package ``spike_petsc_tpu`` is the reference it is held against; this
 package never imports JAX.
 """
 
-from .ops.band import BandedMatrix
-from .ops.spike import SpikeFactor, spike_factor, spike_solve, spike_solve_many
+from .ops.band import (BandedMatrix, banded_axpy, banded_bandwidth,
+                       banded_from_coo, banded_from_numpy_dense, banded_scale,
+                       banded_shift, extract_banded_device)
+from .ops.spike import (SpikeFactor, spike_factor, spike_factor_blocks,
+                        spike_factor_grouped, spike_solve, spike_solve_many)
 from .solvers import (KSPResult, make_solver, make_solver_many, solve,
                       solve_many)
 from .utils.options import Options
 
 __all__ = ["solve", "make_solver", "solve_many", "make_solver_many",
-           "Options", "BandedMatrix", "spike_factor", "spike_solve",
-           "spike_solve_many", "SpikeFactor", "KSPResult"]
+           "Options", "BandedMatrix", "banded_from_coo", "banded_shift",
+           "banded_scale", "banded_axpy", "banded_bandwidth",
+           "banded_from_numpy_dense", "extract_banded_device",
+           "spike_factor", "spike_factor_blocks", "spike_factor_grouped",
+           "spike_solve", "spike_solve_many", "SpikeFactor", "KSPResult"]

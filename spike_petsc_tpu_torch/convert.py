@@ -18,6 +18,7 @@ import torch
 
 from .ops.band import BandedMatrix
 from .ops.blocktri import BlockTriFactor, BlockTridiagonal
+from .ops.cyclic import CRFactor, CRLevel
 from .ops.spike import SpikeFactor
 
 CUDA = torch.device("cuda")
@@ -44,34 +45,69 @@ def blocktri_from_numpy(D, L, U, device=CUDA) -> BlockTridiagonal:
                             U=to_tensor(U, device))
 
 
-def blocktri_factor_from_numpy(F, U, Sinv, device=CUDA,
-                               method: str = "inv") -> BlockTriFactor:
-    """A block-Thomas factor from its F, U, Sinv blocks: ``method='inv'``,
-    or ``'spd'`` with an empty U (``[..., nb, 0, 0]``, as the JAX spd
-    factor stores it)."""
-    if method not in ("inv", "spd"):
-        raise NotImplementedError(
-            f"method={method!r} factors are not yet ported to "
-            "spike_petsc_tpu_torch")
+def blocktri_factor_from_numpy(F, U, Sinv, device=CUDA, method: str = "inv",
+                               Slu=None, piv=None,
+                               nshift=None) -> BlockTriFactor:
+    """A block-Thomas factor from its blocks: ``method='inv'``; ``'spd'``
+    with an empty U (``[..., nb, 0, 0]``, as the JAX spd factor stores it);
+    or ``'lu'`` with ``Slu`` and ``piv``.  ``piv`` is taken in the JAX
+    package's 0-based convention and stored 1-based, the port's (see
+    ``BlockTriFactor``).  ``nshift``: the shifted-pivot count, or None."""
+    if method not in ("inv", "spd", "lu"):
+        raise ValueError(f"unknown method {method!r}")
+    if method == "lu" and (Slu is None or piv is None):
+        raise ValueError("an 'lu' factor needs Slu and piv")
+    piv = to_tensor(piv, device)
+    if piv is not None:
+        piv = (piv + 1 if piv.numel() else piv).to(torch.int32)
     return BlockTriFactor(F=to_tensor(F, device), U=to_tensor(U, device),
-                          Sinv=to_tensor(Sinv, device), method=method)
+                          Sinv=to_tensor(Sinv, device), method=method,
+                          Slu=to_tensor(Slu, device), piv=piv,
+                          nshift=to_tensor(nshift, device))
+
+
+def cr_factor_from_numpy(levels, root_Dinv, nb: int, n_pad: int,
+                         nshift=None, device=CUDA) -> CRFactor:
+    """A cyclic-reduction factor from its blocks: ``levels`` a sequence of
+    ``(Dinv_e, P, Q, L_e, U_e)`` tuples, as the JAX ``CRLevel`` holds
+    them."""
+    return CRFactor(
+        levels=tuple(CRLevel(*(to_tensor(a, device) for a in lv))
+                     for lv in levels),
+        root_Dinv=to_tensor(root_Dinv, device), nb=int(nb),
+        n_pad=int(n_pad), nshift=to_tensor(nshift, device))
+
+
+def _factor_from_numpy(f, method: str, device):
+    """A factor from a ``(F, U, Sinv)`` triple of ``method``, or from the
+    keyword arguments of ``blocktri_factor_from_numpy`` or (with
+    ``levels``) ``cr_factor_from_numpy``."""
+    if isinstance(f, dict):
+        if "levels" in f:
+            return cr_factor_from_numpy(**f, device=device)
+        return blocktri_factor_from_numpy(**f, device=device)
+    return blocktri_factor_from_numpy(*f, device=device, method=method)
 
 
 def spike_factor_from_numpy(*, fact, Btip, Ctip, red_fact, V, W, n: int,
                             K: int, m: int, b: int, k: int,
                             truncated: bool = False, red_Dinv=None,
-                            method: str = "inv",
+                            method: str = "inv", Lb=None,
                             device=CUDA) -> SpikeFactor:
-    """A SpikeFactor from numpy arrays: ``fact`` and ``red_fact`` are
-    ``(F, U, Sinv)`` triples (``red_fact`` None for K == 1 and for
-    ``truncated`` factors, which carry ``red_Dinv`` ``[K-1, 2k, 2k]``
-    instead), ``V``/``W`` None when spikes are not stored.  ``method`` is
-    the partition factors' (the reduced factor is always ``inv``)."""
+    """A SpikeFactor from numpy arrays.  ``fact`` and ``red_fact``: a
+    ``(F, U, Sinv)`` triple (of ``method`` for ``fact``, ``inv`` for
+    ``red_fact``), or a dict of the keyword arguments of
+    ``blocktri_factor_from_numpy`` (``lu`` factors, ``nshift``) or of
+    ``cr_factor_from_numpy`` (CR factors); ``red_fact`` None for K == 1
+    and for ``truncated`` factors, which carry ``red_Dinv``
+    ``[K-1, 2k, 2k]`` instead.  ``V``/``W`` None when spikes are not
+    stored; ``Lb`` the kept L blocks (store_lt) or None."""
     return SpikeFactor(
-        fact=blocktri_factor_from_numpy(*fact, device=device, method=method),
+        fact=_factor_from_numpy(fact, method, device),
         Btip=to_tensor(Btip, device), Ctip=to_tensor(Ctip, device),
         red_fact=(None if red_fact is None
-                  else blocktri_factor_from_numpy(*red_fact, device=device)),
+                  else _factor_from_numpy(red_fact, "inv", device)),
         V=to_tensor(V, device), W=to_tensor(W, device),
         n=int(n), K=int(K), m=int(m), b=int(b), k=int(k),
-        red_Dinv=to_tensor(red_Dinv, device), truncated=bool(truncated))
+        red_Dinv=to_tensor(red_Dinv, device), truncated=bool(truncated),
+        Lb=to_tensor(Lb, device))

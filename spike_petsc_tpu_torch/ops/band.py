@@ -1,4 +1,5 @@
-"""Banded matrix storage and the plain banded matvec (PyTorch).
+"""Banded matrix storage, the plain banded matvec and the band helpers
+(PyTorch).
 
 Same diagonal-offset layout as ``spike_petsc_tpu.ops.band``:
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -175,3 +177,115 @@ def banded_diagonal_scale(b: BandedMatrix, dr=None, dc=None) -> BandedMatrix:
         data = torch.stack([data[:, d] * dcp[d:d + n]
                             for d in range(b.width)], dim=1)
     return BandedMatrix(data=data, kl=kl, ku=ku)
+
+
+# ---------------------------------------------------------------------------
+# Construction from triplets, arithmetic and diagnostics (JAX
+# ``ops/band.py:84-103``, ``:218-301``)
+# ---------------------------------------------------------------------------
+
+def _to_device(a, dtype=None, device=None) -> torch.Tensor:
+    """``a`` as a tensor: a tensor keeps its device unless ``device`` names
+    one; anything else (numpy, lists) goes to ``device``, default the
+    card."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device or a.device, dtype=dtype or a.dtype)
+    t = torch.as_tensor(np.asarray(a))
+    return t.to(device=device or "cuda", dtype=dtype or t.dtype)
+
+
+def banded_from_coo(rows, cols, vals, n: int, kl: int, ku: int,
+                    dtype=None, device=None) -> BandedMatrix:
+    """Scatter COO triplets into band storage; out-of-band entries are
+    dropped and duplicates summed (the copy loop of the reference's banded
+    extraction, reference/src/matbanded.c:84-99).  Tensors stay on their
+    device; numpy input goes to ``device`` (default the card)."""
+    vals = _to_device(vals, dtype, device)
+    rows = _to_device(rows, device=vals.device).long()
+    cols = _to_device(cols, device=vals.device).long()
+    off = cols - rows + kl
+    inband = (off >= 0) & (off <= kl + ku)
+    # out-of-band entries land on a scratch row that is dropped
+    r = torch.where(inband, rows, n)
+    d = torch.where(inband, off, 0)
+    data = vals.new_zeros((n + 1, kl + ku + 1))
+    data.index_put_((r, d), vals, accumulate=True)
+    return BandedMatrix(data=data[:n], kl=kl, ku=ku)
+
+
+def banded_shift(b: BandedMatrix, alpha) -> BandedMatrix:
+    """A + alpha I in band storage (MatShift; the role of PETSc's
+    ``-pc_factor_shift_*`` pre-shifts, reference/src/makefile:17-18)."""
+    data = b.data.clone()
+    data[:, b.kl] += alpha
+    return BandedMatrix(data=data, kl=b.kl, ku=b.ku)
+
+
+def banded_scale(b: BandedMatrix, alpha) -> BandedMatrix:
+    """alpha A (MatScale)."""
+    return BandedMatrix(data=b.data * alpha, kl=b.kl, ku=b.ku)
+
+
+def banded_axpy(y: BandedMatrix, alpha, x: BandedMatrix) -> BandedMatrix:
+    """Y + alpha X in band storage (MatAXPY).  The result's band is the
+    union of the operands'; widening is a zero pad of the offset axis."""
+    if y.n != x.n:
+        raise ValueError(f"banded_axpy: size mismatch {y.n} vs {x.n}")
+    kl, ku = max(y.kl, x.kl), max(y.ku, x.ku)
+
+    def expand(m: BandedMatrix) -> torch.Tensor:
+        return torch.nn.functional.pad(m.data, (kl - m.kl, ku - m.ku))
+
+    return BandedMatrix(data=expand(y) + alpha * expand(x), kl=kl, ku=ku)
+
+
+def banded_bandwidth(b: BandedMatrix, tol: float = 0.0) -> tuple:
+    """Effective (kl, ku) of the stored band, the largest offsets holding
+    an entry of magnitude > tol (MatComputeBandwidth,
+    reference/src/testbed.c:209), as two 0-dim int64 tensors on the band's
+    device."""
+    any_off = (b.data.abs() > tol).any(dim=0)                # [w]
+    offs = torch.arange(-b.kl, b.ku + 1, device=b.device)
+    zero = torch.zeros_like(offs)
+    return (torch.where(any_off, -offs, zero).max(),
+            torch.where(any_off, offs, zero).max())
+
+
+def banded_from_numpy_dense(a: np.ndarray, kl: int, ku: int,
+                            device="cuda") -> BandedMatrix:
+    """The [-kl, ku] band of a dense numpy matrix, on ``device``."""
+    return banded_from_dense(torch.as_tensor(np.asarray(a), device=device),
+                             kl, ku)
+
+
+def extract_banded_device(rows, cols, vals, n: int, kmax: int = 50,
+                          frac: float = 0.95, device=None):
+    """Norm-fraction band selection and extraction on the device, the twin
+    of ``sparse.extract_banded`` (MatCreateSubMatrixBanded,
+    reference/src/matbanded.c:38-103): a histogram of |a_ij| by distance
+    from the diagonal, the smallest k < kmax whose cumulative sum reaches
+    ``frac`` of the 1-norm (else kmax), then a masked scatter into band
+    storage of half-width kmax (entries beyond k zeroed).  Returns
+    ``(BandedMatrix, k, achieved_frac)``, k and the fraction as 0-dim
+    tensors; kl = ku = kmax (slice on the host for a tight band).  Tensors
+    stay on their device; numpy input goes to ``device`` (default the
+    card)."""
+    vals = _to_device(vals, device=device)
+    rows = _to_device(rows, device=vals.device).long()
+    cols = _to_device(cols, device=vals.device).long()
+    dist = (rows - cols).abs()
+    absval = vals.abs()
+    hist = absval.new_zeros(n).index_add_(0, dist.clamp_max(n - 1), absval)
+    norm_a = absval.sum()
+    cum = torch.cumsum(hist, dim=0)
+    reached = cum >= frac * norm_a
+    first = reached.int().argmax()
+    k = torch.where(reached[:kmax].any(), first,
+                    torch.full_like(first, kmax)).to(torch.int32)
+    norm_b = cum[k.clamp_max(n - 1).long()]
+    bm = banded_from_coo(rows, cols,
+                         torch.where(dist <= k, vals, torch.zeros_like(vals)),
+                         n, kmax, kmax)
+    achieved = torch.where(norm_a > 0, norm_b / norm_a,
+                           torch.ones_like(norm_a))
+    return bm, k, achieved

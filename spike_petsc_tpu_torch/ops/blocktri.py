@@ -1,25 +1,30 @@
 """Block-tridiagonal representation and block-Thomas factorization (PyTorch).
 
-The port of the subset of ``spike_petsc_tpu.ops.blocktri`` that the
-SPIKE paths run, with the transpose solve on the forward factor (the
+The port of ``spike_petsc_tpu.ops.blocktri``: the block conversions both
+ways (``band_to_blocktri``, ``blocktri_to_band``, ``blocktri_to_dense``),
+the factor methods ``inv``, ``spd`` and ``lu`` with the pivot-shift guard
+(``shift='nonzero'``, ``boost_diag``), the batched inverses (LAPACK,
+Newton–Schulz from the Jacobi or the Pan start, the blocked recursion),
+the plain sweeps, and the transpose solve on the forward factor (the
 ``TransposedBlockTriFactor`` marker, ``blocktri_solve_transpose``) and the
-regular-form transposed factor (``transposed_factor_from_L``).  A banded matrix with half-bandwidths kl, ku <= b is a
-block-tridiagonal matrix with dense ``b x b`` blocks; block-Thomas
-factorization does, per block row,
+regular-form transposed factor (``transposed_factor_from_L``).  A banded
+matrix with half-bandwidths kl, ku <= b is a block-tridiagonal matrix with
+dense ``b x b`` blocks; block-Thomas factorization does, per block row,
 
     F_i = L_i @ inv(S_{i-1}),     S_i = D_i - F_i @ U_{i-1},
 
 i.e. two ``b x b`` matmuls and one batched inversion (``method="inv"``);
 the symmetric ``method="spd"`` takes ``S_i = D_i - F_i @ L_i^T`` and stores
-no U.  The JAX ``lax.scan``
-over block rows becomes a Python loop over ``nb``; every tensor may carry
-leading batch dimensions (the SPIKE partition axis K takes the place of
-``jax.vmap``).
+no U; ``method="lu"`` keeps pivoted LU factors of each S_i in place of its
+inverse.  The JAX ``lax.scan`` over block rows becomes a Python loop over
+``nb``; every tensor may carry leading batch dimensions (the SPIKE
+partition axis K takes the place of ``jax.vmap``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -53,19 +58,44 @@ class BlockTridiagonal:
 
 @dataclass(frozen=True)
 class BlockTriFactor:
-    """Block-Thomas factorization with explicit Schur inverses: solves are
-    pure batched matmuls.
+    """Block-Thomas factorization state (JAX ``ops/blocktri.py:59-92``).
 
     ``method == "inv"``: F, U, Sinv are ``[..., nb, b, b]``; F[0] == 0 and
     U[nb-1] == 0.  ``method == "spd"`` (symmetric block-LDL^T): F and Sinv
     only; U is an empty ``[..., nb, 0, 0]`` placeholder, the sweeps read
-    F^T in its place.
+    F^T in its place.  ``method == "lu"``: F and U as for ``inv``, ``Slu``
+    ``[..., nb, b, b]`` the packed LU factors of each Schur complement S_i
+    and ``piv`` ``[..., nb, b]`` int32 their row pivots, Sinv an empty
+    placeholder.
+
+    **Pivot convention:** ``piv`` is 1-based, as LAPACK's ``getrf`` and
+    ``torch.linalg.lu_factor`` give it (row i was swapped with row
+    ``piv[i] - 1``).  The JAX package stores 0-based pivots
+    (``jax.scipy.linalg.lu_factor``); ``convert.blocktri_factor_from_numpy``
+    adds one.
+
+    A field a method does not use is a zero-size placeholder (``Slu``
+    ``[..., nb, 0, 0]``, ``piv`` ``[..., nb, 0]``), filled in here when the
+    caller passes None, as the JAX factor carries them.  ``nshift``: the
+    count of Schur pivots the diagonal shift raised (int32, one per leading
+    batch entry), or None when the factor was computed without a shift.
     """
 
     F: torch.Tensor
     U: torch.Tensor
     Sinv: torch.Tensor
     method: str = "inv"
+    Slu: Optional[torch.Tensor] = None
+    piv: Optional[torch.Tensor] = None
+    nshift: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        lead = self.F.shape[:-2]
+        if self.Slu is None:
+            object.__setattr__(self, "Slu", self.F.new_zeros((*lead, 0, 0)))
+        if self.piv is None:
+            object.__setattr__(self, "piv", self.F.new_zeros(
+                (*lead, 0), dtype=torch.int32))
 
     @property
     def nb(self) -> int:
@@ -137,6 +167,38 @@ def band_to_blocktri(band: BandedMatrix, b: int) -> BlockTridiagonal:
     return BlockTridiagonal(D=D.contiguous(), L=L, U=U)
 
 
+def blocktri_to_band(t: BlockTridiagonal, kl: int, ku: int) -> BandedMatrix:
+    """Inverse of :func:`band_to_blocktri` (JAX ``ops/blocktri.py:158-181``):
+    global block-tridiagonal blocks ``[nb, b, b]`` of a band with kl, ku <=
+    b -> diagonal-offset storage ``[nb * b, kl + ku + 1]``.
+
+    Row p of block row i holds ``[L_i | D_i | U_i][p, :]``; its band slot d
+    is column ``p + b - kl + d`` of that row, always inside ``[0, 3b)``
+    (the JAX version reads the same index through a widened-row skew)."""
+    nb, b = t.nb, t.b
+    if kl > b or ku > b:
+        raise ValueError(f"half-bandwidths (kl={kl}, ku={ku}) must be <= "
+                         f"block size {b}")
+    w = kl + ku + 1
+    cat = torch.cat([t.L, t.D, t.U], dim=-1)                 # [nb, b, 3b]
+    idx = (torch.arange(b, device=cat.device)[:, None] + (b - kl)
+           + torch.arange(w, device=cat.device)[None, :])
+    band = torch.gather(cat, -1, idx.expand(nb, b, w))
+    return BandedMatrix(data=band.reshape(nb * b, w), kl=kl, ku=ku)
+
+
+def blocktri_to_dense(t: BlockTridiagonal) -> torch.Tensor:
+    """Dense ``[nb b, nb b]`` copy of the blocks (JAX ``:184-193``)."""
+    nb, b = t.nb, t.b
+    a = t.D.new_zeros((nb * b, nb * b))
+    for i in range(nb):
+        a[i * b:(i + 1) * b, i * b:(i + 1) * b] = t.D[i]
+        if i + 1 < nb:
+            a[i * b:(i + 1) * b, (i + 1) * b:(i + 2) * b] = t.U[i]
+            a[(i + 1) * b:(i + 2) * b, i * b:(i + 1) * b] = t.L[i + 1]
+    return a
+
+
 def blocktri_matvec(t: BlockTridiagonal, x: torch.Tensor) -> torch.Tensor:
     """y_i = L_i x_{i-1} + D_i x_i + U_i x_{i+1}; x: [nb, b] or [nb, b, r]."""
     squeeze = x.dim() == 2
@@ -158,6 +220,13 @@ def _eye_like(S: torch.Tensor) -> torch.Tensor:
     return torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
 
 
+def lapack_inv(S: torch.Tensor) -> torch.Tensor:
+    """Batched inverse by pivoted LU, with no error check: a singular block
+    gives inf/NaN, as ``jnp.linalg.solve`` does, and the card is not
+    synchronized to read LAPACK's status."""
+    return torch.linalg.solve_ex(S, _eye_like(S).expand_as(S))[0]
+
+
 def _jacobi_init(S: torch.Tensor) -> torch.Tensor:
     d = torch.diagonal(S, dim1=-2, dim2=-1)
     safe = torch.where(d != 0, d, torch.ones_like(d))
@@ -170,7 +239,7 @@ def blocked_inv(S: torch.Tensor, base: int = 32) -> torch.Tensor:
     valid in the diagonally dominant regime (the safety net's re-factor)."""
     n = S.shape[-1]
     if n <= base:
-        return torch.linalg.solve(S, _eye_like(S).expand_as(S))
+        return lapack_inv(S)
     h = n // 2
     A, B = S[..., :h, :h], S[..., :h, h:]
     C, D = S[..., h:, :h], S[..., h:, h:]
@@ -184,18 +253,35 @@ def blocked_inv(S: torch.Tensor, base: int = 32) -> torch.Tensor:
     return torch.cat([top, bot], dim=-2)
 
 
-def newton_inv(S: torch.Tensor, tol: float = None, max_steps: int = 16
-               ) -> torch.Tensor:
-    """Batched inverse via Newton–Schulz X <- X (2I - S X) from the Jacobi
-    start X0 = inv(diag S), at full precision, until max|SX - I| <= tol
-    (default 50 eps), ``max_steps``, or divergence (error > 1e8 or NaN).
+def _pan_init(S: torch.Tensor) -> torch.Tensor:
+    """X0 = S^H / (||S||_1 ||S||_inf), per block."""
+    a = S.abs()
+    n1 = a.sum(dim=-2).amax(dim=-1)
+    ninf = a.sum(dim=-1).amax(dim=-1)
+    scale = (n1 * ninf).clamp_min(torch.finfo(a.dtype).tiny)
+    return S.transpose(-1, -2).conj() / scale[..., None, None].to(S.dtype)
 
-    The convergence test reads the error on the host once per step (the
-    JAX version's ``lax.while_loop`` predicate)."""
+
+def newton_inv(S: torch.Tensor, tol: float = None, max_steps: int = 16,
+               init: str = "jacobi") -> torch.Tensor:
+    """Batched inverse via Newton–Schulz X <- X (2I - S X), at full
+    precision, until max|SX - I| <= tol (default 50 eps), ``max_steps``, or
+    divergence (error > 1e8 or NaN); JAX ``ops/blocktri.py:513-561``.
+
+    ``init="jacobi"``: X0 = inv(diag S), which converges in the diagonally
+    dominant regime.  ``init="pan"``: X0 = S^H / (||S||_1 ||S||_inf), which
+    converges for any nonsingular S in ~log2(cond^2) more steps.  The
+    convergence test reads the error on the host once per step (the JAX
+    version's ``lax.while_loop`` predicate)."""
     eye = _eye_like(S)
     if tol is None:
-        tol = 50 * torch.finfo(S.dtype).eps
-    X = _jacobi_init(S)
+        tol = 50 * torch.finfo(S.abs().dtype).eps
+    if init == "pan":
+        X = _pan_init(S)
+    elif init == "jacobi":
+        X = _jacobi_init(S)
+    else:
+        raise ValueError(f"unknown init {init!r}: expected jacobi or pan")
     for _ in range(max_steps):
         R = 2.0 * eye - S @ X
         err = float(torch.max(torch.abs(R - eye)))
@@ -237,55 +323,198 @@ def newton_inv_fixed(S: torch.Tensor, cheap_steps: int = 10,
 
 def batched_inverse(S: torch.Tensor, inverter: str = "auto") -> torch.Tensor:
     """Dispatch: 'newton' (adaptive Newton–Schulz), 'newton_fixed'
-    (fixed-schedule Newton), 'blocked' (Schur recursion), 'lapack' (pivoted
-    LU through ``torch.linalg``).  'auto' is 'lapack' on every device: the
-    JAX package's "newton on TPU" choice was a TPU measurement."""
+    (fixed-schedule Newton), 'newton_pan' (adaptive Newton–Schulz from the
+    Pan start, up to 48 steps: any nonsingular block), 'blocked' (Schur
+    recursion), 'lapack' (pivoted LU through ``torch.linalg``).  'auto' is
+    'lapack' on every device: the JAX package's "newton on TPU" choice was
+    a TPU measurement."""
     if inverter == "newton":
         return newton_inv(S)
     if inverter == "newton_fixed":
         return newton_inv_fixed(S)
+    if inverter == "newton_pan":
+        return newton_inv(S, init="pan", max_steps=48)
     if inverter == "blocked":
         return blocked_inv(S)
     if inverter in ("auto", "lapack"):
-        return torch.linalg.solve(S, _eye_like(S).expand_as(S))
+        return lapack_inv(S)
     raise ValueError(f"unknown inverter {inverter!r}: expected auto, lapack, "
-                     "newton, newton_fixed or blocked")
+                     "newton, newton_fixed, newton_pan or blocked")
 
 
 # ---------------------------------------------------------------------------
 # Factorization
 # ---------------------------------------------------------------------------
 
-def _factor_from_lists(f_list, sinv_list, U, method="inv") -> BlockTriFactor:
-    F = torch.stack([torch.zeros_like(sinv_list[0])] + f_list, dim=-3)
-    return BlockTriFactor(F=F, U=U, Sinv=torch.stack(sinv_list, dim=-3),
-                          method=method)
+def boost_diag(s: torch.Tensor, shift_amount, zeropivot: float = 1e-10):
+    """Diagonal-shift guard for a batch of blocks ``[..., b, b]`` (JAX
+    ``ops/blocktri.py:219-240``): pivots whose magnitude falls below
+    ``max(shift_amount, zeropivot * max|block|, tiny)`` are raised to that
+    floor, keeping their sign (phase), as PETSc's
+    ``-pc_factor_shift_type nonzero`` repairs a pivot
+    (reference/src/makefile:18).
+
+    Returns ``(boosted_blocks, n_boosted)``, the count an int32 scalar."""
+    s2, bad = _boost(s, _floor_tensor(shift_amount, s), zeropivot)
+    return s2, bad.sum(dtype=torch.int32)
+
+
+def _floor_tensor(amount, s: torch.Tensor) -> torch.Tensor:
+    """``amount`` as a tensor of the real dtype of ``s``, at least that
+    dtype's smallest normal number."""
+    real = s.abs().dtype if s.is_complex() else s.dtype
+    return torch.as_tensor(amount, dtype=real, device=s.device).clamp_min(
+        torch.finfo(real).tiny)
+
+
+def _boost(s: torch.Tensor, amount: torch.Tensor, zeropivot: float = 1e-10):
+    """:func:`boost_diag` with ``amount`` a tensor from
+    :func:`_floor_tensor`, broadcastable to the batch shape ``s.shape[:-2]``
+    (a floor per partition), returning the boosted blocks and the
+    ``[..., b]`` mask of the raised pivots."""
+    d = torch.diagonal(s, dim1=-2, dim2=-1)
+    floor = torch.maximum(amount, zeropivot * s.abs().amax(dim=(-2, -1)))
+    floor = floor[..., None]
+    bad = d.abs() < floor
+    unit = torch.sgn(d)
+    dnew = torch.where(bad, torch.where(unit == 0, 1, unit) * floor, d)
+    return s + torch.diag_embed(dnew - d), bad
+
+
+def _shift_amount(t: BlockTridiagonal, shift: str, shift_amount):
+    """The absolute pivot floor of a shifted factor, one per leading batch
+    entry (JAX ``:259-269``): ``shift_amount`` where it is positive, else
+    ``1e-8 * max(|D|, |L|, |U|)`` of the entry's blocks, so that even an
+    all-zero pivot block gets a boost of the matrix's scale.  None when
+    ``shift == 'none'``."""
+    if shift == "none":
+        return None
+    gscale = torch.stack([a.abs().amax(dim=(-3, -2, -1))
+                          for a in (t.D, t.L, t.U)]).amax(dim=0)
+    return torch.where(torch.as_tensor(shift_amount > 0),
+                       torch.as_tensor(shift_amount, dtype=gscale.dtype,
+                                       device=gscale.device),
+                       1e-8 * gscale)
+
+
+class _Guard:
+    """The shift guard of one factorization: boosts each Schur complement
+    before it is inverted (or LU-factored) and keeps the masks of the
+    raised pivots, counted per leading batch entry by :attr:`count`.  A
+    no-op without a shift."""
+
+    def __init__(self, t: BlockTridiagonal, shift: str, shift_amount):
+        amount = _shift_amount(t, shift, shift_amount)
+        self.amount = None if amount is None else _floor_tensor(amount, t.D)
+        self.bad = []
+
+    def __call__(self, s: torch.Tensor, extra_dims: int = 0) -> torch.Tensor:
+        """Boost ``s [..., (extra dims), b, b]``: ``extra_dims`` block axes
+        between the batch and the block (CR's level axis) share the
+        batch entry's floor and count."""
+        if self.amount is None:
+            return s
+        amount = self.amount.reshape(self.amount.shape + (1,) * extra_dims)
+        s, bad = _boost(s, amount)
+        self.bad.append(bad.flatten(self.amount.dim()))
+        return s
+
+    @property
+    def count(self) -> Optional[torch.Tensor]:
+        """The raised pivots per leading batch entry (int32), None without
+        a shift."""
+        if self.amount is None:
+            return None
+        return torch.cat(self.bad, dim=-1).sum(dim=-1, dtype=torch.int32)
+
+
+def _lu_factor(s: torch.Tensor):
+    """Pivoted LU of a batch of blocks, no error check (a singular block
+    gives inf/NaN downstream, as ``jax.scipy.linalg.lu_factor`` does, and
+    no host sync)."""
+    lu, piv, _ = torch.linalg.lu_factor_ex(s)
+    return lu, piv
+
+
+def _lu_solve(slu: torch.Tensor, piv: torch.Tensor, rhs: torch.Tensor,
+              trans: bool = False) -> torch.Tensor:
+    """S x = rhs (``trans``: S^T x = rhs, no conjugation, as JAX's
+    ``lu_solve(..., trans=1)``) from packed LU factors and 1-based pivots,
+    in the rhs's dtype."""
+    slu = slu.to(rhs.dtype)
+    if not trans:
+        return torch.linalg.lu_solve(slu, piv, rhs)
+    return torch.linalg.lu_solve(slu, piv, rhs.conj(), adjoint=True).conj()
+
+
+def _placeholder(like: torch.Tensor) -> torch.Tensor:
+    """The zero-size ``[..., nb, 0, 0]`` block array of an unused field."""
+    return like.new_zeros((*like.shape[:-2], 0, 0))
+
+
+def _stack_F(f_list: list, like: torch.Tensor) -> torch.Tensor:
+    """F stacked ``[..., nb, b, b]`` from its rows 1.., row 0 zero."""
+    return torch.stack([torch.zeros_like(like)] + f_list, dim=-3)
 
 
 def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
-                    inverter: str = "auto") -> BlockTriFactor:
-    """Block-Thomas factorization over ``[..., nb, b, b]`` blocks: a loop
-    over block rows of batched matmuls and one batched inversion each.  No
-    outer pivoting: the scaling/ordering pipeline is responsible for
-    diagonal dominance.
+                    shift: str = "none", shift_amount: float = 0.0,
+                    inverter: str = "auto",
+                    y0: Optional[torch.Tensor] = None):
+    """Block-Thomas factorization over ``[..., nb, b, b]`` blocks (JAX
+    ``ops/blocktri.py:243-357``): a loop over block rows of batched matmuls
+    and one batched inversion (or LU) each.  No outer pivoting: the
+    scaling/ordering pipeline is responsible for diagonal dominance.
 
     ``method="inv"``: F_i = L_i Sinv_{i-1}, S_i = D_i - F_i U_{i-1}.
     ``method="spd"`` (symmetric matrices): S_i = D_i - F_i L_i^T,
     re-symmetrized as ``(S + S^T) / 2`` before each inversion; the U blocks
     are ignored and not stored.  Complex Hermitian blocks are not ported.
+    ``method="lu"``: S_i kept as pivoted LU factors (``Slu``, ``piv``),
+    F_i = L_i S_{i-1}^{-1} by a solve from the right.
+
+    ``shift="nonzero"`` (any value but ``"none"``) runs the guard of
+    :func:`boost_diag` on S_0 and on every Schur complement before it is
+    inverted, with the floor ``shift_amount`` (or, where it is <= 0,
+    ``1e-8`` of the largest entry of the blocks, per leading batch entry);
+    ``nshift`` counts the raised pivots.
+
+    ``y0`` (``[..., b, r]``, methods ``inv`` and ``spd``) carries the
+    SPIKE factor's W forward sweep ``y_i = -F_i @ y_{i-1}`` along the
+    recursion (JAX ``blocktri_factor_inv_waux``, ``:360-412``): the return
+    is then ``(fact, y)``, ``y`` stacked ``[..., nb, b, r]``.
     """
-    if method not in ("inv", "spd"):
-        raise NotImplementedError(
-            f"blocktri_factor(method={method!r}) is not yet ported; "
-            "only 'inv' and 'spd' are")
+    if method not in ("inv", "spd", "lu"):
+        raise ValueError(
+            f"unknown method {method!r} (use 'inv', 'lu', or 'spd')")
+    if y0 is not None and method == "lu":
+        raise ValueError("y0 (the W sweep) needs method 'inv' or 'spd'")
     spd = method == "spd"
     if spd and t.D.is_complex():
         raise NotImplementedError(
             "blocktri_factor(method='spd') for complex Hermitian blocks is "
             "not yet ported")
+    guard = _Guard(t, shift, shift_amount)
     d0 = t.D[..., 0, :, :]
-    s_inv = batched_inverse(_symmetrize(d0) if spd else d0, inverter)
+    s0 = guard(_symmetrize(d0) if spd else d0)
+    if method == "lu":
+        lu, piv = _lu_factor(s0)
+        f_list, lu_list, piv_list = [], [lu], [piv]
+        for i in range(1, t.nb):
+            f = torch.linalg.lu_solve(lu, piv, t.L[..., i, :, :], left=False)
+            lu, piv = _lu_factor(
+                guard(t.D[..., i, :, :] - f @ t.U[..., i - 1, :, :]))
+            f_list.append(f)
+            lu_list.append(lu)
+            piv_list.append(piv)
+        F = _stack_F(f_list, s0)
+        return BlockTriFactor(F=F, U=t.U, Sinv=_placeholder(F), method="lu",
+                              Slu=torch.stack(lu_list, dim=-3),
+                              piv=torch.stack(piv_list, dim=-2).to(
+                                  torch.int32), nshift=guard.count)
+    s_inv = batched_inverse(s0, inverter)
     f_list, sinv_list = [], [s_inv]
+    y_list = [] if y0 is None else [y0]
     for i in range(1, t.nb):
         l = t.L[..., i, :, :]
         f = l @ s_inv
@@ -293,17 +522,36 @@ def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
             s = _symmetrize(t.D[..., i, :, :] - f @ l.transpose(-1, -2))
         else:
             s = t.D[..., i, :, :] - f @ t.U[..., i - 1, :, :]
-        s_inv = batched_inverse(s, inverter)
+        s_inv = batched_inverse(guard(s), inverter)
         f_list.append(f)
         sinv_list.append(s_inv)
-    U = t.U.new_zeros((*t.D.shape[:-2], 0, 0)) if spd else t.U
-    return _factor_from_lists(f_list, sinv_list, U, method)
+        if y0 is not None:
+            y_list.append(-_sweep_matvec(f, y_list[-1]))
+    F = _stack_F(f_list, s0)
+    fact = BlockTriFactor(F=F, U=_placeholder(F) if spd else t.U,
+                          Sinv=torch.stack(sinv_list, dim=-3), method=method,
+                          nshift=guard.count)
+    return fact if y0 is None else (fact, torch.stack(y_list, dim=-3))
 
 
 def _symmetrize(s: torch.Tensor) -> torch.Tensor:
     """``(S + S^T) / 2``: inexact inverters leave O(eps) asymmetry that would
     otherwise compound down the recursion."""
     return 0.5 * (s + s.transpose(-1, -2))
+
+
+def blocktri_factor_inv_waux(t: BlockTridiagonal, y0: torch.Tensor,
+                             shift: str = "none", shift_amount: float = 0.0,
+                             inverter: str = "auto"):
+    """``blocktri_factor(method='inv')`` on materialized blocks with the
+    auxiliary W-spike forward sweep ``y_i = -F_i @ y_{i-1}`` carried
+    alongside (JAX ``ops/blocktri.py:360-412``), and the shift guard of
+    :func:`blocktri_factor`.  The SPIKE factor takes it for ``inv``
+    partitions wherever the band-folded loop does not apply (a shift).
+
+    ``t``: ``[..., nb, b, b]`` blocks; ``y0``: ``[..., b, r]``.  Returns
+    ``(fact, y)`` with ``y`` stacked ``[..., nb, b, r]``."""
+    return blocktri_factor(t, "inv", shift, shift_amount, inverter, y0=y0)
 
 
 def blocktri_factor_inv_waux_band(local_band: torch.Tensor, y0: torch.Tensor,
@@ -346,7 +594,8 @@ def blocktri_factor_inv_waux_band(local_band: torch.Tensor, y0: torch.Tensor,
         u_prev = u
     # U[i] is block i's superdiagonal; U[nb-1] is a partition edge -> 0
     U = torch.stack(u_list + [torch.zeros_like(u_prev)], dim=-3)
-    fact = _factor_from_lists(f_list, sinv_list, U)
+    fact = BlockTriFactor(F=_stack_F(f_list, d0), U=U,
+                          Sinv=torch.stack(sinv_list, dim=-3))
     if keep_l:
         return fact, torch.stack(y_list, -3), torch.stack(l_list, dim=-3)
     return fact, torch.stack(y_list, -3)
@@ -383,23 +632,26 @@ def cast_factor(fact: BlockTriFactor, dtype: torch.dtype) -> BlockTriFactor:
     if fact.method not in ("inv", "spd"):
         raise ValueError("cast_factor supports method='inv'/'spd' factors")
     return BlockTriFactor(F=fact.F.to(dtype), U=fact.U.to(dtype),
-                          Sinv=fact.Sinv.to(dtype), method=fact.method)
+                          Sinv=fact.Sinv.to(dtype), method=fact.method,
+                          nshift=fact.nshift)
 
 
 def blocktri_solve(fact: BlockTriFactor, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve T x = rhs given a block-Thomas ``inv`` or ``spd`` factorization.
+    """Solve T x = rhs given a block-Thomas factorization (JAX
+    ``ops/blocktri.py:675-739``).
 
     rhs: ``[..., nb, b]`` or ``[..., nb, b, r]`` with the factor's leading
     dims.  Forward sweep ``y_i = rhs_i - F_i y_{i-1}``; backward sweep
-    ``x_i = Sinv_i (y_i - U_i x_{i+1})`` for ``inv`` and
+    ``x_i = Sinv_i (y_i - U_i x_{i+1})`` for ``inv``,
     ``x_i = Sinv_i y_i - F_{i+1}^T x_{i+1}`` for ``spd`` (Sinv_i U_i =
-    F_{i+1}^T when U_i = L_{i+1}^T and Sinv is symmetric).  The result is in
-    the sweep precision (f32 or wider).  The plain version of the fused
-    sweep kernels (``ops/cuda/fused_sweep.py``, ``fused_sweep_spd.py``).
+    F_{i+1}^T when U_i = L_{i+1}^T and Sinv is symmetric), and
+    ``x_i = S_i^{-1} (y_i - U_i x_{i+1})`` by a pivoted LU solve for
+    ``lu``.  The result is in the sweep precision (f32 or wider).  The plain
+    version of the fused sweep kernels (``ops/cuda/fused_sweep.py``,
+    ``fused_sweep_spd.py``), which take ``inv`` and ``spd`` factors only.
     """
-    if fact.method not in ("inv", "spd"):
-        raise NotImplementedError(
-            f"blocktri_solve for method={fact.method!r} is not yet ported")
+    if fact.method not in ("inv", "spd", "lu"):
+        raise ValueError(f"unsupported method {fact.method!r}")
     squeeze = rhs.dim() == fact.F.dim() - 1
     if squeeze:
         rhs = rhs[..., None]
@@ -408,6 +660,14 @@ def blocktri_solve(fact: BlockTriFactor, rhs: torch.Tensor) -> torch.Tensor:
     ys = [rhs[..., 0, :, :].to(sweep_precision(fact.F, rhs))]
     for i in range(1, nb):
         ys.append(rhs[..., i, :, :] - mv(fact.F[..., i, :, :], ys[-1]))
+    if fact.method == "lu":
+        xs = [_lu_solve(fact.Slu[..., nb - 1, :, :], fact.piv[..., nb - 1, :],
+                        ys[nb - 1])]
+        for i in range(nb - 2, -1, -1):
+            xs.append(_lu_solve(fact.Slu[..., i, :, :], fact.piv[..., i, :],
+                                ys[i] - mv(fact.U[..., i, :, :], xs[-1])))
+        x = torch.stack(xs[::-1], dim=-3)
+        return x[..., 0] if squeeze else x
     xs = [mv(fact.Sinv[..., nb - 1, :, :], ys[nb - 1])]
     for i in range(nb - 2, -1, -1):
         if fact.method == "spd":
@@ -460,7 +720,7 @@ def transposed_factor_from_L(fact: BlockTriFactor,
                     zbb], dim=-3)
     return BlockTriFactor(F=Fh.contiguous(), U=Uh.contiguous(),
                           Sinv=fact.Sinv.transpose(-1, -2).contiguous(),
-                          method="inv")
+                          method="inv", nshift=fact.nshift)
 
 
 def blocktri_solve_transpose(fact: BlockTriFactor,
@@ -475,8 +735,9 @@ def blocktri_solve_transpose(fact: BlockTriFactor,
         forward:  z_0 = S_0^{-T} r_0,  z_i = S_i^{-T} (r_i - U_{i-1}^T z_{i-1})
         backward: x_{nb-1} = z_{nb-1},  x_i = z_i - F_{i+1}^T x_{i+1}
 
-    A real ``spd`` factor is its own transpose: the forward solve.  The
-    ``lu`` method is not ported.  rhs: ``[..., nb, b]`` or
+    (S_i^{-T} by a pivoted LU solve of S_i^T for ``lu``; JAX
+    ``ops/blocktri.py:784-847``).  A real ``spd`` factor is its own
+    transpose: the forward solve.  rhs: ``[..., nb, b]`` or
     ``[..., nb, b, r]`` with the factor's leading dims; the result is in
     the sweep precision.  Plain PyTorch: no kernel takes this form."""
     if fact.method == "spd":
@@ -485,11 +746,7 @@ def blocktri_solve_transpose(fact: BlockTriFactor,
                 "blocktri_solve_transpose for complex Hermitian 'spd' "
                 "factors is not yet ported to spike_petsc_tpu_torch")
         return blocktri_solve(fact, rhs)
-    if fact.method == "lu":
-        raise NotImplementedError(
-            "blocktri_solve_transpose(method='lu'): the 'lu' factor method "
-            "is not yet ported to spike_petsc_tpu_torch")
-    if fact.method != "inv":
+    if fact.method not in ("inv", "lu"):
         raise ValueError(f"unsupported method {fact.method!r}")
     squeeze = rhs.dim() == fact.F.dim() - 1
     if squeeze:
@@ -499,11 +756,18 @@ def blocktri_solve_transpose(fact: BlockTriFactor,
     def tT(a):
         return a.transpose(-1, -2)
 
-    zs = [mv(tT(fact.Sinv[..., 0, :, :]), rhs[..., 0, :, :])]
+    if fact.method == "lu":
+        def s_inv_t(i, v):
+            return _lu_solve(fact.Slu[..., i, :, :], fact.piv[..., i, :],
+                             v.to(sweep_precision(fact.F, v)), trans=True)
+    else:
+        def s_inv_t(i, v):
+            return mv(tT(fact.Sinv[..., i, :, :]), v)
+
+    zs = [s_inv_t(0, rhs[..., 0, :, :])]
     for i in range(1, nb):
-        zs.append(mv(tT(fact.Sinv[..., i, :, :]),
-                     rhs[..., i, :, :] - mv(tT(fact.U[..., i - 1, :, :]),
-                                            zs[-1])))
+        zs.append(s_inv_t(i, rhs[..., i, :, :]
+                          - mv(tT(fact.U[..., i - 1, :, :]), zs[-1])))
     xs = [zs[nb - 1]]
     for i in range(nb - 2, -1, -1):
         xs.append(zs[i] - mv(tT(fact.F[..., i + 1, :, :]), xs[-1]))

@@ -1,22 +1,31 @@
 """SPIKE partitioned banded factorization and solve (PyTorch, single device).
 
-The port of the subset of ``spike_petsc_tpu.ops.spike`` that the flagship
-and SPD paths run:
+The port of ``spike_petsc_tpu.ops.spike``:
 
 * the band is split into K row partitions, each factored by block-Thomas:
   ``method='inv'`` with the band->block conversion folded into the factor
-  loop (``blocktri_factor_inv_waux_band``, K batched), ``method='spd'``
-  (symmetric block-LDL^T, F and Sinv only) on materialized blocks;
+  loop (``blocktri_factor_inv_waux_band``, K batched) or, with a pivot
+  shift, on materialized blocks (``blocktri_factor_inv_waux``);
+  ``method='spd'`` (symmetric block-LDL^T, F and Sinv only) and
+  ``method='lu'`` (pivoted LU of each Schur complement) on materialized
+  blocks; or by cyclic reduction (``method='cr'``, ``ops/cyclic.py``);
+  ``shift='nonzero'`` guards every pivot block (``blocktri.boost_diag``);
 * the k x k coupling tips B_p (to the next partition) and C_p (to the
   previous one) give the spikes V_p = A_p^{-1} E_bot B_p and
   W_p = A_p^{-1} E_top C_p;
 * the reduced interface system is block-tridiagonal with 2k x 2k blocks and
-  K-1 block rows, factored by block-Thomas, or, ``truncated``, only its
+  K-1 block rows, factored by block-Thomas (``lu`` for ``lu`` partitions,
+  else ``inv``) or by cyclic reduction (K - 1 >= 255 block rows,
+  ``reduced='cr'``, or ``cr`` partitions), or, ``truncated``, only its
   diagonal blocks, inverted (exact in the diagonally dominant limit);
+* ``spike_factor_blocks`` factors a band already assembled as global
+  blocks, and ``spike_factor_grouped`` factors the partitions a group at a
+  time, for its peak memory;
 * a solve is one partition sweep (on the card ``sweep_route`` picks the
   fused CUDA kernel of the factor's method, or for an ``inv`` partition too
   long for its shared memory the two-pass sweep kernels, which
-  ``impl="pallas"`` also names), a reduced solve, and the stored-spike
+  ``impl="pallas"`` also names; ``lu`` and CR factors, which no kernel
+  takes, the plain sweeps), a reduced solve, and the stored-spike
   correction ``x = g - V xt - W xb`` (or a second sweep when spikes are
   not stored);
 * ``spike_solve_many`` does the same for ``[n, r]`` right-hand sides, the
@@ -24,14 +33,15 @@ and SPD paths run:
 * ``spike_transpose`` turns a factorization of A into one of A^T on the
   same partition factors: a regular-form ``inv`` factor (from the L blocks
   kept by ``store_lt`` or cut from the band), which the sweep kernels take
-  as they take the forward one, or the storage-sharing marker, whose
-  transpose sweeps are plain PyTorch.
+  as they take the forward one, or the storage-sharing marker (``lu``
+  factors always), whose transpose sweeps are plain PyTorch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -39,9 +49,11 @@ from .band import BandedMatrix, pad_banded
 from .blocktri import (BlockTridiagonal, BlockTriFactor,
                        TransposedBlockTriFactor, _sweep_matvec,
                        band_to_blocktri, blocktri_factor,
+                       blocktri_factor_inv_waux,
                        blocktri_factor_inv_waux_band, blocktri_solve,
-                       blocktri_solve_transpose, cast_factor, sweep_precision,
-                       transposed_factor_from_L)
+                       blocktri_solve_transpose, cast_factor, lapack_inv,
+                       sweep_precision, transposed_factor_from_L)
+from .cyclic import CRFactor, cast_cr_factor, cr_factor, cr_solve
 from .cuda.fused_sweep import blocktri_solve_fused_cuda, fused_sweep_feasible
 from .cuda.fused_sweep_many import (blocktri_solve_fused_many_cuda,
                                     fused_sweep_many_feasible)
@@ -54,11 +66,13 @@ from .cuda.sweeps import blocktri_solve_batched_cuda, sweeps_feasible
 class SpikeFactor:
     """Factorization state for SPIKE solves."""
 
-    fact: BlockTriFactor                  # per-partition factors, leading K
-    #                                       (or the transpose marker)
+    # per-partition factors, leading K: block-Thomas, CR, or the
+    # transpose marker
+    fact: Union[BlockTriFactor, CRFactor, TransposedBlockTriFactor]
     Btip: torch.Tensor                    # [K, k, k], coupling to next
     Ctip: torch.Tensor                    # [K, k, k], coupling to prev
-    red_fact: Optional[BlockTriFactor]    # exact reduced-system factorization
+    # exact reduced-system factorization (block-Thomas or CR)
+    red_fact: Optional[Union[BlockTriFactor, CRFactor]]
     V: Optional[torch.Tensor]             # [K, nb, b, k] right spikes
     W: Optional[torch.Tensor]             # [K, nb, b, k] left spikes
     n: int                                # original size
@@ -114,19 +128,22 @@ def _skew_tip(rows: torch.Tensor, off: int, k: int) -> torch.Tensor:
 
 
 def _extract_tips(data: torch.Tensor, K: int, m: int, k: int, kl: int,
-                  ku: int):
+                  ku: int, zero_boundaries: bool = True):
     """Pull the k x k coupling corners out of global band storage:
 
     B_tip[p][r, c] = A[p*m + (m-k) + r, (p+1)*m + c]  (band offset c + k - r)
     C_tip[p][r, c] = A[p*m + r,        (p-1)*m + (m-k) + c]  (offset c - k - r)
 
-    with B_tip[K-1] and C_tip[0] zero (the global boundary)."""
+    with B_tip[K-1] and C_tip[0] zero (the global boundary), unless
+    ``zero_boundaries`` is off: a group of partitions cut from the middle of
+    the band keeps its outward tips (``spike_factor_grouped``)."""
     w = kl + ku + 1
     local = data.reshape(K, m, w)
     Btip = _skew_tip(local[:, m - k:, :], k + kl, k).clone()
     Ctip = _skew_tip(local[:, :k, :], kl - k, k).clone()
-    Btip[K - 1] = 0
-    Ctip[0] = 0
+    if zero_boundaries:
+        Btip[K - 1] = 0
+        Ctip[0] = 0
     return Btip, Ctip
 
 
@@ -158,13 +175,23 @@ def _spike_bwd_one(f: BlockTriFactor, Bt: torch.Tensor, yw: torch.Tensor,
     return x[..., :k], x[..., k:]
 
 
-def _spike_columns(f: BlockTriFactor, Btip: torch.Tensor, Ctip: torch.Tensor,
+def _spike_columns(f, Btip: torch.Tensor, Ctip: torch.Tensor, nb: int,
                    b: int, k: int, dtype):
-    """Spike columns V = A_p^{-1} E_bot B_p and W = A_p^{-1} E_top C_p for
-    ``inv``/``spd`` factors: V's forward sweep is free (its right-hand side
-    lives in the last block only), W's is ``y_i = -F_i y_{i-1}`` from the
-    C-tip block, and both share one backward sweep (``_spike_bwd_one``)."""
+    """Spike columns V = A_p^{-1} E_bot B_p and W = A_p^{-1} E_top C_p.
+
+    For ``inv``/``spd`` factors V's forward sweep is free (its right-hand
+    side lives in the last block only), W's is ``y_i = -F_i y_{i-1}`` from
+    the C-tip block, and both share one backward sweep
+    (``_spike_bwd_one``).  Other factors (``lu``, CR) take one plain batched
+    solve of both right-hand sides, 2k columns (JAX solves them one after
+    the other: the same columns, the same arithmetic)."""
     K = Btip.shape[0]
+    if not (isinstance(f, BlockTriFactor) and f.method in ("inv", "spd")):
+        rhs = torch.zeros((K, nb, b, 2 * k), dtype=dtype, device=Btip.device)
+        rhs[:, nb - 1, b - k:, :k] = Btip
+        rhs[:, 0, :k, k:] = Ctip
+        VW = _batched_tri_solve(f, rhs)
+        return VW[..., :k], VW[..., k:]
     y = torch.zeros((K, b, k), dtype=dtype, device=Btip.device)
     y[:, :k, :] = Ctip
     ys = [y]
@@ -173,15 +200,37 @@ def _spike_columns(f: BlockTriFactor, Btip: torch.Tensor, Ctip: torch.Tensor,
     return _spike_bwd_one(f, Btip, torch.stack(ys, dim=1), b, k, dtype)
 
 
+_REDUCED = ("auto", "thomas", "cr")
+
+
+def reduced_factor(red: BlockTridiagonal, method: str, reduced: str = "auto",
+                   inverter: str = "auto", cr_threshold: int = 33):
+    """Factor the SPIKE reduced interface system (JAX
+    ``ops/spike.py:138-159``).  ``reduced``: "thomas" (block-Thomas),
+    "cr" (cyclic reduction, ``ops/cyclic.py``: log2(K) levels of batched
+    products instead of a loop over K - 1 block rows), or "auto" (CR when
+    the system has >= ``cr_threshold`` block rows or the partitions are
+    factored by CR).  Block-Thomas takes ``method`` for ``inv`` and ``lu``
+    and ``inv`` otherwise.  The SPIKE factor passes ``cr_threshold=255``."""
+    if reduced not in _REDUCED:
+        raise ValueError(f"unknown reduced {reduced!r}: expected "
+                         f"{', '.join(_REDUCED)}")
+    if reduced == "cr" or method == "cr" or (
+            reduced == "auto" and red.nb >= cr_threshold):
+        return cr_factor(red, inverter=inverter)
+    return blocktri_factor(red, method=method if method in ("inv", "lu")
+                           else "inv", inverter=inverter)
+
+
 def _reduced_from_tips(V_top, V_bot, W_top, W_bot, *, truncated: bool,
-                       inverter: str, cr_threshold: int = 255):
+                       inverter: str, method: str = "inv",
+                       reduced: str = "auto", cr_threshold: int = 255):
     """The reduced interface system: K-1 block rows of 2k x 2k,
     D_j = [[I, V_bot_j], [W_top_{j+1}, I]], coupled through W_bot and V_top.
     Returns ``(red_fact, red_Dinv)``: ``truncated`` drops the coupling and
-    keeps ``red_Dinv = D^{-1}`` (K-1 independent solves); otherwise an
-    ``inv`` block-Thomas factor, whatever the partitions' method (the JAX
-    ``reduced_factor`` maps ``spd`` to ``inv``), below ``cr_threshold``
-    block rows (cyclic reduction beyond it is not yet ported)."""
+    keeps ``red_Dinv = D^{-1}`` (K-1 independent solves); otherwise the
+    factor of :func:`reduced_factor` (cyclic reduction from
+    ``cr_threshold`` block rows on, JAX ``ops/spike.py:461-487``)."""
     K, k = V_top.shape[0], V_top.shape[1]
     dtype, dev = V_top.dtype, V_top.device
     eye = torch.eye(k, dtype=dtype, device=dev).expand(K - 1, k, k)
@@ -189,49 +238,94 @@ def _reduced_from_tips(V_top, V_bot, W_top, W_bot, *, truncated: bool,
     D = torch.cat([torch.cat([eye, V_bot[:-1]], dim=2),
                    torch.cat([W_top[1:], eye], dim=2)], dim=1)
     if truncated:
-        eye2 = torch.eye(2 * k, dtype=dtype, device=dev).expand_as(D)
-        return None, torch.linalg.solve(D, eye2)
-    if K - 1 >= cr_threshold:
-        raise _not_ported("cyclic reduction of the reduced system (K > 255)")
+        return None, lapack_inv(D)
     L = torch.cat([torch.cat([W_bot[:-1], z], dim=2),
                    torch.cat([z, z], dim=2)], dim=1)
     L[0] = 0
     U = torch.cat([torch.cat([z, z], dim=2),
                    torch.cat([z, V_top[1:]], dim=2)], dim=1)
     U[K - 2] = 0
-    return blocktri_factor(BlockTridiagonal(D=D, L=L, U=U), method="inv",
-                           inverter=inverter), None
+    return reduced_factor(BlockTridiagonal(D=D, L=L, U=U), method, reduced,
+                          inverter=inverter, cr_threshold=cr_threshold), None
 
 
-def _finish_factor(fact, yw, Btip, Ctip, *, n, K, m, b, k, truncated,
-                   store_spikes, store_dtype, inverter,
-                   spike_dtype, Lb=None) -> SpikeFactor:
-    """Factorization tail: spikes -> reduced system -> mixed-precision cast.
-    ``yw`` is the W forward sweep from the folded factor loop (None when
-    the factor was computed without it); ``Lb`` the L blocks to keep
-    (store_lt), cast with the factor."""
-    nb = m // b
-    V = W = red_fact = red_Dinv = None
-    if K > 1:
-        dtype = fact.Sinv.dtype
-        if yw is None:
-            Vfull, Wfull = _spike_columns(fact, Btip, Ctip, b, k, dtype)
-        else:
-            Vfull, Wfull = _spike_bwd_one(fact, Btip, yw, b, k, dtype)
-        red_fact, red_Dinv = _reduced_from_tips(
-            Vfull[:, 0, :k, :], Vfull[:, nb - 1, b - k:, :],
-            Wfull[:, 0, :k, :], Wfull[:, nb - 1, b - k:, :],
-            truncated=truncated, inverter=inverter)
-        if store_spikes:
-            V, W = Vfull, Wfull
+_METHODS = ("inv", "spd", "lu", "cr")
+
+
+def _check_options(method: str, store_lt: bool) -> None:
+    if method not in _METHODS:
+        raise ValueError(f"unknown method {method!r}: expected "
+                         f"{', '.join(_METHODS)}")
+    if store_lt and method != "inv":
+        raise ValueError(
+            "store_lt builds the regular-form transpose factor, which "
+            f"needs method='inv' block-Thomas factors (got {method!r})")
+
+
+def _factor_partitions(blocks: BlockTridiagonal, Ctip: torch.Tensor, *,
+                       method, shift, shift_amount, inverter, b, k):
+    """The partition factors of materialized ``[K, nb, b, b]`` blocks and,
+    for ``inv`` with K > 1, the W forward sweep carried along (JAX
+    ``_finish_factor``, ``ops/spike.py:256-277``).  Returns ``(fact,
+    yw)``, ``yw`` None where the factor was computed without it."""
+    kw = dict(shift=shift, shift_amount=shift_amount, inverter=inverter)
+    if method == "cr":
+        return cr_factor(blocks, **kw), None
+    K = Ctip.shape[0]
+    if method == "inv" and K > 1:
+        Cb = torch.zeros((K, b, k), dtype=blocks.dtype,
+                         device=blocks.D.device)
+        Cb[:, :k, :] = Ctip
+        return blocktri_factor_inv_waux(blocks, Cb, **kw)
+    return blocktri_factor(blocks, method=method, **kw), None
+
+
+def _spikes(fact, yw, Btip, Ctip, nb, b, k):
+    """Full V and W spikes ``[K, nb, b, k]``."""
+    if yw is not None:
+        return _spike_bwd_one(fact, Btip, yw, b, k, Btip.dtype)
+    return _spike_columns(fact, Btip, Ctip, nb, b, k, Btip.dtype)
+
+
+def _tips_of(Vfull, Wfull, nb, b, k):
+    """(V_top, V_bot, W_top, W_bot): the spikes' interface rows."""
+    return (Vfull[:, 0, :k, :], Vfull[:, nb - 1, b - k:, :],
+            Wfull[:, 0, :k, :], Wfull[:, nb - 1, b - k:, :])
+
+
+def _cast_stored(fact, V, W, Lb, store_dtype, spike_dtype):
+    """The mixed-precision cast of the stored state: factors, spikes and
+    kept L blocks to ``store_dtype``, then the spikes to ``spike_dtype``
+    (``lu`` factors refuse a ``store_dtype``, as in JAX)."""
     if store_dtype is not None:
-        fact = cast_factor(fact, store_dtype)
+        fact = (cast_cr_factor if isinstance(fact, CRFactor)
+                else cast_factor)(fact, store_dtype)
         if V is not None:
             V, W = V.to(store_dtype), W.to(store_dtype)
         if Lb is not None:
             Lb = Lb.to(store_dtype)
     if spike_dtype is not None and V is not None:
         V, W = V.to(spike_dtype), W.to(spike_dtype)
+    return fact, V, W, Lb
+
+
+def _finish_factor(fact, yw, Btip, Ctip, *, n, K, m, b, k, method,
+                   truncated, store_spikes, store_dtype, reduced, inverter,
+                   spike_dtype, Lb=None) -> SpikeFactor:
+    """Factorization tail: spikes -> reduced system -> mixed-precision cast.
+    ``yw`` is the W forward sweep carried by the ``inv`` factor loop (None
+    when the factor was computed without it); ``Lb`` the L blocks to keep
+    (store_lt), cast with the factor."""
+    nb = m // b
+    V = W = red_fact = red_Dinv = None
+    if K > 1:
+        Vfull, Wfull = _spikes(fact, yw, Btip, Ctip, nb, b, k)
+        red_fact, red_Dinv = _reduced_from_tips(
+            *_tips_of(Vfull, Wfull, nb, b, k), truncated=truncated,
+            method=method, reduced=reduced, inverter=inverter)
+        if store_spikes:
+            V, W = Vfull, Wfull
+    fact, V, W, Lb = _cast_stored(fact, V, W, Lb, store_dtype, spike_dtype)
     return SpikeFactor(fact=fact, Btip=Btip, Ctip=Ctip, red_fact=red_fact,
                        V=V, W=W, n=n, K=K, m=m, b=b, k=k, red_Dinv=red_Dinv,
                        truncated=truncated, Lb=Lb)
@@ -243,32 +337,32 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
                  reduced: str = "auto", shift: str = "none",
                  shift_amount: float = 0.0, inverter: str = "auto",
                  spike_dtype=None, store_lt: bool = False) -> SpikeFactor:
-    """Factor a banded matrix for SPIKE solves over K partitions.
+    """Factor a banded matrix for SPIKE solves over K partitions (JAX
+    ``ops/spike.py:588-647``, the same arguments).
 
-    Same arguments as the JAX ``spike_factor``.  Ported: ``method='inv'``
-    and ``method='spd'`` (symmetric block-LDL^T for a symmetric band: F and
-    Sinv stored, 2/3 of ``inv``'s factor memory, U blocks ignored), the
-    exact block-Thomas reduced system and the ``truncated`` one,
-    ``store_spikes``, ``store_dtype``, ``spike_dtype`` and ``store_lt``
-    (keep the subdiagonal blocks, ``SpikeFactor.Lb`` at ``store_dtype``, so
-    that ``spike_transpose`` builds the regular-form transpose without the
-    band; ``method='inv'`` only); the rest raise.
+    ``method``: ``'inv'`` (block-Thomas with stored Schur inverses),
+    ``'lu'`` (pivoted LU factors of the Schur complements), ``'cr'`` (cyclic
+    reduction) or ``'spd'`` (symmetric block-LDL^T for a symmetric band: F
+    and Sinv stored, 2/3 of ``inv``'s factor memory, U blocks ignored).
+    ``reduced``: the reduced system by ``'thomas'``, ``'cr'``, or
+    ``'auto'`` (CR when K - 1 >= 255, or for ``cr`` partitions).
+    ``shift='nonzero'`` raises small pivots of every partition's Schur
+    complements (``blocktri.boost_diag``, floor ``shift_amount`` or, where
+    it is <= 0, 1e-8 of the partition's largest block entry); the count is
+    ``fact.nshift`` ``[K]``.  The band->block conversion rides the ``inv``
+    factor loop where K > 1 and there is no shift; a shift materializes the
+    blocks (its default floor needs their maximum).  ``truncated``,
+    ``store_spikes``, ``store_dtype`` (not for ``lu``), ``spike_dtype`` and
+    ``store_lt`` (keep the subdiagonal blocks, ``SpikeFactor.Lb`` at
+    ``store_dtype``, so that ``spike_transpose`` builds the regular-form
+    transpose without the band; ``method='inv'`` only) as in JAX.
     """
-    if method not in ("inv", "spd"):
-        raise _not_ported(f"spike_factor(method={method!r})")
-    if reduced not in ("auto", "thomas"):
-        raise _not_ported(f"spike_factor(reduced={reduced!r})")
-    if shift != "none":
-        raise _not_ported(f"spike_factor(shift={shift!r})")
-    if store_lt and method != "inv":
-        raise ValueError(
-            "store_lt builds the regular-form transpose factor, which "
-            f"needs method='inv' block-Thomas factors (got {method!r})")
+    _check_options(method, store_lt)
     n, kl, ku = band.n, band.kl, band.ku
     k, b, m = _partition_geometry(n, K, kl, ku, block_b)
     band = pad_banded(band, K * m)
     Btip, Ctip = _extract_tips(band.data, K, m, k, kl, ku)
-    if method == "inv" and K > 1:
+    if method == "inv" and K > 1 and shift == "none":
         # the conversion rides the factor loop, with the W forward sweep
         local = band.data.reshape(K, m // b, b, band.width)
         Cb = torch.zeros((K, b, k), dtype=band.dtype, device=band.device)
@@ -278,13 +372,155 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
         Lb = kept[0] if kept else None
     else:
         blocks = _partition_blocks(band, K, m, b)
-        fact = blocktri_factor(blocks, method=method, inverter=inverter)
-        yw = None
+        fact, yw = _factor_partitions(
+            blocks, Ctip, method=method, shift=shift,
+            shift_amount=shift_amount, inverter=inverter, b=b, k=k)
         Lb = blocks.L if store_lt else None
     return _finish_factor(fact, yw, Btip, Ctip, n=n, K=K, m=m, b=b, k=k,
-                          truncated=truncated, store_spikes=store_spikes,
-                          store_dtype=store_dtype, inverter=inverter,
+                          method=method, truncated=truncated,
+                          store_spikes=store_spikes, store_dtype=store_dtype,
+                          reduced=reduced, inverter=inverter,
                           spike_dtype=spike_dtype, Lb=Lb)
+
+
+def spike_factor_blocks(T: BlockTridiagonal, n: int, K: int, kl: int,
+                        ku: int, method: str = "inv",
+                        truncated: bool = False, store_spikes: bool = False,
+                        store_dtype=None, reduced: str = "auto",
+                        shift: str = "none", shift_amount: float = 0.0,
+                        inverter: str = "auto", spike_dtype=None,
+                        store_lt: bool = False) -> SpikeFactor:
+    """Factor a banded matrix already assembled as GLOBAL block-tridiagonal
+    blocks ``T`` (``[NB, b, b]``, p-major; JAX ``ops/spike.py:352-400``):
+    the partitions are a reshape, the coupling tips the corners of the
+    blocks that cross a partition boundary, and no band->block conversion
+    runs.
+
+    ``NB`` must be divisible by K and rows beyond ``n`` must be
+    unit-diagonal padding; the band structure (kl, ku <= b) must hold, the
+    coupling blocks carrying entries only in their band corners.  ``n`` is
+    the true size (solves return ``[n]``); kl, ku set the tip size.  The
+    other options as in :func:`spike_factor`."""
+    NB, b = T.nb, T.b
+    k = max(kl, ku, 1)
+    if kl > b or ku > b:
+        raise ValueError(f"block size {b} must cover half-bandwidths "
+                         f"(kl={kl}, ku={ku})")
+    if NB % K:
+        raise ValueError(f"block count {NB} must be divisible by K={K}")
+    nb = NB // K
+    if nb * b < 2 * k and K > 1:
+        raise ValueError(
+            f"partition rows {nb * b} must be >= 2*k={2 * k}; "
+            f"reduce K or bandwidth")
+    _check_options(method, store_lt)
+    Dr, Lr, Ur = (a.reshape(K, nb, b, b) for a in (T.D, T.L, T.U))
+    Btip = Ur[:, nb - 1, b - k:, :k].clone()
+    Ctip = Lr[:, 0, :k, b - k:].clone()
+    Btip[K - 1] = 0
+    Ctip[0] = 0
+    L, U = Lr.clone(), Ur.clone()
+    L[:, 0] = 0
+    U[:, nb - 1] = 0
+    blocks = BlockTridiagonal(D=Dr, L=L, U=U)
+    fact, yw = _factor_partitions(blocks, Ctip, method=method, shift=shift,
+                                  shift_amount=shift_amount,
+                                  inverter=inverter, b=b, k=k)
+    return _finish_factor(fact, yw, Btip, Ctip, n=n, K=K, m=nb * b, b=b, k=k,
+                          method=method, truncated=truncated,
+                          store_spikes=store_spikes, store_dtype=store_dtype,
+                          reduced=reduced, inverter=inverter,
+                          spike_dtype=spike_dtype,
+                          Lb=L if store_lt else None)
+
+
+def _into(out, piece, g: int, Kg: int, K: int):
+    """Write group ``g``'s state ``piece`` (leading dim Kg) into the full-K
+    ``out`` (allocated from the first piece when ``out`` is None), field by
+    field through the factor dataclasses; what is not a tensor (None, a
+    method name, CR's block counts) is taken as it is."""
+    if isinstance(piece, tuple):
+        return tuple(_into(o, p, g, Kg, K)
+                     for o, p in zip(out or (None,) * len(piece), piece))
+    if dataclasses.is_dataclass(piece):
+        return type(piece)(**{
+            f.name: _into(None if out is None else getattr(out, f.name),
+                          getattr(piece, f.name), g, Kg, K)
+            for f in dataclasses.fields(piece)})
+    if not isinstance(piece, torch.Tensor):
+        return piece
+    if out is None:
+        out = piece.new_zeros((K, *piece.shape[1:]))
+    out[g * Kg:(g + 1) * Kg] = piece
+    return out
+
+
+def spike_factor_grouped(band: BandedMatrix, K: int, groups: int,
+                         block_b: Optional[int] = None, method: str = "inv",
+                         truncated: bool = False, store_spikes: bool = False,
+                         store_dtype=None, reduced: str = "auto",
+                         shift: str = "none", shift_amount: float = 0.0,
+                         inverter: str = "auto", spike_dtype=None,
+                         store_lt: bool = False) -> SpikeFactor:
+    """:func:`spike_factor` with the partitions factored in ``groups``
+    groups of K / groups, one after the other (JAX ``ops/spike.py:490-578``).
+
+    **The point is the peak memory.**  Partitions are independent, so each
+    group's full-precision working set (the block conversion, the factor
+    loop, the spike sweeps) is freed before the next group runs, and the
+    results are written into full-K buffers allocated once: the peak is the
+    final factor storage plus one group's working set, instead of all the
+    partitions' working sets at once.  The groups are cut from the
+    original band (only the last one is padded), each group's outward tips
+    kept but the global ones zeroed; the reduced system is built from all
+    the groups' spike tips at the end.  The result equals
+    :func:`spike_factor`'s up to summation order (the per-partition
+    arithmetic is the same; the ``inv`` partitions are factored on
+    materialized blocks, as a shifted :func:`spike_factor` factors them).
+    """
+    if groups < 1 or K % groups:
+        raise ValueError(f"groups={groups} must divide K={K}")
+    _check_options(method, store_lt)
+    if groups == 1 or K == 1:
+        return spike_factor(band, K, block_b=block_b, method=method,
+                            truncated=truncated, store_spikes=store_spikes,
+                            store_dtype=store_dtype, reduced=reduced,
+                            shift=shift, shift_amount=shift_amount,
+                            inverter=inverter, spike_dtype=spike_dtype,
+                            store_lt=store_lt)
+    n, kl, ku = band.n, band.kl, band.ku
+    k, b, m = _partition_geometry(n, K, kl, ku, block_b)
+    Kg, nb = K // groups, m // b
+    out = None
+    for g in range(groups):
+        seg = BandedMatrix(data=band.data[g * Kg * m:min((g + 1) * Kg * m,
+                                                          n)], kl=kl, ku=ku)
+        seg = pad_banded(seg, Kg * m)
+        Btip, Ctip = _extract_tips(seg.data, Kg, m, k, kl, ku,
+                                   zero_boundaries=False)
+        if g == groups - 1:
+            Btip[Kg - 1] = 0
+        if g == 0:
+            Ctip[0] = 0
+        blocks = _partition_blocks(seg, Kg, m, b)
+        fact, yw = _factor_partitions(
+            blocks, Ctip, method=method, shift=shift,
+            shift_amount=shift_amount, inverter=inverter, b=b, k=k)
+        Vfull, Wfull = _spikes(fact, yw, Btip, Ctip, nb, b, k)
+        tips = _tips_of(Vfull, Wfull, nb, b, k)
+        V, W = (Vfull, Wfull) if store_spikes else (None, None)
+        fact, V, W, Lb = _cast_stored(fact, V, W,
+                                      blocks.L if store_lt else None,
+                                      store_dtype, spike_dtype)
+        out = _into(out, (fact, V, W, tips, Lb, Btip, Ctip), g, Kg, K)
+        del blocks, fact, yw, Vfull, Wfull, V, W, Lb
+    fact, V, W, tips, Lb, Btip, Ctip = out
+    red_fact, red_Dinv = _reduced_from_tips(
+        *tips, truncated=truncated, method=method, reduced=reduced,
+        inverter=inverter)
+    return SpikeFactor(fact=fact, Btip=Btip, Ctip=Ctip, red_fact=red_fact,
+                       V=V, W=W, n=n, K=K, m=m, b=b, k=k, red_Dinv=red_Dinv,
+                       truncated=truncated, Lb=Lb)
 
 
 def _partition_blocks(band: BandedMatrix, K: int, m: int,
@@ -302,11 +538,20 @@ def _partition_blocks(band: BandedMatrix, K: int, m: int,
 def _batched_tri_solve(fact, rhs: torch.Tensor) -> torch.Tensor:
     """The plain per-partition solve of ``rhs [K, nb, b(, r)]``,
     dispatching on the factor type: the transpose marker to
-    ``blocktri_solve_transpose`` on its base, a block-Thomas factor to
-    ``blocktri_solve``."""
+    ``blocktri_solve_transpose`` on its base, a CR factor to ``cr_solve``,
+    a block-Thomas factor to ``blocktri_solve``."""
     if isinstance(fact, TransposedBlockTriFactor):
         return blocktri_solve_transpose(fact.base, rhs)
+    if isinstance(fact, CRFactor):
+        return cr_solve(fact, rhs)
     return blocktri_solve(fact, rhs)
+
+
+def _solve_reduced_system(red_fact, rhs: torch.Tensor) -> torch.Tensor:
+    """The reduced solve, dispatching on the factor type (Thomas or CR)."""
+    if isinstance(red_fact, CRFactor):
+        return cr_solve(red_fact, rhs)
+    return blocktri_solve(red_fact, rhs)
 
 
 def spike_transpose(sf: SpikeFactor, reduced: str = "auto",
@@ -327,22 +572,26 @@ def spike_transpose(sf: SpikeFactor, reduced: str = "auto",
     * from ``band``, the ORIGINAL band: the same, its L blocks cut with
       the forward factor's K and m (on the card a PC's default block moves
       the partition boundaries, so they are never recomputed);
-    * otherwise (or ``fast=False``) the storage-sharing
+    * otherwise (``lu`` factors, or ``fast=False``) the storage-sharing
       ``TransposedBlockTriFactor`` marker, whose sweeps are plain PyTorch.
 
     The coupling tips swap and transpose (A^T couples partition p forward
     through C_{p+1}^T and backward through B_{p-1}^T); the transpose
     spikes are one plain batched solve of their 2k columns, and the
-    reduced system is rebuilt from their tips with ``inverter`` (pass the
-    forward factor's resolved one).  ``store_spikes``: None keeps V/W iff
-    the forward factor did.  A real ``spd`` factorization is its own
-    transpose and comes back as is."""
+    reduced system is rebuilt from their tips by :func:`reduced_factor`
+    (``reduced``: CR from K - 1 >= 255 under 'auto'; ``lu`` for ``lu``
+    partitions) with ``inverter`` (pass the forward factor's resolved
+    one).  ``store_spikes``: None keeps V/W iff the forward factor did.  A
+    real ``spd`` factorization is its own transpose and comes back as is;
+    CR partition factors raise ``ValueError``, as in JAX."""
     if not isinstance(sf.fact, BlockTriFactor):
         raise ValueError(
             "spike_transpose requires block-Thomas partition factors "
-            f"(got {type(sf.fact).__name__}); refactor with method='inv'")
-    if reduced not in ("auto", "thomas"):
-        raise _not_ported(f"spike_transpose(reduced={reduced!r})")
+            f"(got {type(sf.fact).__name__}); refactor with method='inv' "
+            "or 'lu'")
+    if reduced not in _REDUCED:
+        raise ValueError(f"unknown reduced {reduced!r}: expected "
+                         f"{', '.join(_REDUCED)}")
     K, nb, b, k = sf.K, sf.nb, sf.b, sf.k
     dtype = sf.Btip.dtype
     if sf.fact.method == "spd":
@@ -350,7 +599,8 @@ def spike_transpose(sf: SpikeFactor, reduced: str = "auto",
             raise _not_ported("spike_transpose of complex Hermitian 'spd' "
                               "factors")
         return sf
-    if fast and (sf.Lb is not None or band is not None):
+    if fast and sf.fact.method == "inv" and (sf.Lb is not None
+                                             or band is not None):
         L = sf.Lb if sf.Lb is not None else _partition_blocks(
             pad_banded(band, K * sf.m), K, sf.m, b).L
         factT = transposed_factor_from_L(sf.fact, L)
@@ -374,7 +624,8 @@ def spike_transpose(sf: SpikeFactor, reduced: str = "auto",
     red_fact, red_Dinv = _reduced_from_tips(
         Vt[:, 0, :k, :], Vt[:, nb - 1, b - k:, :],
         Wt[:, 0, :k, :], Wt[:, nb - 1, b - k:, :],
-        truncated=sf.truncated, inverter=inverter)
+        truncated=sf.truncated, method=sf.fact.method, reduced=reduced,
+        inverter=inverter)
     keep = (sf.V is not None) if store_spikes is None else store_spikes
     V = W = None
     if keep:
@@ -401,7 +652,7 @@ def _reduced_solve(sf: SpikeFactor, g_bot: torch.Tensor, g_top: torch.Tensor):
         z = _sweep_matvec(sf.red_Dinv, rhs if cols else rhs[..., None])
         z = z if cols else z[..., 0]
     else:
-        z = blocktri_solve(sf.red_fact, rhs)
+        z = _solve_reduced_system(sf.red_fact, rhs)
     zk = torch.zeros_like(z[:1, :k])
     xtop_next = torch.cat([z[:, k:], zk], dim=0)
     xbot_prev = torch.cat([zk, z[:, :k]], dim=0)
@@ -425,8 +676,8 @@ _JAX_NAMES = {"xla": "plain", "pallas_fused": "cuda"}
 def _require_inv_factors(sf: SpikeFactor, impl: str) -> None:
     """The kernels take block-Thomas factors only: ``impl='pallas'``
     ``method='inv'`` ones, the fused kernels (``'cuda'``,
-    ``'pallas_fused'``) ``inv`` or ``spd`` ones; the transpose marker none,
-    as in JAX."""
+    ``'pallas_fused'``) ``inv`` or ``spd`` ones; ``lu`` and CR factors
+    and the transpose marker none, as in JAX."""
     ok = ("inv", "spd") if impl in ("cuda", "pallas_fused") else ("inv",)
     if not (isinstance(sf.fact, BlockTriFactor) and sf.fact.method in ok):
         got = (f"method={sf.fact.method!r}"
@@ -437,6 +688,12 @@ def _require_inv_factors(sf: SpikeFactor, impl: str) -> None:
             f"factors; got {got} (use impl='xla', or refactor with "
             "spike_factor(..., method='inv'), or build the regular-form "
             "transpose: spike_transpose(sf, band=...) or store_lt)")
+
+
+def _has_kernel(fact) -> bool:
+    """Whether a sweep kernel exists for the factor's type and method:
+    block-Thomas ``inv`` and ``spd`` factors."""
+    return isinstance(fact, BlockTriFactor) and fact.method in ("inv", "spd")
 
 
 def sweep_route(fact, b: int, rhs_dtype, on_cuda: bool,
@@ -451,8 +708,9 @@ def sweep_route(fact, b: int, rhs_dtype, on_cuda: bool,
     partition), else the plain sweep: only f64 factors or a block outside
     64 and 128 come there, and no multi-RHS two-pass kernel exists.  A
     regular-form transpose is an ``inv`` factor and routes as one; the
-    transpose marker takes the plain transpose sweeps."""
-    if not on_cuda or isinstance(fact, TransposedBlockTriFactor):
+    transpose marker takes the plain transpose sweeps, and ``lu`` and CR
+    factors, which every kernel's rule refuses, the plain sweeps."""
+    if not on_cuda or not _has_kernel(fact):
         return "plain"
     if fact.method == "spd":
         return "fused"
@@ -469,13 +727,14 @@ def _batched_solver(sf: SpikeFactor, impl: str, rhs: torch.Tensor,
     """The partition sweep ``r -> x`` for ``sf``'s factor method.  'auto'
     takes the route of :func:`sweep_route`, as the JAX dispatch takes its
     Pallas kernels on the TPU.  The JAX names ``xla`` and ``pallas_fused``
-    mean ``plain`` and ``cuda``.  The transpose marker runs the plain
-    transpose sweeps under 'auto' and 'plain', and raises under 'cuda'."""
+    mean ``plain`` and ``cuda``.  The factors no kernel takes (``lu``, CR,
+    the transpose marker) run their plain sweeps under 'auto' and 'plain',
+    and raise ``ValueError`` under 'cuda'."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown impl {impl!r}: expected "
                          f"{', '.join(_IMPLS)}")
     impl = _JAX_NAMES.get(impl, impl)
-    if isinstance(sf.fact, TransposedBlockTriFactor):
+    if not _has_kernel(sf.fact):
         if impl == "cuda":
             _require_inv_factors(sf, impl)
         return lambda r: _batched_tri_solve(sf.fact, r)
@@ -495,8 +754,8 @@ def spike_solve(sf: SpikeFactor, rhs: torch.Tensor,
     impl: "auto" (on a CUDA tensor the route of :func:`sweep_route`: for
     ``inv`` factors #1 where its rule admits them, else the two-pass #9
     where its rule does, else plain; #3 for ``spd``, raising where it does
-    not apply), "cuda" (the fused kernel; raises where it
-    does not apply), "plain" (the plain PyTorch sweeps on any device), or
+    not apply; plain for ``lu`` and CR factors), "cuda" (the fused kernel;
+    raises where it does not apply), "plain" (the plain PyTorch sweeps on any device), or
     the JAX names: "xla" (plain), "pallas_fused" (cuda) and "pallas" (the
     two-pass sweep kernels #9 of ``ops/cuda/sweeps.py``, one launch per
     sweep; ``inv`` factors only, raising on the card where their rule

@@ -53,6 +53,7 @@ import torch
 from ..ops.band import BandedMatrix, banded_diagonal, banded_diagonal_scale
 from ..ops.blocktri import BlockTridiagonal
 from ..utils.options import Options
+from ..utils.profiling import scope
 from ..utils.registry import SOLVERS
 from . import krylov  # noqa: F401  (registers the ported solvers)
 from .operator import as_matvec, as_matvec_many, transpose_operator
@@ -202,8 +203,9 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
     method = SOLVERS.get(ksp_type)
     if pc is None:
         name = pc_type or opts.get_string("pc_type", "none")
-        pc = make_pc(name, A if pmat is None else pmat, opts, device=device,
-                     dtype=dtype)
+        with scope("PCSetUp"):
+            pc = make_pc(name, A if pmat is None else pmat, opts,
+                         device=device, dtype=dtype)
     shown_pc = pc
     if transpose:
         A, pc, nullspace, transpose_nullspace = _transposed(
@@ -339,13 +341,14 @@ def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,
           ksp_type: Optional[str] = None, pc_type: Optional[str] = None,
           pc: Optional[PC] = None, monitor: bool = False,
           view: bool = False, transpose: bool = False,
-          **params) -> KSPResult:
+          record: Optional[dict] = None, **params) -> KSPResult:
     """One-shot options-driven solve (KSPSolve equivalent).  ``pmat`` is the
     preconditioning matrix when it differs from A (KSPSetOperators(A, B)).
     ``view=True`` prints the configured solver hierarchy before solving
     (``-ksp_view``); ``monitor=True`` prints the residual history and the
     converged reason after it (``-ksp_monitor``).  ``transpose=True``
-    solves A^T x = b (see :func:`make_solver`).
+    solves A^T x = b (see :func:`make_solver`).  ``record``, when given,
+    receives the PC the solve built (or was given) under ``"pc"``.
 
     ``-ksp_diagonal_scale`` (KSPSetDiagonalScale) scales the system
     symmetrically by s = 1/sqrt(|diag(pmat)|): it solves
@@ -363,6 +366,8 @@ def solve(A, b, x0=None, *, pmat=None, options: Optional[Options] = None,
                          pc_type=pc_type, pc=pc, n_hint=b.shape[0],
                          transpose=transpose, device=b.device, dtype=b.dtype,
                          **params)
+    if record is not None:
+        record["pc"] = solver.pc
     if view:
         kt = ksp_type or opts.get_string("ksp_type", "gmres")
         print(view_str(kt, _params_from_options(opts, params), solver.pc,

@@ -13,7 +13,7 @@ singular system needs two projections:
 transpose null space (by default the null space itself, the symmetric
 case), every matvec output by the transpose null space, every PC output and
 the returned x by the null space.  ``remove`` is two skinny products
-(``[n, m]`` with m tiny) on the vectors' device.
+(``[n, m]`` with m tiny) on the vectors' device, in double precision.
 """
 
 from __future__ import annotations
@@ -41,9 +41,20 @@ class NullSpace:
 
     def remove(self, v: torch.Tensor) -> torch.Tensor:
         """Project the null-space components out of ``v`` (``[n]`` or
-        ``[n, r]``): MatNullSpaceRemove."""
-        q = self.vecs.to(device=v.device, dtype=v.dtype)
-        return v - q @ (q.conj().T @ v)
+        ``[n, r]``): MatNullSpaceRemove.
+
+        The projection runs in double precision and rounds once at the
+        end.  A preconditioner of a singular operator multiplies whatever
+        null component a residual keeps by ~1/eps (the exactly singular
+        reduced system of a partitioned Neumann Laplacian: |S^-1| ~ 2.4e6 in
+        f32), so the remnant matters.  The f32 inner product of
+        ``torch.matmul`` on the CPU left ~4x the remnant of XLA's on the
+        same vectors, and f32 CG ran to maxit on 6 of 20 right-hand sides
+        that JAX solved (``tests/test_torch_nullspace.py``)."""
+        acc = torch.complex128 if v.is_complex() else torch.float64
+        q = self.vecs.to(device=v.device, dtype=acc)
+        w = v.to(acc)
+        return (w - q @ (q.conj().T @ w)).to(v.dtype)
 
 
 def make_nullspace(n: Optional[int] = None, *, constant: bool = False,

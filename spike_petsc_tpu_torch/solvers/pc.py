@@ -59,7 +59,11 @@ class PC:
 
     def describe(self, indent: int = 0) -> str:
         """PCView-style description: ``PC <name>: key=value, ...``, then
-        the inner PC's, one level deeper."""
+        the inner PC's, one level deeper.  A factorization PC's ``block``
+        is the block it factored with: on the card, where the options name
+        none, the kernel block of ``default_block`` (64 or 128) for every
+        method, ``lu`` and ``cr`` too; ``shifted_pivots`` (under
+        ``-pc_factor_shift_type``) is the count of raised pivots."""
         pad = "  " * indent
         s = f"{pad}PC {self.name}: " + ", ".join(
             f"{k}={v}" for k, v in self.info.items())
@@ -187,7 +191,7 @@ def pc_jacobi(pmat, opts: Options) -> PC:
 
 
 def _newton_probe_active(inverter: str) -> bool:
-    return inverter in ("newton", "newton_fixed")
+    return inverter in ("newton", "newton_fixed", "newton_pan")
 
 
 def _probe_tolerance(store_dtype, spike_dtype) -> float:
@@ -241,14 +245,23 @@ def _cast_apply(fn: Callable, factor_dtype: torch.dtype,
 
 def _reject_unported(opts: Options, name: str) -> None:
     """Raise on spike options whose code paths are not yet ported."""
-    unported = []
     if opts.get_bool(f"pc_{name}_check", False):
-        unported.append(f"-pc_{name}_check")
-    if opts.get_string("pc_factor_shift_type", "none") != "none":
-        unported.append("-pc_factor_shift_type")
-    if unported:
         raise NotImplementedError(
-            f"{', '.join(unported)} not yet ported to spike_petsc_tpu_torch")
+            f"-pc_{name}_check not yet ported to spike_petsc_tpu_torch")
+
+
+def _shift_options(opts: Options) -> tuple:
+    """``-pc_factor_shift_type`` and ``-pc_factor_shift_amount`` (JAX
+    ``solvers/pc.py:327-328``): the factor's ``shift`` and
+    ``shift_amount``."""
+    return (opts.get_string("pc_factor_shift_type", "none"),
+            opts.get_real("pc_factor_shift_amount", 0.0))
+
+
+def _shift_info(info: dict, shift: str, sf) -> None:
+    """``shifted_pivots``, the count of raised pivots, where shifting."""
+    if shift != "none":
+        info["shifted_pivots"] = int(sf.fact.nshift.sum())
 
 
 def default_block(block, k: int, method: str, on_cuda: bool):
@@ -285,6 +298,7 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
     # regular-form transpose builds with no band conversion
     store_lt = opts.get_bool(f"pc_{name}_store_lt", False)
     inverter = opts.get_string(f"pc_{name}_inverter", "auto")
+    shift, shift_amount = _shift_options(opts)
     store_dtype = _DTYPES[opts.get_string(f"pc_{name}_store_dtype", "")]
     spike_dtype = _DTYPES[opts.get_string(f"pc_{name}_spike_dtype", "")]
     # -pc_<name>_factor_dtype casts the BAND before factoring (store_dtype
@@ -300,6 +314,7 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
     def factor(inv):
         return spike_factor(band, K=K, block_b=block, method=method,
                             truncated=truncated, store_spikes=store,
+                            shift=shift, shift_amount=shift_amount,
                             inverter=inv, store_dtype=store_dtype,
                             spike_dtype=spike_dtype, store_lt=store_lt)
 
@@ -322,6 +337,7 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
                                 exact=not truncated)
     if fb:
         info["inverter_fallback"] = "blocked"
+    _shift_info(info, shift, sf)
 
     def boundary(fn):
         return _cast_apply(fn, factor_dtype, orig_dtype) if cast else fn
@@ -379,18 +395,22 @@ def pc_lu(pmat, opts: Options) -> PC:
     ``-pc_lu_block`` (default the tip size; on the card 64 or 128, the
     smallest block the sweep kernels take, so that a long single partition
     runs the two-pass kernels #9), ``-pc_lu_inverter``, ``-pc_lu_store_lt``
-    and ``-pc_lu_transpose_fast`` (as for the spike PC) apply; shifts are
-    not yet ported.  The transpose of a K = 1 ``inv`` factor on the card
-    runs #9 like the forward one."""
+    and ``-pc_lu_transpose_fast`` (as for the spike PC), and
+    ``-pc_factor_shift_type`` / ``-pc_factor_shift_amount`` apply;
+    ``-pc_lu_method lu`` keeps pivoted LU factors, whose sweeps are plain.
+    The transpose of a K = 1 ``inv`` factor on the card runs #9 like the
+    forward one."""
     band = _as_banded(pmat, opts)
     _reject_unported(opts, "lu")
     method = opts.get_string("pc_lu_method", "inv")
     block = _block_option(band, opts, "lu", method)
     inverter = opts.get_string("pc_lu_inverter", "auto")
     store_lt = opts.get_bool("pc_lu_store_lt", False)
+    shift, shift_amount = _shift_options(opts)
 
     def factor(inv):
         return spike_factor(band, K=1, block_b=block, method=method,
+                            shift=shift, shift_amount=shift_amount,
                             inverter=inv, store_lt=store_lt)
 
     sf = factor(inverter)
@@ -401,6 +421,7 @@ def pc_lu(pmat, opts: Options) -> PC:
                                 lambda: factor("blocked"))
     if fb:
         info["inverter_fallback"] = "blocked"
+    _shift_info(info, shift, sf)
     fast = opts.get_bool("pc_lu_transpose_fast", True)
 
     def make_transpose():

@@ -105,7 +105,8 @@ def main(argv=None, record: Optional[dict] = None) -> int:
     exit code.  ``record``, when given, receives the run's objects for a
     caller that checks them: ``operator`` (the device operator), ``pmat``
     (the PC's matrix: a host matrix or the operator), ``b``, ``u`` (the
-    manufactured solution, host), ``result`` (the KSPResult)."""
+    manufactured solution, host), ``pc`` (the PC the solve built),
+    ``result`` (the KSPResult)."""
     try:
         return _main(argv, {} if record is None else record)
     except (KeyError, ValueError) as e:
@@ -214,7 +215,7 @@ def _main(argv, record: dict) -> int:
     with scope("KSPSolve"):
         res = solve(operator, b, pmat=pmat,
                     options=opts,
-                    view=opts.get_bool("ksp_view", False))
+                    view=opts.get_bool("ksp_view", False), record=record)
     record["result"] = res
     if opts.get_bool("ksp_monitor", False) or \
             opts.get_bool("ksp_monitor_true_residual", False) or \

@@ -13,7 +13,8 @@ reference/src/matbanded.c:175).  The port's equivalents:
   size, bandwidth, residuals) replacing PetscInfo prints.
 * ``start_trace``/``stop_trace`` — a torch.profiler trace of the host and
   the CUDA device, exported as a Chrome trace.
-* ``stage_report()`` — per-stage cumulative wall-clock/hit-count table.
+* ``stage_report()`` — per-stage cumulative wall-clock/hit-count table;
+  ``stage_times()`` the same seconds as a dict.
 """
 
 from __future__ import annotations
@@ -81,6 +82,11 @@ def event_log() -> List[dict]:
 def clear() -> None:
     _STAGES.clear()
     _EVENTS.clear()
+
+
+def stage_times() -> Dict[str, float]:
+    """Each stage's cumulative wall-clock in seconds."""
+    return {name: s["time"] for name, s in _STAGES.items()}
 
 
 def stage_report() -> str:

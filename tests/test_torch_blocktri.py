@@ -127,10 +127,17 @@ def test_blocktri_factor_and_solve_match_jax(inverter):
     np.testing.assert_allclose(
         tbt.blocktri_solve(ft, torch.from_numpy(rhs)).numpy(),
         np.asarray(jbt.blocktri_solve(fj, jnp.asarray(rhs))), atol=ATOL)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbt.blocktri_factor(tbt.BlockTridiagonal(
-            D=torch.from_numpy(D), L=torch.from_numpy(L),
-            U=torch.from_numpy(U)), method="lu")
+    # method='lu' (once refused here): the same solve as JAX's lu factor
+    flu = tbt.blocktri_factor(tbt.BlockTridiagonal(
+        D=torch.from_numpy(D), L=torch.from_numpy(L),
+        U=torch.from_numpy(U)), method="lu")
+    fjlu = jbt.blocktri_factor(jbt.BlockTridiagonal(
+        D=jnp.asarray(D), L=jnp.asarray(L), U=jnp.asarray(U)), method="lu")
+    np.testing.assert_allclose(flu.Slu.numpy(), np.asarray(fjlu.Slu),
+                               atol=ATOL)
+    np.testing.assert_allclose(
+        tbt.blocktri_solve(flu, torch.from_numpy(rhs)).numpy(),
+        np.asarray(jbt.blocktri_solve(fjlu, jnp.asarray(rhs))), atol=ATOL)
 
 
 def _sweep_case(K, nb, b, seed):

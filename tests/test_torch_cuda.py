@@ -972,3 +972,73 @@ def test_band_matvec_kernel_on_the_transposed_band(cuda_device, n, kl, ku):
     assert cbm.KERNEL.launches == before + 1
     assert _rel(got, cbm.banded_matvec_prepared(prep, x, impl="plain")) <= TOL
     assert _rel(got, banded_matvec_t(band, x)) <= TOL
+
+
+# ---------------------------------------------------------------------------
+# the factor surface on the card: lu and CR factors, K > 255, shifts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["lu", "cr"])
+def test_lu_and_cr_factors_take_the_plain_route(cuda_device, method):
+    """``lu`` and CR partition factors on CUDA tensors: 'auto' runs the
+    plain sweeps (no kernel launched; the answer the CPU's), and
+    ``impl='cuda'`` / ``'pallas'`` raise ``ValueError``."""
+    from spike_petsc_tpu_torch.ops.spike import sweep_route
+    n, k, b = 8192, 20, 64
+    data = random_band(n, k, k, seed=31, dtype=np.float32)
+    rhs = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        n).astype(np.float32))
+    sf = spike_factor(banded_from_numpy(data, k, k, device=cuda_device), 8,
+                      block_b=b, method=method)
+    cpu = spike_factor(banded_from_numpy(data, k, k, device="cpu"), 8,
+                       block_b=b, method=method)
+    assert sweep_route(sf.fact, b, torch.float32, True) == "plain"
+    before = (cfs.KERNEL.launches, csw.KERNEL.launches)
+    x = spike_solve(sf, rhs.to(cuda_device))
+    X = spike_solve_many(sf, rhs.to(cuda_device)[:, None].repeat(1, 3))
+    torch.cuda.synchronize()
+    assert (cfs.KERNEL.launches, csw.KERNEL.launches) == before
+    ref = spike_solve(cpu, rhs)
+    assert _rel(x.cpu(), ref) <= TOL
+    assert _rel(X[:, 2].cpu(), ref) <= TOL
+    for impl in ("cuda", "pallas", "pallas_fused"):
+        with pytest.raises(ValueError, match="requires method"):
+            spike_solve(sf, rhs.to(cuda_device), impl=impl)
+
+
+@pytest.mark.cuda
+def test_k300_factor_on_the_card_matches_the_cpu(cuda_device):
+    """K = 300 partitions (a CR reduced system under 'auto') on the card:
+    #1 runs the partition sweep, and the answer is the CPU's within
+    1e-5 (f32)."""
+    from spike_petsc_tpu_torch.ops.cyclic import CRFactor
+    n, k, b = 300 * 128, 8, 64
+    data = random_band(n, k, k, seed=33, dtype=np.float32)
+    rhs = torch.from_numpy(np.random.default_rng(34).standard_normal(
+        n).astype(np.float32))
+    sf = spike_factor(banded_from_numpy(data, k, k, device=cuda_device), 300,
+                      block_b=b)
+    cpu = spike_factor(banded_from_numpy(data, k, k, device="cpu"), 300,
+                       block_b=b)
+    assert isinstance(sf.red_fact, CRFactor)
+    launches = cfs.KERNEL.launches
+    x = spike_solve(sf, rhs.to(cuda_device))
+    torch.cuda.synchronize()
+    assert cfs.KERNEL.launches == launches + 2        # no spikes stored
+    assert _rel(x.cpu(), spike_solve(cpu, rhs)) <= TOL
+
+
+@pytest.mark.cuda
+def test_shifted_inv_factor_counts_as_the_cpu(cuda_device):
+    """The shifted ``inv`` factor of the zero-diagonal matrix (b = 3: every
+    diagonal block singular) counts the same raised pivots on the card as
+    on the CPU, in f64."""
+    n = 1200
+    data = np.zeros((n, 3))
+    data[:, 0] = data[:, 2] = -1.0
+    kw = dict(K=4, block_b=3, shift="nonzero")
+    sf = spike_factor(banded_from_numpy(data, 1, 1, device=cuda_device), **kw)
+    cpu = spike_factor(banded_from_numpy(data, 1, 1, device="cpu"), **kw)
+    assert int(sf.fact.nshift.sum()) > 0
+    assert torch.equal(sf.fact.nshift.cpu(), cpu.fact.nshift)

@@ -226,3 +226,126 @@ def test_testbed_neumann_constant_nullspace(capsys):
         "-ksp_nullspace_constant 1 -random_exact_sol 1 -ksp_monitor".split(),
         capsys)
     assert rc == 0 and "CONVERGED_RTOL" in out
+
+
+def _neumann_f32_case(n=256, seed=3):
+    data = _neumann(n).astype(np.float32)
+    z = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    return data, z - z.mean()
+
+
+def _drift_solve(package, K, seed=3, n=256):
+    """f32 CG with the spike PC over K partitions and the options
+    ``-pc_factor_shift_type nonzero -pc_factor_shift_amount 1e-2``, on
+    ``A u + 0.5`` (inconsistent) with the constant null space.  Returns
+    ``(x, its, reason, shifted_pivots, u)``."""
+    data, u = _neumann_f32_case(n, seed)
+    opts = {"pc_spike_partitions": K, "pc_factor_shift_type": "nonzero",
+            "pc_factor_shift_amount": 1e-2}
+    kw = dict(ksp_type="cg", pc_type="spike", rtol=1e-6, maxit=100)
+    if package == "jax":
+        jb = JBand(jnp.asarray(data), 1, 1)
+        ns = jns.make_nullspace(n, constant=True, dtype=jnp.float32)
+        b = np.asarray(jpkg.banded_matvec(jb, jnp.asarray(u)))
+        pc = jpkg.make_pc("spike", jb, jpkg.Options(dict(opts)))
+        res = jpkg.make_solver(jb, nullspace=ns, jit=False,
+                               options=jpkg.Options(dict(opts)), **kw)(
+            jnp.asarray(b + 0.5))
+        x = np.asarray(res.x)
+    else:
+        tb = banded_from_numpy(data, 1, 1, device=CPU)
+        ns = tns.make_nullspace(n, constant=True, dtype=torch.float32,
+                                device=CPU)
+        b = tpkg.ops.band.banded_matvec(tb, torch.from_numpy(u)).numpy()
+        pc = tpkg.solvers.pc.make_pc("spike", tb, tpkg.Options(dict(opts)))
+        res = tpkg.make_solver(tb, nullspace=ns,
+                               options=tpkg.Options(dict(opts)), **kw)(
+            torch.from_numpy(b + 0.5))
+        x = res.x.numpy()
+    assert x.dtype == np.float32
+    return x, int(res.its), int(res.reason), pc.info["shifted_pivots"], u
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_f32_cg_nullspace_drift_with_shifted_spike(package):
+    """f32 CG on the Neumann Laplacian (n = 256) with the spike PC on one
+    partition, its factor shifted (``-pc_factor_shift_type nonzero
+    -pc_factor_shift_amount 1e-2``, the option names both PCs read; JAX's
+    ``tests/test_nullspace.py:105-121`` passes ``pc_spike_shift``, which no
+    PC reads), an inconsistent right-hand side: the shift raises the
+    singular last pivot (exactly one), and the projections keep the
+    null-space component out of x (it drifted to a mean of ~1e8 before
+    JAX commit 2459753), in both packages, within the JAX test's 1e-3 of
+    u.  (Before the port's projection ran in double precision, its f32
+    remnant, amplified by the shifted pivot, left x 1.0e-4 to 3.8e-3 from
+    u over seeds 0-9, one of them at maxit; JAX 3.7e-5 to 5.0e-4.)"""
+    x, its, reason, shifted, u = _drift_solve(package, K=1)
+    assert shifted == 1
+    assert reason > 0, reason
+    assert abs(x.mean()) < 1e-6
+    assert np.abs(x - u).max() < 1e-3
+
+
+@pytest.fixture(scope="module")
+def jax_drift_over_8():
+    return {seed: _drift_solve("jax", K=8, seed=seed) for seed in range(8)}
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_f32_cg_nullspace_drift_over_8_partitions(jax_drift_over_8, seed):
+    """The drift check of JAX's ``tests/test_nullspace.py:105-121`` at its
+    geometry, 8 partitions of n = 256, in both packages on the same
+    inputs.  No pivot is shifted there (see the next test): the reduced
+    system is exactly singular (|S^-1| ~ 2.4e6 in f32 in both packages),
+    and every PC output carries the null component of its input's rounding
+    times that.  The port's f32 CG ran to maxit on seeds 2, 3, 4, 7 (mean
+    x ~1.6e3 at seed 3) where JAX's took 2-4 its, until its projection ran
+    in double precision.  Both converge, hold |mean x| < 1e-6 and land
+    within 1e-3 of u; the iteration counts are equal at the JAX test's
+    seed 3 and within one elsewhere (PC outputs differ by the rounding of
+    that singular reduced solve, and the last iteration sits at rtol's
+    edge)."""
+    xj, itj, rj, sj, u = jax_drift_over_8[seed]
+    xt, itt, rt, st, _ = _drift_solve("torch", K=8, seed=seed)
+    assert st == sj == 0
+    assert rt == rj > 0, (rt, rj)
+    assert itt == itj if seed == 3 else abs(itt - itj) <= 1, (itt, itj)
+    for x in (xj, xt):
+        assert abs(x.mean()) < 1e-6
+        assert np.abs(x - u).max() < 1e-3
+
+
+def test_projection_rounds_once():
+    """``NullSpace.remove`` of an f32 vector is the double-precision
+    projection rounded once: on a vector of mean 0.5 (n = 4096) the sum it
+    leaves is that of the final rounding (< 1e-4 over seeds 0-19, where an
+    f32 inner product left up to 4.7e-3 in JAX and more in torch's CPU
+    matmul)."""
+    n = 4096
+    ns = tns.make_nullspace(n, constant=True, dtype=torch.float32,
+                            device=CPU)
+    for seed in range(20):
+        v = np.random.default_rng(seed).standard_normal(n).astype(
+            np.float32) + np.float32(0.5)
+        out = ns.remove(torch.from_numpy(v))
+        assert out.dtype == torch.float32
+        v64 = v.astype(np.float64)
+        exact = (v64 - v64.mean()).astype(np.float32)
+        np.testing.assert_array_equal(out.numpy(), exact)
+        assert abs(out.numpy().astype(np.float64).sum()) < 1e-4
+
+
+def test_shift_leaves_partitioned_neumann_unshifted():
+    """Over 8 partitions every partition of the Neumann Laplacian is
+    nonsingular (its smallest pivot is ~1) and the singular mode lives in
+    the reduced system, which no factor shifts: neither package raises a
+    pivot at ``-pc_factor_shift_amount 1e-2``."""
+    data, _ = _neumann_f32_case()
+    opts = {"pc_spike_partitions": 8, "pc_factor_shift_type": "nonzero",
+            "pc_factor_shift_amount": 1e-2}
+    pj = jpkg.make_pc("spike", JBand(jnp.asarray(data), 1, 1),
+                      jpkg.Options(dict(opts)))
+    pt = tpkg.solvers.pc.make_pc("spike",
+                                 banded_from_numpy(data, 1, 1, device=CPU),
+                                 tpkg.Options(dict(opts)))
+    assert pt.info["shifted_pivots"] == pj.info["shifted_pivots"] == 0

@@ -1,5 +1,6 @@
 """PyTorch port, SPIKE factorization and solve, against the JAX package and
-scipy.linalg.solve_banded.
+scipy.linalg.solve_banded (the ``lu``/``cr`` methods, the shift and the CR
+reduced system at this file's sizes too).
 
 Tolerance: 1e-9 in f64 (tips, spikes, reduced factor, solution); the same
 algebra in another summation order.
@@ -115,11 +116,23 @@ def test_solve_on_jax_factor(band, rhs, store):
 @pytest.mark.parametrize("kwargs", [dict(method="lu"), dict(method="cr"),
                                     dict(shift="nonzero"),
                                     dict(reduced="cr")])
-def test_unported_options_raise(band, kwargs):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsp.spike_factor(banded_from_numpy(band, KL, KU,
-                                           device=CPU), K=4, block_b=B,
-                         **kwargs)
+def test_unported_options_raise(band, rhs, kwargs):
+    """The options these cases once refused (``lu`` and ``cr`` partitions,
+    the pivot shift, a CR reduced system) now factor as JAX's do: the
+    solution and the reduced factor's type against JAX's."""
+    from spike_petsc_tpu.ops.cyclic import CRFactor as JCR
+    from spike_petsc_tpu_torch.ops.cyclic import CRFactor as TCR
+    st = tsp.spike_factor(banded_from_numpy(band, KL, KU, device=CPU), K=4,
+                          block_b=B, **kwargs)
+    sj = jsp.spike_factor(JBand(jnp.asarray(band), KL, KU), K=4, block_b=B,
+                          **kwargs)
+    assert isinstance(st.red_fact, TCR) == isinstance(sj.red_fact, JCR)
+    assert isinstance(st.fact, TCR) == isinstance(sj.fact, JCR)
+    if "shift" in kwargs:
+        np.testing.assert_array_equal(st.fact.nshift.numpy(),
+                                      np.asarray(sj.fact.nshift))
+    _close(tsp.spike_solve(st, torch.from_numpy(rhs)),
+           jsp.spike_solve(sj, jnp.asarray(rhs), impl="xla"))
 
 
 def test_store_lt_matches_jax(band, rhs):
@@ -137,7 +150,27 @@ def test_store_lt_matches_jax(band, rhs):
 
 
 def test_reduced_cyclic_reduction_not_ported():
+    """K = 300 (299 reduced block rows, >= 255): 'auto' factors the reduced
+    system by cyclic reduction, as JAX does, once refused here."""
+    from spike_petsc_tpu_torch.ops.cyclic import CRFactor
     data = random_band(300 * 16, 1, 1, seed=2)
-    with pytest.raises(NotImplementedError, match="cyclic reduction"):
-        tsp.spike_factor(banded_from_numpy(data, 1, 1,
-                                           device=CPU), K=300, block_b=16)
+    st = tsp.spike_factor(banded_from_numpy(data, 1, 1, device=CPU), K=300,
+                          block_b=16)
+    sj = jsp.spike_factor(JBand(jnp.asarray(data), 1, 1), K=300, block_b=16)
+    assert isinstance(st.red_fact, CRFactor)
+    r = np.random.default_rng(7).standard_normal(300 * 16)
+    _close(tsp.spike_solve(st, torch.from_numpy(r)),
+           jsp.spike_solve(sj, jnp.asarray(r), impl="xla"))
+
+
+def test_complex_hermitian_spd_transpose_still_raises():
+    """What this module still refuses: the transpose of a complex
+    Hermitian ``spd`` factorization."""
+    sf = tsp.SpikeFactor(
+        fact=tsp.BlockTriFactor(F=torch.zeros(2, 1, 2, 2), U=torch.zeros(
+            2, 1, 0, 0), Sinv=torch.zeros(2, 1, 2, 2), method="spd"),
+        Btip=torch.zeros(2, 1, 1, dtype=torch.complex128),
+        Ctip=torch.zeros(2, 1, 1, dtype=torch.complex128), red_fact=None,
+        V=None, W=None, n=4, K=2, m=2, b=2, k=1)
+    with pytest.raises(NotImplementedError, match="complex Hermitian"):
+        tsp.spike_transpose(sf)

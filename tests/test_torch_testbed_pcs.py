@@ -51,13 +51,34 @@ CASES = {
     "view_mat_wbm_lu": "-problem mc64doc -view_mat 1 "
                        "-mat_ordering_type wbm -mat_ordering_scale 1 "
                        "-ksp_type gmres -pc_type lu",
+    # the factor methods and the pivot shift (tests/test_testbed.py:142)
+    "spike_method_lu": "-problem nonsym:1000:4:4 -ksp_type gmres "
+                       "-pc_type spike -pc_spike_partitions 4 "
+                       "-pc_spike_method lu -ksp_rtol 1e-10 -ksp_view",
+    "spike_method_cr": "-problem nonsym:1000:4:4 -ksp_type gmres "
+                       "-pc_type spike -pc_spike_partitions 4 "
+                       "-pc_spike_method cr -ksp_rtol 1e-10",
+    "lu_method_lu": "-problem nonsym:500:3:3 -ksp_type bcgs -pc_type lu "
+                    "-pc_lu_method lu -ksp_rtol 1e-12",
+    "zerodiag_shift_spike": "-problem zerodiag:400 -ksp_type gmres "
+                            "-pc_type spike -pc_spike_partitions 4 "
+                            "-pc_spike_block 4 -pc_factor_shift_type nonzero "
+                            "-ksp_rtol 1e-9 -ksp_view",
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_testbed_matches_jax(case, capsys):
-    rc, _ = compare_testbeds(jtb.main, ttb.main, CASES[case].split(), capsys)
+    rc, out = compare_testbeds(jtb.main, ttb.main, CASES[case].split(),
+                               capsys)
     assert rc == (2 if case == "diverged_its" else 0)
+    if "-ksp_view" in CASES[case]:
+        # the PC line of -ksp_view, the shifted-pivot count included
+        jtb.main(CASES[case].split())
+        pc_line = [ln for ln in capsys.readouterr().out.splitlines()
+                   if ln.strip().startswith("PC spike:")]
+        assert pc_line and pc_line[0] in out.splitlines()
+        assert ("shifted_pivots=" in pc_line[0]) == ("shift" in case)
 
 
 PCS = {

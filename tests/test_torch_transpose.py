@@ -189,12 +189,28 @@ def test_blocktri_solve_transpose_matches_jax(method, ncols):
 
 
 def test_blocktri_solve_transpose_lu_is_unported():
+    """The transposed solve on an ``lu`` factor (once refused here): JAX's
+    answer, and T^T x = r."""
     D, L, U = _blocks(95)
-    ft = tbt.blocktri_factor(blocktri_from_numpy(D, L, U, device=CPU))
-    lu = tbt.BlockTriFactor(F=ft.F, U=ft.U, Sinv=ft.Sinv, method="lu")
-    with pytest.raises(NotImplementedError, match="'lu'"):
-        tbt.blocktri_solve_transpose(lu, torch.zeros(6, 4,
-                                                     dtype=torch.float64))
+    ft = tbt.blocktri_factor(blocktri_from_numpy(D, L, U, device=CPU),
+                             method="lu")
+    fj = jbt.blocktri_factor(jbt.BlockTridiagonal(
+        D=jnp.asarray(D), L=jnp.asarray(L), U=jnp.asarray(U)), method="lu")
+    r = np.random.default_rng(96).standard_normal((6, 4))
+    got = tbt.blocktri_solve_transpose(ft, torch.from_numpy(r))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jbt.blocktri_solve_transpose(
+            fj, jnp.asarray(r))), atol=1e-12)
+    T = np.zeros((24, 24))
+    for i in range(6):
+        T[4 * i:4 * i + 4, 4 * i:4 * i + 4] = D[i]
+        if i:
+            T[4 * i:4 * i + 4, 4 * i - 4:4 * i] = L[i]
+        if i < 5:
+            T[4 * i:4 * i + 4, 4 * i + 4:4 * i + 8] = U[i]
+    np.testing.assert_allclose(got.numpy().reshape(24),
+                               np.linalg.solve(T.T, r.reshape(24)),
+                               atol=1e-12)
 
 
 # ---------------------------------------------------------------------------

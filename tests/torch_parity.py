@@ -59,19 +59,37 @@ def jax_factor_to_numpy(f):
     return tuple(np.asarray(a) for a in (f.F, f.U, f.Sinv))
 
 
+def _np_or_none(a):
+    return None if a is None else np.asarray(a)
+
+
+def jax_factor_to_kwargs(f):
+    """Keyword arguments of convert.blocktri_factor_from_numpy (a JAX
+    BlockTriFactor, its 0-based pivots as JAX stores them) or of
+    convert.cr_factor_from_numpy (a JAX CRFactor)."""
+    if hasattr(f, "levels"):
+        return dict(levels=[tuple(np.asarray(a) for a in
+                                  (lv.Dinv_e, lv.P, lv.Q, lv.L_e, lv.U_e))
+                            for lv in f.levels],
+                    root_Dinv=np.asarray(f.root_Dinv), nb=f.nb,
+                    n_pad=f.n_pad, nshift=_np_or_none(f.nshift))
+    return dict(F=np.asarray(f.F), U=np.asarray(f.U),
+                Sinv=np.asarray(f.Sinv), method=f.method,
+                Slu=np.asarray(f.Slu), piv=np.asarray(f.piv),
+                nshift=_np_or_none(f.nshift))
+
+
 def jax_spike_to_numpy(sf):
     """Keyword arguments of convert.spike_factor_from_numpy for a JAX
-    SpikeFactor."""
+    SpikeFactor (block-Thomas or CR factors)."""
     return dict(
-        fact=jax_factor_to_numpy(sf.fact), Btip=np.asarray(sf.Btip),
+        fact=jax_factor_to_kwargs(sf.fact), Btip=np.asarray(sf.Btip),
         Ctip=np.asarray(sf.Ctip),
         red_fact=(None if sf.red_fact is None
-                  else jax_factor_to_numpy(sf.red_fact)),
-        V=None if sf.V is None else np.asarray(sf.V),
-        W=None if sf.W is None else np.asarray(sf.W),
+                  else jax_factor_to_kwargs(sf.red_fact)),
+        V=_np_or_none(sf.V), W=_np_or_none(sf.W),
         n=sf.n, K=sf.K, m=sf.m, b=sf.b, k=sf.k, truncated=sf.truncated,
-        red_Dinv=None if sf.red_Dinv is None else np.asarray(sf.red_Dinv),
-        method=sf.fact.method)
+        red_Dinv=_np_or_none(sf.red_Dinv), Lb=_np_or_none(sf.Lb))
 
 
 def t2n(t):
