@@ -122,9 +122,28 @@ In order, it:
      ``-pc_spike_inverter newton_pan``; ``spike_factor_grouped`` (8 groups)
      against ``spike_factor``, with each one's peak device memory; and
      small cases on the card in f64 against the CPU;
- 11. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
-     path, error, time, plain time, bound and library time) and, last, the
-     line ``{"ok": true, "device": {...}}``.
+ 11. the remaining PCs (``phase_pcs_*``), each through ``solve`` with the
+     PC built once, its launches held exactly where the path fixes them
+     (one apply's kernels times the Krylov method's PC applies, one #2 an
+     operator apply), its set-up and apply timed by CUDA events and one
+     apply's device busy time, CUDA launches and idle share from
+     torch.profiler: on the flagship asm (16 windows of 490 block rows:
+     #9) restrict and basic, composite jacobi + bjacobi additive and
+     multiplicative, fgmres with ``-pc_type ksp`` (inner gmres + spike:
+     #1, #2); config 1 through the testbed with cg + mg (11 levels, 20 #2
+     and one #1 a V-cycle, the coarse factor at block 64 against #1's
+     plain version); on config 2 SOR at block 64 (cg with the symmetric
+     sweep, gmres with the forward one, ``-pc_sor_its 2`` with #7; #9 at
+     K = 1, nb = 15625 and #7 on those blocks against their plain
+     versions) and at its default block 16 (n = 2e4: the plain sweep);
+     config 2 through ``testbed2.main`` with the reference's Schur
+     fieldsplit recipe (lu on both fields: #9 at nb = 7813; the set-up's
+     parts timed); and each PC at n = 2e4, the card in f32 against the
+     CPU in f64;
+ 12. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
+     path, error, time, plain time, bound and library time, and its
+     launches on each PC path) and the script's time in all, and, last,
+     the line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the exit code is then non-zero and no result line
 is printed.  Without a CUDA device it exits with code 2 at once.
@@ -319,6 +338,23 @@ GROUPED_SOLVE_TOL = 1e-5       # the solves, max|dx| / max|x|
 # E: card (f64) against the port's CPU path (f64)
 FACTOR_REF_N = 20_000
 FACTOR_REF_TOL = 1e-6
+# the remaining PCs (phase_pcs_*): rtol 1e-8 everywhere (cg's and gmres's
+# recurrence residuals go below f32's floor; the f32 CPU runs of these
+# recipes reached it), the true f32 relres held as on the flagship paths
+PCS_RTOL = 1e-8
+PCS_RELRES_MAX = 1e-4
+PCS_MAXIT = 200
+SOR_BLOCK = 64             # config 2 at this block: #9 at K = 1, nb = 15625
+SOR_SMALL_N = 20_000       # SOR's default block (16): the plain sweep
+TESTBED2_ARGV = ("-problem spd:1000000:16 -ksp_type fgmres -pc_type "
+                 "fieldsplit -pc_fieldsplit_type schur -fieldsplit_0_pc_type "
+                 "lu -fieldsplit_1_pc_type lu -ksp_rtol 1e-8 "
+                 "-ksp_converged_reason -log_view").split()
+MG_ARGV = ("-problem tridiag -ksp_type cg -pc_type mg -ksp_rtol 1e-8 "
+           "-ksp_converged_reason -log_view").split()
+MG_ITS_MAX = 15            # JAX's bound (tests/test_mg.py); f32 CPU: 8
+MG_REL_MAX = 2e-2          # against an f64 host solve, as config 1's lu
+PCS_REF_N = 20_000
 # NVIDIA's data sheet for the H100 SXM (700 W): the bound of each kernel
 PEAK_BYTES_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
@@ -1376,9 +1412,10 @@ def f64_band(band):
                                               device=a64.device))
 
 
-def run_testbed(argv, record):
-    """``spike_petsc_tpu_torch.testbed.main(argv)`` in this process, its
-    standard output captured: (exit code, output)."""
+def run_testbed(argv, record, entry=None):
+    """``spike_petsc_tpu_torch.testbed.main(argv)`` (or ``entry``, e.g.
+    ``testbed2.main``) in this process, its standard output captured:
+    (exit code, output)."""
     import contextlib
     import io
     from spike_petsc_tpu_torch import testbed
@@ -1386,7 +1423,7 @@ def run_testbed(argv, record):
     profiling.clear()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = testbed.main(argv, record=record)
+        rc = (entry or testbed.main)(argv, record=record)
     return rc, out.getvalue()
 
 
@@ -2771,6 +2808,386 @@ def phase_factor_surface_reference(device):
                   f"K=300 reduced factor {red}")
 
 
+# ---------------------------------------------------------------------------
+# the remaining PCs: sor, ksp, asm, composite, fieldsplit, mg
+# ---------------------------------------------------------------------------
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def krylov_applies(ksp, its, restart=30):
+    """(PC applies, operator applies) of ``ksp`` from x0 = 0 over ``its``
+    iterations without the true-residual monitor: gmres (left PC) as
+    ``gmres_expected``; fgmres (right, flexible) one of each an iteration
+    and an operator apply for each cycle's residual; cg one of each before
+    the loop and one an iteration."""
+    cycles = -(-its // restart)
+    if ksp == "gmres":
+        return 2 + its + cycles - 1, 1 + its + cycles - 1
+    if ksp == "fgmres":
+        return its, 1 + its + cycles - 1
+    if ksp == "cg":
+        return its + 1, its + 1
+    raise ValueError(f"no apply counts for {ksp!r}")
+
+
+def counted(pc):
+    """(``pc`` with its applies counted, the count: a one-element list)."""
+    import dataclasses
+    count = [0]
+
+    def apply(r):
+        count[0] += 1
+        return pc.apply(r)
+    return dataclasses.replace(pc, apply=apply), count
+
+
+def apply_launches(pc, r):
+    """The kernels one apply of ``pc`` on ``r`` launches (the nonzero
+    counts)."""
+    reset_launches()
+    pc.apply(r)
+    return nonzero(read_launches())
+
+
+def pc_path(label, band, rhs, pc, ksp, per_apply, t, exact=True):
+    """``solve(band, rhs, ksp_type=ksp, pc=pc)`` (x = 1) at PCS_RTOL with
+    the kernels' launches counted around it.  With ``exact`` they are held
+    to ``per_apply`` (one apply's launches) times the PC applies, plus one
+    #2 an operator apply (``krylov_applies``).  Returns the launches."""
+    import torch
+    from spike_petsc_tpu_torch import solve
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    cpc, count = counted(pc)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = solve(band, rhs, ksp_type=ksp, pc=cpc, rtol=PCS_RTOL,
+                maxit=PCS_MAXIT)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = nonzero(read_launches())
+    true_rel = float(torch.linalg.norm(banded_matvec(band, res.x) - rhs)
+                     / torch.linalg.norm(rhs))
+    xerr = float((res.x - 1).abs().max())
+    applies, matvecs = krylov_applies(ksp, res.its)
+    expected = {k: v * applies for k, v in per_apply.items()}
+    expected["band_matvec"] = expected.get("band_matvec", 0) + matvecs
+    t[f"{label}_solve_wall"] = (wall, 0.0)
+    print(f"{label}: {ksp} {res.its} its, reason {res.reason}, true relres "
+          f"(f32) {true_rel:.3e}, max|x - 1| {xerr:.3e}, {count[0]} PC "
+          f"applies, solve wall {wall:.2f} ms (host clock)")
+    print(f"  launches {launches}"
+          + (f", expected {expected}" if exact else " (not fixed by the "
+             "path: every apply is an inner solve)"))
+    check(res.reason > 0 and bool(torch.isfinite(res.x).all())
+          and true_rel <= PCS_RELRES_MAX and xerr <= 1e-3,
+          f"{label}: reason {res.reason}, relres {true_rel}, max|x-1| {xerr}")
+    if exact:
+        check(count[0] == applies and launches == expected,
+              f"{label}: launches {launches} over {count[0]} applies, "
+              f"expected {expected}")
+    return launches
+
+
+def pc_timings(label, make, pc, r, t):
+    """The PC's set-up (``make``, unless None) and one apply by CUDA events
+    (median and spread), one apply's device busy time, CUDA launches and
+    largest items (torch.profiler), and its idle share (1 - busy / apply
+    time)."""
+    show = shower(t)
+    if make is not None:
+        show(f"{label}_setup", time_ms(make, reps=3))
+    show(f"{label}_apply", time_ms(lambda: pc.apply(r)))
+    for _ in range(3):          # the profiler sometimes drops a window
+        busy, items = device_profile(lambda: pc.apply(r), top=4)
+        _, n_launch = profile_launches(lambda: pc.apply(r))
+        if busy > 0 and n_launch > 0:
+            break
+    print(f"  {label} apply: device busy {busy:.4f} ms, {n_launch} CUDA "
+          f"launches, idle share {1 - busy / t[label + '_apply'][0]:.3f}; "
+          + "; ".join(f"{k} x{c} {ms:.4f} ms" for k, c, ms in items))
+
+
+def sweep_check(label, kern, fact, r, t, bounds):
+    """``kern`` (#1's or #9's wrapper) on ``fact`` against its plain
+    version, timed beside its bound (#9's: #1's bytes plus the y round
+    trip).  Returns the relative error."""
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
+    show = shower(t)
+    _, err = kernel_err(kern(fact, r), kern(fact, r, impl="plain"))
+    show(label, time_ms(lambda: kern(fact, r), iters=10))
+    K, nb, b, _ = fact.F.shape
+    if kern is cfs.blocktri_solve_fused_cuda:
+        bounds[label] = sweep_bound(fact)
+    else:
+        bounds[label] = roofline(3 * fact.F.numel() * 4 + 4 * K * nb * b * 4,
+                                 2 * K * (3 * nb - 2) * b * b)
+    print(f"  {label} (K={K} nb={nb} b={b}) against its plain version "
+          f"{err:.3e}; bound {bounds[label][0]:.4f} ms ({bounds[label][1]}), "
+          f"bound / time {bounds[label][0] / t[label][0]:.3f}")
+    check(err <= KERNEL_TOL, f"{label}: {err}")
+    return err
+
+
+def phase_pcs_config2(band, rhs, device, t, bounds, errs):
+    """SOR on config 2 (n = 1e6, bandwidth 33, f32): at ``-pc_sor_block 64``
+    the symmetric sweep with cg, the forward sweep with gmres and
+    ``-pc_sor_its 2`` with cg (#7 for its residual), each sweep one #9
+    pair (K = 1, nb = 15625: #1's rule refuses it), launches held exactly;
+    #9 on the pseudo-factor and #7 on its blocks against their plain
+    versions; then SOR's default block (the bandwidth, 16) at n = 2e4,
+    which no kernel takes: the plain sweep, timed and its CUDA launches
+    counted.  Returns each path's launches."""
+    import torch
+    from spike_petsc_tpu_torch import Options
+    from spike_petsc_tpu_torch.ops.blocktri import (band_to_blocktri,
+                                                    batched_inverse)
+    from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
+    from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
+    from spike_petsc_tpu_torch.solvers.pc import _sor_factor, make_pc
+    paths = {}
+    for label, extra, ksp, want in (
+            ("sor_ssor", {}, "cg", {"sweeps": 2}),
+            ("sor_forward", {"pc_sor_type": "forward"}, "gmres",
+             {"sweeps": 2}),
+            ("sor_its2", {"pc_sor_its": 2}, "cg",
+             {"sweeps": 4, "blocktri_matvec": 1})):
+        opts = Options(dict(extra, pc_sor_block=SOR_BLOCK))
+
+        def make(opts=opts):
+            return make_pc("sor", band, opts)
+        pc = make()
+        per_apply = apply_launches(pc, rhs)
+        print(f"{label} (config 2, {pc.info}): one apply launches "
+              f"{per_apply}")
+        check(per_apply == want, f"{label}: one apply launched {per_apply}, "
+              f"expected {want}")
+        paths[label] = pc_path(label, band, rhs, pc, ksp, per_apply, t)
+        pc_timings(label, make, pc, rhs, t)
+        del pc
+    torch.cuda.empty_cache()
+
+    T = band_to_blocktri(band, SOR_BLOCK)
+    fact = _sor_factor(T, batched_inverse(T.D), 1.0, "symmetric")
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    r = torch.randn((1, T.nb, T.b), generator=gen, device=device)
+    errs["sweeps"] = max(errs["sweeps"], sweep_check(
+        "sor_sweeps", csw.blocktri_solve_batched_cuda, fact, r, t, bounds))
+    x = r.reshape(-1)
+    _, e7 = kernel_err(cbt.blocktri_matvec_cuda(T, x),
+                       cbt.blocktri_matvec_cuda(T, x, impl="plain"))
+    shower(t)("sor_blocktri_matvec",
+              time_ms(lambda: cbt.blocktri_matvec_cuda(T, x), iters=10))
+    bounds["sor_blocktri_matvec"] = roofline(
+        3 * T.D.numel() * 4 + 2 * x.numel() * 4, 2 * 3 * T.D.numel())
+    print(f"  blocktri_matvec (config 2's blocks: nb={T.nb} b={T.b}) "
+          f"against its plain version {e7:.3e}; bound "
+          f"{bounds['sor_blocktri_matvec'][0]:.4f} ms (bytes)")
+    check(e7 <= KERNEL_TOL, f"blocktri_matvec on config 2's blocks: {e7}")
+    errs["blocktri_matvec"] = max(errs["blocktri_matvec"], e7)
+    del T, fact, r, x
+    torch.cuda.empty_cache()
+
+    small, srhs = spd_band(SOR_SMALL_N, SPD_HALF_BW, device, seed=SEED + 41)
+
+    def make_small():
+        return make_pc("sor", small, Options())
+    pc = make_small()
+    per_apply = apply_launches(pc, srhs)
+    busy, n_launch = profile_launches(lambda: pc.apply(srhs))
+    print(f"sor at its default block {pc.info['block']} (n = {SOR_SMALL_N}, "
+          f"nb = {-(-SOR_SMALL_N // pc.info['block'])}): no kernel's rule "
+          f"takes it, the plain sweep: {n_launch} CUDA launches an apply, "
+          f"device busy {busy:.4f} ms; kernels {per_apply}")
+    check(per_apply == {}, f"sor block 16 launched {per_apply}")
+    paths["sor_block16"] = pc_path("sor_block16", small, srhs, pc, "cg", {},
+                                   t)
+    pc_timings("sor_block16", make_small, pc, srhs, t)
+    return paths
+
+
+def phase_pcs_testbed2(device, t, bounds, errs):
+    """Config 2 through ``testbed2.main`` (``-problem spd:1000000:16``,
+    f32): the reference's Schur fieldsplit recipe (testbed2.c:4), fgmres
+    with ``-pc_type fieldsplit -pc_fieldsplit_type schur`` and lu on both
+    fields (each n = 5e5, block 64: #9 at K = 1, nb = 7813), ``-log_view``
+    stages (the set-up slices the host CSR; its parts are the fieldsplit
+    PC's own stages).  Each Schur apply is three lu applies (two #9
+    launches each) and two CSR products, so the launches are 6 #9 an
+    fgmres iteration and one #2 an operator apply, held exactly.  #9 on
+    field 0's lu factor (the PC's ``inner``) against its plain version.
+    Returns the launches."""
+    import torch
+    from spike_petsc_tpu_torch import testbed2
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
+    from spike_petsc_tpu_torch.utils.profiling import stage_times
+    rec = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, out = run_testbed(TESTBED2_ARGV, rec, entry=testbed2.main)
+    launches = nonzero(read_launches())
+    wall = time.perf_counter() - t0
+    stages = stage_times()
+    for line in out.splitlines():
+        print(f"  testbed2| {line}")
+    res, op, b, pc = rec["result"], rec["operator"], rec["b"], rec["pc"]
+    true_rel = float(torch.linalg.norm(banded_matvec(op, res.x) - b)
+                     / torch.linalg.norm(b))
+    applies, matvecs = krylov_applies("fgmres", res.its)
+    expected = {"sweeps": 6 * applies, "band_matvec": matvecs}
+    print(f"fieldsplit schur (testbed2, n={op.n}, f32): exit code {rc}, "
+          f"{res.its} its, reason {res.reason}, true relres (f32) "
+          f"{true_rel:.3e}, {wall:.2f} s in all; stages (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; PC {pc.info}")
+    print(f"  launches {launches}, expected {expected}")
+    check(rc == 0 and res.reason > 0 and true_rel <= PCS_RELRES_MAX,
+          f"testbed2 fieldsplit: rc {rc}, reason {res.reason}, {true_rel}")
+    check(launches == expected, f"testbed2 fieldsplit launches {launches}")
+    t["fieldsplit_schur_setup_stage"] = (stages["PCSetUp"] * 1e3, 0.0)
+    sf = pc_factor(pc.inner)
+    gen = torch.Generator(device=device).manual_seed(SEED + 46)
+    r = torch.randn((sf.K, sf.nb, sf.b), generator=gen, device=device)
+    errs["sweeps"] = max(errs["sweeps"], sweep_check(
+        "fieldsplit_sweeps", csw.blocktri_solve_batched_cuda, sf.fact, r, t,
+        bounds))
+    del sf, r
+    pc_timings("fieldsplit_schur", None, pc, b, t)
+    return launches
+
+
+def phase_pcs_flagship(band, rhs, device, t, bounds, errs):
+    """The flagship (n = 1e6, w = 201, f32), gmres at PCS_RTOL: asm with
+    its defaults (16 blocks, overlap 100, block 128: windows of 490 block
+    rows, #9) restrict and basic; composite jacobi + bjacobi (16 blocks,
+    block 128: #9) additive and multiplicative (one #2 a stage); launches
+    held exactly.  fgmres with ``-pc_type ksp`` (inner gmres + spike,
+    K = 64, b = 128: #1, #2), whose launches the inner solves set.  #9 at
+    asm's and bjacobi's factor shapes against its plain version.  Returns
+    each path's launches."""
+    import torch
+    from spike_petsc_tpu_torch import Options
+    from spike_petsc_tpu_torch.ops.band import pad_banded
+    from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
+    from spike_petsc_tpu_torch.ops.spike import spike_factor
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    paths = {}
+    cases = (
+        ("asm_restrict", "asm", {}, "gmres", True),
+        ("asm_basic", "asm", {"pc_asm_type": "basic"}, "gmres", True),
+        ("composite_additive", "composite",
+         {"pc_composite_pcs": "jacobi,bjacobi"}, "gmres", True),
+        ("composite_multiplicative", "composite",
+         {"pc_composite_pcs": "jacobi,bjacobi",
+          "pc_composite_type": "multiplicative"}, "gmres", True),
+        ("ksp_gmres_spike", "ksp",
+         {"ksp_ksp_type": "gmres", "ksp_pc_type": "spike",
+          "ksp_pc_spike_partitions": K, "ksp_pc_spike_block": BLOCK},
+         "fgmres", False))
+    for label, name, opts, ksp, exact in cases:
+        def make(name=name, opts=opts):
+            return make_pc(name, band, Options(dict(opts)))
+        pc = make()
+        per_apply = apply_launches(pc, rhs)
+        print(f"{label} (flagship, {pc.info}): one apply launches "
+              f"{per_apply}")
+        check(per_apply.get("sweeps", 0) + per_apply.get("fused_sweep", 0)
+              > 0, f"{label}: no sweep kernel in an apply: {per_apply}")
+        paths[label] = pc_path(label, band, rhs, pc, ksp, per_apply, t,
+                               exact=exact)
+        pc_timings(label, make, pc, rhs, t)
+        del pc
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(SEED + 42)
+    owned = -(-band.n // 16)                  # rows a block owns (16 blocks)
+    for label, rows in (("asm_sweeps", owned + 2 * HALF_BW),
+                        ("bjacobi_sweeps", owned)):
+        m = -(-rows // BLOCK) * BLOCK         # asm's window, bjacobi's rows
+        sf = spike_factor(pad_banded(band, 16 * m), K=16, block_b=BLOCK,
+                          truncated=True)
+        r = torch.randn((16, sf.nb, BLOCK), generator=gen, device=device)
+        errs["sweeps"] = max(errs["sweeps"], sweep_check(
+            label, csw.blocktri_solve_batched_cuda, sf.fact, r, t, bounds))
+        del sf
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_pcs_config1(device, t, bounds, errs):
+    """Config 1 through the testbed (``-problem tridiag``, n = 1e5, f32):
+    cg with ``-pc_type mg`` at rtol 1e-8; the levels, the iteration count
+    (JAX's bound MG_ITS_MAX), the answer against an f64 host solve, and the
+    launches held exactly: each V-cycle two #2 a level above the coarsest
+    and one #1 on the coarse factor (block 64, nb = 2), one more #2 an
+    operator apply.  The coarse factor's #1 against its plain version;
+    the PC's set-up and apply times.  Returns the launches."""
+    import numpy as np
+    import torch
+    from spike_petsc_tpu_torch import Options
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
+    from spike_petsc_tpu_torch.ops.spike import sweep_route
+    from spike_petsc_tpu_torch.solvers.mg import _build_hierarchy
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    rec = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, out = run_testbed(MG_ARGV, rec)
+    launches = nonzero(read_launches())
+    wall = time.perf_counter() - t0
+    for line in out.splitlines()[-12:]:
+        print(f"  testbed| {line}")
+    res, op, b, pc = rec["result"], rec["operator"], rec["b"], rec["pc"]
+    x64 = host_solve_f64(op, b)
+    rel = float(np.linalg.norm(res.x.double().cpu().numpy() - x64)
+                / np.linalg.norm(x64))
+    levels = pc.info["levels"]
+    applies, matvecs = krylov_applies("cg", res.its)
+    expected = {"fused_sweep": applies,
+                "band_matvec": 2 * (levels - 1) * applies + matvecs}
+    print(f"cg+mg (config 1, n={op.n}, f32): exit code {rc}, {res.its} its "
+          f"(JAX's bound {MG_ITS_MAX}), reason {res.reason}, "
+          f"||x - x64|| / ||x64|| {rel:.3e}, {wall:.2f} s in all; PC "
+          f"{pc.info}")
+    print(f"  launches {launches}, expected {expected} ({2 * (levels - 1)} "
+          f"#2 and one #1 a V-cycle)")
+    check(rc == 0 and res.reason > 0 and res.its <= MG_ITS_MAX
+          and rel <= MG_REL_MAX, f"config 1 mg: rc {rc}, {res.its} its, "
+          f"reason {res.reason}, error {rel}")
+    check(launches == expected, f"config 1 mg launches {launches}")
+    levels_, fact = _build_hierarchy(op, Options())
+    route = sweep_route(fact.fact, fact.b, torch.float32, True)
+    print(f"  mg coarse factor: n={levels_[-1].n}, K=1, b={fact.b}, "
+          f"nb={fact.nb}, route {route}")
+    check(route == "fused", f"mg coarse route {route}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 43)
+    r = torch.randn((1, fact.nb, fact.b), generator=gen, device=device)
+    errs["fused_sweep"] = max(errs["fused_sweep"], sweep_check(
+        "mg_coarse_fused_sweep", cfs.blocktri_solve_fused_cuda, fact.fact, r,
+        t, bounds))
+    pc_timings("mg", lambda: make_pc("mg", op, Options()), pc, b, t)
+    return launches
+
+
+def phase_pcs_reference(device):
+    """Each recipe of ``models.pc_recipes`` (every PC of this slice) through
+    ``solve`` at n = 2e4 on config 2's matrix (k = 16; composite and
+    fieldsplit on the host CSR, the others on the band): the card in f32
+    against the CPU in f64 at rtol 1e-6, iteration counts within 1 and the
+    answers within 1e-4 of max|x| (``pc_recipes.recipe_agrees``)."""
+    from spike_petsc_tpu_torch.models import pc_recipes
+    for name, argv, ksp in pc_recipes.PC_RECIPES:
+        card, cpu, err = pc_recipes.solve_recipe(
+            name, argv, ksp, device, n=PCS_REF_N, k=SPD_HALF_BW,
+            seed=SEED + 44)
+        print(f"n={PCS_REF_N} {name} {argv} {ksp}: card {card.its} its, "
+              f"CPU f64 {cpu.its} its; max|x_card - x_cpu| / max|x_cpu| "
+              f"{err:.3e}")
+        check(pc_recipes.recipe_agrees(card, cpu, err),
+              f"{name} card vs CPU: its {card.its} / {cpu.its}, err {err}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2778,6 +3195,7 @@ def main() -> int:
         return 2
     from spike_petsc_tpu_torch.ops.spike import spike_factor
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     smi = phase_card()
     phase_build()
@@ -2829,6 +3247,10 @@ def main() -> int:
     tm = time.perf_counter()
     phase_grouped(band, rhs, device)
     print(f"  grouped phase: {time.perf_counter() - tm:.1f} s")
+    # the remaining PCs on the flagship: asm, composite, ksp
+    tp = time.perf_counter()
+    pc_paths = phase_pcs_flagship(band, rhs, device, t, bounds, errs)
+    print(f"PC phases on the flagship: {time.perf_counter() - tp:.1f} s")
     del band, rhs, sf, res, pc
     torch.cuda.empty_cache()
     tt = time.perf_counter()
@@ -2860,6 +3282,10 @@ def main() -> int:
     phase_transpose_config1(device, t)
     torch.cuda.empty_cache()
     print(f"config 1 phases: {time.perf_counter() - t1:.1f} s")
+    tp = time.perf_counter()
+    pc_paths["mg_config1"] = phase_pcs_config1(device, t, bounds, errs)
+    torch.cuda.empty_cache()
+    print(f"mg phase (config 1): {time.perf_counter() - tp:.1f} s")
 
     # the reference's zero-diagonal scenario with pivot shifts, n = 1e6
     tz = time.perf_counter()
@@ -2885,11 +3311,23 @@ def main() -> int:
     phase_ksp_types(sband, srhs, spc, SPD_KSP_TYPE_CASES,
                     ("fused_sweep_spd", "band_matvec"))
     phase_transpose_config2(sband, srhs, spc)
-    del sband, srhs, ssf, spc
+    del ssf, spc
+    torch.cuda.empty_cache()
+    tp = time.perf_counter()
+    pc_paths.update(phase_pcs_config2(sband, srhs, device, t, bounds, errs))
+    print(f"SOR phases (config 2): {time.perf_counter() - tp:.1f} s")
+    del sband, srhs
     torch.cuda.empty_cache()
     phase_ksp_types_reference(device)
     print(f"KSP types on config 2 and the references: "
           f"{time.perf_counter() - tk:.1f} s")
+    tp = time.perf_counter()
+    pc_paths["fieldsplit_testbed2"] = phase_pcs_testbed2(device, t, bounds,
+                                                       errs)
+    torch.cuda.empty_cache()
+    phase_pcs_reference(device)
+    print(f"testbed2 fieldsplit and the PC references: "
+          f"{time.perf_counter() - tp:.1f} s")
 
     # each kernel's launches from the run of the path it carries; the
     # library call where one PyTorch call computes the same function
@@ -2927,10 +3365,13 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t[ms][0],
             "plain_ms": t[plain][0], "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": t[library][0] if library else None})
+            "library_ms": t[library][0] if library else None,
+            "pc_path_launches": {path: n[name] for path, n in pc_paths.items()
+                                 if n.get(name)}})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel ran no time on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

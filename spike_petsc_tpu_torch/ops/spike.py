@@ -734,17 +734,26 @@ def _batched_solver(sf: SpikeFactor, impl: str, rhs: torch.Tensor,
         raise ValueError(f"unknown impl {impl!r}: expected "
                          f"{', '.join(_IMPLS)}")
     impl = _JAX_NAMES.get(impl, impl)
-    if not _has_kernel(sf.fact):
-        if impl == "cuda":
-            _require_inv_factors(sf, impl)
-        return lambda r: _batched_tri_solve(sf.fact, r)
-    solve = (_SWEEPS_MANY if many else _SWEEPS)[sf.fact.method]
+    if not _has_kernel(sf.fact) and impl == "cuda":
+        _require_inv_factors(sf, impl)
+    return partition_solver(sf.fact, sf.b, impl, rhs, many=many)
+
+
+def partition_solver(fact, b: int, impl: str, rhs: torch.Tensor,
+                     many: bool = False):
+    """The sweep ``r -> x`` of a partition factor ``fact`` with leading K
+    (``r``: ``[K, nb, b]``, or ``[K, nb, b, r]`` with ``many``) under
+    ``impl`` 'auto' (the route of :func:`sweep_route` for ``rhs``),
+    'cuda' or 'plain'.  Factors no kernel takes run their plain sweeps."""
+    if not _has_kernel(fact):
+        return lambda r: _batched_tri_solve(fact, r)
+    solve = (_SWEEPS_MANY if many else _SWEEPS)[fact.method]
     if impl == "auto":
-        route = sweep_route(sf.fact, sf.b, rhs.dtype, rhs.is_cuda, many=many)
+        route = sweep_route(fact, b, rhs.dtype, rhs.is_cuda, many=many)
         if route == "sweeps":
-            return lambda r: blocktri_solve_batched_cuda(sf.fact, r)
+            return lambda r: blocktri_solve_batched_cuda(fact, r)
         impl = "cuda" if route == "fused" else "plain"
-    return lambda r: solve(sf.fact, r, impl=impl)
+    return lambda r: solve(fact, r, impl=impl)
 
 
 def spike_solve(sf: SpikeFactor, rhs: torch.Tensor,

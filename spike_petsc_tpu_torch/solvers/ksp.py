@@ -24,9 +24,11 @@ Ported: a ``BandedMatrix``, ``BlockTridiagonal``, host SciPy sparse (a
 band+outliers split or a sparse CSR product), dense or callable operator,
 a BandedMatrix or host PC matrix, every KSP type of ``krylov`` (``bicg``,
 ``cgne``/``cgnr``/``cgls`` and ``lsqr`` get A^T and M^-T from the operator
-and ``PC.transpose``), the batched engines of ``krylov_many``, the
-``none``, ``jacobi``, ``lu``, ``spike``, ``cholesky``, ``bjacobi`` and
-``banded`` PCs, ``transpose=True`` (KSPSolveTranspose: A^T x = b, the
+and ``PC.transpose``), the batched engines of ``krylov_many``, every PC
+type of the JAX package (``none``, ``jacobi``, ``lu``, ``spike``,
+``cholesky``, ``bjacobi``, ``banded``, ``sor``, ``ksp``, ``asm``;
+``composite`` and ``fieldsplit`` in ``fieldsplit.py``, ``mg`` in
+``mg.py``), ``transpose=True`` (KSPSolveTranspose: A^T x = b, the
 operator transposed on the host and the PC applying M^-T on its stored
 factors), null spaces (``nullspace=``, ``transpose_nullspace=``,
 ``-ksp_nullspace_constant``), and the flags
@@ -56,6 +58,8 @@ from ..utils.options import Options
 from ..utils.profiling import scope
 from ..utils.registry import SOLVERS
 from . import krylov  # noqa: F401  (registers the ported solvers)
+from . import fieldsplit  # noqa: F401  (registers composite/fieldsplit PCs)
+from . import mg  # noqa: F401  (registers the multigrid PC)
 from .operator import as_matvec, as_matvec_many, transpose_operator
 from .nullspace import make_nullspace
 from .pc import PC, make_pc

@@ -3,13 +3,17 @@
 A PC is a small object with an ``apply`` closure over device factorization
 state (and, where the type has one, a multi-RHS ``apply_many``); factories
 are registered by name and read their parameters from a prefix-scoped
-options database.  Ported: ``none``, ``jacobi``, ``lu``, ``spike``,
+options database.  Here: ``none``, ``jacobi``, ``lu``, ``spike``,
 ``cholesky`` (the symmetric ``spd`` factorization of the spike family),
-``bjacobi`` and ``banded`` (PCBANDED: a norm-fraction band extracted from a
-host matrix, preconditioned by an inner PC under the ``banded_`` prefix);
-forward apply and, where the type has one, multi-RHS apply, with the Newton
-safety net; and the transpose apply M^{-T} of every one (``PC.transpose``,
-PCApplyTranspose), built once from the stored factors.  On the card a
+``bjacobi``, ``banded`` (PCBANDED: a norm-fraction band extracted from a
+host matrix, preconditioned by an inner PC under the ``banded_`` prefix),
+``sor`` (block SSOR, each sweep one block-Thomas solve on a factor built
+at set-up), ``ksp`` (an inner Krylov solve) and ``asm`` (additive Schwarz
+with overlap); ``composite`` and ``fieldsplit`` live in ``fieldsplit.py``,
+``mg`` in ``mg.py``.  Forward apply and, where the type has one, multi-RHS
+apply, with the Newton safety net; and the transpose apply M^{-T} of every
+one (``PC.transpose``, PCApplyTranspose), built once from the stored
+factors.  On the card a
 factor that names no block gets the smallest block the sweep kernels take
 (``default_block``).
 
@@ -34,11 +38,14 @@ from .. import sparse as hsp
 from ..ops.band import BandedMatrix, banded_diagonal, banded_matvec
 from ..ops.cuda.fused_sweep_spd import require_spd_feasible, spd_block_for
 from ..ops.cuda.sweeps import inv_block_for
-from ..ops.blocktri import TransposedBlockTriFactor
-from ..ops.spike import (_batched_solver, spike_factor, spike_solve,
-                         spike_solve_many, spike_transpose)
+from ..ops.blocktri import (BlockTridiagonal, BlockTriFactor,
+                            TransposedBlockTriFactor, band_to_blocktri,
+                            batched_inverse, sweep_precision)
+from ..ops.spike import (_batched_solver, partition_solver, spike_factor,
+                         spike_solve, spike_solve_many, spike_transpose)
 from ..utils.options import Options
 from ..utils.registry import PRECONDITIONERS, register_pc
+from .operator import as_matvec, as_matvec_many, transpose_operator
 
 
 @dataclass
@@ -124,21 +131,12 @@ def _as_banded(pmat, opts: Options) -> BandedMatrix:
         "matrices are)")
 
 
-# the JAX package's PC types that this package does not have yet; any other
-# unknown name is a KeyError from the registry (bad usage)
-_NOT_YET_PORTED = ("asm", "composite", "fieldsplit", "ksp", "mg", "sor")
-
-
 def make_pc(name: str, pmat, options: Optional[Options] = None,
             prefix: str = "", *, device=None, dtype=None) -> PC:
     """Build a preconditioner by registry name, PETSc ``PCSetType`` style.
     A host ``pmat`` is placed on ``device`` in ``dtype`` (see the module
     docstring)."""
     opts = (options or Options()).scoped(prefix)
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"pc type {name!r} is not yet ported to spike_petsc_tpu_torch "
-            f"(ported: {', '.join(PRECONDITIONERS.names())})")
     return PRECONDITIONERS.get(name)(_place(pmat, device, dtype), opts)
 
 
@@ -511,3 +509,251 @@ def pc_banded(pmat, opts: Options) -> PC:
 
     return PC(name="banded", apply=inner.apply, info=info, inner=inner,
               apply_many=inner.apply_many, make_transpose=make_transpose)
+
+
+def _sor_factor(T: BlockTridiagonal, Dinv: torch.Tensor, omega: float,
+                stype: str) -> BlockTriFactor:
+    """The block SOR sweep of ``stype`` as one ``inv`` block-Thomas factor
+    (K = 1), so that the sweep kernels run it.  With F_i = ω L_i Dinv_{i-1},
+    Sinv_i = ω Dinv_i and the blocks' own U_i, the solve's forward
+    recurrence v_i = r_i - F_i v_{i-1} is r_i - L_i y_{i-1} for the SOR
+    iterate y_i = ω Dinv_i v_i.  So ``forward`` is the solve with U = 0,
+    ``backward`` the solve with F = 0, and ``symmetric`` the solve with
+    both: its v is JAX's middle step D t / ω (D_i Dinv_i = I), and the
+    caller scales the result by (2 - ω) / ω."""
+    zero = torch.zeros_like(T.D)
+    F = zero
+    if stype != "backward":
+        prec = sweep_precision(T.L, Dinv)
+        FL = omega * (T.L[1:].to(prec) @ Dinv[:-1].to(prec))
+        F = torch.cat([zero[:1], FL.to(T.dtype)])
+    U = zero if stype == "forward" else T.U
+    return BlockTriFactor(F=F[None].contiguous(), U=U[None].contiguous(),
+                          Sinv=(omega * Dinv)[None].contiguous(),
+                          method="inv")
+
+
+def _sor_applies(T: BlockTridiagonal, Dinv: torch.Tensor, omega: float,
+                 stype: str, its: int, n: int) -> tuple:
+    """(apply, apply_many) of block SOR on the blocks ``T``: ``its`` sweeps
+    of ``_sor_factor``'s solve, the later ones on the residual
+    r - T z (the blocktri operator of ``as_matvec``, #7 on the card)."""
+    fact = _sor_factor(T, Dinv, omega, stype)
+    nb, b = T.nb, T.b
+    scale = (2.0 - omega) / omega if stype == "symmetric" else 1.0
+    mv = as_matvec(T)[0]
+    mv_many = as_matvec_many(T)[0]
+
+    def run(rp, matvec, many):
+        solve = partition_solver(fact, b, "auto", rp, many=many)
+
+        def sweep(v):
+            x = solve(v.reshape(1, nb, b, *v.shape[1:])).reshape(v.shape)
+            return x if scale == 1.0 else scale * x
+
+        z = sweep(rp)
+        for _ in range(its - 1):
+            z = z + sweep(rp - matvec(z))
+        return z
+
+    def apply(r):
+        rp = r.new_zeros(nb * b)
+        rp[:n] = r
+        return run(rp, mv, False)[:n]
+
+    def apply_many(R):
+        rp = R.new_zeros((nb * b, R.shape[1]))
+        rp[:n] = R
+        return run(rp, mv_many, True)[:n]
+
+    return apply, apply_many
+
+
+@register_pc("sor")
+def pc_sor(pmat, opts: Options) -> PC:
+    """Block SSOR (PETSc ``-pc_type sor`` role, JAX ``solvers/pc.py:151``):
+    the band viewed as block-tridiagonal with blocks of ``-pc_sor_block``
+    (default the bandwidth), one symmetric sweep applying
+    M^-1 = ((2-ω)/ω) (D/ω + U)^-1 D (D/ω + L)^-1 from the batched D^-1
+    blocks.  Options: ``-pc_sor_omega`` (1.0), ``-pc_sor_its`` (1; extra
+    sweeps iterate z += M^-1 (r - A z)), ``-pc_sor_type
+    symmetric|forward|backward``, ``-pc_sor_block``, ``-pc_sor_inverter``.
+
+    Each sweep is one block-Thomas solve on a factor built once at set-up
+    (``_sor_factor``), so on the card it takes the sweep kernels' route
+    (#1, else #9, for ``inv`` factors) where the block is 64 or 128; at
+    any other block the plain sweep runs.  The block is the
+    preconditioner, so it is not changed for the card.  The transpose is
+    JAX's: the same sweep type on the transposed blocks, which is the
+    sweep on A^T.  That is the adjoint M^-T for the symmetric sweep only;
+    for a forward (backward) sweep the adjoint is the backward (forward)
+    sweep on A^T."""
+    band = _as_banded(pmat, opts)
+    omega = float(opts.get_real("pc_sor_omega", 1.0))
+    if not 0.0 < omega < 2.0:
+        raise ValueError(f"-pc_sor_omega must be in (0, 2), got {omega}")
+    its = opts.get_int("pc_sor_its", 1)
+    stype = opts.get_string("pc_sor_type", "symmetric")
+    if stype not in ("symmetric", "forward", "backward"):
+        raise ValueError(f"unknown -pc_sor_type {stype!r}")
+    block = opts.get_int("pc_sor_block", None)
+    inverter = opts.get_string("pc_sor_inverter", "auto")
+    b = block or max(band.kl, band.ku, 1)
+    T = band_to_blocktri(band, b)
+    Dinv = batched_inverse(T.D, inverter)
+    info = dict(omega=omega, its=its, type=stype, block=b)
+    apply, apply_many = _sor_applies(T, Dinv, omega, stype, its, band.n)
+
+    def make_transpose():
+        # JAX's M(A^T): the same sweep on the transposed blocks
+        at, amt = _sor_applies(transpose_operator(T),
+                               Dinv.transpose(-1, -2).contiguous(), omega,
+                               stype, its, band.n)
+        return PC(name="sor_transpose", apply=at, apply_many=amt, info=info)
+
+    return PC(name="sor", apply=apply, apply_many=apply_many, info=info,
+              make_transpose=make_transpose)
+
+
+def operator_of(pmat) -> tuple:
+    """(operator, device, dtype) of a placed PC matrix, for ``make_solver``
+    and ``as_matvec``: a host matrix's CSR where it was placed, a band or
+    another operator where it lies."""
+    if isinstance(pmat, HostMatrix):
+        return pmat.csr, pmat.device, pmat.dtype
+    if isinstance(pmat, BandedMatrix):
+        return pmat, pmat.device, pmat.dtype
+    return pmat, None, None
+
+
+@register_pc("ksp")
+def pc_ksp(pmat, opts: Options) -> PC:
+    """PCKSP: a full inner Krylov solve as the preconditioner apply (JAX
+    ``solvers/pc.py:593``).  The inner solver reads the ``ksp_`` prefix,
+    PETSc's convention (``-ksp_ksp_type`` default gmres, ``-ksp_pc_type``
+    default none, ``-ksp_ksp_rtol`` default 1e-2, ``-ksp_ksp_max_it``
+    default 50; nested prefixes compose, e.g. ``-ksp_banded_pc_type``).
+    The PC varies between applies: use ``-ksp_type fgmres`` outside.
+    The transpose solves A^T z = r with the same configuration
+    (``make_solver(..., transpose=True)``, the inner PC's transpose)."""
+    from . import ksp as _ksp
+    inner_opts = opts.scoped("ksp_")
+    inner_ksp = inner_opts.get_string("ksp_type", "gmres")
+    inner_pc_name = inner_opts.get_string("pc_type", "none")
+    rtol = inner_opts.get_real("ksp_rtol", 1e-2)
+    maxit = inner_opts.get_int("ksp_max_it", 50)
+    inner_pc = PRECONDITIONERS.get(inner_pc_name)(pmat, inner_opts)
+    op, device, dtype = operator_of(pmat)
+
+    def inner_solver(transpose: bool):
+        return _ksp.make_solver(op, options=inner_opts, ksp_type=inner_ksp,
+                                pc=inner_pc, jit=False, transpose=transpose,
+                                rtol=rtol, maxit=maxit, device=device,
+                                dtype=dtype)
+
+    solver = inner_solver(False)
+    info = dict(ksp=inner_ksp, rtol=rtol, maxit=maxit)
+
+    def make_transpose():
+        solver_t = inner_solver(True)
+        return PC(name="ksp_transpose", apply=lambda r: solver_t(r).x,
+                  info=info,
+                  inner=(inner_pc.transpose()
+                         if inner_pc.name != "none" else inner_pc))
+
+    return PC(name="ksp", apply=lambda r: solver(r).x, info=info,
+              inner=inner_pc if inner_pc.name != "none" else None,
+              make_transpose=make_transpose)
+
+
+@register_pc("asm")
+def pc_asm(pmat, opts: Options) -> PC:
+    """PCASM: restricted (default) or basic additive Schwarz with overlap
+    (JAX ``solvers/pc.py:646``).  Each of K row blocks is extended by
+    ``overlap`` rows on both sides; the windows concatenate into one band
+    factored by ``spike_factor(K, truncated=True)``, whose partitions are
+    the windows, so the apply is one batched partition solve (on the card
+    ``sweep_route``: #1, else #9).  Options: ``-pc_asm_blocks`` (16),
+    ``-pc_asm_overlap`` (default max(kl, ku)), ``-pc_asm_type
+    restrict|basic``, ``-pc_asm_method``, ``-pc_asm_inverter``,
+    ``-pc_asm_store_dtype``, ``-pc_asm_block`` (default as
+    ``-pc_bjacobi_block``: the tip size, on the card 64 or 128).  The
+    window length rounds up to a multiple of the block, so on the card
+    the windows are not those of the CPU at the default block.  The
+    transpose is the exact adjoint on the same factors, in the
+    storage-sharing marker form (plain sweeps)."""
+    band = _as_banded(pmat, opts)
+    k = max(band.kl, band.ku, 1)
+    n, w = band.n, band.width
+    K = opts.get_int("pc_asm_blocks", 16)
+    K = max(1, min(K, n // (2 * k) if n >= 2 * k else 1))
+    overlap = opts.get_int("pc_asm_overlap", k)
+    if overlap < 0:
+        raise ValueError(f"pc_asm_overlap must be >= 0, got {overlap}")
+    asm_type = opts.get_string("pc_asm_type", "restrict")
+    if asm_type not in ("restrict", "basic"):
+        raise ValueError(f"-pc_asm_type must be restrict or basic, "
+                         f"got {asm_type!r}")
+    method = opts.get_string("pc_asm_method", "inv")
+    inverter = opts.get_string("pc_asm_inverter", "auto")
+    store_dtype = _DTYPES[opts.get_string("pc_asm_store_dtype", "")]
+    bb = _block_option(band, opts, "asm", method) or k
+    m_int = -(-n // K)                        # owned rows per block
+    mloc = -(-(m_int + 2 * overlap) // bb) * bb   # window rows
+    total = overlap + (K - 1) * m_int + mloc  # the padded vector's rows
+    # window kk covers padded rows [kk m_int, kk m_int + mloc); rows
+    # outside [0, n) get a unit diagonal (identity on the padding)
+    idx = (torch.arange(K, device=band.device)[:, None] * m_int
+           + torch.arange(mloc, device=band.device)[None])
+    dpad = band.data.new_zeros((total, w))
+    dpad[:, band.kl] = 1
+    dpad[overlap:overlap + n] = band.data
+    concat = BandedMatrix(data=dpad[idx].reshape(K * mloc, w), kl=band.kl,
+                          ku=band.ku)
+
+    def factor(inv):
+        return spike_factor(concat, K=K, block_b=bb, method=method,
+                            truncated=True, inverter=inv,
+                            store_dtype=store_dtype)
+
+    sf, fb = _newton_safety_net(concat, factor(inverter), inverter,
+                                store_dtype, None, lambda: factor("blocked"),
+                                exact=False)
+    nb_, b_ = sf.nb, sf.b                     # nb_ * b_ == mloc
+    flat = idx.reshape(-1)
+
+    def apply_with(f, transposed: bool):
+        def apply(x):
+            if not transposed or asm_type == "basic":
+                rp = x.new_zeros(total)
+                rp[overlap:overlap + n] = x
+                rw = rp[idx]
+            else:
+                # the adjoint of the interior restriction: each block's
+                # owned rows at window rows [overlap, overlap + m_int)
+                xe = x.new_zeros(K * m_int)
+                xe[:n] = x
+                rw = x.new_zeros((K, mloc))
+                rw[:, overlap:overlap + m_int] = xe.reshape(K, m_int)
+            sweep = _batched_solver(f, "auto", x)
+            y = sweep(rw.reshape(K, nb_, b_)).reshape(K, mloc)
+            if transposed or asm_type == "basic":
+                acc = y.new_zeros(total).index_add_(0, flat, y.reshape(-1))
+                return acc[overlap:overlap + n]
+            return y[:, overlap:overlap + m_int].reshape(-1)[:n]
+        return apply
+
+    info = dict(blocks=K, overlap=overlap, type=asm_type, block=b_,
+                window=mloc)
+    if store_dtype is not None:
+        info["store_dtype"] = _dtype_name(store_dtype)
+    if fb:
+        info["inverter_fallback"] = "blocked"
+
+    def make_transpose():
+        sft = dataclasses.replace(sf, fact=TransposedBlockTriFactor(sf.fact))
+        return PC(name="asm_transpose", apply=apply_with(sft, True),
+                  info=info)
+
+    return PC(name="asm", apply=apply_with(sf, False), info=info,
+              make_transpose=make_transpose)

@@ -16,13 +16,16 @@ testbed2.c:97-99).
 from __future__ import annotations
 
 import sys
+from typing import Optional
 
 from .testbed import main as _main
 
 
-def main(argv=None) -> int:
+def main(argv=None, record: Optional[dict] = None) -> int:
+    """The testbed on ``argv`` with the symmetry report; ``record`` as for
+    ``testbed.main``."""
     argv = sys.argv[1:] if argv is None else argv
-    return _main(list(argv) + ["-report_symmetry", "1"])
+    return _main(list(argv) + ["-report_symmetry", "1"], record=record)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ import torch
 
 from spike_petsc_tpu_torch import BandedMatrix, Options, solve
 from spike_petsc_tpu_torch.convert import banded_from_numpy
+from spike_petsc_tpu_torch.models import pc_recipes
 from spike_petsc_tpu_torch.ops.band import banded_matvec
 from spike_petsc_tpu_torch.ops.blocktri import (BlockTridiagonal,
                                                 band_to_blocktri,
@@ -1042,3 +1043,134 @@ def test_shifted_inv_factor_counts_as_the_cpu(cuda_device):
     cpu = spike_factor(banded_from_numpy(data, 1, 1, device="cpu"), **kw)
     assert int(sf.fact.nshift.sum()) > 0
     assert torch.equal(sf.fact.nshift.cpu(), cpu.fact.nshift)
+
+
+# ---------------------------------------------------------------------------
+# the remaining PCs (sor, ksp, asm, composite, fieldsplit, mg) on the card:
+# their kernel routes, and each in f32 against the CPU in f64 (n = 2e4)
+# ---------------------------------------------------------------------------
+
+def _launches():
+    from spike_petsc_tpu_torch.ops.cuda import KERNELS
+    torch.cuda.synchronize()
+    return {k.name: k.launches for k in KERNELS}
+
+
+def _launched(before):
+    """The kernels launched since ``before`` (``_launches()``), by name."""
+    after = _launches()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _pc_pair(name, n, k, opts, device, seed=35):
+    """The PC ``name`` on a dominant nonsymmetric band (n, k) on the card in
+    f32 and on the CPU in f64, and a right-hand side of each."""
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    data = random_band(n, k, k, seed=seed)
+    r = np.random.default_rng(seed + 1).standard_normal(n)
+    card = make_pc(name, banded_from_numpy(data.astype(np.float32), k, k,
+                                           device=device), Options(opts))
+    cpu = make_pc(name, banded_from_numpy(data, k, k, device="cpu"),
+                  Options(opts))
+    return (card, torch.as_tensor(r, dtype=torch.float32, device=device),
+            cpu, torch.as_tensor(r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block,its,expected", [
+    (20000, 64, 1, {"fused_sweep": 1}),
+    (20000, 128, 1, {"fused_sweep": 1}),
+    (100000, 64, 1, {"sweeps": 2}),
+    (20000, 64, 2, {"fused_sweep": 2, "blocktri_matvec": 1}),
+    (20000, 16, 1, {})])
+def test_sor_routes_on_the_card(cuda_device, n, block, its, expected):
+    """SOR's sweep is one solve on its pseudo-factor: #1 where its rule
+    admits the factor (nb = 313 or 157), #9 at nb = 1563, the plain sweep
+    at block 16; ``-pc_sor_its 2`` forms its residual with #7.  The apply
+    within 1e-5 of the CPU's f64 apply; ``apply_many`` on 3 columns runs
+    #4 once a sweep."""
+    opts = {"pc_sor_block": block, "pc_sor_its": its}
+    card, r, cpu, r64 = _pc_pair("sor", n, 16, opts, cuda_device)
+    before = _launches()
+    z = card.apply(r)
+    assert _launched(before) == expected
+    ref = cpu.apply(r64)
+    assert _rel(z.cpu().double(), ref) <= TOL
+    if block in (64, 128):
+        before = _launches()
+        Z = card.apply_many(torch.stack([r, 2 * r, -r], dim=1))
+        assert _launched(before).get("fused_sweep_many") == its
+        assert _rel(Z[:, 1].cpu().double(), 2 * ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("asm_type", ["restrict", "basic"])
+def test_asm_runs_the_sweep_kernels(cuda_device, asm_type):
+    """asm's windows on the card: block 64 by default (the CPU's at an
+    explicit -pc_asm_block 64), one #1 launch an apply at K = 16 windows
+    of 21 block rows; two #9 launches at 2 windows of 1563+ block rows;
+    the transpose (marker form) runs no kernel.  Against the CPU in f64."""
+    opts = {"pc_asm_type": asm_type}
+    card, r, cpu, r64 = _pc_pair("asm", 20000, 16,
+                                 dict(opts, pc_asm_block=64), cuda_device)
+    assert card.info == cpu.info
+    before = _launches()
+    z = card.apply(r)
+    assert _launched(before) == {"fused_sweep": 1}
+    assert _rel(z.cpu().double(), cpu.apply(r64)) <= TOL
+    before = _launches()
+    zt = card.transpose().apply(r)
+    assert _launched(before) == {}
+    assert _rel(zt.cpu().double(), cpu.transpose().apply(r64)) <= TOL
+    big, rb, _, _ = _pc_pair("asm", 200000, 16, dict(opts, pc_asm_blocks=2),
+                             cuda_device)
+    assert big.info["block"] == 64
+    before = _launches()
+    big.apply(rb)
+    assert _launched(before) == {"sweeps": 2}
+
+
+@pytest.mark.cuda
+def test_mg_coarse_solve_runs_the_fused_sweep(cuda_device):
+    """mg on config 1's Laplacian (n = 1e5, f32): the coarse factor takes
+    block 64 (nb = 2), so one V-cycle is one #1 launch and two #2 launches
+    a level above the coarsest; the transposed cycle the same on the
+    regular-form coarse transpose.  The apply within 1e-5 of the CPU's f64
+    one (whose coarse block is the tip size)."""
+    from spike_petsc_tpu_torch.models import problems
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    from spike_petsc_tpu_torch import sparse as hsp
+    data, kl, ku = hsp.csr_to_banded_arrays(problems.tridiag_laplacian(100000))
+    card = make_pc("mg", banded_from_numpy(data.astype(np.float32), kl, ku,
+                                           device=cuda_device), Options())
+    cpu = make_pc("mg", banded_from_numpy(data, kl, ku, device="cpu"),
+                  Options())
+    assert card.info == cpu.info and card.info["levels"] == 11
+    r64 = torch.as_tensor(np.random.default_rng(36).standard_normal(100000))
+    r = r64.float().to(cuda_device)
+    expected = {"fused_sweep": 1,
+                "band_matvec": 2 * (card.info["levels"] - 1)}
+    for pc, ref in ((card, cpu), (card.transpose(), cpu.transpose())):
+        before = _launches()
+        z = pc.apply(r)
+        assert _launched(before) == expected
+        assert _rel(z.cpu().double(), ref.apply(r64)) <= TOL
+    before = _launches()
+    Z = card.apply_many(torch.stack([r, -r], dim=1))
+    assert _launched(before)["fused_sweep_many"] == 1
+    assert _rel(Z[:, 1].cpu().double(), -cpu.apply(r64)) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pc_type,argv,ksp", pc_recipes.PC_RECIPES)
+def test_pc_on_the_card_matches_the_cpu(cuda_device, pc_type, argv, ksp):
+    """Each PC of this slice through ``solve`` on the card in f32 against
+    the CPU in f64, on config 2's matrix at n = 2e4 (k = 16; the host
+    CSR for composite and fieldsplit, the band otherwise): converged,
+    iteration counts within 1 (f32 rounding), the answers within 1e-4 of
+    max|x| (rtol 1e-6 is near f32's floor for a solve of this size)."""
+    card, cpu, err = pc_recipes.solve_recipe(pc_type, argv, ksp, cuda_device)
+    assert card.reason > 0 and cpu.reason > 0
+    assert card.x.device.type == "cuda" and card.x.dtype == torch.float32
+    assert abs(card.its - cpu.its) <= pc_recipes.ITS_SLACK == 1
+    assert err <= pc_recipes.X_TOL == 1e-4

@@ -89,7 +89,8 @@ def test_restarted_gmres_without_pc_matches_jax(system):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(ksp_type="gmres", pc_type="asm"), "pc type 'asm'"),
+    (dict(ksp_type="gmres", pc_type="spike",
+          options={"pc_spike_check": 1}), "pc_spike_check"),
 ])
 def test_unported_surface_raises(system, kwargs, match):
     data, b = system
