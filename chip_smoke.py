@@ -140,10 +140,30 @@ In order, it:
      fieldsplit recipe (lu on both fields: #9 at nb = 7813; the set-up's
      parts timed); and each PC at n = 2e4, the card in f32 against the
      CPU in f64;
- 12. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
+ 12. complex scalars, ``ops/autodiff.py``, ``gmres_many``'s options and
+     the factor checks (``phase_gmres_many_options``, ``phase_autodiff``,
+     ``phase_checks`` on the flagship, ``phase_complex`` after it):
+     ``make_solver_many(ksp_type="gmres")`` at r = 32 with the spike PC on
+     the left and on the right (#4) under each CGS refinement, the
+     operator the column route of #2, every column converged, timed per
+     right-hand side; ``solve_banded_diff`` on the flagship (K = 64: #1)
+     and config 1's band (K = 1: #9), each pass's launches held to
+     AUTODIFF_LAUNCHES, the adjoint residual, the gradients against those
+     of the plain sweeps on the same factors, forward and backward timed
+     with their device time, and n = 2e4 against the CPU in f64;
+     ``-pc_spike_check 1`` (health OK on the flagship, FloatingPointError
+     on the unshifted zero-diagonal matrix at b = 3), the flagship factor
+     with bf16 spikes through ``save_factorization`` /
+     ``load_factorization`` (the reloaded solve bit-equal); a complex64
+     band at the flagship's shape (gmres + spike) and a complex Hermitian
+     one at config 2's (cg + cholesky), converged, no kernel launched,
+     every tensor on the card, the factor and the solve timed, and
+     n = 2e4 on the card against the CPU in complex128;
+ 13. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
      path, error, time, plain time, bound and library time, and its
-     launches on each PC path) and the script's time in all, and, last,
-     the line ``{"ok": true, "device": {...}}``.
+     launches on each further path: the PCs', gmres_many's, autodiff's)
+     and the script's time in all, and, last, the line
+     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the exit code is then non-zero and no result line
 is printed.  Without a CUDA device it exits with code 2 at once.
@@ -356,6 +376,39 @@ MG_ITS_MAX = 15            # JAX's bound (tests/test_mg.py); f32 CPU: 8
 MG_REL_MAX = 2e-2          # against an f64 host solve, as config 1's lu
 PCS_REF_N = 20_000
 # NVIDIA's data sheet for the H100 SXM (700 W): the bound of each kernel
+# complex scalars, ops/autodiff.py, gmres_many's options and the factor
+# checks (phase_complex, phase_gmres_many_options, phase_autodiff,
+# phase_checks).  Complex input launches none of the nine kernels (their
+# rules admit f32/bf16 only; complex spd takes the plain sweep)
+COMPLEX_RTOL = 1e-5
+COMPLEX_RELRES_MAX = 1e-4
+COMPLEX_REF_N, COMPLEX_REF_TOL = 20_000, 1e-4
+# gmres_many at r = 32 (side, CGS refinement, rtol).  One CGS pass in
+# f32 loses the basis's orthogonality and the residual estimate stalls at
+# the true f32 residual: the JAX package's gmres_many in f32 on the CPU
+# (n = 2e4, w = 201, K = 8, b = 128, bf16 spikes, right PC, 'never')
+# stalls at ~2.5e-6 of ||b|| and runs to maxit at rtol 1e-8 (its
+# single-RHS gmres too; 'always' and 'ifneeded' 2 its), so 'never' runs at
+# rtol 1e-5
+GMRES_MANY_CASES = (("left", "always", 1e-8), ("right", "always", 1e-8),
+                    ("right", "never", 1e-5), ("right", "ifneeded", 1e-8))
+# the gradients with the kernels against those from the plain sweeps on
+# the same factors (max|d| / max|plain|), the adjoint residual
+# ||A^T lam - g|| / ||g||, and the card's f32 gradients at n = 2e4 against
+# the CPU's f64 ones
+AUTODIFF_PLAIN_TOL = 1e-4
+AUTODIFF_ADJOINT_MAX = 1e-4
+AUTODIFF_REF_N, AUTODIFF_REF_TOL = 20_000, 1e-3
+# the launches each pass of solve_banded_diff makes, read from the code
+# (PERF.md, before the first run).  K = 64: spike_factor stores no spikes
+# (the JAX default), so each spike_solve sweeps the partitions twice (g,
+# then the boundary-corrected solve; ops/spike.py spike_solve), #1 twice a
+# pass; the 'auto' inverter is lapack (no Newton probe, which only the PCs
+# run), and spike_transpose's spikes are one plain batched solve.  K = 1 at
+# nb = 1563: one solve a pass with no reduced system, the two-pass pair #9
+AUTODIFF_LAUNCHES = {"flagship": {"fused_sweep": 2},
+                     "config1": {"sweeps": 2}}
+ZERODIAG_CHECK = (20_000, 64, 3)       # n, K, block: singular b = 3 blocks
 PEAK_BYTES_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
 PEAK_F64_FLOPS = 34e12     # f64 outside the tensor cores
@@ -3188,6 +3241,345 @@ def phase_pcs_reference(device):
               f"{name} card vs CPU: its {card.its} / {cpu.its}, err {err}")
 
 
+def complex_band(n, half_bw, device, seed, hermitian=False):
+    """A complex64 band in diagonal storage, built on the device by JAX's
+    tests/test_complex.py rule: entries N(0,1) + i N(0,1) inside the
+    matrix (zero outside), the diagonal the row's absolute sum + 1.
+    ``hermitian``: the upper diagonals drawn, the lower ones their
+    conjugates, the diagonal real.  Returns (band, x, b = A x) with x a
+    seeded complex vector."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k, w = half_bw, 2 * half_bw + 1
+
+    def crandn(*shape):
+        re = torch.randn(shape, generator=gen, device=device)
+        return torch.complex(re, torch.randn(shape, generator=gen,
+                                             device=device))
+    if hermitian:
+        data = torch.zeros((n, w), dtype=torch.complex64, device=device)
+        for d in range(1, k + 1):
+            v = crandn(n - d)
+            data[:n - d, k + d] = v
+            data[d:, k - d] = v.conj()
+    else:
+        data = crandn(n, w)
+        col = (torch.arange(n, device=device)[:, None]
+               + torch.arange(w, device=device)[None, :] - k)
+        data[(col < 0) | (col >= n)] = 0
+        del col
+    data[:, k] = data.abs().sum(dim=1) + 1
+    band = BandedMatrix(data=data, kl=k, ku=k)
+    x = crandn(n)
+    return band, x, banded_matvec(band, x)
+
+
+def complex_solve(label, band, x, b, ksp, pc, opts, t):
+    """``solve`` of a complex band on the card: converged at COMPLEX_RTOL,
+    true relres <= COMPLEX_RELRES_MAX, no kernel launched, every tensor on
+    the card, the partition sweep's route plain; the PC's factor and one
+    apply timed."""
+    import torch
+    from spike_petsc_tpu_torch import Options, solve
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.ops.spike import spike_solve, sweep_route
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    from spike_petsc_tpu_torch.utils.debug import _tensors
+    show = shower(t)
+    t0 = time.perf_counter()
+    p = make_pc(pc, band, Options(dict(opts)))
+    torch.cuda.synchronize()
+    setup = (time.perf_counter() - t0) * 1e3
+    reset_launches()
+    t0 = time.perf_counter()
+    res = solve(band, b, ksp_type=ksp, pc=p, rtol=COMPLEX_RTOL, maxit=100)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = nonzero(read_launches())
+    relres = float(torch.linalg.norm(banded_matvec(band, res.x) - b)
+                   / torch.linalg.norm(b))
+    xerr = float((res.x - x).abs().max())
+    sf = pc_factor(p)
+    route = sweep_route(sf.fact, sf.b, b.dtype, True)
+    on_card = all(v.is_cuda for v in _tensors(sf)) and res.x.is_cuda
+    t[f"{label}_setup"] = (setup, 0.0)
+    t[f"{label}_solve_wall"] = (wall, 0.0)
+    print(f"{label}: {ksp}+{pc} {res.its} its, reason {res.reason}, true "
+          f"relres (c64) {relres:.3e}, max|x - x*| {xerr:.3e}; PC set-up "
+          f"{setup:.1f} ms, solve {wall:.1f} ms (host clock); sweep route "
+          f"{route}, launches {launches}, every tensor on the card: "
+          f"{on_card}")
+    show(f"{label}_apply", time_ms(lambda: spike_solve(sf, b), reps=3))
+    check(res.reason > 0 and relres <= COMPLEX_RELRES_MAX
+          and res.x.dtype == torch.complex64
+          and bool(torch.isfinite(res.x).all()),
+          f"{label}: reason {res.reason}, relres {relres}")
+    check(not launches and route == "plain" and on_card,
+          f"{label}: launches {launches}, route {route}, card {on_card}")
+    return res
+
+
+def phase_complex(device, t):
+    """Complex scalars on the card: the flagship's shape in complex64 (gmres
+    + spike, K = 64, b = 128, inv), config 2's shape Hermitian (cg +
+    cholesky with config 2's options), and n = 2e4 on the card against the
+    CPU in complex128."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix, Options, solve
+    from spike_petsc_tpu_torch.ops.spike import spike_factor
+    show = shower(t)
+    band, x, b = complex_band(N, HALF_BW, device, SEED + 40)
+    opts = {"pc_spike_partitions": K, "pc_spike_block": BLOCK}
+    complex_solve("complex_flagship", band, x, b, "gmres", "spike", opts, t)
+    show("complex_flagship_factor", time_ms(
+        lambda: spike_factor(band, K=K, block_b=BLOCK), reps=2))
+    del band, x, b
+    torch.cuda.empty_cache()
+    band, x, b = complex_band(SPD_N, SPD_HALF_BW, device, SEED + 41,
+                              hermitian=True)
+    complex_solve("complex_config2", band, x, b, "cg", "cholesky",
+                  SPD_OPTIONS, t)
+    del band, x, b
+    torch.cuda.empty_cache()
+    band, x, b = complex_band(COMPLEX_REF_N, 20, device, SEED + 42)
+    opts = {"pc_spike_partitions": 8, "pc_spike_block": 64}
+    got = solve(band, b, ksp_type="gmres", pc_type="spike",
+                options=Options(dict(opts)), rtol=1e-8)
+    cpu = BandedMatrix(data=band.data.to(torch.complex128).cpu(), kl=20,
+                       ku=20)
+    ref = solve(cpu, b.to(torch.complex128).cpu(), ksp_type="gmres",
+                pc_type="spike", options=Options(dict(opts)), rtol=1e-8)
+    err = float((got.x.to(torch.complex128).cpu() - ref.x).abs().max()
+                / ref.x.abs().max())
+    print(f"complex n={COMPLEX_REF_N} w=41: card c64 {got.its} its vs CPU "
+          f"c128 {ref.its} its, max|x_card - x_cpu| / max|x_cpu| {err:.3e}")
+    check(err <= COMPLEX_REF_TOL and abs(got.its - ref.its) <= 1
+          and got.reason > 0 and ref.reason > 0,
+          "complex: card and CPU reference disagree")
+
+
+def phase_gmres_many_options(band, device, t):
+    """``make_solver_many(ksp_type="gmres")`` on the flagship at r = 32 with
+    the spike PC and the column route of #2 (``-mat_matvec_impl banded_cuda``):
+    the left PC (as before), then the right PC with each CGS refinement.
+    Every column converged at its rtol (GMRES_MANY_CASES) with a true f32
+    relres <= 1e-4;
+    under the right PC #4 (the PC through ``spike_solve_many``) and #2
+    launched.  Each timed per right-hand side.  Returns the launches of
+    the right-PC ``always`` run."""
+    import torch
+    from spike_petsc_tpu_torch import Options, make_solver_many
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    show = shower(t)
+    gen = torch.Generator(device=device).manual_seed(SEED + 43)
+    X = torch.randn((N, NRHS), generator=gen, device=device)
+    B = banded_matvec(band, X)
+    right_launches = None
+    for side, cgs, rtol in GMRES_MANY_CASES:
+        opts = dict(PC_OPTIONS, ksp_pc_side=side,
+                    ksp_gmres_cgs_refinement_type=cgs,
+                    mat_matvec_impl="banded_cuda")
+        server = make_solver_many(band, ksp_type="gmres", pc_type="spike",
+                                  options=Options(opts), rtol=rtol, maxit=30)
+        reset_launches()
+        res = server(B)
+        launches = nonzero(read_launches())
+        relres = (torch.linalg.norm(banded_matvec(band, res.x) - B, dim=0)
+                  / torch.linalg.norm(B, dim=0))
+        its = res.its.tolist()
+        name = f"gmres_many_{side}_{cgs}"
+        print(f"{name} (r={NRHS}, rtol {rtol:g}): its min "
+              f"{min(its)} max {max(its)}, reasons "
+              f"{sorted(set(res.reason.tolist()))}, per-column true relres "
+              f"(f32) max {float(relres.max()):.3e}; launches {launches}")
+        check(bool((res.reason > 0).all()) and float(relres.max())
+              <= SERVE_RELRES_MAX and bool(torch.isfinite(res.x).all()),
+              f"{name}: reasons {res.reason.tolist()}, relres "
+              f"{float(relres.max())}")
+        check(launches.get("fused_sweep_many", 0) > 0
+              and launches.get("band_matvec", 0) > 0,
+              f"{name}: #4 or #2 did not run: {launches}")
+        show(name, time_ms(lambda: server(B), reps=3))
+        print(f"  {name} per RHS: {t[name][0] / NRHS:.4f} ms")
+        if (side, cgs) == ("right", "always"):
+            right_launches = launches
+    print(f"  gmres_many right / left per RHS: "
+          f"{t['gmres_many_right_always'][0] / t['gmres_many_left_always'][0]:.3f}"
+          f"; bcgs serving (left, blocktri_many route) per RHS "
+          f"{t['serve_bcgs_rtol1e-08'][0] / NRHS:.4f} ms")
+    return right_launches
+
+
+def autodiff_pass(data, rhs, kl, ku, K):
+    """(x, data gradient, rhs gradient, forward launches, backward
+    launches) of the loss sum(sin(x) x) through ``solve_banded_diff``."""
+    import torch
+    from spike_petsc_tpu_torch.ops.autodiff import solve_banded_diff
+    d = data.detach().clone().requires_grad_(True)
+    b = rhs.detach().clone().requires_grad_(True)
+    reset_launches()
+    x = solve_banded_diff(d, b, kl, ku, K)
+    fwd = nonzero(read_launches())
+    loss = (torch.sin(x) * x).sum()
+    reset_launches()
+    gd, gb = torch.autograd.grad(loss, (d, b))
+    bwd = nonzero(read_launches())
+    return x.detach(), gd, gb, fwd, bwd
+
+
+def autodiff_plain(band, rhs, K, block):
+    """The same gradients from the plain sweeps on the same factors:
+    ``spike_solve(..., impl='plain')`` forward and backward."""
+    import torch
+    from spike_petsc_tpu_torch.ops.autodiff import band_cotangent
+    from spike_petsc_tpu_torch.ops.spike import (spike_factor, spike_solve,
+                                                 spike_transpose)
+    sf = spike_factor(band, K=K, block_b=block)
+    x = spike_solve(sf, rhs, impl="plain")
+    g = torch.sin(x) + x * torch.cos(x)
+    lam = spike_solve(spike_transpose(sf, band=band), g, impl="plain")
+    return band_cotangent(lam, x, band.kl, band.ku), lam
+
+
+def autodiff_case(label, band, rhs, K, block, want, t, adjoint=True):
+    """One ``solve_banded_diff`` path on the card: its launches against
+    ``want`` (each pass), the adjoint residual ||A^T lam - g|| / ||g||
+    (held where ``adjoint``; config 1's kappa ~4e9 puts it far above
+    AUTODIFF_ADJOINT_MAX in f32, so there it is printed beside the
+    normwise backward error ||A^T lam - g|| / (||A||_1 ||lam|| + ||g||)),
+    the gradients against the plain sweeps' (both held), forward and
+    backward timed (CUDA events) with their device time.  Returns all
+    launches."""
+    import torch
+    from spike_petsc_tpu_torch.ops.autodiff import solve_banded_diff
+    from spike_petsc_tpu_torch.ops.band import banded_matvec, banded_transpose
+    show = shower(t)
+    kl, ku = band.kl, band.ku
+    x, gd, gb, fwd, bwd = autodiff_pass(band.data, rhs, kl, ku, K)
+    g = torch.sin(x) + x * torch.cos(x)
+    res = torch.linalg.norm(banded_matvec(banded_transpose(band), gb) - g)
+    adj = float(res / torch.linalg.norm(g))
+    backward_err = float(res / (band.data.abs().sum(dim=1).max()
+                                * torch.linalg.norm(gb)
+                                + torch.linalg.norm(g)))
+    gd_p, gb_p = autodiff_plain(band, rhs, K, block)
+    err_d = float((gd - gd_p).abs().max() / gd_p.abs().max())
+    err_b = float((gb - gb_p).abs().max() / gb_p.abs().max())
+    print(f"{label} (K={K}, b={block}): launches forward {fwd}, backward "
+          f"{bwd} (expected {want} each); adjoint residual "
+          f"||A^T lam - g|| / ||g|| {adj:.3e} (normwise backward error "
+          f"{backward_err:.3e}); against the plain sweeps: "
+          f"data gradient {err_d:.3e}, rhs gradient {err_b:.3e}")
+    check(fwd == want and bwd == want, f"{label}: launches {fwd}, {bwd}")
+    check(not adjoint or adj <= AUTODIFF_ADJOINT_MAX,
+          f"{label}: adjoint residual {adj}")
+    check(max(err_d, err_b) <= AUTODIFF_PLAIN_TOL
+          and bool(torch.isfinite(gd).all()),
+          f"{label}: against plain {err_d}, {err_b}")
+    d = band.data.detach().clone().requires_grad_(True)
+    b = rhs.detach().clone().requires_grad_(True)
+
+    def forward():
+        return solve_banded_diff(d, b, kl, ku, K)
+    x = forward()
+    loss = (torch.sin(x) * x).sum()
+
+    def backward():
+        return torch.autograd.grad(loss, (d, b), retain_graph=True)
+    show(f"{label}_forward", time_ms(forward, reps=3))
+    show(f"{label}_backward", time_ms(backward, reps=3))
+    for name, fn in (("forward", forward), ("backward", backward)):
+        busy, items = device_profile(fn, top=4)
+        print(f"  {label} {name}: device busy {busy:.3f} ms of "
+              f"{t[f'{label}_{name}'][0]:.3f} ms; "
+              + "; ".join(f"{k} x{c} {ms:.3f} ms" for k, c, ms in items))
+    return {k: fwd.get(k, 0) + bwd.get(k, 0) for k in set(fwd) | set(bwd)}
+
+
+def phase_autodiff(band, rhs, device, t):
+    """``solve_banded_diff`` on the card: the flagship band in f32 at
+    K = 64 (#1 both passes), config 1's band at K = 1 (nb = 1563: #9 both
+    passes), and n = 2e4 against the CPU in f64.  Returns the launches of
+    the two card paths."""
+    import numpy as np
+    import torch
+    from spike_petsc_tpu_torch.convert import banded_from_numpy
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    paths = {"autodiff_k64": autodiff_case(
+        "autodiff_flagship", band, rhs, K, BLOCK,
+        AUTODIFF_LAUNCHES["flagship"], t)}
+    lap = banded_from_numpy(np.tile(np.float32([-1, 2, -1]), (CONFIG1_N, 1)),
+                            1, 1, device=device)
+    paths["autodiff_k1"] = autodiff_case(
+        "autodiff_config1", lap, banded_matvec(lap, torch.ones(
+            CONFIG1_N, device=device)), 1, CONFIG1_BLOCK,
+        AUTODIFF_LAUNCHES["config1"], t, adjoint=False)
+    small, srhs = flagship_band(AUTODIFF_REF_N, 20, device, seed=SEED + 44)
+    _, gd, gb, _, _ = autodiff_pass(small.data, srhs, 20, 20, 8)
+    _, gd64, gb64, _, _ = autodiff_pass(small.data.double().cpu(),
+                                        srhs.double().cpu(), 20, 20, 8)
+    err = max(float((gd.double().cpu() - gd64).abs().max()
+                    / gd64.abs().max()),
+              float((gb.double().cpu() - gb64).abs().max()
+                    / gb64.abs().max()))
+    print(f"autodiff n={AUTODIFF_REF_N} w=41 K=8: card f32 gradients "
+          f"against CPU f64, max|d| / max|cpu| {err:.3e}")
+    check(err <= AUTODIFF_REF_TOL, f"autodiff reference {err}")
+    return paths
+
+
+def phase_checks(band, rhs, sf, device, t):
+    """``-pc_spike_check 1`` on the flagship (health OK), the unshifted
+    zero-diagonal matrix at b = 3 with the lapack inverter (its singular
+    pivots raise FloatingPointError), and the flagship factor (bf16
+    spikes) through ``save_factorization`` / ``load_factorization``:
+    the reloaded factor's solve bit-equal to the original's."""
+    import os
+    import torch
+    from spike_petsc_tpu_torch import Options
+    from spike_petsc_tpu_torch.io import load_factorization, save_factorization
+    from spike_petsc_tpu_torch.models import problems
+    from spike_petsc_tpu_torch.ops.spike import spike_solve
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    from spike_petsc_tpu_torch.utils.debug import OK
+    pc = make_pc("spike", band, Options(dict(PC_OPTIONS, pc_spike_check=1)))
+    print(f"-pc_spike_check 1 on the flagship: health {pc.info['health']}")
+    check(pc.info["health"] == OK, f"flagship health {pc.info['health']}")
+    del pc
+    n, k_parts, block = ZERODIAG_CHECK
+    raised = ""
+    try:
+        make_pc("spike", problems.zero_diag_tridiag(n), Options({
+            "pc_spike_check": 1, "pc_spike_inverter": "lapack",
+            "pc_spike_partitions": k_parts, "pc_spike_block": block}),
+            device=device, dtype=torch.float32)
+    except FloatingPointError as e:
+        raised = str(e)
+    print(f"-pc_spike_check 1 on the unshifted zero-diagonal matrix "
+          f"(n={n}, K={k_parts}, b={block}, lapack): {raised or 'no error'}")
+    check("singular Schur pivots" in raised, "zero diagonal: no error")
+    os.makedirs("build/checkpoints", exist_ok=True)
+    path = "build/checkpoints/flagship.npz"
+    t0 = time.perf_counter()
+    save_factorization(path, sf)    # ~1.8 GB of leaves
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sf2 = load_factorization(path, device=device)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    size = os.path.getsize(path) / 2**20
+    os.remove(path)
+    same = torch.equal(spike_solve(sf2, rhs), spike_solve(sf, rhs))
+    print(f"checkpoint of the flagship factor (bf16 spikes {sf.V.dtype}): "
+          f"{size:.0f} MiB, save {t_save:.1f} s, load {t_load:.1f} s "
+          f"(host clock); reloaded solve bit-equal: {same}")
+    t["checkpoint_save"], t["checkpoint_load"] = (t_save * 1e3, 0.0), (
+        t_load * 1e3, 0.0)
+    check(same and sf2.V.dtype == torch.bfloat16, "checkpoint round trip")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3249,10 +3641,25 @@ def main() -> int:
     print(f"  grouped phase: {time.perf_counter() - tm:.1f} s")
     # the remaining PCs on the flagship: asm, composite, ksp
     tp = time.perf_counter()
-    pc_paths = phase_pcs_flagship(band, rhs, device, t, bounds, errs)
+    paths = phase_pcs_flagship(band, rhs, device, t, bounds, errs)
     print(f"PC phases on the flagship: {time.perf_counter() - tp:.1f} s")
+    # gmres_many's right PC and CGS refinements, ops/autodiff.py, the
+    # factor health check and checkpoints
+    tg = time.perf_counter()
+    paths["gmres_many_right"] = phase_gmres_many_options(band, device, t)
+    print(f"gmres_many phase: {time.perf_counter() - tg:.1f} s")
+    tg = time.perf_counter()
+    paths.update(phase_autodiff(band, rhs, device, t))
+    print(f"autodiff phase: {time.perf_counter() - tg:.1f} s")
+    tg = time.perf_counter()
+    phase_checks(band, rhs, sf, device, t)
+    print(f"check and checkpoint phase: {time.perf_counter() - tg:.1f} s")
     del band, rhs, sf, res, pc
     torch.cuda.empty_cache()
+    tc = time.perf_counter()
+    phase_complex(device, t)
+    torch.cuda.empty_cache()
+    print(f"complex phase: {time.perf_counter() - tc:.1f} s")
     tt = time.perf_counter()
     phase_transpose_reference(device)
     print(f"transpose reference: {time.perf_counter() - tt:.1f} s")
@@ -3283,7 +3690,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"config 1 phases: {time.perf_counter() - t1:.1f} s")
     tp = time.perf_counter()
-    pc_paths["mg_config1"] = phase_pcs_config1(device, t, bounds, errs)
+    paths["mg_config1"] = phase_pcs_config1(device, t, bounds, errs)
     torch.cuda.empty_cache()
     print(f"mg phase (config 1): {time.perf_counter() - tp:.1f} s")
 
@@ -3314,7 +3721,7 @@ def main() -> int:
     del ssf, spc
     torch.cuda.empty_cache()
     tp = time.perf_counter()
-    pc_paths.update(phase_pcs_config2(sband, srhs, device, t, bounds, errs))
+    paths.update(phase_pcs_config2(sband, srhs, device, t, bounds, errs))
     print(f"SOR phases (config 2): {time.perf_counter() - tp:.1f} s")
     del sband, srhs
     torch.cuda.empty_cache()
@@ -3322,8 +3729,8 @@ def main() -> int:
     print(f"KSP types on config 2 and the references: "
           f"{time.perf_counter() - tk:.1f} s")
     tp = time.perf_counter()
-    pc_paths["fieldsplit_testbed2"] = phase_pcs_testbed2(device, t, bounds,
-                                                       errs)
+    paths["fieldsplit_testbed2"] = phase_pcs_testbed2(device, t, bounds,
+                                                    errs)
     torch.cuda.empty_cache()
     phase_pcs_reference(device)
     print(f"testbed2 fieldsplit and the PC references: "
@@ -3366,8 +3773,8 @@ def main() -> int:
             "plain_ms": t[plain][0], "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": t[library][0] if library else None,
-            "pc_path_launches": {path: n[name] for path, n in pc_paths.items()
-                                 if n.get(name)}})
+            "path_launches": {path: n[name] for path, n in paths.items()
+                              if n.get(name)}})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel ran no time on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))

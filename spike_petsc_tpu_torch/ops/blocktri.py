@@ -14,7 +14,7 @@ dense ``b x b`` blocks; block-Thomas factorization does, per block row,
     F_i = L_i @ inv(S_{i-1}),     S_i = D_i - F_i @ U_{i-1},
 
 i.e. two ``b x b`` matmuls and one batched inversion (``method="inv"``);
-the symmetric ``method="spd"`` takes ``S_i = D_i - F_i @ L_i^T`` and stores
+the symmetric ``method="spd"`` takes ``S_i = D_i - F_i @ L_i^H`` and stores
 no U; ``method="lu"`` keeps pivoted LU factors of each S_i in place of its
 inverse.  The JAX ``lax.scan`` over block rows becomes a Python loop over
 ``nb``; every tensor may carry leading batch dimensions (the SPIKE
@@ -61,12 +61,12 @@ class BlockTriFactor:
     """Block-Thomas factorization state (JAX ``ops/blocktri.py:59-92``).
 
     ``method == "inv"``: F, U, Sinv are ``[..., nb, b, b]``; F[0] == 0 and
-    U[nb-1] == 0.  ``method == "spd"`` (symmetric block-LDL^T): F and Sinv
-    only; U is an empty ``[..., nb, 0, 0]`` placeholder, the sweeps read
-    F^T in its place.  ``method == "lu"``: F and U as for ``inv``, ``Slu``
-    ``[..., nb, b, b]`` the packed LU factors of each Schur complement S_i
-    and ``piv`` ``[..., nb, b]`` int32 their row pivots, Sinv an empty
-    placeholder.
+    U[nb-1] == 0.  ``method == "spd"`` (symmetric or Hermitian block-LDL^H):
+    F and Sinv only; U is an empty ``[..., nb, 0, 0]`` placeholder, the
+    sweeps read F^H in its place.  ``method == "lu"``: F and U as for
+    ``inv``, ``Slu`` ``[..., nb, b, b]`` the packed LU factors of each Schur
+    complement S_i and ``piv`` ``[..., nb, b]`` int32 their row pivots, Sinv
+    an empty placeholder.
 
     **Pivot convention:** ``piv`` is 1-based, as LAPACK's ``getrf`` and
     ``torch.linalg.lu_factor`` give it (row i was swapped with row
@@ -467,9 +467,9 @@ def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
     scaling/ordering pipeline is responsible for diagonal dominance.
 
     ``method="inv"``: F_i = L_i Sinv_{i-1}, S_i = D_i - F_i U_{i-1}.
-    ``method="spd"`` (symmetric matrices): S_i = D_i - F_i L_i^T,
-    re-symmetrized as ``(S + S^T) / 2`` before each inversion; the U blocks
-    are ignored and not stored.  Complex Hermitian blocks are not ported.
+    ``method="spd"`` (symmetric or Hermitian matrices): S_i = D_i - F_i
+    L_i^H, re-symmetrized as ``(S + S^H) / 2`` before each inversion; the U
+    blocks are ignored and not stored.
     ``method="lu"``: S_i kept as pivoted LU factors (``Slu``, ``piv``),
     F_i = L_i S_{i-1}^{-1} by a solve from the right.
 
@@ -490,10 +490,6 @@ def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
     if y0 is not None and method == "lu":
         raise ValueError("y0 (the W sweep) needs method 'inv' or 'spd'")
     spd = method == "spd"
-    if spd and t.D.is_complex():
-        raise NotImplementedError(
-            "blocktri_factor(method='spd') for complex Hermitian blocks is "
-            "not yet ported")
     guard = _Guard(t, shift, shift_amount)
     d0 = t.D[..., 0, :, :]
     s0 = guard(_symmetrize(d0) if spd else d0)
@@ -519,7 +515,7 @@ def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
         l = t.L[..., i, :, :]
         f = l @ s_inv
         if spd:
-            s = _symmetrize(t.D[..., i, :, :] - f @ l.transpose(-1, -2))
+            s = _symmetrize(t.D[..., i, :, :] - f @ l.mH)
         else:
             s = t.D[..., i, :, :] - f @ t.U[..., i - 1, :, :]
         s_inv = batched_inverse(guard(s), inverter)
@@ -535,9 +531,9 @@ def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
 
 
 def _symmetrize(s: torch.Tensor) -> torch.Tensor:
-    """``(S + S^T) / 2``: inexact inverters leave O(eps) asymmetry that would
+    """``(S + S^H) / 2``: inexact inverters leave O(eps) asymmetry that would
     otherwise compound down the recursion."""
-    return 0.5 * (s + s.transpose(-1, -2))
+    return 0.5 * (s + s.mH)
 
 
 def blocktri_factor_inv_waux(t: BlockTridiagonal, y0: torch.Tensor,
@@ -643,8 +639,8 @@ def blocktri_solve(fact: BlockTriFactor, rhs: torch.Tensor) -> torch.Tensor:
     rhs: ``[..., nb, b]`` or ``[..., nb, b, r]`` with the factor's leading
     dims.  Forward sweep ``y_i = rhs_i - F_i y_{i-1}``; backward sweep
     ``x_i = Sinv_i (y_i - U_i x_{i+1})`` for ``inv``,
-    ``x_i = Sinv_i y_i - F_{i+1}^T x_{i+1}`` for ``spd`` (Sinv_i U_i =
-    F_{i+1}^T when U_i = L_{i+1}^T and Sinv is symmetric), and
+    ``x_i = Sinv_i y_i - F_{i+1}^H x_{i+1}`` for ``spd`` (Sinv_i U_i =
+    F_{i+1}^H when U_i = L_{i+1}^H and Sinv is Hermitian), and
     ``x_i = S_i^{-1} (y_i - U_i x_{i+1})`` by a pivoted LU solve for
     ``lu``.  The result is in the sweep precision (f32 or wider).  The plain
     version of the fused sweep kernels (``ops/cuda/fused_sweep.py``,
@@ -672,8 +668,7 @@ def blocktri_solve(fact: BlockTriFactor, rhs: torch.Tensor) -> torch.Tensor:
     for i in range(nb - 2, -1, -1):
         if fact.method == "spd":
             xs.append(mv(fact.Sinv[..., i, :, :], ys[i])
-                      - mv(fact.F[..., i + 1, :, :].transpose(-1, -2),
-                           xs[-1]))
+                      - mv(fact.F[..., i + 1, :, :].mH, xs[-1]))
         else:
             xs.append(mv(fact.Sinv[..., i, :, :],
                          ys[i] - mv(fact.U[..., i, :, :], xs[-1])))
@@ -736,16 +731,14 @@ def blocktri_solve_transpose(fact: BlockTriFactor,
         backward: x_{nb-1} = z_{nb-1},  x_i = z_i - F_{i+1}^T x_{i+1}
 
     (S_i^{-T} by a pivoted LU solve of S_i^T for ``lu``; JAX
-    ``ops/blocktri.py:784-847``).  A real ``spd`` factor is its own
-    transpose: the forward solve.  rhs: ``[..., nb, b]`` or
+    ``ops/blocktri.py:784-847``).  An ``spd`` factor solves its transpose as
+    ``conj(solve(conj(rhs)))`` (T^T = conj(T)); for a real one that is the
+    forward solve.  rhs: ``[..., nb, b]`` or
     ``[..., nb, b, r]`` with the factor's leading dims; the result is in
     the sweep precision.  Plain PyTorch: no kernel takes this form."""
     if fact.method == "spd":
-        if rhs.is_complex():
-            raise NotImplementedError(
-                "blocktri_solve_transpose for complex Hermitian 'spd' "
-                "factors is not yet ported to spike_petsc_tpu_torch")
-        return blocktri_solve(fact, rhs)
+        # T = (I + E) S (I + E)^H is Hermitian, so T^T = conj(T)
+        return blocktri_solve(fact, rhs.conj()).conj().resolve_conj()
     if fact.method not in ("inv", "lu"):
         raise ValueError(f"unsupported method {fact.method!r}")
     squeeze = rhs.dim() == fact.F.dim() - 1

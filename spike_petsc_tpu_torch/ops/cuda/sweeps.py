@@ -21,6 +21,7 @@ import torch
 from ..blocktri import BlockTriFactor, blocktri_solve, sweep_precision
 from ._build import CudaKernel, I, P
 from .fused_sweep import _BLOCK_SIZES as _FUSED_BLOCK_SIZES
+from .fused_sweep_spd import spd_block_for
 
 KERNEL = CudaKernel("sweeps", {
     "sweeps_fwd_f32": [P, P, P, I, I, I, P],
@@ -108,6 +109,18 @@ def inv_block_for(k: int) -> int:
         if b >= k:
             return b
     return k
+
+
+def default_block(block, k: int, method: str, on_cuda: bool):
+    """The block of a factor of tip size ``k``: ``block`` where the caller
+    names one; else on the CPU None (the tip size, as in JAX), and on the
+    card the smallest block the sweep kernels of ``method`` take that covers
+    the tip (``spd_block_for``, ``inv_block_for``: 64 or 128).  Partition
+    rows round up to a multiple of the block, so on the card the partition
+    boundaries of a K > 1 factor are not those of the CPU."""
+    if block is not None or not on_cuda:
+        return block
+    return spd_block_for(k) if method == "spd" else inv_block_for(k)
 
 
 def blocktri_solve_batched_cuda(fact: BlockTriFactor, rhs: torch.Tensor,

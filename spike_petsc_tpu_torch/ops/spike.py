@@ -91,11 +91,6 @@ class SpikeFactor:
         return self.m // self.b
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not yet ported to spike_petsc_tpu_torch")
-
-
 # ---------------------------------------------------------------------------
 # Setup
 # ---------------------------------------------------------------------------
@@ -154,7 +149,7 @@ def _spike_bwd_one(f: BlockTriFactor, Bt: torch.Tensor, yw: torch.Tensor,
     ``_spike_columns``).  The partition axis is a batch dimension, so this
     is also the JAX ``_spike_columns_from_waux`` (a ``vmap`` of
     ``_spike_bwd_one``).  ``spd`` factors store no U: their backward sweep
-    reads F^T, as ``blocktri_solve`` does.  Returns ``(V, W)``, each
+    reads F^H, as ``blocktri_solve`` does.  Returns ``(V, W)``, each
     ``[K, nb, b, k]``."""
     K, nb = Bt.shape[0], f.nb
     Bb = torch.zeros((K, b, k), dtype=dtype, device=Bt.device)
@@ -166,8 +161,7 @@ def _spike_bwd_one(f: BlockTriFactor, Bt: torch.Tensor, yw: torch.Tensor,
         y = torch.cat([zero, yw[:, i]], dim=-1)                 # [K, b, 2k]
         if f.method == "spd":
             xs.append(_sweep_matvec(f.Sinv[:, i], y)
-                      - _sweep_matvec(f.F[:, i + 1].transpose(-1, -2),
-                                      xs[-1]))
+                      - _sweep_matvec(f.F[:, i + 1].mH, xs[-1]))
         else:
             xs.append(_sweep_matvec(f.Sinv[:, i],
                                     y - _sweep_matvec(f.U[:, i], xs[-1])))
@@ -572,8 +566,10 @@ def spike_transpose(sf: SpikeFactor, reduced: str = "auto",
     * from ``band``, the ORIGINAL band: the same, its L blocks cut with
       the forward factor's K and m (on the card a PC's default block moves
       the partition boundaries, so they are never recomputed);
-    * otherwise (``lu`` factors, or ``fast=False``) the storage-sharing
-      ``TransposedBlockTriFactor`` marker, whose sweeps are plain PyTorch.
+    * otherwise (``lu`` and complex Hermitian ``spd`` factors, or
+      ``fast=False``) the storage-sharing ``TransposedBlockTriFactor``
+      marker, whose sweeps are plain PyTorch (for ``spd`` the conjugated
+      forward sweeps: A^T = conj(A)).
 
     The coupling tips swap and transpose (A^T couples partition p forward
     through C_{p+1}^T and backward through B_{p-1}^T); the transpose
@@ -594,10 +590,7 @@ def spike_transpose(sf: SpikeFactor, reduced: str = "auto",
                          f"{', '.join(_REDUCED)}")
     K, nb, b, k = sf.K, sf.nb, sf.b, sf.k
     dtype = sf.Btip.dtype
-    if sf.fact.method == "spd":
-        if dtype.is_complex:
-            raise _not_ported("spike_transpose of complex Hermitian 'spd' "
-                              "factors")
+    if sf.fact.method == "spd" and not dtype.is_complex:
         return sf
     if fast and sf.fact.method == "inv" and (sf.Lb is not None
                                              or band is not None):
@@ -702,8 +695,9 @@ def sweep_route(fact, b: int, rhs_dtype, on_cuda: bool,
     kernel of the factor's method: #1 for ``inv``, #3 for ``spd``; #4 and #5
     with ``many``), ``"sweeps"`` (the two-pass kernels #9, single RHS,
     ``inv`` factors) or ``"plain"``.  A CPU right-hand side takes the plain
-    sweep.  On the card, ``spd`` factors take their fused kernel, which
-    raises where its rule refuses them; ``inv`` factors take #1 where its
+    sweep.  On the card, real ``spd`` factors take their fused kernel, which
+    raises where its rule refuses them, and complex (Hermitian) ones the
+    plain sweep, as JAX routes them; ``inv`` factors take #1 where its
     rule admits them, else #9 where its rule does (any nb, so a long single
     partition), else the plain sweep: only f64 factors or a block outside
     64 and 128 come there, and no multi-RHS two-pass kernel exists.  A
@@ -713,7 +707,9 @@ def sweep_route(fact, b: int, rhs_dtype, on_cuda: bool,
     if not on_cuda or not _has_kernel(fact):
         return "plain"
     if fact.method == "spd":
-        return "fused"
+        # Hermitian factors need conjugated sweeps, which #3 and #5 do
+        # not run (JAX fused_sweep_feasible, fused_sweep.py:305-310)
+        return "plain" if fact.F.is_complex() else "fused"
     fused = fused_sweep_many_feasible if many else fused_sweep_feasible
     if fused(fact, b, rhs_dtype):
         return "fused"

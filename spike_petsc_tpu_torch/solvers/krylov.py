@@ -15,7 +15,7 @@ defaults, converged reasons and history semantics:
 * the types that iterate on A^T, given ``matvec_transpose`` and
   ``pc_apply_transpose`` (``ksp.make_solver`` builds them from the
   operator and ``PC.transpose``): ``bicg``, ``cgnr`` (registered as
-  ``cgne``, ``cgnr`` and ``cgls``) and ``lsqr``, for real scalars;
+  ``cgne``, ``cgnr`` and ``cgls``) and ``lsqr``;
 * the Arnoldi spectrum estimate behind ``-ksp_compute_eigenvalues`` and
   ``-ksp_chebyshev_esteig`` (``arnoldi_hessenberg``,
   ``estimate_extreme_eigs``, ``chebyshev_esteig_bounds``), and the
@@ -29,7 +29,9 @@ that a decision needs come to the host once per iteration: the residual
 norm for the convergence test, with the breakdown tests' magnitudes stacked
 beside it.  GMRES brings its Hessenberg column to the host, where the
 Givens rotations and the least-squares solve run in the vectors' dtype.
-Where the JAX loop computes a step and discards it (a gate on a terminal
+Complex scalars take JAX's formulas: inner products conjugate their first
+argument, norms and histories are real, the Givens rotations are unitary
+and the A^T types apply A^H = conj(A^T conj(.)).  Where the JAX loop computes a step and discards it (a gate on a terminal
 reason), the port does not compute it.  Iteration counts and residual
 histories equal the reference's.
 """
@@ -48,15 +50,35 @@ from .types import (CONVERGED_ITERATING, CONVERGED_ITS,
                     CONVERGED_RTOL_NORMAL, DIVERGED_BREAKDOWN,
                     DIVERGED_NANORINF, KSPResult, default_convergence_check)
 
-_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+              torch.complex64: np.complex64, torch.complex128: np.complex128}
 
 
 def _identity_pc(x):
     return x
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """<a, b> = a^H b (``jnp.vdot``: the first argument conjugated)."""
+    return torch.vdot(a, b)
+
+
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.dot(x, x))
+    """||x||, real for complex x."""
+    return torch.sqrt(_dot(x, x).real)
+
+
+def _conj(x: torch.Tensor) -> torch.Tensor:
+    """conj(x), materialized for complex x (a real x is returned as is)."""
+    return torch.conj_physical(x) if x.is_complex() else x
+
+
+def _hermitian(fn: Optional[Callable]) -> Optional[Callable]:
+    """v -> conj(fn(conj(v))): A^H from the pure transpose A^T (JAX
+    ``krylov.py:270-271``); the identity wrapping for real scalars."""
+    if fn is None:
+        return None
+    return lambda v: _conj(fn(_conj(v)))
 
 
 def _safe(t: torch.Tensor) -> torch.Tensor:
@@ -74,7 +96,8 @@ def _tiny(dtype: torch.dtype) -> float:
 
 
 def _history(maxit: int, dtype: torch.dtype) -> torch.Tensor:
-    return torch.full((maxit + 1,), float("nan"), dtype=dtype)
+    """A NaN history in the real dtype of ``dtype`` (norms are real)."""
+    return torch.full((maxit + 1,), float("nan"), dtype=dtype.to_real())
 
 
 def _checker(bnorm: float, *, rtol, atol, divtol, maxit) -> Callable:
@@ -99,6 +122,11 @@ def _result(matvec, b, x, its, reason, history, true_history=None):
                      true_history=true_history)
 
 
+#: the DGKS cancellation test of ``ifneeded``: refine when the projection
+#: leaves less than 1/sqrt(2) of the vector's norm
+DGKS_THRESHOLD = 0.7071067811865476
+
+
 def _orthogonalize(V: torch.Tensor, w: torch.Tensor, cgs_refinement: str):
     """Classical Gram-Schmidt of ``w`` against the rows of ``V`` with
     PETSc's refinement policy (``KSPGMRESSetCGSRefinementType``):
@@ -106,28 +134,28 @@ def _orthogonalize(V: torch.Tensor, w: torch.Tensor, cgs_refinement: str):
     ``"ifneeded"`` a second pass only when the DGKS test
     ``||w_after|| < ||w_before|| / sqrt(2)`` finds cancellation (decided on
     the host, so a skipped pass costs nothing).  Returns ``(w, h, ||w||)``
-    with ``h`` the projection row."""
+    with ``h`` the projection row ``V^H w``."""
     if cgs_refinement == "never":
-        h = V @ w
+        h = V.conj() @ w
         w = w - h @ V
         return w, h, _norm(w)
     if cgs_refinement == "always":
-        h = V @ w
+        h = V.conj() @ w
         w = w - h @ V
-        h2 = V @ w
+        h2 = V.conj() @ w
         w = w - h2 @ V
         return w, h + h2, _norm(w)
     if cgs_refinement != "ifneeded":
         raise ValueError(
             f"unknown cgs_refinement {cgs_refinement!r}: expected never, "
             "ifneeded, or always (-ksp_gmres_cgs_refinement_type)")
-    h = V @ w
+    h = V.conj() @ w
     wnorm0 = _norm(w)
     w = w - h @ V
     hj1 = _norm(w)
     after, before = _host(hj1, wnorm0)
-    if after < 0.7071067811865476 * before:
-        h2 = V @ w
+    if after < DGKS_THRESHOLD * before:
+        h2 = V.conj() @ w
         w = w - h2 @ V
         return w, h + h2, _norm(w)
     return w, h, hj1
@@ -157,13 +185,13 @@ def arnoldi_hessenberg(matvec: Callable, v0: torch.Tensor, m: int,
     k = 0
     for j in range(m):
         w = psolve(matvec(V[j]))
-        h = V[:j + 1] @ w
+        h = V[:j + 1].conj() @ w
         w = w - h @ V[:j + 1]
         hj1 = _norm(w)
-        col = torch.cat([h, hj1[None]]).cpu().numpy()
+        col = torch.cat([h, hj1[None].to(h.dtype)]).cpu().numpy()
         H[:j + 2, j] = col
         k += 1
-        if not col[-1] > 1e3 * tiny:
+        if not col[-1].real > 1e3 * tiny:
             break
         V[j + 1] = w / _safe(hj1)
     return H, k
@@ -192,15 +220,6 @@ def estimate_extreme_eigs(matvec: Callable, n: int, dtype=torch.float32, *,
 # Golub-Kahan singular-value estimation (KSPComputeExtremeSingularValues)
 # ---------------------------------------------------------------------------
 
-def _real_only(name: str, b: torch.Tensor) -> None:
-    """The A^T types take the pure transpose and real scalars: the JAX
-    package's conjugations reduce to the identity."""
-    if b.is_complex():
-        raise NotImplementedError(
-            f"{name} for complex scalars is not yet ported to "
-            "spike_petsc_tpu_torch")
-
-
 def _need_transpose(name: str, matvec_transpose) -> None:
     if matvec_transpose is None:
         raise ValueError(f"{name} requires matvec_transpose (an explicit "
@@ -218,18 +237,19 @@ def golub_kahan_bidiag(matvec: Callable, matvec_transpose: Callable,
     bidiag(alphas, betas) the (k+1, k) lower-bidiagonal factor and ``k`` the
     number of completed steps (< m on breakdown, which appends no zero
     column).  The scalars stay on the device; each step's two norms come to
-    the host for the breakdown test.  Real scalars only."""
-    _real_only("golub_kahan_bidiag", v0)
+    the host for the breakdown test.  B^H = A^H M^-H comes from the pure
+    transposes by conjugation."""
     psolve = pc_apply or _identity_pc
-    psolve_t = pc_apply_transpose or _identity_pc
+    mv_h = _hermitian(matvec_transpose)
+    ps_h = _hermitian(pc_apply_transpose) or _identity_pc
 
     def bmv(v):
         return psolve(matvec(v))
 
     def bmv_t(v):
-        return matvec_transpose(psolve_t(v))
+        return mv_h(ps_h(v))
 
-    npdt = _NP_DTYPES[v0.dtype]
+    npdt = _NP_DTYPES[v0.dtype.to_real()]
     tiny = _tiny(v0.dtype)
     u = v0 / _safe(_norm(v0))
     v_un = bmv_t(u)
@@ -310,8 +330,9 @@ def chebyshev_esteig_bounds(eigs, transform=ESTEIG_DEFAULT_TRANSFORM):
 
 class _Givens:
     """The rotated Hessenberg of one restart cycle, on the host in the
-    vectors' dtype: classical Givens rotations, the rotated right-hand side
-    ``g`` and the triangular least-squares solve."""
+    vectors' dtype: Givens rotations G_i = [[c_i, s_i], [-conj(s_i),
+    conj(c_i)]] (unitary; the classical ones for real scalars), the rotated
+    right-hand side ``g`` and the triangular least-squares solve."""
 
     def __init__(self, restart: int, beta: float, npdt):
         self.npdt = npdt
@@ -329,13 +350,16 @@ class _Givens:
                                             npdt)])
         for i in range(j):
             t1 = cs[i] * col[i] + sn[i] * col[i + 1]
-            t2 = -sn[i] * col[i] + cs[i] * col[i + 1]
+            t2 = -np.conj(sn[i]) * col[i] + np.conj(cs[i]) * col[i + 1]
             col[i], col[i + 1] = t1, t2
-        denom = np.sqrt(col[j] ** 2 + col[j + 1] ** 2)
-        c_new, s_new = ((col[j] / denom, col[j + 1] / denom)
+        # c = conj(a) / r, s = conj(b) / r, r = sqrt(|a|^2 + |b|^2)
+        denom = np.sqrt(np.abs(col[j]) ** 2 + np.abs(col[j + 1]) ** 2)
+        c_new, s_new = ((np.conj(col[j]) / denom,
+                         np.conj(col[j + 1]) / denom)
                         if denom > 0 else (npdt(1), npdt(0)))
         col[j], col[j + 1] = denom, 0
-        self.g[j], self.g[j + 1] = c_new * self.g[j], -s_new * self.g[j]
+        self.g[j], self.g[j + 1] = (c_new * self.g[j],
+                                    -np.conj(s_new) * self.g[j])
         self.H[:, j] = col
         cs[j], sn[j] = c_new, s_new
         return float(abs(self.g[j + 1]))
@@ -445,7 +469,7 @@ def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
                 w = psolve(matvec(V[j]))
             w, h, hj1 = _orthogonalize(V[:j + 1], w, cgs_refinement)
             V[j + 1] = w / torch.where(hj1 > 0, hj1, torch.ones_like(hj1))
-            col = torch.cat([h, hj1[None]]).cpu().numpy()
+            col = torch.cat([h, hj1[None].to(h.dtype)]).cpu().numpy()
             rnorm = giv.add_column(j, col)
             j += 1
             its += 1
@@ -506,7 +530,8 @@ def lgmres(matvec: Callable, b: torch.Tensor,
             w = psolve(matvec(Z[j]))
             w, h, hj1 = _orthogonalize(V[:j + 1], w, cgs_refinement)
             V[j + 1] = w / torch.where(hj1 > 0, hj1, torch.ones_like(hj1))
-            rnorm = giv.add_column(j, torch.cat([h, hj1[None]]).cpu().numpy())
+            rnorm = giv.add_column(
+                j, torch.cat([h, hj1[None].to(h.dtype)]).cpu().numpy())
             j += 1
             its += 1
             history[its] = rnorm
@@ -555,16 +580,16 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
     p, v = torch.zeros_like(b), torch.zeros_like(b)
     rho = alpha = omega = torch.ones((), dtype=dtype, device=b.device)
     while reason == CONVERGED_ITERATING:
-        rho_new = torch.dot(rtilde, r)
+        rho_new = _dot(rtilde, r)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
         phat = psolve(p)
         v = matvec(phat)
-        alpha = rho_new / _safe(torch.dot(rtilde, v))
+        alpha = rho_new / _safe(_dot(rtilde, v))
         sr = r - alpha * v
         shat = psolve(sr)
         t = matvec(shat)
-        omega = torch.dot(t, sr) / _safe(torch.dot(t, t))
+        omega = _dot(t, sr) / _safe(_dot(t, t))
         x = x + alpha * phat + omega * shat
         r = sr - omega * t
         rho = rho_new
@@ -617,11 +642,11 @@ def bcgsl(matvec: Callable, b: torch.Tensor,
         live = True
         # ---- BiCG part: ell shadow steps --------------------------------
         for j in range(L):
-            rho1 = torch.dot(rt, R[j])
+            rho1 = _dot(rt, R[j])
             beta = alpha * rho1 / _safe(rho0)
             Un = [R[i] - beta * U[i] for i in range(j + 1)] + U[j + 1:]
             Un[j + 1] = bmv(Un[j])
-            gamma = torch.dot(rt, Un[j + 1])
+            gamma = _dot(rt, Un[j + 1])
             alpha = rho1 / _safe(gamma)
             Rn = [R[i] - alpha * Un[i + 1] for i in range(j + 1)] + R[j + 1:]
             Rn[j + 1] = bmv(Rn[j])
@@ -644,10 +669,10 @@ def bcgsl(matvec: Callable, b: torch.Tensor,
             gp = [None] * (L + 1)                      # gamma'
             for j in range(1, L + 1):
                 for i in range(1, j):
-                    tau[i][j] = torch.dot(Rm[i], Rm[j]) / _safe(sigma[i])
+                    tau[i][j] = _dot(Rm[i], Rm[j]) / _safe(sigma[i])
                     Rm[j] = Rm[j] - tau[i][j] * Rm[i]
-                sigma[j] = torch.dot(Rm[j], Rm[j])
-                gp[j] = torch.dot(Rm[j], Rm[0]) / _safe(sigma[j])
+                sigma[j] = _dot(Rm[j], Rm[j])
+                gp[j] = _dot(Rm[j], Rm[0]) / _safe(sigma[j])
             zero = torch.zeros((), dtype=dtype, device=b.device)
             g = [None] * (L + 1)
             g[L] = gp[L]
@@ -697,7 +722,7 @@ def cgs(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                      maxit=maxit)
     r = b if x0 is None else b - matvec(x0)
     rt0 = r
-    rho = torch.dot(rt0, r)
+    rho = _dot(rt0, r)
     history = _history(maxit, dtype)
     rnorm0, rho_abs = _host(_norm(r), rho.abs())
     history[0] = rnorm0
@@ -707,13 +732,13 @@ def cgs(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     u = p = r
     while reason == CONVERGED_ITERATING:
         v = bmv(p)
-        sigma = torch.dot(rt0, v)
+        sigma = _dot(rt0, v)
         alpha = rho / _safe(sigma)
         q = u - alpha * v
         uq = u + q
         y = y + alpha * uq
         r = r - alpha * bmv(uq)
-        rho_new = torch.dot(rt0, r)
+        rho_new = _dot(rt0, r)
         beta = rho_new / _safe(rho)
         u = r + beta * q
         p = u + beta * (q + beta * p)
@@ -749,7 +774,7 @@ def tfqmr(matvec: Callable, b: torch.Tensor,
     r0 = b if x0 is None else b - matvec(x0)
     rt0 = r0
     tau = _norm(r0)
-    rho = torch.dot(rt0, r0)
+    rho = _dot(rt0, r0)
     v = uhat = bmv(r0)
     history = _history(maxit, dtype)
     tau0, rho_abs = _host(tau, rho.abs())
@@ -770,10 +795,10 @@ def tfqmr(matvec: Callable, b: torch.Tensor,
 
     yacc = d = torch.zeros_like(b)
     w = y1 = r0
-    theta = torch.zeros((), dtype=dtype, device=b.device)
+    theta = torch.zeros((), dtype=dtype.to_real(), device=b.device)
     eta = torch.zeros((), dtype=dtype, device=b.device)
     while reason == CONVERGED_ITERATING:
-        sigma = torch.dot(rt0, v)
+        sigma = _dot(rt0, v)
         alpha = rho / _safe(sigma)
         y2 = y1 - alpha * v
         By2 = bmv(y2)
@@ -782,7 +807,7 @@ def tfqmr(matvec: Callable, b: torch.Tensor,
                                            yacc, alpha)
         w, tau, theta, eta, d, yacc = half(y2, By2, w, tau, theta, eta, d,
                                            yacc, alpha)
-        rho_new = torch.dot(rt0, w)
+        rho_new = _dot(rt0, w)
         beta = rho_new / _safe(rho)
         y1 = w + beta * y2
         uhat = bmv(y1)
@@ -832,11 +857,11 @@ def gcr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             AP.zero_()
         p = psolve(r)
         Ap = matvec(p)
-        beta = AP @ Ap                     # empty slots give 0
+        beta = AP.conj() @ Ap              # empty slots give 0
         p = p - beta @ P
         Ap = Ap - beta @ AP
-        nn, ar, rr = torch.dot(Ap, Ap), torch.dot(Ap, r), torch.dot(r, r)
-        nrm = torch.sqrt(nn)
+        nn, ar, rr = _dot(Ap, Ap), _dot(Ap, r), _dot(r, r)
+        nrm = torch.sqrt(nn.real)
         safe = _safe(nrm)
         p = p / safe
         Ap = Ap / safe
@@ -845,8 +870,8 @@ def gcr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         r = r - alpha * Ap
         P[slot] = p
         AP[slot] = Ap
-        rn_t = torch.sqrt(torch.clamp(rr - ar.abs() ** 2 / _safe(nn),
-                                      min=0.0))
+        rn_t = torch.sqrt(torch.clamp(rr.real - ar.abs() ** 2
+                                      / _safe(nn).real, min=0.0))
         rn, nrm_h = _host(rn_t, nrm)
         its += 1
         history[its] = rn
@@ -874,18 +899,18 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     history = _history(maxit, b.dtype)
     r = b if x0_zero else b - matvec(x)
     p = psolve(r)
-    rz = torch.dot(r, p)
+    rz = _dot(r, p)
     rnorm = float(_norm(r))
     history[0] = rnorm
     its = 0
     reason = check(rnorm, its)
     while reason == CONVERGED_ITERATING:
         w = matvec(p)
-        alpha = rz / _safe(torch.dot(p, w))
+        alpha = rz / _safe(_dot(p, w))
         x = x + alpha * p
         r = r - alpha * w
         z = psolve(r)
-        rz_new = torch.dot(r, z)
+        rz_new = _dot(r, z)
         beta = rz_new / _safe(rz)
         p = z + beta * p
         rz = rz_new
@@ -916,9 +941,9 @@ def pipecg(matvec: Callable, b: torch.Tensor,
     r = b if x0_zero else b - matvec(x)
     u = psolve(r)
     w = matvec(u)
-    gamma, delta, rr = torch.dot(r, u), torch.dot(w, u), torch.dot(r, r)
+    gamma, delta, rr = _dot(r, u), _dot(w, u), _dot(r, r)
     history = _history(maxit, dtype)
-    rnorm0 = float(torch.sqrt(rr))
+    rnorm0 = float(torch.sqrt(rr.real))
     history[0] = rnorm0
     its = 0
     reason = check(rnorm0, its)
@@ -943,10 +968,10 @@ def pipecg(matvec: Callable, b: torch.Tensor,
         u = u - alpha * q
         w = w - alpha * z
         gamma_p, alpha_p = gamma, alpha
-        gamma, delta, rr = torch.dot(r, u), torch.dot(w, u), torch.dot(r, r)
+        gamma, delta, rr = _dot(r, u), _dot(w, u), _dot(r, r)
         m = psolve(w)
         n = matvec(m)
-        rn, denom_abs = _host(torch.sqrt(rr), denom.abs())
+        rn, denom_abs = _host(torch.sqrt(rr.real), denom.abs())
         its += 1
         history[its] = rn
         reason = _breakdown(check(rn, its), denom_abs < tiny)
@@ -971,7 +996,7 @@ def cr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     r = b if x0_zero else b - matvec(x)
     z = p = psolve(r)
     w = matvec(z)
-    rho = torch.dot(z, w)
+    rho = _dot(z, w)
     history = _history(maxit, dtype)
     rnorm0 = float(_norm(r))
     history[0] = rnorm0
@@ -979,13 +1004,13 @@ def cr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     reason = check(rnorm0, its)
     while reason == CONVERGED_ITERATING:
         q = psolve(w)                      # M^-1 A p
-        wq = torch.dot(w, q)
+        wq = _dot(w, q)
         alpha = rho / _safe(wq)
         x = x + alpha * p
         r = r - alpha * w
         z = z - alpha * q
         Az = matvec(z)
-        rho_new = torch.dot(z, Az)
+        rho_new = _dot(z, Az)
         beta = rho_new / _safe(rho)
         p = z + beta * p
         w = Az + beta * w                  # A p by recurrence
@@ -1014,11 +1039,12 @@ def minres(matvec: Callable, b: torch.Tensor,
     x = torch.zeros_like(b) if x0_zero else x0.clone()
     dtype = b.dtype
     tiny = _tiny(dtype)
+    rdtype = dtype.to_real()
     r1 = b if x0_zero else b - matvec(x)
     y = psolve(r1)
-    beta1_sq = torch.dot(r1, y)
+    beta1_sq = _dot(r1, y).real
     beta1 = torch.sqrt(torch.clamp(beta1_sq, min=0))
-    bnorm_t = torch.sqrt(torch.clamp(torch.dot(b, psolve(b)), min=0))
+    bnorm_t = torch.sqrt(torch.clamp(_dot(b, psolve(b)).real, min=0))
     beta1_h, bnorm, beta1_sq_h = _host(beta1, bnorm_t, beta1_sq)
     check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
     history = _history(maxit, dtype)
@@ -1026,11 +1052,11 @@ def minres(matvec: Callable, b: torch.Tensor,
     its = 0
     reason = (DIVERGED_BREAKDOWN if beta1_sq_h < 0
               else check(beta1_h, its))
-    zero = torch.zeros((), dtype=dtype, device=b.device)
+    zero = torch.zeros((), dtype=rdtype, device=b.device)
     r2 = r1
     w = w2 = torch.zeros_like(b)
     beta, oldb, dbar, epsln, sn = beta1, zero, zero, zero, zero
-    cs = -torch.ones((), dtype=dtype, device=b.device)
+    cs = -torch.ones((), dtype=rdtype, device=b.device)
     phibar = beta1
     while reason == CONVERGED_ITERATING:
         ibeta = 1.0 / _safe(beta)
@@ -1038,11 +1064,11 @@ def minres(matvec: Callable, b: torch.Tensor,
         y = matvec(v)
         if its >= 1:
             y = y - (beta / _safe(oldb)) * r1
-        alfa = torch.dot(v, y)
+        alfa = _dot(v, y).real
         y = y - (alfa * ibeta) * r2
         r1, r2 = r2, y
         y = psolve(r2)
-        beta_sq = torch.dot(r2, y)
+        beta_sq = _dot(r2, y).real
         oldb, beta = beta, torch.sqrt(torch.clamp(beta_sq, min=0))
         # Givens QR of the Lanczos tridiagonal, one column an iteration
         oldeps = epsln
@@ -1060,7 +1086,7 @@ def minres(matvec: Callable, b: torch.Tensor,
         w1, w2 = w2, w
         w = (v - oldeps * w1 - delta * w2) / gamma
         x = x + phi * w
-        rn, bsq, broke = _host(phibar, beta_sq, lanczos_break.to(dtype))
+        rn, bsq, broke = _host(phibar, beta_sq, lanczos_break.to(rdtype))
         its += 1
         history[its] = rn
         reason = check(rn, its)
@@ -1084,18 +1110,19 @@ def symmlq(matvec: Callable, b: torch.Tensor,
     x00 = torch.zeros_like(b) if x0 is None else x0
     dtype = b.dtype
     tiny = _tiny(dtype)
+    rdtype = dtype.to_real()
     # the x0 = 0 problem A dx = r0 (SYMMLQ's natural form)
     r0 = b - matvec(x00)
     y0 = psolve(r0)
-    beta1_sq = torch.dot(r0, y0)
+    beta1_sq = _dot(r0, y0).real
     beta1 = torch.sqrt(torch.clamp(beta1_sq, min=0))
     sfe = torch.where(beta1 > 0, beta1, torch.ones_like(beta1))
     v1 = y0 / sfe
     yA = matvec(v1)
-    alfa0 = torch.dot(v1, yA)
+    alfa0 = _dot(v1, yA).real
     r2 = yA - (alfa0 / sfe) * r0
     y = psolve(r2)
-    beta_sq0 = torch.dot(r2, y)
+    beta_sq0 = _dot(r2, y).real
     beta = torch.sqrt(torch.clamp(beta_sq0, min=0))
     beta1_h, b1sq, b0sq = _host(beta1, beta1_sq, beta_sq0)
     check = _checker(beta1_h, rtol=rtol, atol=atol, divtol=divtol,
@@ -1109,19 +1136,19 @@ def symmlq(matvec: Callable, b: torch.Tensor,
     w = torch.zeros_like(b)
     r1 = r0
     oldb, gbar, dbar, rhs1 = beta1, alfa0, beta, beta1
-    rhs2 = bstep = torch.zeros((), dtype=dtype, device=b.device)
-    snprod = torch.ones((), dtype=dtype, device=b.device)
+    rhs2 = bstep = torch.zeros((), dtype=rdtype, device=b.device)
+    snprod = torch.ones((), dtype=rdtype, device=b.device)
     while reason == CONVERGED_ITERATING:
         ibeta = 1.0 / torch.where(beta > 0, beta, torch.ones_like(beta))
         v = y * ibeta
         y = matvec(v)
         y = y - (beta / _safe(oldb)) * r1
-        alfa = torch.dot(v, y)
+        alfa = _dot(v, y).real
         y = y - (alfa * ibeta) * r2
         r1, r2 = r2, y
         y = psolve(r2)
         oldb = beta
-        beta_sq = torch.dot(r2, y)
+        beta_sq = _dot(r2, y).real
         beta = torch.sqrt(torch.clamp(beta_sq, min=0))
         # LQ factorization: the previous rotation folds into this column
         gamma = torch.clamp(torch.sqrt(gbar ** 2 + oldb ** 2), min=tiny)
@@ -1249,7 +1276,7 @@ def preonly(matvec: Callable, b: torch.Tensor,
     psolve = pc_apply or _identity_pc
     x = psolve(b) if x0 is None else x0 + psolve(b - matvec(x0))
     rn, bn = _host(_norm(b - matvec(x)), _norm(b))
-    history = torch.tensor([bn, rn], dtype=b.dtype)
+    history = torch.tensor([bn, rn], dtype=b.dtype.to_real())
     reason = CONVERGED_ITS if math.isfinite(rn) else DIVERGED_NANORINF
     return KSPResult(x=x, its=1, reason=reason, rnorm=rn, history=history)
 
@@ -1266,14 +1293,14 @@ def bicg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
          rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
          maxit: int = 10000, **_) -> KSPResult:
     """Preconditioned BiConjugate Gradients (PETSc KSPBICG): the shadow
-    recurrence runs on A^T and M^-T (``matvec_transpose``,
-    ``pc_apply_transpose``).  The monitored residual is the true residual;
+    recurrence runs on A^H and M^-H, conjugations of the pure transposes
+    ``matvec_transpose`` and ``pc_apply_transpose``.  The monitored residual is the true residual;
     it comes to the host once per iteration with the breakdown tests'
     |<pt, A p>| and |rho|."""
     _need_transpose("bicg", matvec_transpose)
-    _real_only("bicg", b)
     psolve = pc_apply or _identity_pc
-    psolve_t = pc_apply_transpose or _identity_pc
+    mv_h = _hermitian(matvec_transpose)
+    ps_h = _hermitian(pc_apply_transpose) or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
     tiny = _tiny(b.dtype)
@@ -1282,24 +1309,24 @@ def bicg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     history = _history(maxit, b.dtype)
     r = b if x0_zero else b - matvec(x)
     rt = r
-    p, pt = psolve(r), psolve_t(rt)
-    rho = torch.dot(rt, p)
+    p, pt = psolve(r), ps_h(rt)
+    rho = _dot(rt, p)
     rnorm0, rho_abs = _host(_norm(r), rho.abs())
     history[0] = rnorm0
     its = 0
     reason = _breakdown(check(rnorm0, its), rho_abs < tiny)
     while reason == CONVERGED_ITERATING:
-        q, qt = matvec(p), matvec_transpose(pt)
-        denom = torch.dot(pt, q)
+        q, qt = matvec(p), mv_h(pt)
+        denom = _dot(pt, q)
         alpha = rho / _safe(denom)
         x = x + alpha * p
         r = r - alpha * q
-        rt = rt - alpha * qt
-        z, zt = psolve(r), psolve_t(rt)
-        rho_new = torch.dot(rt, z)
+        rt = rt - alpha.conj() * qt
+        z, zt = psolve(r), ps_h(rt)
+        rho_new = _dot(rt, z)
         beta = rho_new / _safe(rho)
         p = z + beta * p
-        pt = zt + beta * pt
+        pt = zt + beta.conj() * pt
         rho = rho_new
         rn, denom_abs, rho_abs = _host(_norm(r), denom.abs(), rho_new.abs())
         its += 1
@@ -1324,15 +1351,15 @@ def cgnr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     reported once ||B^T s|| <= rtol ||B^T M^-1 b|| (the normal-equations
     test, where ||s|| stalls at the least-squares optimum)."""
     _need_transpose("cgnr/cgne", matvec_transpose)
-    _real_only("cgnr", b)
     psolve = pc_apply or _identity_pc
-    psolve_t = pc_apply_transpose or _identity_pc
+    mv_h = _hermitian(matvec_transpose)
+    ps_h = _hermitian(pc_apply_transpose) or _identity_pc
 
     def bmv(v):                            # B = M^-1 A
         return psolve(matvec(v))
 
-    def bmv_t(v):                          # B^T = A^T M^-T
-        return matvec_transpose(psolve_t(v))
+    def bmv_t(v):                          # B^H = A^H M^-H
+        return mv_h(ps_h(v))
 
     tiny = _tiny(b.dtype)
     c = psolve(b)
@@ -1344,7 +1371,7 @@ def cgnr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         x = x0.clone()
         s = psolve(b - matvec(x0))
         r = bmv_t(s)
-    gamma = torch.dot(r, r)
+    gamma = _dot(r, r).real
     bnorm, ntnorm0, rnorm0, gamma_h = _host(_norm(c), _norm(bt), _norm(s),
                                             gamma)
     check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
@@ -1363,12 +1390,12 @@ def cgnr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     p = r
     while reason == CONVERGED_ITERATING:
         q = bmv(p)
-        qq = torch.dot(q, q)
+        qq = _dot(q, q).real
         alpha = gamma / _safe(qq)
         x = x + alpha * p
         s = s - alpha * q
         r = bmv_t(s)
-        gamma_new = torch.dot(r, r)
+        gamma_new = _dot(r, r).real
         beta = gamma_new / _safe(gamma)
         p = r + beta * p
         gamma = gamma_new
@@ -1395,15 +1422,15 @@ def lsqr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     recurrences run on the device in the vectors' dtype; phibar and the
     test's terms come to the host once per iteration."""
     _need_transpose("lsqr", matvec_transpose)
-    _real_only("lsqr", b)
     psolve = pc_apply or _identity_pc
-    psolve_t = pc_apply_transpose or _identity_pc
+    mv_h = _hermitian(matvec_transpose)
+    ps_h = _hermitian(pc_apply_transpose) or _identity_pc
 
     def bmv(v):                            # B = A M^-1
         return matvec(psolve(v))
 
-    def bmv_t(u):                          # B^T = M^-T A^T
-        return psolve_t(matvec_transpose(u))
+    def bmv_t(u):                          # B^H = M^-H A^H
+        return ps_h(mv_h(u))
 
     tiny = _tiny(b.dtype)
     r0 = b if x0 is None else b - matvec(x0)

@@ -24,10 +24,12 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from .krylov import DGKS_THRESHOLD
 from .types import (CONVERGED_ITERATING, CONVERGED_ITS, DIVERGED_BREAKDOWN,
                     DIVERGED_NANORINF, KSPResult, default_convergence_check)
 
-_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+              torch.complex64: np.complex64, torch.complex128: np.complex128}
 
 
 def _identity_pc(x):
@@ -35,12 +37,14 @@ def _identity_pc(x):
 
 
 def _cdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Per-column inner products <a_j, b_j>: [n, r] x [n, r] -> [r]."""
-    return (a * b).sum(dim=0)
+    """Per-column inner products <a_j, b_j> = a_j^H b_j: [n, r] x [n, r]
+    -> [r]."""
+    return (a.conj() * b).sum(dim=0)
 
 
 def _cnorm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(_cdot(x, x))
+    """Per-column norms, real for complex x."""
+    return torch.sqrt(_cdot(x, x).real)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -57,7 +61,8 @@ class _Columns:
         self.bnorm = bnorm
         self.tols = dict(rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
         r = rnorm0.shape[0]
-        self.history = torch.full((maxit + 1, r), float("nan"), dtype=dtype)
+        self.history = torch.full((maxit + 1, r), float("nan"),
+                                  dtype=dtype.to_real())
         self.history[0] = torch.from_numpy(rnorm0)
         self.its = np.zeros(r, np.int32)
         self.reason = self.check(rnorm0, 0)
@@ -193,11 +198,40 @@ def cg_many(matvec: Callable, B: torch.Tensor,
         rz_new, rr = _cdot(R, Z), _cdot(R, R)
         beta = rz_new / torch.where(s["rz"] != 0, s["rz"], 1.0)
         new = dict(X=X, R=R, P=Z + beta * s["P"], rz=rz_new)
-        rn = _host(torch.sqrt(rr))
+        rn = _host(torch.sqrt(rr.real))
         reason = cols.check(rn, cols.trip + 1)
         s = _freeze(active, new, s)
         cols.record(active, rn, reason)
     return cols.result(s["X"], _cnorm(B - matvec(s["X"])))
+
+
+def _orthogonalize_many(V: torch.Tensor, w: torch.Tensor,
+                        cgs_refinement: str):
+    """Classical Gram-Schmidt of each column of ``w [n, r]`` against the
+    basis ``V [a, n, r]`` with the single-RHS policy of
+    ``krylov._orthogonalize``.  ``"ifneeded"``: the DGKS test is per column,
+    and the one batched refinement pass runs when any column needs it (JAX
+    ``krylov_many.py:343-370``), decided on the host.  Returns ``(w, h,
+    ||w||)``, ``h [a, r]``."""
+    def gram(w):
+        return torch.einsum("anr,nr->ar", V.conj(), w)
+
+    def project(w, h):
+        return w - torch.einsum("ar,anr->nr", h, V)
+
+    h = gram(w)
+    wnorm0 = _cnorm(w) if cgs_refinement == "ifneeded" else None
+    w = project(w, h)
+    hj1 = _cnorm(w)
+    refine = cgs_refinement == "always"
+    if cgs_refinement == "ifneeded":
+        after, before = _host(torch.stack([hj1, wnorm0]))
+        refine = bool((after < DGKS_THRESHOLD * before).any())
+    if refine:
+        h2 = gram(w)
+        w = project(w, h2)
+        h, hj1 = h + h2, _cnorm(w)
+    return w, h, hj1
 
 
 def gmres_many(matvec: Callable, B: torch.Tensor,
@@ -206,31 +240,40 @@ def gmres_many(matvec: Callable, B: torch.Tensor,
                rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
                maxit: int = 10000, side: str = "left",
                cgs_refinement: str = "always", **_) -> KSPResult:
-    """Column-batched restarted GMRES with left preconditioning; B: [n, r].
+    """Column-batched restarted GMRES, left (default) or right
+    preconditioned; B: [n, r].
 
     Every column runs the one-RHS ``gmres`` recurrence (classical
-    Gram-Schmidt with one refinement pass, Givens least squares), sharing
-    each iteration's matvec and PCApply.  The Hessenberg column of every
-    column comes to the host once per iteration, where the rotations run
-    per column in the vectors' dtype.  A column that converges mid-cycle
-    freezes its basis, Hessenberg and rotations; its solution update uses
-    exactly the basis vectors it built.  The basis is ``[restart+1, n, r]``.
-    Ported options as in ``krylov.gmres``; the others raise.
-    """
-    if side != "left":
-        raise NotImplementedError(
-            f"gmres_many(side={side!r}) is not yet ported")
-    if cgs_refinement != "always":
-        raise NotImplementedError(
-            f"gmres_many(cgs_refinement={cgs_refinement!r}) is not yet ported")
+    Gram-Schmidt with the ``cgs_refinement`` policy of
+    :func:`_orthogonalize_many`, Givens least squares), sharing each
+    iteration's matvec and PCApply.  Under ``side='right'`` the residual
+    and the convergence norm are the true ones, the basis runs on A M^-1
+    and the correction takes one PC apply a cycle.  The Hessenberg column
+    of every column comes to the host once per iteration, where the
+    (unitary) rotations run per column in the vectors' dtype.  A column
+    that converges mid-cycle freezes its basis, Hessenberg and rotations;
+    its solution update uses exactly the basis vectors it built.  The
+    basis is ``[restart+1, n, r]``."""
+    if side not in ("left", "right"):
+        raise ValueError(f"unknown side {side!r}: expected left or right")
+    if cgs_refinement not in ("never", "ifneeded", "always"):
+        raise ValueError(
+            f"unknown cgs_refinement {cgs_refinement!r}: expected never, "
+            "ifneeded, or always (-ksp_gmres_cgs_refinement_type)")
     psolve = pc_apply or _identity_pc
+    right = side == "right"
     n, nc = B.shape
     dev, dtype = B.device, B.dtype
     npdt = _NP_DTYPES[dtype]
     m = max(1, int(restart))
+
+    def residual(X):
+        R = B - matvec(X)
+        return R if right else psolve(R)
+
     X = torch.zeros_like(B) if X0 is None else X0.clone()
-    bnorm = _host(_cnorm(psolve(B)))
-    R = psolve(B - matvec(X))
+    bnorm = _host(_cnorm(B if right else psolve(B)))
+    R = residual(X)
     cols = _Columns(_host(_cnorm(R)), bnorm, maxit, dtype, rtol=rtol,
                     atol=atol, divtol=divtol)
     while cols.iterating():
@@ -247,32 +290,29 @@ def gmres_many(matvec: Callable, B: torch.Tensor,
         j = 0
         while j < m and cols.iterating():
             active = cols.active()
-            w = psolve(matvec(V[j]))
-            Vj = V[:j + 1]
-            h = torch.einsum("anr,nr->ar", Vj, w)
-            w = w - torch.einsum("ar,anr->nr", h, Vj)
-            h2 = torch.einsum("anr,nr->ar", Vj, w)
-            w = w - torch.einsum("ar,anr->nr", h2, Vj)
-            hj1 = _cnorm(w)
+            w = matvec(psolve(V[j])) if right else psolve(matvec(V[j]))
+            w, h, hj1 = _orthogonalize_many(V[:j + 1], w, cgs_refinement)
             V[j + 1] = _merge(active, w / torch.where(hj1 > 0, hj1, 1.0),
                               V[j + 1])
             col = np.zeros((m + 1, nc), npdt)
-            col[:j + 2] = _host(torch.cat([h + h2, hj1[None]]))
-            # accumulated Givens rotations, then the one eliminating col[j+1]
+            col[:j + 2] = _host(torch.cat([h, hj1[None].to(h.dtype)]))
+            # accumulated rotations G_i = [[c, s], [-conj(s), conj(c)]],
+            # then the one eliminating col[j+1]: c = conj(a) / r,
+            # s = conj(b) / r, r = sqrt(|a|^2 + |b|^2)
             for i in range(j):
                 t1 = cs[i] * col[i] + sn[i] * col[i + 1]
-                t2 = -sn[i] * col[i] + cs[i] * col[i + 1]
+                t2 = -np.conj(sn[i]) * col[i] + np.conj(cs[i]) * col[i + 1]
                 col[i], col[i + 1] = t1, t2
-            denom = np.sqrt(col[j] ** 2 + col[j + 1] ** 2)
+            denom = np.sqrt(np.abs(col[j]) ** 2 + np.abs(col[j + 1]) ** 2)
             ok = denom > 0
-            safe = np.where(ok, denom, npdt(1))
-            c_new = np.where(ok, col[j] / safe, npdt(1)).astype(npdt)
-            s_new = np.where(ok, col[j + 1] / safe, npdt(0)).astype(npdt)
+            safe = np.where(ok, denom, 1)
+            c_new = np.where(ok, np.conj(col[j]) / safe, 1).astype(npdt)
+            s_new = np.where(ok, np.conj(col[j + 1]) / safe, 0).astype(npdt)
             col[j], col[j + 1] = denom, 0
             gj = g[j].copy()
             H[:, j, active] = col[:, active]
             g[j, active] = (c_new * gj)[active]
-            g[j + 1, active] = (-s_new * gj)[active]
+            g[j + 1, active] = (-np.conj(s_new) * gj)[active]
             cs[j, active], sn[j, active] = c_new[active], s_new[active]
             jcol[active] += 1
             rn = np.abs(g[j + 1])
@@ -286,9 +326,9 @@ def gmres_many(matvec: Callable, B: torch.Tensor,
             y[:jc, c] = scipy.linalg.solve_triangular(
                 H[:jc, :jc, c], g[:jc, c], lower=False)
         dX = torch.einsum("ar,anr->nr", torch.from_numpy(y).to(dev), V[:m])
-        Xn = X + dX
+        Xn = X + (psolve(dX) if right else dX)
         X, R = (_merge(cycle_active, Xn, X),
-                _merge(cycle_active, psolve(B - matvec(Xn)), R))
+                _merge(cycle_active, residual(Xn), R))
     return cols.result(X, _cnorm(B - matvec(X)))
 
 

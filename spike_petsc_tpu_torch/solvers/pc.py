@@ -36,13 +36,14 @@ import torch
 
 from .. import sparse as hsp
 from ..ops.band import BandedMatrix, banded_diagonal, banded_matvec
-from ..ops.cuda.fused_sweep_spd import require_spd_feasible, spd_block_for
-from ..ops.cuda.sweeps import inv_block_for
+from ..ops.cuda.fused_sweep_spd import require_spd_feasible
+from ..ops.cuda.sweeps import default_block
 from ..ops.blocktri import (BlockTridiagonal, BlockTriFactor,
                             TransposedBlockTriFactor, band_to_blocktri,
                             batched_inverse, sweep_precision)
 from ..ops.spike import (_batched_solver, partition_solver, spike_factor,
                          spike_solve, spike_solve_many, spike_transpose)
+from ..utils.debug import SINGULAR, factor_health
 from ..utils.options import Options
 from ..utils.registry import PRECONDITIONERS, register_pc
 from .operator import as_matvec, as_matvec_many, transpose_operator
@@ -241,11 +242,18 @@ def _cast_apply(fn: Callable, factor_dtype: torch.dtype,
     return lambda r: fn(r.to(factor_dtype)).to(dtype)
 
 
-def _reject_unported(opts: Options, name: str) -> None:
-    """Raise on spike options whose code paths are not yet ported."""
-    if opts.get_bool(f"pc_{name}_check", False):
-        raise NotImplementedError(
-            f"-pc_{name}_check not yet ported to spike_petsc_tpu_torch")
+def _check_health(opts: Options, name: str, sf, info: dict) -> None:
+    """``-pc_<name>_check`` (JAX ``solvers/pc.py:377-387``): the typed
+    factor status of ``utils.debug.factor_health`` in ``info["health"]``;
+    singular Schur pivots raise ``FloatingPointError``."""
+    if not opts.get_bool(f"pc_{name}_check", False):
+        return
+    status = factor_health(sf.fact).status
+    info["health"] = status
+    if status == SINGULAR:
+        raise FloatingPointError(
+            f"pc '{name}': factorization has singular Schur pivots "
+            f"(reorder/scale the matrix first)")
 
 
 def _shift_options(opts: Options) -> tuple:
@@ -262,18 +270,6 @@ def _shift_info(info: dict, shift: str, sf) -> None:
         info["shifted_pivots"] = int(sf.fact.nshift.sum())
 
 
-def default_block(block, k: int, method: str, on_cuda: bool):
-    """The block of a factor of tip size ``k``: ``block`` where the options
-    name one; else on the CPU None (the tip size, as in JAX), and on the
-    card the smallest block the sweep kernels of ``method`` take that covers
-    the tip (``spd_block_for``, ``inv_block_for``: 64 or 128).  Partition
-    rows round up to a multiple of the block, so on the card the partition
-    boundaries of a K > 1 PC are not those of the CPU."""
-    if block is not None or not on_cuda:
-        return block
-    return spd_block_for(k) if method == "spd" else inv_block_for(k)
-
-
 def _block_option(band: BandedMatrix, opts: Options, name: str,
                   method: str):
     return default_block(opts.get_int(f"pc_{name}_block", None),
@@ -283,13 +279,15 @@ def _block_option(band: BandedMatrix, opts: Options, name: str,
 def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
               default_method: str = "inv") -> PC:
     band = _as_banded(pmat, opts)
-    _reject_unported(opts, name)
     k = max(band.kl, band.ku, 1)
     K = opts.get_int(f"pc_{name}_partitions", default_K)
     K = max(1, min(K, band.n // (2 * k)))   # partitions must cover 2k rows
     method = opts.get_string(f"pc_{name}_method", default_method)
     block = _block_option(band, opts, name, method)
-    on_card = method == "spd" and band.data.is_cuda
+    # real spd factors take the spd kernels; complex Hermitian ones the
+    # plain sweep (sweep_route)
+    on_card = (method == "spd" and band.data.is_cuda
+               and not band.data.is_complex())
     truncated = opts.get_bool(f"pc_{name}_truncated", False)
     store = opts.get_bool(f"pc_{name}_store_spikes", False)
     # -pc_<name>_store_lt: keep the L blocks at factor time, so that the
@@ -336,6 +334,7 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
     if fb:
         info["inverter_fallback"] = "blocked"
     _shift_info(info, shift, sf)
+    _check_health(opts, name, sf, info)
 
     def boundary(fn):
         return _cast_apply(fn, factor_dtype, orig_dtype) if cast else fn
@@ -399,7 +398,6 @@ def pc_lu(pmat, opts: Options) -> PC:
     The transpose of a K = 1 ``inv`` factor on the card runs #9 like the
     forward one."""
     band = _as_banded(pmat, opts)
-    _reject_unported(opts, "lu")
     method = opts.get_string("pc_lu_method", "inv")
     block = _block_option(band, opts, "lu", method)
     inverter = opts.get_string("pc_lu_inverter", "auto")

@@ -52,8 +52,9 @@ class KSPResult:
     (``[2, r]`` for ``preonly_many``).
 
     ``true_history`` holds the unpreconditioned residual norms where a
-    solver records them (``-ksp_monitor_true_residual``, not yet ported):
-    always ``None`` for now.
+    solver records them: gmres and fgmres under ``monitor_true=True``
+    (``-ksp_monitor_true_residual``), in the history's dtype and layout;
+    ``None`` otherwise.
     """
 
     x: torch.Tensor

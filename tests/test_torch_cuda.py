@@ -1174,3 +1174,130 @@ def test_pc_on_the_card_matches_the_cpu(cuda_device, pc_type, argv, ksp):
     assert card.x.device.type == "cuda" and card.x.dtype == torch.float32
     assert abs(card.its - cpu.its) <= pc_recipes.ITS_SLACK == 1
     assert err <= pc_recipes.X_TOL == 1e-4
+
+
+def _launches():
+    from spike_petsc_tpu_torch.ops.cuda import KERNELS
+    torch.cuda.synchronize()
+    return {k.name: k.launches for k in KERNELS if k.launches}
+
+
+def _reset():
+    from spike_petsc_tpu_torch.ops.cuda import KERNELS
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _complex_band(n, k, device, hermitian=False, seed=30):
+    """N(0,1) + i N(0,1) entries inside the band, the diagonal the row's
+    absolute sum + 1 (JAX tests/test_complex.py's rule); Hermitian on
+    request."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n, 2 * k + 1)) + 1j * rng.standard_normal(
+        (n, 2 * k + 1))
+    if hermitian:
+        for d in range(1, k + 1):
+            data[d:, k - d] = data[:n - d, k + d].conj()
+    col = np.arange(n)[:, None] + np.arange(2 * k + 1)[None, :] - k
+    data[(col < 0) | (col >= n)] = 0
+    data[:, k] = np.abs(data).sum(axis=1) + 1
+    return banded_from_numpy(data.astype(np.complex64), k, k, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ksp,pc,hermitian", [("gmres", "spike", False),
+                                              ("cg", "cholesky", True)])
+def test_complex_input_launches_no_kernel(cuda_device, ksp, pc, hermitian):
+    """Complex scalars on the card take the plain routes (the kernels'
+    rules admit f32/bf16 only; complex spd the plain sweep): no launch,
+    the answer within 1e-4 of the CPU's complex128 one."""
+    band = _complex_band(8192, 20, cuda_device, hermitian)
+    b = banded_matvec(band, torch.ones(8192, dtype=torch.complex64,
+                                       device=cuda_device))
+    opts = {f"pc_{pc}_partitions": 8, f"pc_{pc}_block": 64}
+    _reset()
+    got = solve(band, b, ksp_type=ksp, pc_type=pc, options=Options(opts),
+                rtol=1e-6)
+    assert not _launches() and got.reason > 0 and got.x.is_cuda
+    cpu = BandedMatrix(data=band.data.to(torch.complex128).cpu(), kl=20,
+                       ku=20)
+    ref = solve(cpu, b.to(torch.complex128).cpu(), ksp_type=ksp,
+                pc_type=pc, options=Options(opts), rtol=1e-6)
+    assert _rel(got.x.to(torch.complex128).cpu(), ref.x) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,kernel", [(8192, 4, "fused_sweep"),
+                                        (100_000, 1, "sweeps")])
+def test_solve_banded_diff_runs_the_sweep_kernels(cuda_device, n, K,
+                                                  kernel):
+    """Both passes of ``solve_banded_diff`` on the card run the sweep
+    kernels: #1 twice a pass at K = 4 (no stored spikes: two sweeps a
+    solve), #9's pair once a pass on one long partition; the gradients
+    within 1e-3 of the CPU's f64 ones."""
+    from spike_petsc_tpu_torch.ops.autodiff import solve_banded_diff
+    k = 20 if K > 1 else 1
+    data = random_band(n, k, k, seed=31, dtype=np.float32)
+    rhs = np.random.default_rng(32).standard_normal(n).astype(np.float32)
+
+    def grads(device, dtype):
+        d = torch.tensor(data, dtype=dtype, device=device,
+                         requires_grad=True)
+        b = torch.tensor(rhs, dtype=dtype, device=device, requires_grad=True)
+        _reset()
+        x = solve_banded_diff(d, b, k, k, K)
+        fwd = _launches() if device != "cpu" else None
+        _reset()
+        g = torch.autograd.grad((torch.sin(x) * x).sum(), (d, b))
+        bwd = _launches() if device != "cpu" else None
+        return g, fwd, bwd
+
+    (gd, gb), fwd, bwd = grads(cuda_device, torch.float32)
+    assert fwd == bwd == {kernel: 2}
+    (gd64, gb64), _, _ = grads("cpu", torch.float64)
+    assert _rel(gd.double().cpu(), gd64) <= 1e-3
+    assert _rel(gb.double().cpu(), gb64) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cgs", ["always", "never", "ifneeded"])
+def test_gmres_many_right_pc_runs_the_multi_rhs_sweep(cuda_device, cgs):
+    """``make_solver_many(ksp_type='gmres')`` with the spike PC on the right
+    applies it through ``spike_solve_many`` (#4) and converges every
+    column as the CPU's f64 solve does (its within 1)."""
+    from spike_petsc_tpu_torch import make_solver_many
+    band = banded_from_numpy(random_band(16384, 20, 20, seed=33,
+                                         dtype=np.float32), 20, 20,
+                             device=cuda_device)
+    B = torch.randn((16384, 8), generator=torch.Generator(
+        device=cuda_device).manual_seed(34), device=cuda_device)
+    opts = {"pc_spike_partitions": 8, "pc_spike_block": 64,
+            "ksp_pc_side": "right", "ksp_gmres_cgs_refinement_type": cgs}
+    _reset()
+    got = make_solver_many(band, ksp_type="gmres", pc_type="spike",
+                           options=Options(dict(opts)), rtol=1e-5)(B)
+    assert _launches().get("fused_sweep_many", 0) > 0
+    cpu = BandedMatrix(data=band.data.double().cpu(), kl=20, ku=20)
+    ref = make_solver_many(cpu, ksp_type="gmres", pc_type="spike",
+                           options=Options(dict(opts)), rtol=1e-5)(
+        B.double().cpu())
+    assert bool((got.reason > 0).all()) and bool((ref.reason > 0).all())
+    assert (got.its - ref.its).abs().max() <= 1
+    assert _rel(got.x.double().cpu(), ref.x) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """A factor with bf16 spikes saved from the card and loaded back onto
+    it solves bit-equal (the kernels on both)."""
+    from spike_petsc_tpu_torch.io import load_factorization, save_factorization
+    band = banded_from_numpy(random_band(8192, 20, 20, seed=35,
+                                         dtype=np.float32), 20, 20,
+                             device=cuda_device)
+    sf = spike_factor(band, K=4, block_b=64, store_spikes=True,
+                      spike_dtype=torch.bfloat16)
+    save_factorization(str(tmp_path / "f.npz"), sf)
+    sf2 = load_factorization(str(tmp_path / "f.npz"), device=cuda_device)
+    b = torch.randn(8192, device=cuda_device)
+    assert sf2.V.dtype == torch.bfloat16 and sf2.V.is_cuda
+    assert torch.equal(spike_solve(sf2, b), spike_solve(sf, b))

@@ -525,15 +525,26 @@ def test_pc_options_match_jax(zerodiag, case):
 
 
 def test_pc_check_still_raises(zerodiag):
-    """What the PC layer still refuses: ``-pc_<name>_check`` (the factor
-    health report)."""
+    """``-pc_<name>_check`` (once refused here): the shifted factor of the
+    zero-diagonal matrix reports JAX's health code in ``info["health"]``;
+    unshifted, with the ``lapack`` inverter, its singular pivots raise
+    ``FloatingPointError`` in both packages."""
+    from spike_petsc_tpu.solvers.pc import make_pc as j_make_pc
+    from spike_petsc_tpu.utils.options import Options as JOptions
     from spike_petsc_tpu_torch.solvers.pc import make_pc as t_make_pc
     from spike_petsc_tpu_torch.utils.options import Options as TOptions
     data, kl, ku = zerodiag
-    with pytest.raises(NotImplementedError, match="-pc_spike_check"):
-        t_make_pc("spike", banded_from_numpy(data, kl, ku, device=CPU),
-                  TOptions({"pc_spike_check": 1,
-                            "pc_factor_shift_type": "nonzero"}))
+    tb = banded_from_numpy(data, kl, ku, device=CPU)
+    jb = JBand(jnp.asarray(data), kl, ku)
+    shifted = {"pc_spike_check": 1, "pc_factor_shift_type": "nonzero"}
+    pt = t_make_pc("spike", tb, TOptions(dict(shifted)))
+    pj = j_make_pc("spike", jb, JOptions(dict(shifted)))
+    assert pt.info["health"] == pj.info["health"] == 0
+    bare = {"pc_spike_check": 1, "pc_spike_inverter": "lapack"}
+    with pytest.raises(FloatingPointError, match="singular Schur pivots"):
+        j_make_pc("spike", jb, JOptions(dict(bare)))
+    with pytest.raises(FloatingPointError, match="singular Schur pivots"):
+        t_make_pc("spike", tb, TOptions(dict(bare)))
 
 
 @pytest.mark.parametrize("method", ["lu", "cr"])

@@ -277,3 +277,71 @@ def test_make_solver_many_transpose_and_options_match_jax(kwargs):
     assert rt.reason.tolist() == np.asarray(rj.reason).tolist()
     assert bool(rt.converged.all())
     np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), atol=1e-8)
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("mode", ["never", "ifneeded", "always"])
+def test_gmres_many_side_and_cgs_refinement_match_jax(side, mode):
+    """``side`` and ``cgs_refinement`` through the batched GMRES (once
+    refused here): JAX's test_gmres_many_cgs_refinement_parity problem
+    (``nonsym_banded(256, 3, 3, seed=6, dominance=0.4)``, two columns,
+    restart 30, rtol 1e-10) with a Jacobi PC, against JAX's gmres_many
+    (counts, reasons, histories, x) and per column against the port's
+    single-RHS ``gmres`` under the same options (counts, x at 1e-9)."""
+    from spike_petsc_tpu.models import problems
+    from spike_petsc_tpu_torch.solvers import krylov as tkr
+    a = problems.nonsym_banded(256, 3, 3, seed=6, dominance=0.4).toarray()
+    data = np.zeros((256, 7))
+    for d in range(-3, 4):
+        rows = np.arange(max(0, -d), min(256, 256 - d))
+        data[rows, d + 3] = a[rows, rows + d]
+    mvj, mvt, pcj, pct = _operators(data, 3)
+    U = np.random.default_rng(1).standard_normal((256, 2))
+    B = a @ U
+    kw = dict(rtol=1e-10, maxit=600, restart=30, side=side,
+              cgs_refinement=mode)
+    rj = jkm.gmres_many(mvj, jnp.asarray(B), pc_apply=pcj, **kw)
+    rt = tkm.gmres_many(mvt, torch.from_numpy(B), pc_apply=pct, **kw)
+    _assert_same(rj, rt)
+    assert (rt.reason > 0).all()
+    tb = banded_from_numpy(data, 3, 3, device=CPU)
+    diag = torch.from_numpy(data[:, 3].copy())
+    for j in range(2):
+        r1 = tkr.gmres(lambda v: t_mv(tb, v), torch.from_numpy(B[:, j]),
+                       pc_apply=lambda v: v / diag, **kw)
+        assert r1.its == int(rt.its[j]) and r1.reason == int(rt.reason[j])
+        np.testing.assert_allclose(rt.x[:, j].numpy(), r1.x.numpy(),
+                                   rtol=1e-7, atol=1e-9)
+        np.testing.assert_allclose(rt.x[:, j].numpy(), U[:, j], rtol=1e-6,
+                                   atol=1e-8)
+
+
+def test_gmres_many_rejects_unknown_options():
+    """``cgs_refinement='bogus'`` raises ``ValueError`` naming the option,
+    as in JAX; an unknown ``side`` too."""
+    data = random_band(64, 2, 2, seed=3)
+    _, mvt, _, _ = _operators(data, 2)
+    B = torch.ones((64, 2), dtype=torch.float64)
+    with pytest.raises(ValueError, match="cgs_refinement"):
+        tkm.gmres_many(mvt, B, maxit=2, cgs_refinement="bogus")
+    with pytest.raises(ValueError, match="side"):
+        tkm.gmres_many(mvt, B, maxit=2, side="middle")
+
+
+def test_solve_many_gmres_right_spike_matches_jax():
+    """``make_solver_many(ksp_type='gmres')`` with the spike PC applied on
+    the right (``-ksp_pc_side right``), against JAX's."""
+    data = random_band(600, 2, 2, seed=44)
+    B = np.random.default_rng(46).standard_normal((600, 3))
+    opts = {"ksp_pc_side": "right", "pc_spike_partitions": 4,
+            "pc_spike_block": 8}
+    kw = dict(ksp_type="gmres", pc_type="spike", rtol=1e-10, maxit=100)
+    rj = jksp.make_solver_many(JBand(jnp.asarray(data), 2, 2),
+                               options=jpkg.Options(dict(opts)), jit=False,
+                               **kw)(jnp.asarray(B))
+    rt = tpkg.make_solver_many(banded_from_numpy(data, 2, 2, device=CPU),
+                               options=tpkg.Options(dict(opts)),
+                               **kw)(torch.from_numpy(B))
+    assert rt.its.tolist() == np.asarray(rj.its).tolist()
+    assert rt.reason.tolist() == np.asarray(rj.reason).tolist()
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), atol=1e-8)

@@ -90,15 +90,26 @@ def test_restarted_gmres_without_pc_matches_jax(system):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(ksp_type="gmres", pc_type="spike",
-          options={"pc_spike_check": 1}), "pc_spike_check"),
+          options={"pc_spike_check": 1}), "pc 'spike'"),
 ])
 def test_unported_surface_raises(system, kwargs, match):
+    """Once unported, ``-pc_spike_check`` now raises as JAX raises: a band
+    whose first rows are zero has singular Schur pivots (the ``lapack``
+    inverter leaves inf/NaN), and the check fails fast with
+    ``FloatingPointError`` in both packages."""
     data, b = system
+    data = data.copy()
+    data[:K_HALF] = 0.0
     kwargs = dict(kwargs)
-    opts = tpkg.Options(kwargs.pop("options", {}))
-    with pytest.raises(NotImplementedError, match=match):
+    opts = dict(kwargs.pop("options", {}), pc_spike_inverter="lapack")
+    with pytest.raises(FloatingPointError, match="singular Schur pivots"):
+        jpkg.solve(jpkg.BandedMatrix(jnp.asarray(data), K_HALF, K_HALF),
+                   jnp.asarray(b), options=jpkg.Options(dict(opts)),
+                   **kwargs)
+    with pytest.raises(FloatingPointError, match=match):
         tpkg.solve(banded_from_numpy(data, K_HALF, K_HALF, device=CPU),
-                   torch.from_numpy(b), options=opts, **kwargs)
+                   torch.from_numpy(b), options=tpkg.Options(opts),
+                   **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -123,10 +123,24 @@ def test_blocktri_spd_factor_and_solve_match_jax(band, inverter):
     _close(tbt.blocktri_solve(ft, torch.from_numpy(R[..., 0])), xj[..., 0])
     f16 = tbt.cast_factor(ft, torch.bfloat16)
     assert f16.method == "spd" and f16.F.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="complex Hermitian"):
-        tbt.blocktri_factor(tbt.BlockTridiagonal(
-            D=tt.D.to(torch.complex128), L=tt.L.to(torch.complex128),
-            U=tt.U.to(torch.complex128)), method="spd")
+    # complex Hermitian blocks (the real ones with an antisymmetric
+    # imaginary part on the diagonal blocks) factor as JAX factors them
+    rng = np.random.default_rng(5)
+    im = rng.standard_normal((4, 8, B, B))
+    im = 0.1 * (im - np.swapaxes(im, -1, -2))
+    D = lead(tt.D).numpy() + 1j * im
+    L, U = lead(tt.L).numpy() + 0j, lead(tt.U).numpy() + 0j
+    fjc = jax.vmap(lambda t: jbt.blocktri_factor(
+        t, method="spd", inverter=inverter))(jbt.BlockTridiagonal(
+            D=jnp.asarray(D), L=jnp.asarray(L), U=jnp.asarray(U)))
+    ftc = tbt.blocktri_factor(tbt.BlockTridiagonal(
+        D=torch.from_numpy(D), L=torch.from_numpy(L), U=torch.from_numpy(U)),
+        method="spd", inverter=inverter)
+    _close(ftc.F, fjc.F)
+    _close(ftc.Sinv, fjc.Sinv)
+    Rc = R + 1j * np.random.default_rng(6).standard_normal(R.shape)
+    _close(tbt.blocktri_solve(ftc, torch.from_numpy(Rc)),
+           jax.vmap(jbt.blocktri_solve)(fjc, jnp.asarray(Rc)))
 
 
 def test_spd_sweeps_match_pallas_interpret():

@@ -164,13 +164,30 @@ def test_reduced_cyclic_reduction_not_ported():
 
 
 def test_complex_hermitian_spd_transpose_still_raises():
-    """What this module still refuses: the transpose of a complex
-    Hermitian ``spd`` factorization."""
-    sf = tsp.SpikeFactor(
-        fact=tsp.BlockTriFactor(F=torch.zeros(2, 1, 2, 2), U=torch.zeros(
-            2, 1, 0, 0), Sinv=torch.zeros(2, 1, 2, 2), method="spd"),
-        Btip=torch.zeros(2, 1, 1, dtype=torch.complex128),
-        Ctip=torch.zeros(2, 1, 1, dtype=torch.complex128), red_fact=None,
-        V=None, W=None, n=4, K=2, m=2, b=2, k=1)
-    with pytest.raises(NotImplementedError, match="complex Hermitian"):
-        tsp.spike_transpose(sf)
+    """Once refused: the transpose of a complex Hermitian ``spd``
+    factorization is JAX's marker form (A^T = conj(A): the conjugated
+    forward sweeps), and solves A^T x = r as JAX's does."""
+    from spike_petsc_tpu_torch.ops.blocktri import TransposedBlockTriFactor
+    n, k = 400, 3
+    rng = np.random.default_rng(8)
+    a = np.zeros((n, n), complex)
+    for d in range(1, k + 1):
+        v = rng.standard_normal(n - d) + 1j * rng.standard_normal(n - d)
+        a[np.arange(n - d), np.arange(d, n)] = v
+        a[np.arange(d, n), np.arange(n - d)] = v.conj()
+    a[np.arange(n), np.arange(n)] = np.abs(a).sum(1) + 1.0
+    data = np.zeros((n, 2 * k + 1), complex)
+    for d in range(-k, k + 1):
+        rows = np.arange(max(0, -d), min(n, n - d))
+        data[rows, d + k] = a[rows, rows + d]
+    st = tsp.spike_factor(banded_from_numpy(data, k, k, device=CPU), 4,
+                          block_b=8, method="spd")
+    sj = jsp.spike_factor(JBand(jnp.asarray(data), k, k), 4, block_b=8,
+                          method="spd")
+    tt, tj = tsp.spike_transpose(st), jsp.spike_transpose(sj)
+    assert isinstance(tt.fact, TransposedBlockTriFactor)
+    r = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    x = t2n(tsp.spike_solve(tt, torch.from_numpy(r)))
+    np.testing.assert_allclose(x, j2n(jsp.spike_solve(tj, jnp.asarray(r))),
+                               atol=ATOL)
+    np.testing.assert_allclose(a.T @ x, r, atol=ATOL)
