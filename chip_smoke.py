@@ -159,10 +159,34 @@ In order, it:
      one at config 2's (cg + cholesky), converged, no kernel launched,
      every tensor on the card, the factor and the solve timed, and
      n = 2e4 on the card against the CPU in complex128;
- 13. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
+ 13. the route tuner, the native assembly, config 4 and the auction
+     (``phase_tuning``, ``phase_native_factor``, ``phase_config4``,
+     ``phase_config4_reference``, ``phase_auction``), the script's own
+     tuning record a fresh file from the start: ``tools.tune.main`` at the
+     flagship, at config 3's width and at the flagship in f64 (each
+     route's time, the record under ``cuda:<card name>``, each route's y
+     against the plain version), then ``as_matvec(band)`` under 'auto'
+     with a record naming ``blocktri`` (#7 once, #2 never) and one naming
+     ``banded_cuda`` (the reverse); ``problems.blocktri_diagdom_device``
+     at the flagship (its structure: masks, identity rows past n, strict
+     dominance), ``spike_factor_blocks`` with the flagship's settings
+     timed beside the band-entry factor, gmres (rtol 1e-8) on the
+     block-tridiagonal operator with the spike PC, #1 and #7 launched
+     exactly; BASELINE config 4 (``problems.general_sparse`` at n = 1e5,
+     scrambled) through the testbed with ``-mat_ordering_type fiedler
+     -mat_ordering_fiedler_method lobpcg -pc_type banded``, gmres in f32
+     at rtol 1e-6: the LOBPCG's iterations and time on the card, the host
+     stages, the bandwidth before and after, the true relres, the
+     launches held exactly; n = 5000 on the card in f32 against the CPU in
+     f64; ``parallel.auction_match`` on config 3's matrix at n = 1e5 and,
+     where the first run predicts it under a minute, 1e6 (rounds, time,
+     a permutation within n eps of MC64 job 5's log-product, the ELL
+     arrays on the card);
+ 14. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
      path, error, time, plain time, bound and library time, and its
-     launches on each further path: the PCs', gmres_many's, autodiff's)
-     and the script's time in all, and, last, the line
+     launches on each further path: the PCs', gmres_many's, autodiff's,
+     the tuner's 'auto' checks, the native assembly's, config 4's) and
+     the script's time in all, and, last, the line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the exit code is then non-zero and no result line
@@ -409,6 +433,50 @@ AUTODIFF_REF_N, AUTODIFF_REF_TOL = 20_000, 1e-3
 AUTODIFF_LAUNCHES = {"flagship": {"fused_sweep": 2},
                      "config1": {"sweeps": 2}}
 ZERODIAG_CHECK = (20_000, 64, 3)       # n, K, block: singular b = 3 blocks
+# the route tuner (tools/tune.py) at the flagship, at config 3's width and
+# at the flagship in f64; each shape's timing loops of TUNE_REPS matvecs
+TUNE_SHAPES = (("flagship", 1_000_000, 100, 100, "f32"),
+               ("config3_width", 1_000_000, 6, 6, "f32"),
+               ("flagship_f64", 1_000_000, 100, 100, "f64"))
+TUNE_REPS = 20
+# the flagship class assembled in block-tridiagonal layout on the card
+# (problems.blocktri_diagdom_device), factored natively, gmres + spike on
+# the block-tridiagonal operator (#7)
+NATIVE_ITS_MAX = 3
+NATIVE_RELRES_MAX = 1e-4
+# BASELINE config 4 ("General sparse: Fiedler reorder + banded extraction"):
+# problems.general_sparse at its default density, scrambled by a seeded
+# permutation (as tests/test_baseline_configs.py:97-117), through the
+# testbed with the device LOBPCG Fiedler ordering and PCBANDED; the banded
+# options of that test (kmax 80, frac 0.999), the inner spike PC at 16
+# partitions (its default), gmres in f32 at rtol 1e-6.  LOBPCG's test is
+# |r| < tol * 10 * n * (theta + |A v|): at JAX's tol (1e-8) and n = 1e5 it
+# accepts the random start after one iteration (lambda2 470 against ~0.4,
+# the bandwidth 99982 -> 99998), so the Fiedler solve is asked for
+# tol * 10 * n = 1e-8 (and up to 1000 iterations).  That test sits far
+# above the rounding floor (on the card the ratio |r| / (10 n (theta +
+# |A v|)) falls below 1e-14 at iteration 207 and on to ~1e-22 at n = 1e5;
+# at n = 5000 below 1e-14 at 593, on to ~6e-16, the CPU's trace the same),
+# so the card and the CPU stop within a few iterations of each other
+CONFIG4_N = 100_000
+CONFIG4_SEED, CONFIG4_PERM_SEED = 6, 2
+CONFIG4_ARGV = ("-mat {path} -mat_ordering_type fiedler "
+                "-mat_ordering_fiedler_method lobpcg "
+                "-mat_ordering_fiedler_tol 1e-14 "
+                "-mat_ordering_fiedler_max_it 1000 -pc_type banded "
+                "-pc_banded_kmax 80 -pc_banded_frac 0.999 "
+                "-banded_pc_spike_partitions 16 -ksp_type gmres "
+                "-ksp_rtol 1e-6 -ksp_max_it 300 -ksp_converged_reason "
+                "-log_view")
+CONFIG4_RELRES_MAX = 1e-5  # true f32 relative residual
+CONFIG4_REF_N = 5_000      # the card in f32 against the CPU in f64
+CONFIG4_REF_LAM2_TOL = 1e-10   # measured 1.1e-13 (LOBPCG in f64 on both)
+CONFIG4_REF_LOBPCG_ITS = 5     # measured equal (593 and 593)
+# the single-device auction on config 3's matrix (illscaled_nonsym, kl =
+# ku = 6, seed 0), then at the larger n if the first run predicts it under
+# AUCTION_BUDGET_S (its rounds x its per-round time x the size ratio)
+AUCTION_N = (100_000, 1_000_000)
+AUCTION_BUDGET_S = 60.0
 PEAK_BYTES_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
 PEAK_F64_FLOPS = 34e12     # f64 outside the tensor cores
@@ -1465,19 +1533,24 @@ def f64_band(band):
                                               device=a64.device))
 
 
+def capture(fn, *args, **kwargs):
+    """(return value, standard output) of ``fn(*args, **kwargs)``."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rv = fn(*args, **kwargs)
+    return rv, out.getvalue()
+
+
 def run_testbed(argv, record, entry=None):
     """``spike_petsc_tpu_torch.testbed.main(argv)`` (or ``entry``, e.g.
     ``testbed2.main``) in this process, its standard output captured:
     (exit code, output)."""
-    import contextlib
-    import io
     from spike_petsc_tpu_torch import testbed
     from spike_petsc_tpu_torch.utils import profiling
     profiling.clear()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = (entry or testbed.main)(argv, record=record)
-    return rc, out.getvalue()
+    return capture(entry or testbed.main, argv, record=record)
 
 
 def phase_config3(device):
@@ -3580,11 +3653,407 @@ def phase_checks(band, rhs, sf, device, t):
     check(same and sf2.V.dtype == torch.bfloat16, "checkpoint round trip")
 
 
+def phase_tuning(device, tmp, t):
+    """``tools.tune.main`` at the flagship, at config 3's width and at the
+    flagship in f64, into a record in ``tmp``: each route's time, the
+    record under ``cuda:<card name>`` naming the faster kernel route, and
+    each route's y against the plain version.  ``as_matvec('auto')`` reads
+    no record, so no later phase depends on these."""
+    import os
+    import torch
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec
+    from spike_petsc_tpu_torch.tools import tune
+    from spike_petsc_tpu_torch.utils import tuning
+    saved = os.environ.get("SPIKE_TUNING_FILE")
+    os.environ["SPIKE_TUNING_FILE"] = record = os.path.join(tmp, "tuned.json")
+    platform = tuning.platform_key()
+    dtypes = {"f32": torch.float32, "f64": torch.float64}
+    for label, n, kl, ku, dt in TUNE_SHAPES:
+        argv = (f"-n {n} -kl {kl} -ku {ku} -dtype {dt} "
+                f"-reps {TUNE_REPS}").split()
+        rc, out = capture(tune.main, argv)
+        line = json.loads(out.strip().splitlines()[-1])
+        print(f"tune {label}: {json.dumps(line)}")
+        check(rc == 0 and line["platform"] == platform
+              and platform.startswith("cuda:"),
+              f"tune {label}: exit code {rc}, platform {line['platform']}")
+        dtype = dtypes[dt]
+        with open(record) as f:
+            entry = json.load(f)[platform]["banded_matvec"][
+                tuning.matvec_key(line["w"], dtype)]
+        routes = [k[:-3] for k in line if k.endswith("_ms")]
+        for route in routes:
+            t[f"tune_{label}_{route}"] = (line[f"{route}_ms"], 0.0)
+        check(entry["winner"] == line["winner"]
+              and line["winner"] in ("banded_cuda", "banded_cuda_f64",
+                                     "blocktri")
+              and entry["xla_ms"] == line["xla_ms"],
+              f"tune {label}: record {entry}")
+        band, x0 = tune.tuning_band(n, kl, ku, dtype, device)
+        ref = as_matvec(band, impl="xla")[0](x0)
+        errs = {}
+        for route in routes:
+            impl = "banded_cuda" if route.startswith("banded_cuda") \
+                else route
+            mv, _, _ = as_matvec(band, impl=impl)
+            check(mv._route == route, f"tune {label}: route {mv._route}")
+            _, errs[route] = kernel_err(mv(x0), ref)
+        print(f"  tune {label} routes against the plain version: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        check(max(errs.values()) <= KERNEL_TOL, f"tune {label}: {errs}")
+        del band, x0, ref
+        torch.cuda.empty_cache()
+    if saved is None:
+        del os.environ["SPIKE_TUNING_FILE"]
+    else:
+        os.environ["SPIKE_TUNING_FILE"] = saved
+
+
+def native_structure(T, n, kl, ku):
+    """The checks of JAX's tests/test_blocktri_native.py on the native
+    blocks at full size: entries outside the band masks zero, the rows
+    past n the identity (and the columns past n empty above them), strict
+    row dominance on the true rows, and the derived band's product equal
+    to the blocks' (plain versions, f32 sums in another order)."""
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.ops.blocktri import (blocktri_matvec,
+                                                    blocktri_to_band)
+    NB, b, dev = T.nb, T.b, T.D.device
+    p = torch.arange(b, device=dev)[:, None]
+    q = torch.arange(b, device=dev)[None, :]
+    outside = {"D": ~((q - p <= ku) & (p - q <= kl)),
+               "U": ~(b + q - p <= ku), "L": ~(q - p >= b - kl)}
+    for name, mask in outside.items():
+        check(not bool(getattr(T, name)[:, mask].any()),
+              f"native {name} blocks hold entries outside the band")
+    rows = (torch.arange(NB, device=dev)[:, None] * b
+            + torch.arange(b, device=dev)[None, :])        # [NB, b]
+    pad = rows >= n
+    eye = torch.eye(b, device=dev, dtype=torch.bool)
+    dpad = T.D[pad]                                         # [P, b]
+    check(bool((T.L[pad] == 0).all() and (T.U[pad] == 0).all()),
+          "native padding rows couple to other blocks")
+    check(bool((dpad == eye.expand(NB, b, b)[pad].to(dpad.dtype)).all()),
+          "native padding rows are not the identity")
+    off = (T.D.abs() * ~eye).sum(-1) + T.L.abs().sum(-1) + T.U.abs().sum(-1)
+    diag = T.D.diagonal(dim1=-2, dim2=-1).abs()
+    check(bool((diag[~pad] > off[~pad]).all()),
+          "native rows are not strictly diagonally dominant")
+    band = blocktri_to_band(T, kl, ku)
+    x = torch.randn(NB * b, device=dev)
+    y_bt = blocktri_matvec(T, x.reshape(NB, b)).reshape(-1)
+    _, err = kernel_err(banded_matvec(band, x), y_bt)
+    check(err <= KERNEL_TOL and torch.equal(y_bt[n:], x[n:]),
+          f"native blocks against their band: {err}")
+    return err
+
+
+def phase_native_factor(device, t, errs, paths):
+    """The flagship class assembled in block-tridiagonal layout on the card
+    (``problems.blocktri_diagdom_device(1e6, 100, 100, 64, 128)``): its
+    structure; ``spike_factor_blocks`` with the flagship's settings (inv,
+    stored bf16 spikes, newton_fixed), timed beside the band-entry
+    flagship factor of this run; gmres (rtol 1e-8) on the
+    block-tridiagonal operator (#7) with the spike PC (#1; the padding
+    rows past n carried through as the identity), its launches held
+    exactly; #1 and #7 on these inputs against their plain versions."""
+    import torch
+    from spike_petsc_tpu_torch import solve
+    from spike_petsc_tpu_torch.models.problems import blocktri_diagdom_device
+    from spike_petsc_tpu_torch.ops.blocktri import blocktri_matvec
+    from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
+    from spike_petsc_tpu_torch.ops.spike import (spike_factor_blocks,
+                                                 spike_solve)
+    from spike_petsc_tpu_torch.solvers.pc import PC
+    from spike_petsc_tpu_torch.solvers.types import CONVERGED_RTOL, reason_str
+    show = shower(t)
+    t0 = time.perf_counter()
+    T, npad = blocktri_diagdom_device(N, HALF_BW, HALF_BW, K, BLOCK,
+                                      device=device)
+    torch.cuda.synchronize()
+    print(f"native assembly: NB={T.nb} b={T.b} n_pad={npad}, "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock)")
+    check(T.D.is_cuda and npad == T.nb * BLOCK and T.nb % K == 0,
+          "native blocks on the card")
+    err = native_structure(T, N, HALF_BW, HALF_BW)
+    print(f"native structure: masks, identity rows past n, strict row "
+          f"dominance held; band product within {err:.3e}")
+
+    def factor():
+        return spike_factor_blocks(
+            T, n=N, K=K, kl=HALF_BW, ku=HALF_BW, store_spikes=True,
+            spike_dtype=torch.bfloat16, inverter="newton_fixed")
+    show("native_factor", time_ms(factor, reps=3))
+    print(f"native factor {t['native_factor'][0]:.1f} ms beside the "
+          f"band-entry flagship factor {t['factor'][0]:.1f} ms (this run)")
+    sf = factor()
+    u = torch.ones(npad, device=device)
+    b = blocktri_matvec(T, u.reshape(T.nb, BLOCK)).reshape(-1)
+
+    def apply(x):
+        return torch.cat([spike_solve(sf, x[:N]), x[N:]])
+    pc = PC(name="spike", apply=apply)
+    reset_launches()
+    res = solve(T, b, ksp_type="gmres", pc=pc, rtol=1e-8, restart=30,
+                maxit=30)
+    launches = read_launches()
+    r = blocktri_matvec(T, res.x.reshape(T.nb, BLOCK)).reshape(-1) - b
+    true_rel = float(torch.linalg.norm(r) / torch.linalg.norm(b))
+    expected = gmres_expected(res.its, launches, "fused_sweep",
+                              "blocktri_matvec")
+    print(f"gmres+spike on the native blocks (n={N}, n_pad={npad}): "
+          f"{res.its} its, {reason_str(res.reason)}, true relres (f32) "
+          f"{true_rel:.3e}, max|x - 1| {float((res.x - 1).abs().max()):.3e}"
+          f"; launches {nonzero(launches)}, expected {nonzero(expected)}")
+    check(res.reason == CONVERGED_RTOL and res.its <= NATIVE_ITS_MAX,
+          f"native gmres: {res.its} its, reason {res.reason}")
+    check(true_rel <= NATIVE_RELRES_MAX, f"native gmres relres {true_rel}")
+    check(launches == expected, f"native gmres launches {launches}")
+    paths["native_factor"] = launches
+    solver_ms = time_ms(lambda: solve(T, b, ksp_type="gmres", pc=pc,
+                                      rtol=1e-8, restart=30, maxit=30),
+                        reps=3)
+    show("native_gmres_solve", solver_ms)
+
+    rblk = torch.nn.functional.pad(b[:N], (0, K * sf.m - N)).reshape(
+        K, sf.nb, BLOCK)
+    _, e1 = kernel_err(cfs.blocktri_solve_fused_cuda(sf.fact, rblk),
+                       cfs.blocktri_solve_fused_cuda(sf.fact, rblk,
+                                                     impl="plain"))
+    x = torch.randn(npad, device=device)
+    _, e7 = kernel_err(cbt.blocktri_matvec_cuda(T, x),
+                       cbt.blocktri_matvec_cuda(T, x, impl="plain"))
+    print(f"native path kernels against their plain versions: fused_sweep "
+          f"{e1:.3e}, blocktri_matvec {e7:.3e}")
+    check(max(e1, e7) <= KERNEL_TOL, "native path kernels")
+    errs["fused_sweep"] = max(errs["fused_sweep"], e1)
+    errs["blocktri_matvec"] = max(errs["blocktri_matvec"], e7)
+
+
+def config4_matrix(n, path):
+    """Config 4's matrix at ``n``, scrambled, saved uncompressed to
+    ``path`` (.npz): (the CSR matrix, seconds to make it)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from spike_petsc_tpu_torch import sparse as hsp
+    from spike_petsc_tpu_torch.models import problems
+    t0 = time.perf_counter()
+    a = problems.general_sparse(n, seed=CONFIG4_SEED)
+    p = np.random.default_rng(CONFIG4_PERM_SEED).permutation(n)
+    a = hsp.permute(a, p, p)
+    sp.save_npz(path, a, compressed=False)
+    return a, time.perf_counter() - t0
+
+
+def lobpcg_event():
+    from spike_petsc_tpu_torch.utils import profiling
+    ev = [e for e in profiling.event_log() if e["event"] == "fiedler_lobpcg"]
+    check(len(ev) == 1, f"one Fiedler LOBPCG run expected, got {ev}")
+    return ev[0]
+
+
+def config4_expected(rec, out, launches):
+    """The launches gmres (left PC, x0 = 0) makes on config 4: the inner
+    spike PC's sweeps (two an apply, the spikes not stored; #1 one launch
+    a sweep, #9 two), on the kernel ``sweep_route`` picks for its factor;
+    the operator's band part on #2 where the testbed split it (one an
+    operator apply), none for a CSR operator.  Returns (the expected
+    launches, the inner factor, the sweep kernel's name)."""
+    import torch
+    from spike_petsc_tpu_torch.ops.spike import sweep_route
+    sf = pc_factor(rec["pc"].inner)
+    route = sweep_route(sf.fact, sf.b, torch.float32, True)
+    check(route in ("fused", "sweeps"),
+          f"config 4 inner spike sweep route {route}")
+    sweep = "fused_sweep" if route == "fused" else "sweeps"
+    per_sweep = 1 if route == "fused" else 2
+    its = rec["result"].its
+    expected = gmres_expected(its, launches, sweep, "band_matvec",
+                              sweeps_per_apply=2 * per_sweep)
+    if "Device operator: band+outliers split" not in out:
+        expected["band_matvec"] = 0
+    return expected, sf, sweep
+
+
+def phase_config4(device, tmp, t, paths, errs):
+    """BASELINE config 4 through the testbed CLI at n = CONFIG4_N:
+    ``problems.general_sparse`` scrambled, ``-mat_ordering_type fiedler
+    -mat_ordering_fiedler_method lobpcg`` (LOBPCG on the card), PCBANDED
+    with the inner spike PC on the card, gmres in f32 at rtol 1e-6; the
+    host stages (-log_view), LOBPCG's iterations and time, the bandwidth
+    before and after; converged, the true f32 relres, the bandwidth
+    reduced, and the launches held exactly; then the sweep kernel the
+    path ran (#1 or #9, as ``sweep_route`` picked it) on the inner
+    factor against its plain version."""
+    import os
+    import re
+    import numpy as np
+    import torch
+    from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
+    from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
+    from spike_petsc_tpu_torch.utils import profiling
+    path = os.path.join(tmp, "config4.npz")
+    a, gen_s = config4_matrix(CONFIG4_N, path)
+    print(f"config 4 matrix: n={CONFIG4_N}, nnz={a.nnz}, made, scrambled "
+          f"and saved in {gen_s:.1f} s (host)")
+    rec = {}
+    t0 = time.perf_counter()
+    reset_launches()
+    rc, out = run_testbed(CONFIG4_ARGV.format(path=path).split(), rec)
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        if "KSP Residual norm" not in line:
+            print(f"  testbed| {line}")
+    ev = lobpcg_event()
+    stages = profiling.stage_times()
+    t["config4_lobpcg"] = (stages["FiedlerLOBPCG"] * 1e3, 0.0)
+    for name, sec in stages.items():
+        t[f"config4_stage_{name}"] = (sec * 1e3, 0.0)
+    bws = re.findall(r"(?:Reduced|Increased) bandwidth from (\d+) to (\d+)",
+                     out)
+    res, b = rec["result"], rec["b"]
+    x = res.x.double().cpu().numpy()
+    bh = b.double().cpu().numpy()
+    true_rel = float(np.linalg.norm(rec["operator"] @ x - bh)
+                     / np.linalg.norm(bh))
+    expected, sf, sweep = config4_expected(rec, out, launches)
+    print(f"config 4: testbed exit code {rc}, {wall:.1f} s in all; Fiedler "
+          f"LOBPCG on the card {ev['iterations']} its, "
+          f"{stages['FiedlerLOBPCG'] * 1e3:.1f} ms, lambda2 "
+          f"{ev['lambda2']:.6e}; bandwidth {bws}")
+    print(f"gmres+banded (config 4, n={CONFIG4_N}): {res.its} its, reason "
+          f"{res.reason}, true relres (f32) {true_rel:.3e}; inner spike "
+          f"K={sf.K} nb={sf.nb} b={sf.b}; launches {nonzero(launches)}, "
+          f"expected {nonzero(expected)}")
+    check(rc == 0 and res.reason > 0, f"config 4: exit code {rc}, reason "
+          f"{res.reason}")
+    check(ev["device"].startswith("cuda"), f"config 4 LOBPCG ran on "
+          f"{ev['device']}")
+    check(len(bws) == 1 and int(bws[0][1]) < int(bws[0][0]),
+          f"config 4 bandwidth not reduced: {bws}")
+    check(true_rel <= CONFIG4_RELRES_MAX, f"config 4 relres {true_rel}")
+    check(launches == expected, f"config 4 launches {launches}")
+    paths["config4"] = launches
+    os.remove(path)
+
+    kern = cfs.blocktri_solve_fused_cuda if sweep == "fused_sweep" \
+        else csw.blocktri_solve_batched_cuda
+    rblk = torch.nn.functional.pad(
+        b.to(device, torch.float32), (0, sf.K * sf.m - b.numel())).reshape(
+            sf.K, sf.nb, sf.b)
+    _, err = kernel_err(kern(sf.fact, rblk), kern(sf.fact, rblk,
+                                                  impl="plain"))
+    print(f"config 4 inner factor (K={sf.K} nb={sf.nb} b={sf.b}): {sweep} "
+          f"against its plain version {err:.3e}")
+    check(err <= KERNEL_TOL, f"config 4 {sweep}: {err}")
+    errs[sweep] = max(errs[sweep], err)
+    return launches
+
+
+def phase_config4_reference(device, tmp):
+    """Config 4 at n = CONFIG4_REF_N through the testbed: the card in f32
+    against the CPU in f64, the iterations within 1, LOBPCG's iterations
+    within CONFIG4_REF_LOBPCG_ITS and its lambda2 within
+    CONFIG4_REF_LAM2_TOL."""
+    import os
+    path = os.path.join(tmp, "config4_ref.npz")
+    config4_matrix(CONFIG4_REF_N, path)
+    argv = CONFIG4_ARGV.format(path=path).split()
+    got, ref = {}, {}
+    rc_card, _ = run_testbed(argv, got)
+    ev_card = lobpcg_event()
+    rc_cpu, _ = run_testbed(argv + ["-x64", "1", "-platform", "cpu"], ref)
+    ev_cpu = lobpcg_event()
+    dl = abs(ev_card["lambda2"] - ev_cpu["lambda2"])
+    print(f"config 4 n={CONFIG4_REF_N}: card f32 {got['result'].its} its, "
+          f"LOBPCG {ev_card['iterations']} its, lambda2 "
+          f"{ev_card['lambda2']:.8e}; CPU f64 {ref['result'].its} its, "
+          f"LOBPCG {ev_cpu['iterations']} its, lambda2 "
+          f"{ev_cpu['lambda2']:.8e}; |d lambda2| {dl:.3e}")
+    check(rc_card == rc_cpu == 0 and got["result"].x.is_cuda
+          and ev_card["device"].startswith("cuda")
+          and ev_cpu["device"] == "cpu", "config 4 reference runs")
+    check(abs(got["result"].its - ref["result"].its) <= 1
+          and abs(ev_card["iterations"] - ev_cpu["iterations"])
+          <= CONFIG4_REF_LOBPCG_ITS and dl <= CONFIG4_REF_LAM2_TOL,
+          "config 4: card and CPU reference disagree")
+    os.remove(path)
+
+
+def auction_run(n, device, t):
+    """One ``auction_match`` on config 3's matrix at ``n`` on the card:
+    (rounds, seconds); checked against MC64 job 5 (native engine)."""
+    import numpy as np
+    import torch
+    from spike_petsc_tpu_torch.models import problems
+    from spike_petsc_tpu_torch.ordering import mc64
+    from spike_petsc_tpu_torch.parallel import auction_match
+    from spike_petsc_tpu_torch.parallel.matching_dev import csc_to_ell
+    a = problems.illscaled_nonsym(n, 6, 6)
+    rows, _, _ = csc_to_ell(a)
+    ell_bytes = rows.size * 16                # int64 rows, f64 benefits
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = auction_match(a, device=device)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    rounds, eps = res.info["rounds"], res.info["eps"]
+    exact = mc64(a, job=5)
+    lp = float(np.sum(np.log(np.abs(res.apply(a).diagonal()))))
+    lp_exact = float(np.sum(np.log(np.abs(exact.apply(a).diagonal()))))
+    t[f"auction_{n}"] = (sec * 1e3, 0.0)
+    print(f"auction_match (config 3's matrix, n={n}, dmax={rows.shape[1]}):"
+          f" {rounds} rounds, {sec * 1e3:.1f} ms (host clock, synchronized;"
+          f" the ELL arrays built and sent to the card and the host's "
+          f"scalings included), {sec * 1e3 / max(rounds, 1):.3f} ms a "
+          f"round with them; log-product "
+          f"{lp:.6f} against MC64 job 5's {lp_exact:.6f} (n*eps "
+          f"{n * eps:.1e}); card memory peak {peak / 2**20:.1f} MiB over "
+          f"the ELL arrays' {ell_bytes / 2**20:.1f} MiB; info {res.info}")
+    check(np.array_equal(np.sort(res.rperm), np.arange(n)),
+          f"auction n={n}: not a permutation")
+    check(lp >= lp_exact - n * eps - 1e-9 * abs(lp_exact),
+          f"auction n={n}: log-product {lp} below MC64's {lp_exact}")
+    check(peak >= ell_bytes, f"auction n={n}: the ELL arrays were not on "
+          f"the card (peak {peak} bytes)")
+    return rounds, sec
+
+
+def phase_auction(device, t):
+    """``auction_match`` on config 3's matrix at AUCTION_N[0], then at
+    AUCTION_N[1] where its rounds x per-round time x the size ratio
+    predicts under AUCTION_BUDGET_S."""
+    n0, n1 = AUCTION_N
+    rounds, sec = auction_run(n0, device, t)
+    predicted = rounds * (sec / max(rounds, 1)) * (n1 / n0)
+    print(f"auction at n={n1} predicted {predicted:.1f} s (rounds of "
+          f"n={n0} x its per-round time x {n1 // n0}; budget "
+          f"{AUCTION_BUDGET_S:.0f} s)")
+    if predicted < AUCTION_BUDGET_S:
+        auction_run(n1, device, t)
+    else:
+        print(f"auction at n={n1}: cut (predicted over the budget)")
+
+
 def main() -> int:
+    import tempfile
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    # the tuner's record and config 4's matrices go to a scratch directory
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return run(tmp)
+
+
+def run(tmp) -> int:
+    import torch
     from spike_petsc_tpu_torch.ops.spike import spike_factor
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -3735,6 +4204,27 @@ def main() -> int:
     phase_pcs_reference(device)
     print(f"testbed2 fieldsplit and the PC references: "
           f"{time.perf_counter() - tp:.1f} s")
+
+    # the route tuner, the native assembly, config 4 and the auction
+    tn = time.perf_counter()
+    phase_tuning(device, tmp, t)
+    torch.cuda.empty_cache()
+    print(f"tuning phase: {time.perf_counter() - tn:.1f} s")
+    tp = time.perf_counter()
+    phase_native_factor(device, t, errs, paths)
+    torch.cuda.empty_cache()
+    print(f"native-assembly phase: {time.perf_counter() - tp:.1f} s")
+    tp = time.perf_counter()
+    phase_config4(device, tmp, t, paths, errs)
+    phase_config4_reference(device, tmp)
+    torch.cuda.empty_cache()
+    print(f"config 4 phases: {time.perf_counter() - tp:.1f} s")
+    tp = time.perf_counter()
+    phase_auction(device, t)
+    torch.cuda.empty_cache()
+    print(f"auction phase: {time.perf_counter() - tp:.1f} s")
+    print(f"tuner, native-assembly, config 4 and auction phases: "
+          f"{time.perf_counter() - tn:.1f} s")
 
     # each kernel's launches from the run of the path it carries; the
     # library call where one PyTorch call computes the same function

@@ -15,8 +15,10 @@ generators that reproduce each config's structure:
                                  structure: banded after natural ordering).
 5. any of the above partitioned across a mesh (parallel tests).
 
-All generators return NumPy/SciPy host objects; conversion to device band
-storage is explicit (``band.banded_from_*``).
+All generators but one return NumPy/SciPy host objects; conversion to
+device band storage is explicit (``convert.banded_from_*``).
+``blocktri_diagdom_device`` assembles the flagship class in
+block-tridiagonal layout on the device.
 """
 
 from __future__ import annotations
@@ -166,10 +168,70 @@ def general_sparse(n: int, density: float = 5e-3, seed: int = 0,
 
 
 def blocktri_diagdom_device(n: int, kl: int, ku: int, K: int, b: int,
-                            seed: int = 0, dtype="float32"):
-    """The JAX package assembles this matrix on the device from
-    ``jax.random`` draws, whose bits a torch generator cannot reproduce;
-    not yet ported."""
-    raise NotImplementedError(
-        "problems.blocktri_diagdom_device (the jax.random block-tridiagonal "
-        "assembly) is not yet ported to spike_petsc_tpu_torch")
+                            seed: int = 0, dtype="float32", device=None):
+    """Diagonally-dominant random banded matrix assembled DIRECTLY in global
+    block-tridiagonal (p-major) layout on the device (the card unless
+    ``device`` names another): the native assembly path of
+    ``spike_factor_blocks`` (JAX ``models/problems.py:168-223``).
+
+    Statistically the flagship band (uniform(-1, 1) band entries, the
+    diagonal the row's 1-norm + 1) but built as [NB, b, b] D/L/U blocks
+    with static band masks, so the factor pays no layout conversion.  Rows
+    and columns beyond ``n`` are unit-diagonal padding, so that
+    NB = K * ceil(ceil(n / K) / b) blocks partition evenly.  The draws are
+    three ``torch.rand`` calls on the device from a ``torch.Generator``
+    seeded by ``seed``, mapped to [-1, 1) (a torch generator cannot
+    reproduce ``jax.random``'s bits: the draws agree with JAX's in their
+    statistics); ``_assemble_diagdom`` turns them into the matrix as JAX
+    does.
+
+    Returns (T: BlockTridiagonal [NB, b, b], n_pad).
+    """
+    if kl > b or ku > b:
+        raise ValueError(f"half-bandwidths (kl={kl}, ku={ku}) must be <= b")
+    import torch
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    device = torch.device(device or "cuda")
+    rows = -(-n // K)
+    m = -(-rows // b) * b
+    NB = K * (m // b)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D, L, U = (torch.rand((NB, b, b), generator=gen, device=device,
+                          dtype=dt) * 2 - 1 for _ in range(3))
+    return _assemble_diagdom(D, L, U, n, kl, ku, b), NB * b
+
+
+def _assemble_diagdom(D, L, U, n: int, kl: int, ku: int, b: int):
+    """The blocks of ``blocktri_diagdom_device`` from its draws (each
+    [NB, b, b] in [-1, 1)), line for line JAX's: the band masks, zero rows
+    and columns past ``n``, U[NB - 1] = 0, L[0] = 0, and the diagonal the
+    row's 1-norm + 1 (1 past ``n``)."""
+    import torch
+    from ..ops.blocktri import BlockTridiagonal
+    NB, dt, dev = D.shape[0], D.dtype, D.device
+    p = torch.arange(b, device=dev)[:, None]
+    q = torch.arange(b, device=dev)[None, :]
+    mD = ((q - p <= ku) & (p - q <= kl)).to(dt)              # |j - r| band
+    mU = (b + q - p <= ku).to(dt)                            # j = r + b + ...
+    # L holds A[r, j] with j = r - b + (q - p): the band bound r - j <= kl
+    # is q - p >= b - kl (the upper bound j <= r + ku is vacuous here)
+    mL = (q - p >= b - kl).to(dt)
+    # global row/col validity: rows >= n are identity, cols >= n are zero
+    i = torch.arange(NB, device=dev)[:, None, None]
+    r_glob = i * b + p[None]                                 # [NB, b, 1]
+    row_ok = r_glob < n
+    colD_ok = (i * b + q[None]) < n
+    colU_ok = ((i + 1) * b + q[None]) < n
+    colL_ok = ((i - 1) * b + q[None]) < n
+    D = D * mD * row_ok * colD_ok
+    U = U * mU * row_ok * colU_ok
+    U[NB - 1] = 0
+    L = L * mL * row_ok * colL_ok
+    L[0] = 0
+    rowsum = (D.abs().sum(dim=-1) + L.abs().sum(dim=-1)
+              + U.abs().sum(dim=-1))                         # [NB, b]
+    diag = torch.where(row_ok[..., 0], rowsum + 1.0,
+                       torch.ones((), dtype=dt, device=dev))
+    eye = torch.eye(b, dtype=dt, device=dev)
+    D = D * (1.0 - eye) + diag[..., :, None] * eye
+    return BlockTridiagonal(D=D, L=L, U=U)

@@ -9,9 +9,10 @@ replaces it with open algorithms:
 * graph Laplacian with drop tolerance (MatLaplacian re-design,
   reference/src/spectralPartition.c:63-139),
 * Fiedler vector by dense eigendecomposition (small n), SciPy Lanczos, or
-  multilevel coarsening with host LOBPCG refinement (the host setup path;
-  the JAX package's device LOBPCG options, ``method="lobpcg"`` and
-  ``refine="device"``, raise NotImplementedError here),
+  multilevel coarsening with LOBPCG refinement on the host (SciPy) or on
+  the device (``refine="device"``), or LOBPCG on the device
+  (``method="lobpcg"``: ``ordering/lobpcg.py`` on torch sparse products;
+  the card unless ``device`` names another),
 * ordering = argsort of the Fiedler vector,
 * profile/bandwidth in -> out reporting, matching the MC73 wrapper's
   diagnostics (reference/src/hslmc73f.F90:33-36).
@@ -19,6 +20,7 @@ replaces it with open algorithms:
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -119,19 +121,21 @@ def heavy_edge_coarsen(adj: sp.csr_matrix) -> Tuple[sp.csr_matrix, np.ndarray]:
 def _fiedler_multilevel(lap: sp.csr_matrix, tol: float, seed: int,
                         coarsest: int = 64,
                         refine_iters: int = 40,
-                        refine: str = "auto") -> Tuple[np.ndarray, float]:
+                        refine: str = "auto",
+                        device=None) -> Tuple[np.ndarray, float]:
     """Multilevel Fiedler: heavy-edge coarsening, exact coarsest solve,
     prolong + LOBPCG refinement per level (the MC73 job-3 scheme rebuilt
     from the multilevel-spectral literature).
 
     ``refine``: "host" (SciPy LOBPCG, the default) or "auto" (= host);
-    "device" (the JAX package's LOBPCG on the accelerator) is not yet
-    ported and raises.  Coarsening stays host-side by design: it is a
+    "device": ``ordering/lobpcg.py`` on ``device`` (default the card) at
+    every level of at least 4 nodes.  Coarsening stays host-side by
+    design: it is a
     combinatorial matching, the numerics are the per-level eigensolves."""
     if refine == "auto":
         refine = "host"
-    refiner = (_refine_lobpcg_device if refine == "device"
-               else _refine_lobpcg)
+    refiner = (partial(_refine_lobpcg_device, device=device)
+               if refine == "device" else _refine_lobpcg)
     # adjacency from the Laplacian: off-diagonal magnitudes
     adj = -lap.copy()
     adj.setdiag(0)
@@ -199,27 +203,73 @@ def _refine_lobpcg(lap: sp.csr_matrix, x0: np.ndarray, tol: float,
         return x0[:, 0]
 
 
+def _gershgorin(lap: sp.csr_matrix) -> float:
+    """An upper bound of the Laplacian's spectrum, for the flip."""
+    return float(2.0 * np.abs(lap).sum(axis=1).max())
+
+
+def _laplacian_operator(lap: sp.csr_matrix, c: float, device):
+    """The deflated, spectrum-flipped ``c x - L x`` on ``device``, the
+    Laplacian a ``torch.sparse_csr_tensor`` in its own dtype and the
+    product the torch sparse one; its top eigenvector is L's Fiedler
+    vector (JAX ``fiedler.py:303-307``)."""
+    import torch
+    csr = lap.tocsr()
+    L = torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr, dtype=torch.int64),
+        torch.as_tensor(csr.indices, dtype=torch.int64),
+        torch.as_tensor(csr.data), size=csr.shape).to(device)
+
+    def op(x):
+        # (c I - L) with the constant vector deflated
+        x = x - x.mean(dim=0, keepdim=True)
+        y = c * x - L @ x
+        return y - y.mean(dim=0, keepdim=True)
+    return op
+
+
 def _refine_lobpcg_device(lap: sp.csr_matrix, x0: np.ndarray, tol: float,
-                          maxiter: int) -> np.ndarray:
-    """The JAX package refines each level with a jittable LOBPCG on the
-    accelerator (``-mat_ordering_fiedler_refine device``); not yet ported."""
-    raise NotImplementedError(
-        "-mat_ordering_fiedler_refine device (LOBPCG refinement on the "
-        "device) is not yet ported to spike_petsc_tpu_torch; use host")
+                          maxiter: int, device=None) -> np.ndarray:
+    """Warm-started LOBPCG refinement of a prolonged Fiedler guess on the
+    device (the card unless ``device`` names another): the top eigenvector
+    of the deflated c I - L by ``ordering.lobpcg`` on torch sparse
+    products (JAX ``fiedler.py:209-242``; tiny levels on the host, as
+    JAX)."""
+    import torch
+    from .lobpcg import lobpcg_standard
+
+    n = lap.shape[0]
+    if n < 4:  # lobpcg needs a few dofs; tiny levels are free on host
+        return _refine_lobpcg(lap, x0, tol, maxiter)
+    device = torch.device(device or "cuda")
+    op = _laplacian_operator(lap, _gershgorin(lap) or 1.0, device)
+    x0 = x0 - x0.mean()
+    nrm = np.linalg.norm(x0)
+    if nrm < 1e-12:
+        x0 = np.random.default_rng(0).standard_normal(n)
+        x0 -= x0.mean()
+        nrm = np.linalg.norm(x0)
+    X = torch.as_tensor((x0 / nrm).reshape(-1, 1)).to(device)
+    _, u, _ = lobpcg_standard(op, X, m=maxiter, tol=tol)
+    return u[:, 0].cpu().numpy()
 
 
 def fiedler_vector(lap: sp.csr_matrix, method: str = "auto",
                    tol: float = 1e-8, seed: int = 0,
                    maxiter: Optional[int] = None,
-                   refine: str = "auto") -> Tuple[np.ndarray, float]:
-    """Second-smallest eigenpair of the Laplacian. Returns (vector, lambda2)."""
+                   refine: str = "auto",
+                   device=None) -> Tuple[np.ndarray, float]:
+    """Second-smallest eigenpair of the Laplacian. Returns (vector, lambda2).
+    ``device`` (default the card) is where ``method="lobpcg"`` and
+    ``refine="device"`` run."""
     n = lap.shape[0]
     if method == "auto":
         method = "dense" if n <= 512 else \
             ("lanczos" if n <= 20000 else "multilevel")
 
     if method == "multilevel":
-        return _fiedler_multilevel(lap, tol=tol, seed=seed, refine=refine)
+        return _fiedler_multilevel(lap, tol=tol, seed=seed, refine=refine,
+                                   device=device)
 
     if method == "dense":
         evals, evecs = np.linalg.eigh(lap.toarray())
@@ -239,28 +289,57 @@ def fiedler_vector(lap: sp.csr_matrix, method: str = "auto",
 
     if method == "lobpcg":
         return _fiedler_lobpcg_jax(lap, tol=tol, seed=seed,
-                                   maxiter=maxiter or 200)
+                                   maxiter=maxiter or 200, device=device)
 
     raise ValueError(f"unknown fiedler method {method!r}")
 
 
 def _fiedler_lobpcg_jax(lap: sp.csr_matrix, tol: float, seed: int,
-                        maxiter: int) -> Tuple[np.ndarray, float]:
-    """The JAX package's device LOBPCG on the deflated, spectrum-flipped
-    Laplacian (``-mat_ordering_fiedler_method lobpcg``); not yet ported."""
-    raise NotImplementedError(
-        "-mat_ordering_fiedler_method lobpcg (LOBPCG on the device) is not "
-        "yet ported to spike_petsc_tpu_torch; use dense, lanczos or "
-        "multilevel")
+                        maxiter: int, device=None
+                        ) -> Tuple[np.ndarray, float]:
+    """LOBPCG on the deflated, spectrum-flipped operator, on the device
+    (the card unless ``device`` names another): (c I - L) restricted to the
+    complement of the constant vector, whose top eigenvector is L's Fiedler
+    vector (``-mat_ordering_fiedler_method lobpcg``; JAX
+    ``fiedler.py:281-315``).  The seeded start is numpy's, as JAX's.  The
+    ``FiedlerLOBPCG`` stage times it (device synchronized), and a
+    ``fiedler_lobpcg`` event records its iterations."""
+    import torch
+    from ..utils.profiling import log_event, scope
+    from .lobpcg import lobpcg_standard
+
+    n = lap.shape[0]
+    device = torch.device(device or "cuda")
+    rng = np.random.default_rng(seed)
+    x0 = rng.standard_normal((n, 1))
+    x0 = x0 - x0.mean()
+    with scope("FiedlerLOBPCG"):
+        c = _gershgorin(lap)
+        op = _laplacian_operator(lap, c, device)
+        X = torch.as_tensor(x0).to(device)
+        theta, u, iters = lobpcg_standard(op, X, m=maxiter, tol=tol)
+        lam2 = c - float(theta[0])
+        vec = u[:, 0].cpu().numpy()
+    log_event("fiedler_lobpcg", n=n, iterations=iters, lambda2=lam2,
+              device=str(device))
+    return vec, lam2
 
 
 def fiedler(a, tol: float = 1e-12, weighted: bool = False,
-            method: str = "auto", refine: str = "auto") -> OrderingResult:
+            method: str = "auto", refine: str = "auto", device=None,
+            eig_tol: float = 1e-8,
+            eig_maxiter: Optional[int] = None) -> OrderingResult:
+    """The Fiedler ordering of ``a`` (``tol``: the Laplacian's drop
+    tolerance).  ``eig_tol`` and ``eig_maxiter`` are ``fiedler_vector``'s
+    ``tol`` and ``maxiter``, at the JAX package's defaults unless given
+    (``-mat_ordering_fiedler_tol``, ``-mat_ordering_fiedler_max_it``)."""
     from .. import sparse as hsp
 
     csr = sp.csr_matrix(a)
     lap = graph_laplacian(csr, tol=tol, weighted=weighted)
-    vec, lam2 = fiedler_vector(lap, method=method, refine=refine)
+    vec, lam2 = fiedler_vector(lap, method=method, tol=eig_tol,
+                               maxiter=eig_maxiter, refine=refine,
+                               device=device)
     perm = np.argsort(vec, kind="stable").astype(np.int64)
 
     res = OrderingResult(rperm=perm, cperm=perm.copy(),
@@ -282,4 +361,16 @@ def ordering_fiedler(a, options=None) -> OrderingResult:
         if options is not None else "auto"
     refine = options.get_string("mat_ordering_fiedler_refine", "auto") \
         if options is not None else "auto"
-    return fiedler(a, weighted=weighted, method=method, refine=refine)
+    # the eigensolver's tolerance and iteration limit (JAX's defaults
+    # unless given): LOBPCG's test is |r| < tol * 10 * n * (theta + |A v|),
+    # loose at large n with JAX's tol (PERF.md, config 4)
+    eig_tol = options.get_real("mat_ordering_fiedler_tol", 1e-8) \
+        if options is not None else 1e-8
+    eig_maxiter = options.get_int("mat_ordering_fiedler_max_it", None) \
+        if options is not None else None
+    # the device parts run where the testbed runs: the card unless
+    # -platform cpu
+    device = "cpu" if options is not None and \
+        options.get_string("platform", "cuda") == "cpu" else None
+    return fiedler(a, weighted=weighted, method=method, refine=refine,
+                   device=device, eig_tol=eig_tol, eig_maxiter=eig_maxiter)

@@ -143,7 +143,8 @@ def _host(pmat, device, dtype) -> HostMatrix:
     pmat = _place(pmat, device, dtype)
     if not isinstance(pmat, HostMatrix):
         raise TypeError("pc 'fieldsplit' slices a host (SciPy or NumPy) "
-                        f"matrix, got {type(pmat).__name__}")
+                        f"matrix or a dense tensor, got "
+                        f"{type(pmat).__name__}")
     return pmat
 
 

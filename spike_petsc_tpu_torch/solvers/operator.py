@@ -77,6 +77,12 @@ def _bt_refused(a: BandedMatrix) -> ValueError:
         "bytes per entry, and the single-RHS kernel f32 or bf16 storage")
 
 
+def blocktri_feasible(a: BandedMatrix) -> bool:
+    """Whether the blocktri route takes this band: the conversion gate and
+    the single-RHS kernel (f32 or bf16 storage) admit it."""
+    return _bt_gate(a)[0] and blocktri_matvec_feasible(a.dtype, _BT_BLOCK)
+
+
 def _band_route(a: BandedMatrix, impl: str) -> str:
     """Resolve ``-mat_matvec_impl`` for a band.
 
@@ -85,10 +91,12 @@ def _band_route(a: BandedMatrix, impl: str) -> str:
       whenever ``banded_mv_feasible`` admits the band, else the plain
       version; on the CPU the plain version.  (The JAX package's 'auto'
       keeps f64 bands on XLA because its TPU kernel for them emulates f64;
-      the card has FP64, so its f64 kernel is the route.  The JAX TPU order
-      also has the blocktri route between the band kernel and XLA for wide
-      bands; here the band kernel admits every band the blocktri kernel
-      does, so that branch could never run.)
+      the card has FP64, so its f64 kernel is the route.  The JAX TPU
+      order also has the blocktri route between the band kernel and XLA
+      for wide bands, and follows ``utils.tuning`` records; here the band
+      kernel admits every band the blocktri kernel does and beat it at
+      every shape ``tools/tune.py`` measured on the card, so 'auto'
+      follows no record and takes no blocktri branch.)
     * ``banded_pallas`` / ``banded_cuda``: the banded kernel's wrapper, #6
       for an f64 band and #2 otherwise (on the CPU the wrapper runs the
       kernel's plain version);
@@ -106,8 +114,7 @@ def _band_route(a: BandedMatrix, impl: str) -> str:
         if banded_mv_feasible(a):
             return "banded_cuda"
     if impl == "blocktri" and _use_blocktri_matvec(a):
-        if not (_bt_gate(a)[0]
-                and blocktri_matvec_feasible(a.dtype, _BT_BLOCK)):
+        if not blocktri_feasible(a):
             raise _bt_refused(a)
         return "blocktri"
     return "xla"

@@ -19,7 +19,9 @@ factor that names no block gets the smallest block the sweep kernels take
 
 A host (SciPy or NumPy) preconditioning matrix is placed on the device and
 in the dtype that ``make_pc`` is given (``make_solver`` gives the
-operator's); without them, on the card in the matrix's own dtype.
+operator's); without them, on the card in the matrix's own dtype.  A dense
+2-D tensor is taken as a host matrix of its values, placed on its own
+device in its own dtype.
 """
 
 from __future__ import annotations
@@ -109,7 +111,16 @@ class HostMatrix:
 
 def _place(pmat, device=None, dtype=None):
     """A host matrix as a ``HostMatrix`` on ``device`` (default the card)
-    in ``dtype`` (default its own); anything else unchanged."""
+    in ``dtype`` (default its own); a dense 2-D tensor as a ``HostMatrix``
+    of its values on its own device in its own dtype (JAX's PCs take a
+    dense array through ``as_csr(np.asarray(a))``); anything else
+    unchanged."""
+    if isinstance(pmat, torch.Tensor) and pmat.dim() == 2:
+        vals = pmat.detach().cpu()
+        if vals.dtype == torch.bfloat16:        # numpy has no bfloat16
+            vals = vals.float()
+        return HostMatrix(csr=hsp.as_csr(vals.numpy()), device=pmat.device,
+                          dtype=pmat.dtype)
     if not (sp.issparse(pmat) or isinstance(pmat, np.ndarray)):
         return pmat
     csr = hsp.as_csr(pmat)
@@ -128,8 +139,8 @@ def _as_banded(pmat, opts: Options) -> BandedMatrix:
         return BandedMatrix(data=pmat.tensor(data), kl=kl, ku=ku)
     raise NotImplementedError(
         f"preconditioning matrices of type {type(pmat).__name__} are not yet "
-        "ported to spike_petsc_tpu_torch (BandedMatrix and host SciPy/NumPy "
-        "matrices are)")
+        "ported to spike_petsc_tpu_torch (BandedMatrix, host SciPy/NumPy "
+        "matrices and dense 2-D tensors are)")
 
 
 def make_pc(name: str, pmat, options: Optional[Options] = None,

@@ -2,15 +2,15 @@
 (reference/src/wbm.c:555-585) re-designed:
 
 load (or build the documented 3x3 MC64 example), compute a weighted matching
-(exact mc64 or host awbm), optionally apply scalings, permute, report the
-diagonal-weight product before/after (CheckDiagonalWeight,
-reference/src/wbm.c:530-551), and export MatrixMarket
-(reference/src/wbm.c:516-524).  Host work only.
+(exact mc64, host awbm, or the device auction), optionally apply scalings,
+permute, report the diagonal-weight product before/after
+(CheckDiagonalWeight, reference/src/wbm.c:530-551), and export MatrixMarket
+(reference/src/wbm.c:516-524).  ``-matching auction`` runs
+``parallel.auction_match`` on the card (``-platform cpu``: on the CPU); the
+rest is host work.
 
     python -m spike_petsc_tpu_torch.tools.wbm -filename a.bin -matching mc64 \\
         -scale 1 -outfilename permuted.mtx
-
-``-matching auction`` (the JAX package's device auction) is not yet ported.
 """
 
 from __future__ import annotations
@@ -39,9 +39,9 @@ def main(argv=None) -> int:
         job = opts.get_int("mc64_job", 5)
         res = mc64(a, job=job)
     elif kind == "auction":
-        raise NotImplementedError(
-            "-matching auction (the device auction) is not yet ported to "
-            "spike_petsc_tpu_torch; use mc64 or awbm")
+        from ..parallel.matching_dev import auction_match
+        platform = opts.get_string("platform", "cuda")
+        res = auction_match(a, device="cpu" if platform == "cpu" else None)
     else:
         print(f"unknown matching {kind!r}", file=sys.stderr)
         return 1

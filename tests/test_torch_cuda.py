@@ -1301,3 +1301,128 @@ def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
     b = torch.randn(8192, device=cuda_device)
     assert sf2.V.dtype == torch.bfloat16 and sf2.V.is_cuda
     assert torch.equal(spike_solve(sf2, b), spike_solve(sf, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("winner", ["blocktri", "banded_cuda", "xla"])
+def test_auto_ignores_tuning_records(cuda_device, tmp_path, monkeypatch,
+                                     winner):
+    """'auto' on a CUDA band takes #2 whatever a record for this card and
+    width names: the port's dispatch follows no record."""
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec
+    from spike_petsc_tpu_torch.utils import tuning
+    monkeypatch.setenv("SPIKE_TUNING_FILE", str(tmp_path / "t.json"))
+    band = banded_from_numpy(random_band(65536, 100, 100, seed=40,
+                                         dtype=np.float32), 100, 100,
+                             device=cuda_device)
+    tuning.update(tuning.platform_key(), "banded_matvec",
+                  tuning.matvec_key(201, torch.float32),
+                  {"winner": winner, "n": 65536})
+    assert tuning.matvec_route_hint(tuning.platform_key(), 201,
+                                    torch.float32, 65536) == winner
+    x = torch.randn(65536, device=cuda_device)
+    _reset()
+    mv, _, _ = as_matvec(band)
+    y = mv(x)
+    launches = _launches()
+    assert mv._route == "banded_cuda"
+    assert launches.get("band_matvec") == 1 \
+        and not launches.get("blocktri_matvec")
+    assert _rel(y, banded_matvec(band, x)) <= TOL
+
+
+@pytest.mark.cuda
+def test_tune_records_under_the_card_name(cuda_device, tmp_path,
+                                          monkeypatch, capsys):
+    import json
+    from spike_petsc_tpu_torch.tools import tune
+    from spike_petsc_tpu_torch.utils import tuning
+    monkeypatch.setenv("SPIKE_TUNING_FILE", str(tmp_path / "t.json"))
+    assert tune.main("-n 65536 -halfbw 100 -reps 4".split()) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    key = "cuda:" + torch.cuda.get_device_name().lower().replace(" ", "")
+    assert line["platform"] == tuning.platform_key() == key
+    assert {"xla_ms", "banded_cuda_ms", "blocktri_ms"} <= set(line)
+    with open(tmp_path / "t.json") as f:
+        entry = json.load(f)[key]["banded_matvec"]["201:float32"]
+    assert entry["winner"] in ("banded_cuda", "blocktri")
+    assert tuning.matvec_route_hint(key, 201, torch.float32, 65536) \
+        == entry["winner"]
+
+
+@pytest.mark.cuda
+def test_native_generator_structure_on_the_card(cuda_device):
+    """``blocktri_diagdom_device`` on the card: band masks, identity rows
+    past n, strict dominance, and the native factor solves it (#1)."""
+    from spike_petsc_tpu_torch.models.problems import blocktri_diagdom_device
+    from spike_petsc_tpu_torch.ops.blocktri import blocktri_to_band
+    from spike_petsc_tpu_torch.ops.spike import spike_factor_blocks
+    n, kl, ku, K, b = 50_000, 20, 30, 8, 64
+    T, npad = blocktri_diagdom_device(n, kl, ku, K, b, seed=3)
+    assert T.D.is_cuda and npad == T.nb * b >= n
+    p = torch.arange(b, device=cuda_device)[:, None]
+    q = torch.arange(b, device=cuda_device)[None, :]
+    assert not T.D[:, ~((q - p <= ku) & (p - q <= kl))].any()
+    assert not T.U[:, ~(b + q - p <= ku)].any()
+    assert not T.L[:, ~(q - p >= b - kl)].any()
+    x = torch.randn(npad, device=cuda_device)
+    y = banded_matvec(blocktri_to_band(T, kl, ku), x)
+    assert torch.equal(y[n:], x[n:])
+    sf = spike_factor_blocks(T, n=n, K=K, kl=kl, ku=ku, store_spikes=True)
+    u = torch.randn(npad, device=cuda_device)
+    u[n:] = 0
+    rhs = banded_matvec(blocktri_to_band(T, kl, ku), u)[:n]
+    _reset()
+    xs = spike_solve(sf, rhs)
+    assert _launches().get("fused_sweep") == 1
+    assert float(torch.linalg.norm(xs - u[:n]) / torch.linalg.norm(u[:n])) \
+        < 1e-5
+
+
+@pytest.mark.cuda
+def test_fiedler_lobpcg_on_the_card_matches_the_cpu(cuda_device):
+    """``-mat_ordering_fiedler_method lobpcg`` on the card against the
+    CPU (both f64) on a scrambled 2-D Laplacian, n = 2000."""
+    import importlib
+    from spike_petsc_tpu_torch import sparse as hsp
+    from spike_petsc_tpu_torch.models import problems
+    fiedler = importlib.import_module("spike_petsc_tpu_torch.ordering.fiedler")
+    a = problems.laplacian_2d(40, 50)
+    perm = np.random.default_rng(4).permutation(2000)
+    a = hsp.permute(a, perm, perm)
+    card = fiedler.fiedler(a, method="lobpcg", device=cuda_device)
+    cpu = fiedler.fiedler(a, method="lobpcg", device="cpu")
+    assert abs(card.info["lambda2"] - cpu.info["lambda2"]) <= 1e-8
+    assert card.info["bandwidth_out"] < card.info["bandwidth_in"]
+
+
+@pytest.mark.cuda
+def test_auction_on_the_card_matches_the_cpu(cuda_device):
+    from spike_petsc_tpu_torch.models import problems
+    from spike_petsc_tpu_torch.parallel import auction_match
+    a = problems.illscaled_nonsym(20_000, 6, 6, seed=1)
+    card = auction_match(a, device=cuda_device)
+    cpu = auction_match(a, device="cpu")
+    assert np.array_equal(card.rperm, cpu.rperm)
+    assert card.info == cpu.info
+    np.testing.assert_allclose(card.row_scale, cpu.row_scale, rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pc", ["jacobi", "spike", "lu", "bjacobi",
+                                "banded"])
+def test_dense_tensor_pmat_on_the_card(cuda_device, pc):
+    """A dense tensor on the card as operator and PC matrix: the PC is
+    built on the card in the tensor's dtype and solves as the CPU's f64."""
+    n = 512
+    a = (np.diag(np.full(n, 4.0)) + np.diag(np.full(n - 1, -1.0), 1)
+         + np.diag(np.full(n - 1, -2.0), -1))
+    b = a @ np.ones(n)
+    got = solve(torch.as_tensor(a, dtype=torch.float32, device=cuda_device),
+                torch.as_tensor(b, dtype=torch.float32, device=cuda_device),
+                ksp_type="gmres", pc_type=pc, rtol=1e-6)
+    ref = solve(torch.as_tensor(a), torch.as_tensor(b), ksp_type="gmres",
+                pc_type=pc, rtol=1e-6)
+    assert got.x.is_cuda and got.reason > 0 and ref.reason > 0
+    assert abs(int(got.its) - int(ref.its)) <= 1
+    assert _rel(got.x.double().cpu(), ref.x) <= 1e-4

@@ -105,9 +105,15 @@ def test_wbm_export_feeds_lu(tmp_path, capsys):
              f"-mat {path} -ksp_type gmres -pc_type lu".split(), capsys)
 
 
-def test_wbm_auction_raises():
-    with pytest.raises(NotImplementedError, match="-matching auction"):
-        twbm.main("-matching auction".split())
+def test_wbm_auction_raises(capsys):
+    """``-matching auction`` (ported: it raised NotImplementedError before)
+    runs the device auction, under ``-platform cpu`` on the CPU, and prints
+    the JAX tool's lines."""
+    assert jwbm.main("-matching auction -scale 1".split()) == 0
+    ref = capsys.readouterr().out
+    assert twbm.main("-matching auction -scale 1 -platform cpu".split()) == 0
+    assert capsys.readouterr().out == ref
+    assert "'type': 'auction'" in ref
 
 
 def test_testbed_imports_no_jax():
