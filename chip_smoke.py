@@ -159,7 +159,23 @@ In order, it:
      one at config 2's (cg + cholesky), converged, no kernel launched,
      every tensor on the card, the factor and the solve timed, and
      n = 2e4 on the card against the CPU in complex128;
- 13. the route tuner, the native assembly, config 4 and the auction
+ 13. the distributed path at one rank (``phase_dist_flagship``,
+     ``phase_dist_reference``, ``phase_dist_config2``): a one-rank default
+     group (gloo for CPU tensors, NCCL for CUDA ones) and ``make_mesh(1)``
+     on the card; ``dist_spike_factor`` on the flagship (K = 64 partitions
+     on the rank, b = 128, bf16 spikes, newton_fixed; its reduced system by
+     cyclic reduction, K - 1 >= 33), ``make_dist_solver`` gmres at rtol
+     1e-8 on the band route (#2) with the single-device path's iteration
+     count, on the blocks route (#7 through ``blocktri_matvec_chunked_cuda``,
+     held against its plain version), ``dist_spike_solve_many`` at r = 32
+     (#4) and bicg with ``dist_spike_transpose`` (#1 on the transposed
+     factor, #7 for A^T), each with its launches held exactly and its wall,
+     device busy time and idle share beside the single-device solve's; a
+     small band through ``make_dist_solver`` on the card (f32) and on a CPU
+     mesh (f64) in one process (equal iterations, x within 1e-5); config 2
+     on the mesh (cg with #3 and #2, and ``make_dist_solver_batched`` cg
+     serving on a (1, 1) mesh at r = 32 with #5), launches held exactly;
+ 14. the route tuner, the native assembly, config 4 and the auction
      (``phase_tuning``, ``phase_native_factor``, ``phase_config4``,
      ``phase_config4_reference``, ``phase_auction``), the script's own
      tuning record a fresh file from the start: ``tools.tune.main`` at the
@@ -182,10 +198,11 @@ In order, it:
      where the first run predicts it under a minute, 1e6 (rounds, time,
      a permutation within n eps of MC64 job 5's log-product, the ELL
      arrays on the card);
- 14. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
+ 15. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
      path, error, time, plain time, bound and library time, and its
      launches on each further path: the PCs', gmres_many's, autodiff's,
-     the tuner's 'auto' checks, the native assembly's, config 4's) and
+     the tuner's 'auto' checks, the native assembly's, config 4's, the
+     distributed paths' ``dist_*``) and
      the script's time in all, and, last, the line
      ``{"ok": true, "device": {...}}``.
 
@@ -195,6 +212,7 @@ is printed.  Without a CUDA device it exits with code 2 at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -221,6 +239,7 @@ SPD_OPTIONS = {"pc_cholesky_partitions": SPD_K,
                "pc_cholesky_block": SPD_BLOCK,
                "pc_cholesky_truncated": 1, "pc_cholesky_store_spikes": 1}
 CG_ITS_MAX = 5             # the JAX config-2 test's bound
+DIST_REF_RTOL = 1e-5       # f32-attainable: the card and the CPU f64 agree
 CG_SERVE_ITS = 2           # cg serving on config 2: every column, 2 its
 # kernel #5 before its redesign (PERF.md §6, row #5, in brackets: H100
 # 80GB HBM3, 700 W), printed beside this run's time
@@ -4041,6 +4060,301 @@ def phase_auction(device, t):
         print(f"auction at n={n1}: cut (predicted over the budget)")
 
 
+# ---------------------------------------------------------------------------
+# The distributed path (parallel/) at one rank: the NCCL binding and every
+# local kernel of the mesh solves at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def one_rank_group(tmp, name):
+    """A one-rank default group, gloo for CPU tensors and NCCL for CUDA
+    ones, on a file store in ``tmp``; destroyed on the way out."""
+    import torch.distributed as dist
+    dist.init_process_group(backend="cpu:gloo,cuda:nccl",
+                            init_method=f"file://{tmp}/{name}_store",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_gmres_expected(its, matvec):
+    """Left-PC gmres on the mesh from x0 = 0, stored spikes (one #1 sweep
+    a PC apply): ``gmres_expected`` with ``matvec`` the operator's kernel."""
+    return gmres_expected(its, {"fused_sweep": 0, matvec: 0},
+                          "fused_sweep", matvec)
+
+
+def held(label, launches, expected):
+    """Check the launches of a path against the count read from the code
+    (kernels not named must not run)."""
+    want = {name: expected.get(name, 0) for name in launches}
+    print(f"{label}: launches {nonzero(launches)}, expected "
+          f"{nonzero(want)}")
+    check(launches == want, f"{label}: launches {launches}, expected "
+          f"{want}")
+
+
+def dist_solve_run(label, solve, b, band, x_true, t, its_max):
+    """One mesh Krylov solve with its launches, reason, true f32 relres
+    and error against ``x_true``."""
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.solvers.types import reason_str
+    reset_launches()
+    res = solve(b)
+    launches = read_launches()
+    true_rel = float(torch.linalg.norm(banded_matvec(band, res.x) - b)
+                     / torch.linalg.norm(b))
+    xerr = float((res.x - x_true).abs().max())
+    print(f"{label}: {res.its} its, {reason_str(res.reason)}, true relres "
+          f"(f32) {true_rel:.3e}, max|x - x_true| {xerr:.3e}")
+    check(res.reason > 0 and res.its <= its_max,
+          f"{label}: {res.its} its, reason {res.reason}")
+    check(res.x.shape == x_true.shape and bool(torch.isfinite(res.x).all()),
+          f"{label}: solution shape / finiteness")
+    check(xerr <= 1e-3 and true_rel <= 1e-4, f"{label}: accuracy")
+    return res, launches
+
+
+def dist_times(label, fn, t):
+    """Wall (CUDA events), device busy (torch.profiler) and idle share of
+    one call of ``fn``; returns (wall, busy) in ms."""
+    show = shower(t)
+    show(label, time_ms(fn, reps=3))
+    busy, top = device_profile(fn)
+    wall = t[label][0]
+    print(f"  {label}: device busy {busy:.3f} ms of {wall:.3f} ms wall: "
+          f"idle share {1 - busy / wall:.3f}; top {top[:3]}")
+    return wall, busy
+
+
+def phase_dist_flagship(band, rhs, device, t, bounds, errs, single_its,
+                        tmp):
+    """The flagship on a one-rank mesh: ``dist_spike_factor`` (K = 64, b =
+    128, bf16 spikes, newton_fixed), ``make_dist_solver`` gmres on the
+    band route (#2) and on the blocks route (#7 through the chunked entry),
+    ``dist_spike_solve_many`` at r = 32 (#4), and bicg with
+    ``dist_spike_transpose`` (#1 on the regular-form transposed factor);
+    launches held exactly, times beside the single-device path's."""
+    import dataclasses
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
+    from spike_petsc_tpu_torch.parallel import (dist_spike_factor,
+                                                dist_spike_solve_many,
+                                                dist_spike_transpose,
+                                                make_dist_solver, make_mesh)
+    paths = {}
+    ones = torch.ones(N, device=device)
+    with one_rank_group(tmp, "dist_flagship"):
+        mesh = make_mesh(1, device=device)
+
+        def factor():
+            return dist_spike_factor(
+                band, mesh, block_b=BLOCK, parts_per_device=K,
+                store_spikes=True, spike_dtype=torch.bfloat16,
+                inverter="newton_fixed")
+        t0 = time.perf_counter()
+        dsf = factor()
+        torch.cuda.synchronize()
+        print(f"dist_spike_factor (flagship, one rank, K={dsf.K}, "
+              f"ppd={dsf.ppd}, b={dsf.b}): first call "
+              f"{time.perf_counter() - t0:.2f} s; reduced system "
+              f"{type(dsf.red_fact).__name__}; matvec route "
+              f"{dsf.matvec_route}")
+        check(dsf.matvec_route == "banded_cuda",
+              f"the flagship mesh factor took route {dsf.matvec_route}")
+        check(type(dsf.red_fact).__name__ == "CRFactor",
+              "K - 1 = 63 reduced block rows must take cyclic reduction "
+              "on the mesh (JAX's threshold 33)")
+        solver = make_dist_solver(dsf, mesh, ksp_type="gmres", rtol=1e-8,
+                                  restart=30, maxit=30)
+        res, launches = dist_solve_run("dist gmres+spike (flagship, "
+                                       "banded route)", solver, rhs, band,
+                                       ones, t, GMRES_ITS_MAX)
+        check(res.its == single_its,
+              f"dist gmres {res.its} its, single-device {single_its}")
+        held("dist gmres (banded route)", launches,
+             dist_gmres_expected(res.its, "band_matvec"))
+        paths["dist_gmres"] = launches
+        f_wall, f_busy = dist_times("dist_factor", factor, t)
+        s_wall, s_busy = dist_times("dist_gmres_solve",
+                                    lambda: solver(rhs), t)
+        print(f"dist vs single device (flagship): factor {f_wall:.2f} ms "
+              f"(single {t['factor'][0]:.2f} ms), gmres solve "
+              f"{s_wall:.3f} ms (single {t['gmres_solve'][0]:.3f} ms), "
+              f"{res.its} its both")
+
+        # the blocks route: the same factor without the band rows
+        dsf_b = dataclasses.replace(dsf, mv_prep=None)
+        solver_b = make_dist_solver(dsf_b, mesh, ksp_type="gmres",
+                                    rtol=1e-8, restart=30, maxit=30)
+        res_b, launches = dist_solve_run("dist gmres+spike (flagship, "
+                                         "blocks route)", solver_b, rhs,
+                                         band, ones, t, GMRES_ITS_MAX)
+        held("dist gmres (blocks route)", launches,
+             dist_gmres_expected(res_b.its, "blocktri_matvec"))
+        paths["dist_gmres_blocks"] = launches
+        dist_times("dist_gmres_solve_blocks", lambda: solver_b(rhs), t)
+        # #7 through the chunked entry against its plain version
+        x = torch.randn((K, dsf.nb, BLOCK), device=device)
+        y = cbt.blocktri_matvec_chunked_cuda(dsf.blocks, x)
+        ref = cbt.blocktri_matvec_chunked_cuda(dsf.blocks, x, impl="plain")
+        err, rel = kernel_err(y, ref)
+        print(f"blocktri_matvec chunked entry {tuple(dsf.blocks.D.shape)}: "
+              f"max|kernel - plain| {err:.3e} (relative {rel:.3e})")
+        check(rel <= KERNEL_TOL, f"chunked blocktri matvec: {rel}")
+        errs["blocktri_matvec"] = max(errs["blocktri_matvec"], err)
+        show = shower(t)
+        show("blocktri_matvec_chunked_cuda", time_ms(
+            lambda: cbt.blocktri_matvec_chunked_cuda(dsf.blocks, x),
+            iters=20))
+        nbytes = 3 * dsf.blocks.D.numel() * 4 + 2 * x.numel() * 4
+        bounds["blocktri_matvec_chunked"] = roofline(
+            nbytes, 2 * 3 * dsf.blocks.D.numel())
+        print(f"  bound {bounds['blocktri_matvec_chunked'][0]:.4f} ms "
+              f"({bounds['blocktri_matvec_chunked'][1]})")
+        del dsf_b, solver_b, x, y, ref
+
+        # serving: the multi-RHS direct solve, factors streamed once (#4)
+        gen = torch.Generator(device=device).manual_seed(SEED + 41)
+        X = torch.randn((N, NRHS), generator=gen, device=device)
+        B = banded_matvec(band, X)
+        reset_launches()
+        Xs = dist_spike_solve_many(dsf, B, mesh)
+        launches = read_launches()
+        relres = float((torch.linalg.norm(banded_matvec(band, Xs) - B, dim=0)
+                        / torch.linalg.norm(B, dim=0)).max())
+        print(f"dist_spike_solve_many r={NRHS}: per-column true relres "
+              f"(f32) max {relres:.3e}")
+        check(relres <= SPIKE_RELRES_MAX, f"dist solve_many relres {relres}")
+        held("dist_spike_solve_many", launches, {"fused_sweep_many": 1})
+        paths["dist_solve_many"] = launches
+        dist_times("dist_solve_many_r32",
+                   lambda: dist_spike_solve_many(dsf, B, mesh), t)
+        del X, B, Xs
+
+        # the transpose on the same factors, distributed bicg
+        t0 = time.perf_counter()
+        dsft = dist_spike_transpose(dsf, mesh)
+        torch.cuda.synchronize()
+        print(f"dist_spike_transpose (flagship): "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, factor "
+              f"{type(dsft.fact).__name__} {dsft.fact.method}, matvec "
+              f"route {dsft.matvec_route}")
+        bicg = make_dist_solver(dsf, mesh, ksp_type="bicg",
+                                dsf_transpose=dsft, rtol=1e-8, maxit=30)
+        res_t, launches = dist_solve_run("dist bicg+spike (flagship)", bicg,
+                                         rhs, band, ones, t, GMRES_ITS_MAX)
+        # two PC applies before the loop and two an iteration (#1 forward
+        # and on the transposed factor); A by #2 an iteration and for the
+        # final residual, A^T by #7 (the transpose's blocks) an iteration
+        held("dist bicg", launches, {"fused_sweep": 2 * res_t.its + 2,
+                                     "band_matvec": res_t.its + 1,
+                                     "blocktri_matvec": res_t.its})
+        paths["dist_bicg"] = launches
+        dist_times("dist_bicg_solve", lambda: bicg(rhs), t)
+        del dsft, bicg, dsf, solver
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_dist_config2(band, rhs, device, t, tmp):
+    """Config 2 on a one-rank mesh (bandwidth 33, K = 16, b = 64,
+    truncated, ``method='spd'``, stored spikes): mesh cg (#3, #2) and
+    ``make_dist_solver_batched`` cg serving on a (1, 1) mesh at r = 32
+    (#5); launches held exactly."""
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.parallel import (dist_spike_factor,
+                                                make_dist_solver,
+                                                make_dist_solver_batched,
+                                                make_mesh, make_mesh_2d)
+    paths = {}
+    ones = torch.ones(SPD_N, device=device)
+    with one_rank_group(tmp, "dist_config2"):
+        mesh = make_mesh(1, device=device)
+        dsf = dist_spike_factor(band, mesh, method="spd", truncated=True,
+                                block_b=SPD_BLOCK, parts_per_device=SPD_K,
+                                store_spikes=True)
+        cg = make_dist_solver(dsf, mesh, ksp_type="cg", rtol=1e-8, maxit=50)
+        res, launches = dist_solve_run("dist cg+spd spike (config 2)", cg,
+                                       rhs, band, ones, t, CG_ITS_MAX)
+        # one PC apply before the loop and one an iteration; the operator
+        # an iteration and for the final residual
+        held("dist cg (config 2)", launches,
+             {"fused_sweep_spd": res.its + 1, "band_matvec": res.its + 1})
+        paths["dist_cg_config2"] = launches
+        dist_times("dist_cg_solve", lambda: cg(rhs), t)
+
+        mesh2 = make_mesh_2d((1, 1), axes=("rhs", "p"), device=device)
+        serve = make_dist_solver_batched(dsf, mesh2, ksp_type="cg",
+                                         rtol=1e-8, maxit=50)
+        gen = torch.Generator(device=device).manual_seed(SEED + 43)
+        X = torch.randn((SPD_N, NRHS), generator=gen, device=device)
+        B = banded_matvec(band, X).T.contiguous()               # [R, n]
+        reset_launches()
+        Xs = serve(B)
+        launches = read_launches()
+        relres = float((torch.linalg.norm(banded_matvec(band, Xs.T) - B.T,
+                                          dim=0)
+                        / torch.linalg.norm(B.T, dim=0)).max())
+        print(f"dist batched cg serving (1, 1) mesh r={NRHS}: per-column "
+              f"true relres (f32) max {relres:.3e}, max|x - X| "
+              f"{float((Xs.T - X).abs().max()):.3e}")
+        check(relres <= SERVE_RELRES_MAX, f"dist cg serving relres {relres}")
+        # cg_many: one PC apply before the loop and one a trip; the
+        # multi-RHS matvec is the batched block product (no kernel)
+        spd_launches = launches["fused_sweep_many_spd"]
+        check(spd_launches >= 2, f"dist cg serving: {launches}")
+        held("dist cg serving", launches,
+             {"fused_sweep_many_spd": spd_launches})
+        print(f"  {spd_launches - 1} trips (solve_many's serving path: "
+              f"{CG_SERVE_ITS} its a column)")
+        check(spd_launches - 1 <= CG_ITS_MAX,
+              f"dist cg serving took {spd_launches - 1} trips")
+        paths["dist_cg_serve"] = launches
+        dist_times("dist_cg_serve_r32", lambda: serve(B), t)
+        del dsf, cg, serve, X, B, Xs
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_dist_reference(device, tmp):
+    """``make_dist_solver`` gmres on a small band, on the card (f32,
+    kernels) and on a CPU mesh (f64, plain versions) in one process: equal
+    iteration counts, and x within the reference phases' tolerance.  At
+    rtol 1e-8 f32 needs a second iteration that f64 does not (the first
+    leaves ~1e-7 in f32), so the count is compared at DIST_REF_RTOL."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix
+    from spike_petsc_tpu_torch.parallel import (dist_spike_factor,
+                                                make_dist_solver, make_mesh)
+    band, rhs = flagship_band(20_000, 20, device, seed=SEED + 7)
+    cpu = BandedMatrix(data=band.data.double().cpu(), kl=20, ku=20)
+    out = {}
+    with one_rank_group(tmp, "dist_reference"):
+        for label, a, b, dev in (("card", band, rhs, device),
+                                 ("cpu", cpu, rhs.double().cpu(), "cpu")):
+            mesh = make_mesh(1, device=dev)
+            dsf = dist_spike_factor(a, mesh, block_b=64, parts_per_device=8)
+            reset_launches()
+            out[label] = make_dist_solver(dsf, mesh, ksp_type="gmres",
+                                          rtol=DIST_REF_RTOL)(b)
+            launches = read_launches()
+            print(f"dist reference {label}: {out[label].its} its, launches "
+                  f"{nonzero(launches)}")
+    err = float((out["card"].x.double().cpu() - out["cpu"].x).abs().max())
+    print(f"dist gmres n=20000 w=41 K=8: card {out['card'].its} "
+          f"its vs CPU f64 {out['cpu'].its} its, max|x_card - x_cpu| "
+          f"{err:.3e}")
+    check(out["card"].its == out["cpu"].its and err <= 1e-5
+          and out["card"].reason == out["cpu"].reason == 2,
+          "dist card and CPU reference disagree")
+
+
 def main() -> int:
     import tempfile
     import torch
@@ -4123,6 +4437,12 @@ def run(tmp) -> int:
     tg = time.perf_counter()
     phase_checks(band, rhs, sf, device, t)
     print(f"check and checkpoint phase: {time.perf_counter() - tg:.1f} s")
+    # the distributed path at one rank (NCCL), then its CPU reference
+    tg = time.perf_counter()
+    paths.update(phase_dist_flagship(band, rhs, device, t, bounds, errs,
+                                     res.its, tmp))
+    phase_dist_reference(device, tmp)
+    print(f"distributed flagship phases: {time.perf_counter() - tg:.1f} s")
     del band, rhs, sf, res, pc
     torch.cuda.empty_cache()
     tc = time.perf_counter()
@@ -4182,6 +4502,9 @@ def run(tmp) -> int:
     spd_t, spd_bounds = phase_spd_timing(sband, srhs, ssf, device)
     t.update(spd_t)
     bounds.update(spd_bounds)
+    tg = time.perf_counter()
+    paths.update(phase_dist_config2(sband, srhs, device, t, tmp))
+    print(f"distributed config 2 phase: {time.perf_counter() - tg:.1f} s")
     tk = time.perf_counter()
     spc = make_pc("cholesky", sband, Options(dict(SPD_OPTIONS)))
     phase_ksp_types(sband, srhs, spc, SPD_KSP_TYPE_CASES,

@@ -7,7 +7,10 @@ kernel's chunk grid (``mv_padded_nb``); this kernel computes its own offsets
 on the unpadded ``[nb, b, b]`` blocks and reads x as zero beyond its length,
 so neither the blocks nor x are padded.  ``blocktri_matvec_plain`` is the
 same function in plain PyTorch: the CPU path and the reference the kernel is
-held against.
+held against.  ``blocktri_matvec_chunked_cuda`` is the JAX
+``blocktri_matvec_dma_chunked``: a rank's ``[ppd, nb, b, b]`` partitions
+through the same kernel as one sequence of ``ppd * nb`` blocks, read in
+place.
 """
 
 from __future__ import annotations
@@ -78,3 +81,31 @@ def blocktri_matvec_cuda(t: BlockTridiagonal, x: torch.Tensor,
                   t.U.data_ptr(), x.data_ptr(), y.data_ptr(), nb, b, n,
                   stream)
     return y
+
+
+def blocktri_matvec_chunked_cuda(t: BlockTridiagonal, x: torch.Tensor,
+                                 impl: str = "auto") -> torch.Tensor:
+    """y = T x for ``ppd`` partitions at once: ``[ppd, nb, b, b]`` blocks
+    and x ``[ppd, nb, b]`` -> y ``[ppd, nb, b]`` (the JAX
+    ``blocktri_matvec_dma_chunked``, ``ops/pallas/matvec.py:236``).
+
+    The partitions are flattened into one block sequence of ``ppd * nb``
+    rows and go through :func:`blocktri_matvec_cuda` as one global system:
+    the chunk boundaries couple through L and U, which the SPIKE partition
+    blocks hold zero there (``L[:, 0]``, ``U[:, -1]``), so the product is
+    each partition's own.  The flattened blocks are views of the stored
+    ones, never copies (raises otherwise), so the kernel reads the
+    ``[ppd, nb, b, b]`` blocks in place.  A CPU tensor takes the plain
+    version on the same flattened sequence."""
+    ppd, nb, b = t.D.shape[0], t.D.shape[1], t.D.shape[2]
+    flat = BlockTridiagonal(D=t.D.reshape(ppd * nb, b, b),
+                            L=t.L.reshape(ppd * nb, b, b),
+                            U=t.U.reshape(ppd * nb, b, b))
+    if x.is_cuda and impl != "plain" and any(
+            f.data_ptr() != m.data_ptr() or not m.is_contiguous()
+            for f, m in ((flat.L, t.L), (flat.D, t.D), (flat.U, t.U))):
+        raise ValueError("the chunked blocktri matvec reads the "
+                         "[ppd, nb, b, b] blocks in place: they must be "
+                         "contiguous")
+    y = blocktri_matvec_cuda(flat, x.reshape(-1), impl=impl)
+    return y.reshape(x.shape)

@@ -206,5 +206,5 @@ def auction_match_dist(a, mesh=None, axis: str = "p", eps=None,
     a device mesh); not yet ported."""
     raise NotImplementedError(
         "auction_match_dist (the auction over a device mesh) is not yet "
-        "ported to spike_petsc_tpu_torch: it waits on parallel/ (ROADMAP "
-        "Queue 1 item 5); auction_match runs on one device")
+        "ported to spike_petsc_tpu_torch (ROADMAP Queue 1 item 5b); "
+        "auction_match runs on one device")

@@ -34,6 +34,20 @@ argument, norms and histories are real, the Givens rotations are unitary
 and the A^T types apply A^H = conj(A^T conj(.)).  Where the JAX loop computes a step and discards it (a gate on a terminal
 reason), the port does not compute it.  Iteration counts and residual
 histories equal the reference's.
+
+Reductions are mesh-aware, as in JAX: every solver takes ``axis_name``, a
+``parallel.mesh.MeshAxis`` (or None), and then sees its rank's row block
+of the vectors; each JAX ``psum`` is one ``all_reduce`` over the axis's
+group (the fused ``_dots`` and the DGKS norm riding the gram row stay one),
+so every rank brings the same scalars to the host and takes the same
+branches.  With ``axis_name=None`` no collective runs.  ``conv_sync_axis``
+(the replica axis of a serving mesh) keeps JAX's meaning: the GMRES family
+(``gmres``, ``fgmres``, ``lgmres``) runs every replica until all have
+stopped and takes the DGKS refinement where any replica needs it, one
+``all_reduce`` a decision.  JAX freezes the state of a stopped replica in
+the other solvers, so their results do not depend on the other replicas;
+here each replica's collectives run on its own group, and those solvers
+need no vote.
 """
 
 from __future__ import annotations
@@ -58,14 +72,71 @@ def _identity_pc(x):
     return x
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """<a, b> = a^H b (``jnp.vdot``: the first argument conjugated)."""
-    return torch.vdot(a, b)
+def _psum(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` summed over the mesh axis ``axis`` (one ``all_reduce``; a
+    ``parallel.mesh.MeshAxis``), or ``t`` itself for ``axis=None``."""
+    return t if axis is None else axis.all_reduce(t)
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
+def _dot(a: torch.Tensor, b: torch.Tensor, axis=None) -> torch.Tensor:
+    """<a, b> = a^H b (``jnp.vdot``: the first argument conjugated), summed
+    over ``axis`` when the vectors are row blocks of a mesh."""
+    return _psum(torch.vdot(a, b), axis)
+
+
+def _norm(x: torch.Tensor, axis=None) -> torch.Tensor:
     """||x||, real for complex x."""
-    return torch.sqrt(_dot(x, x).real)
+    return torch.sqrt(_dot(x, x, axis).real)
+
+
+def _dots(pairs, axis=None) -> tuple:
+    """Several inner products <a_i, b_i> in pair order; on a mesh they ride
+    ONE stacked ``all_reduce`` (JAX ``krylov.py:76-87``)."""
+    d = [torch.vdot(a, b) for a, b in pairs]
+    if axis is None:
+        return tuple(d)
+    s = axis.all_reduce(torch.stack(d))
+    return tuple(s[i] for i in range(len(pairs)))
+
+
+def _gram(V: torch.Tensor, w: torch.Tensor, axis=None) -> torch.Tensor:
+    """The projection row <V_i, w> = V^H w, summed over ``axis``."""
+    return _psum(V.conj() @ w, axis)
+
+
+def _normer(axis):
+    """``x -> ||x||`` summed over ``axis``."""
+    return lambda x: _norm(x, axis)
+
+
+def _reducers(axis):
+    """``(dot, norm, dots)`` summed over ``axis``: the inner products of a
+    solver whose vectors are row blocks of a mesh."""
+    return (lambda a, b: _dot(a, b, axis), _normer(axis),
+            lambda pairs: _dots(pairs, axis))
+
+
+class _Sync:
+    """``conv_sync_axis`` of the GMRES family: the decisions JAX makes
+    replica-wide by ``pmax`` over a mesh axis the solver's sums do not
+    cover (the rhs axis of a serving mesh; JAX ``krylov.py:130, 142-156``).
+    ``any(flag)`` is True when the flag holds on any replica, one
+    ``all_reduce`` each; with no axis it is the flag itself.  Every replica
+    runs the same sequence of votes, so their collectives stay aligned."""
+
+    def __init__(self, axis):
+        self.axis = axis
+
+    def any(self, flag: bool) -> bool:
+        if self.axis is None:
+            return bool(flag)
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                         device=self.axis.device)
+        return bool(self.axis.all_reduce(t, "max").item())
+
+    def iterating(self, reason: int) -> bool:
+        """JAX ``_keep_iterating``: some replica's reason is iterating."""
+        return self.any(reason == CONVERGED_ITERATING)
 
 
 def _conj(x: torch.Tensor) -> torch.Tensor:
@@ -115,11 +186,12 @@ def _breakdown(reason: int, broke: bool) -> int:
     return reason
 
 
-def _result(matvec, b, x, its, reason, history, true_history=None):
+def _result(matvec, b, x, its, reason, history, true_history=None,
+            axis=None):
     """The result with the true final residual norm."""
     return KSPResult(x=x, its=its, reason=reason,
-                     rnorm=float(_norm(b - matvec(x))), history=history,
-                     true_history=true_history)
+                     rnorm=float(_norm(b - matvec(x), axis)),
+                     history=history, true_history=true_history)
 
 
 #: the DGKS cancellation test of ``ifneeded``: refine when the projection
@@ -127,37 +199,48 @@ def _result(matvec, b, x, its, reason, history, true_history=None):
 DGKS_THRESHOLD = 0.7071067811865476
 
 
-def _orthogonalize(V: torch.Tensor, w: torch.Tensor, cgs_refinement: str):
+def _orthogonalize(V: torch.Tensor, w: torch.Tensor, cgs_refinement: str,
+                   axis=None, sync: Optional[_Sync] = None):
     """Classical Gram-Schmidt of ``w`` against the rows of ``V`` with
     PETSc's refinement policy (``KSPGMRESSetCGSRefinementType``):
     ``"always"`` one unconditional second pass, ``"never"`` a single pass,
     ``"ifneeded"`` a second pass only when the DGKS test
     ``||w_after|| < ||w_before|| / sqrt(2)`` finds cancellation (decided on
-    the host, so a skipped pass costs nothing).  Returns ``(w, h, ||w||)``
-    with ``h`` the projection row ``V^H w``."""
+    the host, so a skipped pass costs nothing; on a mesh the pre-projection
+    norm rides the gram row's ``all_reduce``, and ``sync`` takes the
+    decision over the replicas).  Returns ``(w, h, ||w||)`` with ``h`` the
+    projection row ``V^H w``."""
     if cgs_refinement == "never":
-        h = V.conj() @ w
+        h = _gram(V, w, axis)
         w = w - h @ V
-        return w, h, _norm(w)
+        return w, h, _norm(w, axis)
     if cgs_refinement == "always":
-        h = V.conj() @ w
+        h = _gram(V, w, axis)
         w = w - h @ V
-        h2 = V.conj() @ w
+        h2 = _gram(V, w, axis)
         w = w - h2 @ V
-        return w, h + h2, _norm(w)
+        return w, h + h2, _norm(w, axis)
     if cgs_refinement != "ifneeded":
         raise ValueError(
             f"unknown cgs_refinement {cgs_refinement!r}: expected never, "
             "ifneeded, or always (-ksp_gmres_cgs_refinement_type)")
-    h = V.conj() @ w
-    wnorm0 = _norm(w)
+    if axis is None:
+        h = V.conj() @ w
+        wnorm0 = _norm(w)
+    else:
+        hv = axis.all_reduce(torch.cat([V.conj() @ w,
+                                        torch.vdot(w, w)[None].to(V.dtype)]))
+        h, wnorm0 = hv[:-1], torch.sqrt(hv[-1].real.abs())
     w = w - h @ V
-    hj1 = _norm(w)
+    hj1 = _norm(w, axis)
     after, before = _host(hj1, wnorm0)
-    if after < DGKS_THRESHOLD * before:
-        h2 = V.conj() @ w
+    need = after < DGKS_THRESHOLD * before
+    if sync is not None:
+        need = sync.any(need)
+    if need:
+        h2 = _gram(V, w, axis)
         w = w - h2 @ V
-        return w, h + h2, _norm(w)
+        return w, h + h2, _norm(w, axis)
     return w, h, hj1
 
 
@@ -166,7 +249,7 @@ def _orthogonalize(V: torch.Tensor, w: torch.Tensor, cgs_refinement: str):
 # ---------------------------------------------------------------------------
 
 def arnoldi_hessenberg(matvec: Callable, v0: torch.Tensor, m: int,
-                       pc_apply: Optional[Callable] = None):
+                       pc_apply: Optional[Callable] = None, axis_name=None):
     """m-step Arnoldi factorization of the left-preconditioned operator
     M^-1 A started from ``v0``; returns ``(H, k)`` with H the ``(m+1, m)``
     Hessenberg (a host numpy array in the vectors' dtype) and ``k`` the
@@ -177,7 +260,7 @@ def arnoldi_hessenberg(matvec: Callable, v0: torch.Tensor, m: int,
     psolve = pc_apply or _identity_pc
     npdt = _NP_DTYPES[v0.dtype]
     tiny = _tiny(v0.dtype)
-    n0 = _norm(v0)
+    n0 = _norm(v0, axis_name)
     V = torch.zeros((m + 1,) + tuple(v0.shape), dtype=v0.dtype,
                     device=v0.device)
     V[0] = v0 / _safe(n0)
@@ -185,9 +268,9 @@ def arnoldi_hessenberg(matvec: Callable, v0: torch.Tensor, m: int,
     k = 0
     for j in range(m):
         w = psolve(matvec(V[j]))
-        h = V[:j + 1].conj() @ w
+        h = _gram(V[:j + 1], w, axis_name)
         w = w - h @ V[:j + 1]
-        hj1 = _norm(w)
+        hj1 = _norm(w, axis_name)
         col = torch.cat([h, hj1[None].to(h.dtype)]).cpu().numpy()
         H[:j + 2, j] = col
         k += 1
@@ -199,7 +282,8 @@ def arnoldi_hessenberg(matvec: Callable, v0: torch.Tensor, m: int,
 
 def estimate_extreme_eigs(matvec: Callable, n: int, dtype=torch.float32, *,
                           m: int = 10, pc_apply: Optional[Callable] = None,
-                          seed: int = 0, v0=None, device=None):
+                          seed: int = 0, v0=None, device=None,
+                          axis_name=None):
     """Ritz-value estimate of M^-1 A's spectrum: ``m`` Arnoldi steps on the
     operator's device, the eigenvalues of the small Hessenberg on the host.
     Returns the complex Ritz values (length <= m).  ``v0`` defaults to a
@@ -210,7 +294,7 @@ def estimate_extreme_eigs(matvec: Callable, n: int, dtype=torch.float32, *,
         v0 = torch.as_tensor(
             np.random.default_rng(seed).standard_normal(n)).to(
                 device=torch.device(device or "cuda"), dtype=dtype)
-    H, k = arnoldi_hessenberg(matvec, v0, m, pc_apply)
+    H, k = arnoldi_hessenberg(matvec, v0, m, pc_apply, axis_name)
     if k == 0:
         return np.zeros(0, complex)
     return np.linalg.eigvals(H[:k, :k])
@@ -230,7 +314,8 @@ def _need_transpose(name: str, matvec_transpose) -> None:
 def golub_kahan_bidiag(matvec: Callable, matvec_transpose: Callable,
                        v0: torch.Tensor, m: int,
                        pc_apply: Optional[Callable] = None,
-                       pc_apply_transpose: Optional[Callable] = None):
+                       pc_apply_transpose: Optional[Callable] = None,
+                       axis_name=None):
     """m-step Golub-Kahan bidiagonalization of the left-preconditioned
     operator B = M^-1 A started from ``v0``; returns ``(alphas, betas, k)``
     (host numpy arrays in the vectors' dtype, length m) with
@@ -251,9 +336,10 @@ def golub_kahan_bidiag(matvec: Callable, matvec_transpose: Callable,
 
     npdt = _NP_DTYPES[v0.dtype.to_real()]
     tiny = _tiny(v0.dtype)
-    u = v0 / _safe(_norm(v0))
+    norm = _normer(axis_name)
+    u = v0 / _safe(norm(v0))
     v_un = bmv_t(u)
-    alpha = _norm(v_un)
+    alpha = norm(v_un)
     v = v_un / _safe(alpha)
     alphas, betas = np.zeros(m, npdt), np.zeros(m, npdt)
     alphas[0] = float(alpha)
@@ -263,10 +349,10 @@ def golub_kahan_bidiag(matvec: Callable, matvec_transpose: Callable,
         if not alive:
             break
         u_un = bmv(v) - alpha * u
-        beta = _norm(u_un)
+        beta = norm(u_un)
         u = u_un / _safe(beta)
         v_un = bmv_t(u) - beta * v
-        alpha = _norm(v_un)
+        alpha = norm(v_un)
         v = v_un / _safe(alpha)
         beta_h, alpha_h = _host(beta, alpha)
         betas[j] = beta_h
@@ -283,7 +369,7 @@ def estimate_extreme_singular_values(matvec: Callable,
                                      pc_apply: Optional[Callable] = None,
                                      pc_apply_transpose: Optional[Callable]
                                      = None, seed: int = 0, v0=None,
-                                     device=None):
+                                     device=None, axis_name=None):
     """Extreme singular values of M^-1 A, ``(smax, smin)``: ``m``
     Golub-Kahan steps on the operator's device, the SVD of the small
     bidiagonal on the host (PETSc KSPComputeExtremeSingularValues).  ``v0``
@@ -295,7 +381,8 @@ def estimate_extreme_singular_values(matvec: Callable,
             np.random.default_rng(seed).standard_normal(n)).to(
                 device=torch.device(device or "cuda"), dtype=dtype)
     alphas, betas, k = golub_kahan_bidiag(matvec, matvec_transpose, v0, m,
-                                          pc_apply, pc_apply_transpose)
+                                          pc_apply, pc_apply_transpose,
+                                          axis_name)
     if k == 0:
         return 0.0, 0.0
     B = np.zeros((k + 1, k))
@@ -375,8 +462,8 @@ def gmres(matvec: Callable, b: torch.Tensor,
           pc_apply: Optional[Callable] = None, *, restart: int = 30,
           rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
           maxit: int = 10000, side: str = "left", monitor_true: bool = False,
-          norm_type: str = "default",
-          cgs_refinement: str = "always") -> KSPResult:
+          norm_type: str = "default", cgs_refinement: str = "always",
+          axis_name=None, conv_sync_axis=None) -> KSPResult:
     """Restarted GMRES with left (default) or right preconditioning (PETSc
     KSPGMRES defaults: restart 30, rtol 1e-5, classical Givens least
     squares, the preconditioned residual monitored under a left PC).
@@ -386,11 +473,18 @@ def gmres(matvec: Callable, b: torch.Tensor,
     at one extra matvec (and PC apply under a right PC) an iteration.
     ``norm_type`` "unpreconditioned" converges on that true norm under a left
     PC; "preconditioned" with a right PC is an error, as in PETSc.
-    ``cgs_refinement``: see :func:`_orthogonalize`."""
+    ``cgs_refinement``: see :func:`_orthogonalize`.
+
+    On a mesh (``axis_name``, a ``parallel.mesh.MeshAxis``) every inner
+    product is one ``all_reduce`` over the axis.  ``conv_sync_axis``
+    (another axis, the replicas of a serving mesh) runs every replica until
+    all have stopped, as JAX's synced predicate does: a converged replica
+    keeps refining, and ``its`` counts the iterations it ran."""
     return _gmres_like(matvec, b, x0, pc_apply, restart=restart, rtol=rtol,
                        atol=atol, divtol=divtol, maxit=maxit, flexible=False,
                        right=(side == "right"), monitor_true=monitor_true,
-                       norm_type=norm_type, cgs_refinement=cgs_refinement)
+                       norm_type=norm_type, cgs_refinement=cgs_refinement,
+                       axis_name=axis_name, conv_sync_axis=conv_sync_axis)
 
 
 def fgmres(matvec: Callable, b: torch.Tensor,
@@ -399,7 +493,7 @@ def fgmres(matvec: Callable, b: torch.Tensor,
            rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
            maxit: int = 10000, monitor_true: bool = False,
            norm_type: str = "default", cgs_refinement: str = "always",
-           **_) -> KSPResult:
+           axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Flexible GMRES: right-preconditioned, storing the preconditioned
     basis, so the PC may change between iterations (an inner Krylov
     solve).  ``norm_type`` "unpreconditioned" is a no-op (the true residual
@@ -407,13 +501,27 @@ def fgmres(matvec: Callable, b: torch.Tensor,
     return _gmres_like(matvec, b, x0, pc_apply, restart=restart, rtol=rtol,
                        atol=atol, divtol=divtol, maxit=maxit, flexible=True,
                        right=True, monitor_true=monitor_true,
-                       norm_type=norm_type, cgs_refinement=cgs_refinement)
+                       norm_type=norm_type, cgs_refinement=cgs_refinement,
+                       axis_name=axis_name, conv_sync_axis=conv_sync_axis)
+
+
+def _keeper(conv_sync_axis):
+    """``(sync, keep)``: the replica vote of :class:`_Sync` (None without a
+    sync axis) and the loop predicate on a reason, synced when there is
+    one."""
+    if conv_sync_axis is None:
+        return None, lambda reason: reason == CONVERGED_ITERATING
+    sync = _Sync(conv_sync_axis)
+    return sync, sync.iterating
 
 
 def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
                 maxit, flexible, right, monitor_true=False,
-                norm_type="default", cgs_refinement="always"):
+                norm_type="default", cgs_refinement="always",
+                axis_name=None, conv_sync_axis=None):
     psolve = pc_apply or _identity_pc
+    norm = _normer(axis_name)
+    sync, keep = _keeper(conv_sync_axis)
     n, dtype, device = b.shape[0], b.dtype, b.device
     npdt = _NP_DTYPES[dtype]
     if norm_type not in ("default", "preconditioned", "unpreconditioned"):
@@ -424,7 +532,7 @@ def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
     unprec = norm_type == "unpreconditioned" and not right
     track_true = monitor_true or unprec
     x = torch.zeros_like(b) if x0 is None else x0.clone()
-    bnorm = float(_norm(b) if (right or unprec) else _norm(psolve(b)))
+    bnorm = float(norm(b) if (right or unprec) else norm(psolve(b)))
     check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
     history = _history(maxit, dtype)
     true_history = _history(maxit, dtype) if track_true else None
@@ -442,24 +550,25 @@ def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
         return psolve(dx) if right else dx
 
     r = residual(x)
-    rnorm = float(_norm(r))
+    rnorm = float(norm(r))
     if track_true:
-        true0 = float(_norm(b - matvec(x)))
+        true0 = float(norm(b - matvec(x)))
         true_history[0] = true0
         if unprec:
             rnorm = true0
     history[0] = rnorm
     its = 0
     reason = check(rnorm, its)
-    while reason == CONVERGED_ITERATING:
-        beta = _norm(r)
+    going = keep(reason)
+    while going:
+        beta = norm(r)
         V = torch.zeros((restart + 1, n), dtype=dtype, device=device)
         V[0] = r / torch.where(beta > 0, beta, torch.ones_like(beta))
         Z = (torch.zeros((restart, n), dtype=dtype, device=device)
              if flexible else None)
         giv = _Givens(restart, beta.item(), npdt)
         j = 0
-        while j < restart and reason == CONVERGED_ITERATING:
+        while j < restart and going:
             if flexible:
                 Z[j] = psolve(V[j])
                 w = matvec(Z[j])
@@ -467,7 +576,8 @@ def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
                 w = matvec(psolve(V[j]))
             else:
                 w = psolve(matvec(V[j]))
-            w, h, hj1 = _orthogonalize(V[:j + 1], w, cgs_refinement)
+            w, h, hj1 = _orthogonalize(V[:j + 1], w, cgs_refinement,
+                                       axis_name, sync)
             V[j + 1] = w / torch.where(hj1 > 0, hj1, torch.ones_like(hj1))
             col = torch.cat([h, hj1[None].to(h.dtype)]).cpu().numpy()
             rnorm = giv.add_column(j, col)
@@ -475,14 +585,15 @@ def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
             its += 1
             if track_true:
                 # the current iterate's true residual: one extra matvec
-                true_rn = float(_norm(b - matvec(x + update(giv, j, V, Z))))
+                true_rn = float(norm(b - matvec(x + update(giv, j, V, Z))))
                 true_history[its] = true_rn
                 if unprec:
                     rnorm = true_rn
             history[its] = rnorm
             reason = check(rnorm, its)
+            going = keep(reason)
         x = x + update(giv, j, V, Z)
-        if reason == CONVERGED_ITERATING:
+        if going:
             r = residual(x)
     return KSPResult(x=x, its=its, reason=reason, rnorm=rnorm,
                      history=history, true_history=true_history)
@@ -493,18 +604,22 @@ def lgmres(matvec: Callable, b: torch.Tensor,
            pc_apply: Optional[Callable] = None, *, restart: int = 30,
            aug: int = 2, rtol: float = 1e-5, atol: float = 1e-50,
            divtol: float = 1e4, maxit: int = 10000,
-           cgs_refinement: str = "always", **_) -> KSPResult:
+           cgs_refinement: str = "always", axis_name=None,
+           conv_sync_axis=None, **_) -> KSPResult:
     """LGMRES (Baker-Jessup-Manteuffel; PETSc KSPLGMRES): restarted,
     left-preconditioned GMRES whose cycles append the ``aug`` most recent
     normalized error approximations (each cycle's correction) to the search
     space, ``restart`` directions in all.  The first cycle is plain
-    GMRES(restart); ``aug=0`` is gmres."""
+    GMRES(restart); ``aug=0`` is gmres.  ``axis_name`` and
+    ``conv_sync_axis`` as in :func:`gmres`."""
     psolve = pc_apply or _identity_pc
+    norm = _normer(axis_name)
+    sync, keep = _keeper(conv_sync_axis)
     n, dtype, device = b.shape[0], b.dtype, b.device
     npdt = _NP_DTYPES[dtype]
     aug = max(0, min(int(aug), restart - 1))
     x = torch.zeros_like(b) if x0 is None else x0.clone()
-    bnorm = float(_norm(psolve(b)))
+    bnorm = float(norm(psolve(b)))
     check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
     history = _history(maxit, dtype)
 
@@ -512,23 +627,25 @@ def lgmres(matvec: Callable, b: torch.Tensor,
         return psolve(b - matvec(x))
 
     r = residual(x)
-    rnorm = float(_norm(r))
+    rnorm = float(norm(r))
     history[0] = rnorm
     its = 0
     reason = check(rnorm, its)
+    going = keep(reason)
     augs = []                      # normalized corrections, newest first
-    while reason == CONVERGED_ITERATING:
-        beta = _norm(r)
+    while going:
+        beta = norm(r)
         mk = restart - len(augs)   # Krylov directions this cycle
         V = torch.zeros((restart + 1, n), dtype=dtype, device=device)
         V[0] = r / torch.where(beta > 0, beta, torch.ones_like(beta))
         Z = torch.zeros((restart, n), dtype=dtype, device=device)
         giv = _Givens(restart, beta.item(), npdt)
         j = 0
-        while j < restart and reason == CONVERGED_ITERATING:
+        while j < restart and going:
             Z[j] = V[j] if j < mk else augs[j - mk]
             w = psolve(matvec(Z[j]))
-            w, h, hj1 = _orthogonalize(V[:j + 1], w, cgs_refinement)
+            w, h, hj1 = _orthogonalize(V[:j + 1], w, cgs_refinement,
+                                       axis_name, sync)
             V[j + 1] = w / torch.where(hj1 > 0, hj1, torch.ones_like(hj1))
             rnorm = giv.add_column(
                 j, torch.cat([h, hj1[None].to(h.dtype)]).cpu().numpy())
@@ -536,13 +653,14 @@ def lgmres(matvec: Callable, b: torch.Tensor,
             its += 1
             history[its] = rnorm
             reason = check(rnorm, its)
+            going = keep(reason)
         dx = giv.solve(j, device) @ Z[:j]
         x = x + dx
         if aug:
-            dxn = _norm(dx)
+            dxn = norm(dx)
             if dxn.item() > 0:
                 augs = [dx / dxn] + augs[:aug - 1]
-        if reason == CONVERGED_ITERATING:
+        if going:
             r = residual(x)
     return KSPResult(x=x, its=its, reason=reason, rnorm=rnorm,
                      history=history)
@@ -556,55 +674,58 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
              x0: Optional[torch.Tensor] = None,
              pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
              atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
-             **_) -> KSPResult:
+             axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Preconditioned BiCGStab (van der Vorst), PETSc KSPBCGS/KSPFBCGS as in
     the JAX package: the PC is applied afresh to p and s every iteration
     and the solution is updated with the preconditioned vectors; the
     monitored residual is the true residual.  The scalars stay on the
     device; the residual norm and |rho| come to the host once per
     iteration for the convergence and breakdown tests."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
     dtype = b.dtype
     tiny = _tiny(dtype)
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     history = _history(maxit, dtype)
     r = b if x0_zero else b - matvec(x)
     rtilde = r
-    rnorm = float(_norm(r))
+    rnorm = float(norm(r))
     history[0] = rnorm
     its = 0
     reason = check(rnorm, its)
     p, v = torch.zeros_like(b), torch.zeros_like(b)
     rho = alpha = omega = torch.ones((), dtype=dtype, device=b.device)
     while reason == CONVERGED_ITERATING:
-        rho_new = _dot(rtilde, r)
+        rho_new = dot(rtilde, r)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
         phat = psolve(p)
         v = matvec(phat)
-        alpha = rho_new / _safe(_dot(rtilde, v))
+        alpha = rho_new / _safe(dot(rtilde, v))
         sr = r - alpha * v
         shat = psolve(sr)
         t = matvec(shat)
-        omega = _dot(t, sr) / _safe(_dot(t, t))
+        tt, ts = dots(((t, t), (t, sr)))
+        omega = ts / _safe(tt)
         x = x + alpha * phat + omega * shat
         r = sr - omega * t
         rho = rho_new
-        rn, rho_abs = _host(_norm(r), rho_new.abs())
+        rn, rho_abs = _host(norm(r), rho_new.abs())
         its += 1
         history[its] = rn
         reason = _breakdown(check(rn, its), rho_abs < tiny)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def bcgsl(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None,
           pc_apply: Optional[Callable] = None, *, ell: int = 2,
           rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
-          maxit: int = 10000, **_) -> KSPResult:
+          maxit: int = 10000,
+          axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """BiCGStab(ell) (Sleijpen-Fokkema; PETSc KSPBCGSL, default ell = 2):
     each cycle runs ell BiCG steps, then an ell-dimensional minimal-residual
     update.  The PC is right-folded (B = A M^-1, x = x0 + M^-1 y), so the
@@ -612,6 +733,7 @@ def bcgsl(matvec: Callable, b: torch.Tensor,
     ``its`` (its advances by ell a cycle; the entries between stay NaN).  A
     step whose residual ends the solve ends the cycle there, as the JAX
     gate does."""
+    dot, norm, dots = _reducers(axis_name)
     if ell < 1:
         raise ValueError(f"bcgsl requires ell >= 1, got {ell}")
     L = int(ell)
@@ -622,12 +744,12 @@ def bcgsl(matvec: Callable, b: torch.Tensor,
 
     dtype = b.dtype
     tiny = _tiny(dtype)
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     r0 = b if x0 is None else b - matvec(x0)
     rt = r0
     history = _history(maxit, dtype)
-    rnorm0 = float(_norm(r0))
+    rnorm0 = float(norm(r0))
     history[0] = rnorm0
     reason = check(rnorm0, 0)
     R = [r0] + [torch.zeros_like(b) for _ in range(L)]
@@ -642,16 +764,16 @@ def bcgsl(matvec: Callable, b: torch.Tensor,
         live = True
         # ---- BiCG part: ell shadow steps --------------------------------
         for j in range(L):
-            rho1 = _dot(rt, R[j])
+            rho1 = dot(rt, R[j])
             beta = alpha * rho1 / _safe(rho0)
             Un = [R[i] - beta * U[i] for i in range(j + 1)] + U[j + 1:]
             Un[j + 1] = bmv(Un[j])
-            gamma = _dot(rt, Un[j + 1])
+            gamma = dot(rt, Un[j + 1])
             alpha = rho1 / _safe(gamma)
             Rn = [R[i] - alpha * Un[i + 1] for i in range(j + 1)] + R[j + 1:]
             Rn[j + 1] = bmv(Rn[j])
             y = y + alpha * Un[0]
-            rn, rho_abs, gamma_abs = _host(_norm(Rn[0]), rho0.abs(),
+            rn, rho_abs, gamma_abs = _host(norm(Rn[0]), rho0.abs(),
                                            gamma.abs())
             U, R, rho0 = Un, Rn, rho1
             its += 1
@@ -669,10 +791,10 @@ def bcgsl(matvec: Callable, b: torch.Tensor,
             gp = [None] * (L + 1)                      # gamma'
             for j in range(1, L + 1):
                 for i in range(1, j):
-                    tau[i][j] = _dot(Rm[i], Rm[j]) / _safe(sigma[i])
+                    tau[i][j] = dot(Rm[i], Rm[j]) / _safe(sigma[i])
                     Rm[j] = Rm[j] - tau[i][j] * Rm[i]
-                sigma[j] = _dot(Rm[j], Rm[j])
-                gp[j] = _dot(Rm[j], Rm[0]) / _safe(sigma[j])
+                sigma[j] = dot(Rm[j], Rm[j])
+                gp[j] = dot(Rm[j], Rm[0]) / _safe(sigma[j])
             zero = torch.zeros((), dtype=dtype, device=b.device)
             g = [None] * (L + 1)
             g[L] = gp[L]
@@ -695,22 +817,23 @@ def bcgsl(matvec: Callable, b: torch.Tensor,
                 Rn[0] = Rn[0] - gp[j] * Rn[j]
             R = Rn
             omega = g[L]
-            rn, sigma_min = _host(_norm(R[0]),
+            rn, sigma_min = _host(norm(R[0]),
                                   torch.stack(sigma[1:]).abs().min())
             reason = _breakdown(check(rn, its), sigma_min < tiny)
         history[min(its, maxit)] = rn
     x = psolve(y) if x0 is None else x0 + psolve(y)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def cgs(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
         atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
-        **_) -> KSPResult:
+        axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Conjugate Gradients Squared (Sonneveld; PETSc KSPCGS): transpose-free
     BiCG with the polynomial squared, two matvecs an iteration.  The PC is
     right-folded (B = A M^-1, x = x0 + M^-1 y), so the monitored history is
     the true residual of the original system."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
 
     def bmv(v):
@@ -718,13 +841,13 @@ def cgs(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
     dtype = b.dtype
     tiny = _tiny(dtype)
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     r = b if x0 is None else b - matvec(x0)
     rt0 = r
-    rho = _dot(rt0, r)
+    rho = dot(rt0, r)
     history = _history(maxit, dtype)
-    rnorm0, rho_abs = _host(_norm(r), rho.abs())
+    rnorm0, rho_abs = _host(norm(r), rho.abs())
     history[0] = rnorm0
     its = 0
     reason = _breakdown(check(rnorm0, its), rho_abs < tiny)
@@ -732,36 +855,38 @@ def cgs(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     u = p = r
     while reason == CONVERGED_ITERATING:
         v = bmv(p)
-        sigma = _dot(rt0, v)
+        sigma = dot(rt0, v)
         alpha = rho / _safe(sigma)
         q = u - alpha * v
         uq = u + q
         y = y + alpha * uq
         r = r - alpha * bmv(uq)
-        rho_new = _dot(rt0, r)
+        rho_new, rr = dots(((rt0, r), (r, r)))
         beta = rho_new / _safe(rho)
         u = r + beta * q
         p = u + beta * (q + beta * p)
         rho = rho_new
-        rn, sigma_abs, rho_abs = _host(_norm(r), sigma.abs(), rho_new.abs())
+        rn, sigma_abs, rho_abs = _host(torch.sqrt(rr.real), sigma.abs(),
+                                       rho_new.abs())
         its += 1
         history[its] = rn
         reason = _breakdown(check(rn, its),
                             sigma_abs < tiny or rho_abs < tiny)
     x = psolve(y) if x0 is None else x0 + psolve(y)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def tfqmr(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None,
           pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
           atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
-          **_) -> KSPResult:
+          axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Transpose-Free QMR (Freund; PETSc KSPTFQMR): CGS's search space with
     quasi-minimal-residual smoothing, two matvecs an iteration.  The PC is
     right-folded as in ``cgs``; the monitored history is Freund's bound
     tau sqrt(2k + 1) (what PETSc's monitor shows), and ``rnorm`` the true
     final residual."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
 
     def bmv(v):
@@ -769,12 +894,12 @@ def tfqmr(matvec: Callable, b: torch.Tensor,
 
     dtype = b.dtype
     tiny = _tiny(dtype)
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     r0 = b if x0 is None else b - matvec(x0)
     rt0 = r0
-    tau = _norm(r0)
-    rho = _dot(rt0, r0)
+    tau = norm(r0)
+    rho = dot(rt0, r0)
     v = uhat = bmv(r0)
     history = _history(maxit, dtype)
     tau0, rho_abs = _host(tau, rho.abs())
@@ -785,7 +910,7 @@ def tfqmr(matvec: Callable, b: torch.Tensor,
     def half(ym, Aym, w, tau, theta, eta, d, yacc, alpha):
         """One QMR half-step: residual update, smoothing, solution step."""
         w1 = w - alpha * Aym
-        theta1 = _norm(w1) / torch.clamp(tau, min=tiny)
+        theta1 = norm(w1) / torch.clamp(tau, min=tiny)
         c1 = 1.0 / torch.sqrt(1.0 + theta1 ** 2)
         tau1 = tau * theta1 * c1
         eta1 = (c1 ** 2) * alpha
@@ -798,7 +923,7 @@ def tfqmr(matvec: Callable, b: torch.Tensor,
     theta = torch.zeros((), dtype=dtype.to_real(), device=b.device)
     eta = torch.zeros((), dtype=dtype, device=b.device)
     while reason == CONVERGED_ITERATING:
-        sigma = _dot(rt0, v)
+        sigma = dot(rt0, v)
         alpha = rho / _safe(sigma)
         y2 = y1 - alpha * v
         By2 = bmv(y2)
@@ -807,7 +932,7 @@ def tfqmr(matvec: Callable, b: torch.Tensor,
                                            yacc, alpha)
         w, tau, theta, eta, d, yacc = half(y2, By2, w, tau, theta, eta, d,
                                            yacc, alpha)
-        rho_new = _dot(rt0, w)
+        rho_new = dot(rt0, w)
         beta = rho_new / _safe(rho)
         y1 = w + beta * y2
         uhat = bmv(y1)
@@ -821,29 +946,31 @@ def tfqmr(matvec: Callable, b: torch.Tensor,
         reason = _breakdown(check(rn, its),
                             sigma_abs < tiny or rho_abs < tiny)
     x = psolve(yacc) if x0 is None else x0 + psolve(yacc)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def gcr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         pc_apply: Optional[Callable] = None, *, restart: int = 30,
         rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
-        maxit: int = 10000, **_) -> KSPResult:
+        maxit: int = 10000,
+        axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Generalized Conjugate Residuals with restarts (PETSc KSPGCR): takes
     a PC that changes between iterations, and updates x and the true
     residual every iteration.  Stores ``restart`` directions p and A p
     (cleared at each restart boundary); the monitored norm comes from
     ``||r'||^2 = ||r||^2 - <Ap, r>^2 / ||Ap||^2`` with ||r|| measured fresh
     each iteration."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
     dtype = b.dtype
     tiny = _tiny(dtype)
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     r = b if x0_zero else b - matvec(x)
     history = _history(maxit, dtype)
-    rnorm0 = float(_norm(r))
+    rnorm0 = float(norm(r))
     history[0] = rnorm0
     its = 0
     reason = check(rnorm0, its)
@@ -857,10 +984,10 @@ def gcr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             AP.zero_()
         p = psolve(r)
         Ap = matvec(p)
-        beta = AP.conj() @ Ap              # empty slots give 0
+        beta = _gram(AP, Ap, axis_name)    # empty slots give 0
         p = p - beta @ P
         Ap = Ap - beta @ AP
-        nn, ar, rr = _dot(Ap, Ap), _dot(Ap, r), _dot(r, r)
+        nn, ar, rr = dots(((Ap, Ap), (Ap, r), (r, r)))
         nrm = torch.sqrt(nn.real)
         safe = _safe(nrm)
         p = p / safe
@@ -876,7 +1003,7 @@ def gcr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         its += 1
         history[its] = rn
         reason = _breakdown(check(rn, its), nrm_h <= 1e3 * tiny)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 # ---------------------------------------------------------------------------
@@ -886,62 +1013,64 @@ def gcr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
        pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
        atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
-       **_) -> KSPResult:
+       axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Preconditioned conjugate gradients (SPD operator and PC).  The
     monitored residual is the unpreconditioned ||r||, which comes to the
     host once per iteration for the convergence test; <r, z>, alpha and
     beta stay on the device."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     history = _history(maxit, b.dtype)
     r = b if x0_zero else b - matvec(x)
     p = psolve(r)
-    rz = _dot(r, p)
-    rnorm = float(_norm(r))
+    rz = dot(r, p)
+    rnorm = float(norm(r))
     history[0] = rnorm
     its = 0
     reason = check(rnorm, its)
     while reason == CONVERGED_ITERATING:
         w = matvec(p)
-        alpha = rz / _safe(_dot(p, w))
+        alpha = rz / _safe(dot(p, w))
         x = x + alpha * p
         r = r - alpha * w
         z = psolve(r)
-        rz_new = _dot(r, z)
+        rz_new, rr = dots(((r, z), (r, r)))
         beta = rz_new / _safe(rz)
         p = z + beta * p
         rz = rz_new
-        rn = float(_norm(r))
+        rn = float(torch.sqrt(rr.real))
         its += 1
         history[its] = rn
         reason = check(rn, its)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def pipecg(matvec: Callable, b: torch.Tensor,
            x0: Optional[torch.Tensor] = None,
            pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
            atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
-           **_) -> KSPResult:
+           axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Pipelined conjugate gradients (Ghysels-Vanroose; PETSc KSPPIPECG):
     CG in exact arithmetic, restructured so that an iteration's three inner
     products do not wait on its PC apply and matvec (the next stage's
     m = M^-1 w and n = A m), carrying s = A p, q = M^-1 A p and
     z = A M^-1 A p beside p.  SPD operator and PC."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
     dtype = b.dtype
     tiny = _tiny(dtype)
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     r = b if x0_zero else b - matvec(x)
     u = psolve(r)
     w = matvec(u)
-    gamma, delta, rr = _dot(r, u), _dot(w, u), _dot(r, r)
+    gamma, delta, rr = dots(((r, u), (w, u), (r, r)))
     history = _history(maxit, dtype)
     rnorm0 = float(torch.sqrt(rr.real))
     history[0] = rnorm0
@@ -968,65 +1097,66 @@ def pipecg(matvec: Callable, b: torch.Tensor,
         u = u - alpha * q
         w = w - alpha * z
         gamma_p, alpha_p = gamma, alpha
-        gamma, delta, rr = _dot(r, u), _dot(w, u), _dot(r, r)
+        gamma, delta, rr = dots(((r, u), (w, u), (r, r)))
         m = psolve(w)
         n = matvec(m)
         rn, denom_abs = _host(torch.sqrt(rr.real), denom.abs())
         its += 1
         history[its] = rn
         reason = _breakdown(check(rn, its), denom_abs < tiny)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def cr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
        pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
        atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
-       **_) -> KSPResult:
+       axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Preconditioned Conjugate Residuals (PETSc KSPCR) for symmetric
     operators with an SPD PC: minimizes ``||b - A x||_{M^-1}`` with CG's
     short recurrences, one matvec and one PC apply an iteration; zero
     curvature ``<w, M^-1 w>`` reports DIVERGED_BREAKDOWN."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
     dtype = b.dtype
     tiny = _tiny(dtype)
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     r = b if x0_zero else b - matvec(x)
     z = p = psolve(r)
     w = matvec(z)
-    rho = _dot(z, w)
+    rho = dot(z, w)
     history = _history(maxit, dtype)
-    rnorm0 = float(_norm(r))
+    rnorm0 = float(norm(r))
     history[0] = rnorm0
     its = 0
     reason = check(rnorm0, its)
     while reason == CONVERGED_ITERATING:
         q = psolve(w)                      # M^-1 A p
-        wq = _dot(w, q)
+        wq = dot(w, q)
         alpha = rho / _safe(wq)
         x = x + alpha * p
         r = r - alpha * w
         z = z - alpha * q
         Az = matvec(z)
-        rho_new = _dot(z, Az)
+        rho_new, rr = dots(((z, Az), (r, r)))
         beta = rho_new / _safe(rho)
         p = z + beta * p
         w = Az + beta * w                  # A p by recurrence
         rho = rho_new
-        rn, wq_abs = _host(_norm(r), wq.abs())
+        rn, wq_abs = _host(torch.sqrt(rr.real), wq.abs())
         its += 1
         history[its] = rn
         reason = _breakdown(check(rn, its), wq_abs < tiny)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def minres(matvec: Callable, b: torch.Tensor,
            x0: Optional[torch.Tensor] = None,
            pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
            atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
-           **_) -> KSPResult:
+           axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Preconditioned MINRES (Paige-Saunders; PETSc KSPMINRES) for
     symmetric, possibly indefinite operators with an SPD PC: the Lanczos
     recurrence with a Givens QR of the tridiagonal.  The monitored norm is
@@ -1034,6 +1164,7 @@ def minres(matvec: Callable, b: torch.Tensor,
     tested against ||b||_{M^-1}; ``rnorm`` is the true final residual.  A
     negative beta^2 (an indefinite PC) or a Lanczos breakdown reports
     DIVERGED_BREAKDOWN, whatever the convergence test says."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
@@ -1042,9 +1173,9 @@ def minres(matvec: Callable, b: torch.Tensor,
     rdtype = dtype.to_real()
     r1 = b if x0_zero else b - matvec(x)
     y = psolve(r1)
-    beta1_sq = _dot(r1, y).real
+    beta1_sq = dot(r1, y).real
     beta1 = torch.sqrt(torch.clamp(beta1_sq, min=0))
-    bnorm_t = torch.sqrt(torch.clamp(_dot(b, psolve(b)).real, min=0))
+    bnorm_t = torch.sqrt(torch.clamp(dot(b, psolve(b)).real, min=0))
     beta1_h, bnorm, beta1_sq_h = _host(beta1, bnorm_t, beta1_sq)
     check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
     history = _history(maxit, dtype)
@@ -1064,11 +1195,11 @@ def minres(matvec: Callable, b: torch.Tensor,
         y = matvec(v)
         if its >= 1:
             y = y - (beta / _safe(oldb)) * r1
-        alfa = _dot(v, y).real
+        alfa = dot(v, y).real
         y = y - (alfa * ibeta) * r2
         r1, r2 = r2, y
         y = psolve(r2)
-        beta_sq = _dot(r2, y).real
+        beta_sq = dot(r2, y).real
         oldb, beta = beta, torch.sqrt(torch.clamp(beta_sq, min=0))
         # Givens QR of the Lanczos tridiagonal, one column an iteration
         oldeps = epsln
@@ -1092,20 +1223,21 @@ def minres(matvec: Callable, b: torch.Tensor,
         reason = check(rn, its)
         if bsq < 0 or broke:
             reason = DIVERGED_BREAKDOWN
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def symmlq(matvec: Callable, b: torch.Tensor,
            x0: Optional[torch.Tensor] = None,
            pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
            atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
-           **_) -> KSPResult:
+           axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """SYMMLQ (Paige-Saunders; PETSc KSPSYMMLQ) for symmetric, possibly
     indefinite operators with an SPD PC: an LQ factorization of the Lanczos
     tridiagonal, iterates minimizing the error norm.  Convergence is tested
     on the residual of the transferred CG point (symmlq.m's ``cgnorm``)
     against ||r0||_{M^-1}, and the solution takes the CG-point transfer
     step at the end.  A negative beta^2 reports DIVERGED_BREAKDOWN."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
     x00 = torch.zeros_like(b) if x0 is None else x0
     dtype = b.dtype
@@ -1114,15 +1246,15 @@ def symmlq(matvec: Callable, b: torch.Tensor,
     # the x0 = 0 problem A dx = r0 (SYMMLQ's natural form)
     r0 = b - matvec(x00)
     y0 = psolve(r0)
-    beta1_sq = _dot(r0, y0).real
+    beta1_sq = dot(r0, y0).real
     beta1 = torch.sqrt(torch.clamp(beta1_sq, min=0))
     sfe = torch.where(beta1 > 0, beta1, torch.ones_like(beta1))
     v1 = y0 / sfe
     yA = matvec(v1)
-    alfa0 = _dot(v1, yA).real
+    alfa0 = dot(v1, yA).real
     r2 = yA - (alfa0 / sfe) * r0
     y = psolve(r2)
-    beta_sq0 = _dot(r2, y).real
+    beta_sq0 = dot(r2, y).real
     beta = torch.sqrt(torch.clamp(beta_sq0, min=0))
     beta1_h, b1sq, b0sq = _host(beta1, beta1_sq, beta_sq0)
     check = _checker(beta1_h, rtol=rtol, atol=atol, divtol=divtol,
@@ -1143,12 +1275,12 @@ def symmlq(matvec: Callable, b: torch.Tensor,
         v = y * ibeta
         y = matvec(v)
         y = y - (beta / _safe(oldb)) * r1
-        alfa = _dot(v, y).real
+        alfa = dot(v, y).real
         y = y - (alfa * ibeta) * r2
         r1, r2 = r2, y
         y = psolve(r2)
         oldb = beta
-        beta_sq = _dot(r2, y).real
+        beta_sq = dot(r2, y).real
         beta = torch.sqrt(torch.clamp(beta_sq, min=0))
         # LQ factorization: the previous rotation folds into this column
         gamma = torch.clamp(torch.sqrt(gbar ** 2 + oldb ** 2), min=tiny)
@@ -1185,7 +1317,7 @@ def symmlq(matvec: Callable, b: torch.Tensor,
                             torch.full_like(gbar, tiny))
         zbar = rhs1 / denom
         x = x + zbar * w + ((snprod * zbar + bstep) / sfe) * y0
-    return _result(matvec, b, x00 + x, its, reason, history)
+    return _result(matvec, b, x00 + x, its, reason, history, axis=axis_name)
 
 
 # ---------------------------------------------------------------------------
@@ -1196,22 +1328,24 @@ def chebyshev(matvec: Callable, b: torch.Tensor,
               x0: Optional[torch.Tensor] = None,
               pc_apply: Optional[Callable] = None, *, emin: float = 0.1,
               emax: float = 1.1, rtol: float = 1e-5, atol: float = 1e-50,
-              divtol: float = 1e4, maxit: int = 10000, **_) -> KSPResult:
+              divtol: float = 1e4, maxit: int = 10000,
+              axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Chebyshev semi-iteration over the preconditioned spectrum interval
     [emin, emax] (PETSc KSPCHEBYSHEV): no inner products in the iteration;
     the residual norm comes to the host once an iteration for the
     convergence test."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     theta = 0.5 * (emax + emin)
     delta = 0.5 * (emax - emin)
     sigma1 = theta / delta if delta != 0 else 0.0
     r = b if x0_zero else b - matvec(x)
     history = _history(maxit, b.dtype)
-    rnorm0 = float(_norm(r))
+    rnorm0 = float(norm(r))
     history[0] = rnorm0
     its = 0
     reason = check(rnorm0, its)
@@ -1228,54 +1362,58 @@ def chebyshev(matvec: Callable, b: torch.Tensor,
         rho = rho_new
         x = x + p
         r = r - matvec(p)
-        rn = float(_norm(r))
+        rn = float(norm(r))
         its += 1
         history[its] = rn
         reason = check(rn, its)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def richardson(matvec: Callable, b: torch.Tensor,
                x0: Optional[torch.Tensor] = None,
                pc_apply: Optional[Callable] = None, *, scale: float = 1.0,
                rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
-               maxit: int = 10000, **_) -> KSPResult:
+               maxit: int = 10000,
+               axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Preconditioned Richardson iteration x += scale * M^{-1} r; with a
     (possibly lower-precision) factorization PC this is stationary
     iterative refinement.  The monitored residual is the true ||b - A x||,
     recomputed every iteration, and comes to the host once per iteration
     for the convergence test."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     history = _history(maxit, b.dtype)
     r = b if x0_zero else b - matvec(x)
-    rnorm = float(_norm(r))
+    rnorm = float(norm(r))
     history[0] = rnorm
     its = 0
     reason = check(rnorm, its)
     while reason == CONVERGED_ITERATING:
         x = x + scale * psolve(r)
         r = b - matvec(x)
-        rn = float(_norm(r))
+        rn = float(norm(r))
         its += 1
         history[its] = rn
         reason = check(rn, its)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def preonly(matvec: Callable, b: torch.Tensor,
             x0: Optional[torch.Tensor] = None,
-            pc_apply: Optional[Callable] = None, **_) -> KSPResult:
+            pc_apply: Optional[Callable] = None,
+            axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """One preconditioner application (PETSc KSPPREONLY): with a direct
     factorization PC this is the direct solve.  The reason is
     CONVERGED_ITS unless the residual is non-finite (DIVERGED_NANORINF);
     the history is ``[||b||, ||b - A x||]`` whatever the caller's maxit."""
+    dot, norm, dots = _reducers(axis_name)
     psolve = pc_apply or _identity_pc
     x = psolve(b) if x0 is None else x0 + psolve(b - matvec(x0))
-    rn, bn = _host(_norm(b - matvec(x)), _norm(b))
+    rn, bn = _host(norm(b - matvec(x)), norm(b))
     history = torch.tensor([bn, rn], dtype=b.dtype.to_real())
     reason = CONVERGED_ITS if math.isfinite(rn) else DIVERGED_NANORINF
     return KSPResult(x=x, its=1, reason=reason, rnorm=rn, history=history)
@@ -1291,12 +1429,14 @@ def bicg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
          matvec_transpose: Optional[Callable] = None,
          pc_apply_transpose: Optional[Callable] = None,
          rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
-         maxit: int = 10000, **_) -> KSPResult:
+         maxit: int = 10000,
+         axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Preconditioned BiConjugate Gradients (PETSc KSPBICG): the shadow
     recurrence runs on A^H and M^-H, conjugations of the pure transposes
-    ``matvec_transpose`` and ``pc_apply_transpose``.  The monitored residual is the true residual;
-    it comes to the host once per iteration with the breakdown tests'
-    |<pt, A p>| and |rho|."""
+    ``matvec_transpose`` and ``pc_apply_transpose``.  The monitored
+    residual is the true residual; it comes to the host once per iteration
+    with the breakdown tests' |<pt, A p>| and |rho|."""
+    dot, norm, dots = _reducers(axis_name)
     _need_transpose("bicg", matvec_transpose)
     psolve = pc_apply or _identity_pc
     mv_h = _hermitian(matvec_transpose)
@@ -1304,36 +1444,37 @@ def bicg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
     tiny = _tiny(b.dtype)
-    check = _checker(float(_norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     history = _history(maxit, b.dtype)
     r = b if x0_zero else b - matvec(x)
     rt = r
     p, pt = psolve(r), ps_h(rt)
-    rho = _dot(rt, p)
-    rnorm0, rho_abs = _host(_norm(r), rho.abs())
+    rho = dot(rt, p)
+    rnorm0, rho_abs = _host(norm(r), rho.abs())
     history[0] = rnorm0
     its = 0
     reason = _breakdown(check(rnorm0, its), rho_abs < tiny)
     while reason == CONVERGED_ITERATING:
         q, qt = matvec(p), mv_h(pt)
-        denom = _dot(pt, q)
+        denom = dot(pt, q)
         alpha = rho / _safe(denom)
         x = x + alpha * p
         r = r - alpha * q
         rt = rt - alpha.conj() * qt
         z, zt = psolve(r), ps_h(rt)
-        rho_new = _dot(rt, z)
+        rho_new, rr = dots(((rt, z), (r, r)))
         beta = rho_new / _safe(rho)
         p = z + beta * p
         pt = zt + beta.conj() * pt
         rho = rho_new
-        rn, denom_abs, rho_abs = _host(_norm(r), denom.abs(), rho_new.abs())
+        rn, denom_abs, rho_abs = _host(torch.sqrt(rr.real), denom.abs(),
+                                       rho_new.abs())
         its += 1
         history[its] = rn
         reason = _breakdown(check(rn, its),
                             denom_abs < tiny or rho_abs < tiny)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def cgnr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
@@ -1341,7 +1482,8 @@ def cgnr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
          matvec_transpose: Optional[Callable] = None,
          pc_apply_transpose: Optional[Callable] = None,
          rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
-         maxit: int = 10000, **_) -> KSPResult:
+         maxit: int = 10000,
+         axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """CG on the normal equations in CGLS form (PETSc KSPCGNE; registered
     as ``cgne``, ``cgnr`` and ``cgls``): minimizes ||M^-1 (b - A x)|| with
     B = M^-1 A, carrying the least-squares residual s = M^-1 (b - A x) and
@@ -1350,6 +1492,7 @@ def cgnr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     callables).  The monitored history is ||s||; CONVERGED_RTOL_NORMAL is
     reported once ||B^T s|| <= rtol ||B^T M^-1 b|| (the normal-equations
     test, where ||s|| stalls at the least-squares optimum)."""
+    dot, norm, dots = _reducers(axis_name)
     _need_transpose("cgnr/cgne", matvec_transpose)
     psolve = pc_apply or _identity_pc
     mv_h = _hermitian(matvec_transpose)
@@ -1371,8 +1514,8 @@ def cgnr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         x = x0.clone()
         s = psolve(b - matvec(x0))
         r = bmv_t(s)
-    gamma = _dot(r, r).real
-    bnorm, ntnorm0, rnorm0, gamma_h = _host(_norm(c), _norm(bt), _norm(s),
+    gamma = dot(r, r).real
+    bnorm, ntnorm0, rnorm0, gamma_h = _host(norm(c), norm(bt), norm(s),
                                             gamma)
     check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
     history = _history(maxit, b.dtype)
@@ -1390,21 +1533,22 @@ def cgnr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     p = r
     while reason == CONVERGED_ITERATING:
         q = bmv(p)
-        qq = _dot(q, q).real
+        qq = dot(q, q).real
         alpha = gamma / _safe(qq)
         x = x + alpha * p
         s = s - alpha * q
         r = bmv_t(s)
-        gamma_new = _dot(r, r).real
+        gamma_new, ss = dots(((r, r), (s, s)))
+        gamma_new = gamma_new.real
         beta = gamma_new / _safe(gamma)
         p = r + beta * p
         gamma = gamma_new
-        rn, qq_h, gamma_h = _host(_norm(s), qq, gamma_new)
+        rn, qq_h, gamma_h = _host(torch.sqrt(ss.real), qq, gamma_new)
         its += 1
         history[its] = rn
         reason = _breakdown(normal_test(check(rn, its), gamma_h),
                             qq_h < tiny)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 def lsqr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
@@ -1412,7 +1556,8 @@ def lsqr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
          matvec_transpose: Optional[Callable] = None,
          pc_apply_transpose: Optional[Callable] = None,
          rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
-         maxit: int = 10000, **_) -> KSPResult:
+         maxit: int = 10000,
+         axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """LSQR (Paige-Saunders Golub-Kahan bidiagonalization; PETSc KSPLSQR):
     min ||b - A x|| for square or rectangular A, right-preconditioned
     (B = A M^-1, x = x0 + M^-1 y).  The monitored history is the residual
@@ -1421,6 +1566,7 @@ def lsqr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     bidiagonalization terminates (alpha or beta below tiny).  The scalar
     recurrences run on the device in the vectors' dtype; phibar and the
     test's terms come to the host once per iteration."""
+    dot, norm, dots = _reducers(axis_name)
     _need_transpose("lsqr", matvec_transpose)
     psolve = pc_apply or _identity_pc
     mv_h = _hermitian(matvec_transpose)
@@ -1434,12 +1580,12 @@ def lsqr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
     tiny = _tiny(b.dtype)
     r0 = b if x0 is None else b - matvec(x0)
-    beta0 = _norm(r0)
+    beta0 = norm(r0)
     u = r0 / _safe(beta0)
     v_un = bmv_t(u)
-    alpha = _norm(v_un)
+    alpha = norm(v_un)
     v = v_un / _safe(alpha)
-    bnorm, beta0_h, alpha0_h = _host(_norm(b), beta0, alpha)
+    bnorm, beta0_h, alpha0_h = _host(norm(b), beta0, alpha)
     check = _checker(bnorm, rtol=rtol, atol=atol, divtol=divtol, maxit=maxit)
     history = _history(maxit, b.dtype)
     history[0] = beta0_h
@@ -1451,10 +1597,10 @@ def lsqr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     rhobar, phibar, anorm2 = alpha, beta0, alpha ** 2
     while reason == CONVERGED_ITERATING:
         u_un = bmv(v) - alpha * u
-        beta = _norm(u_un)
+        beta = norm(u_un)
         u = u_un / _safe(beta)
         v_un = bmv_t(u) - beta * v
-        alpha = _norm(v_un)
+        alpha = norm(v_un)
         v = v_un / _safe(alpha)
         rho = torch.sqrt(rhobar ** 2 + beta ** 2)
         cs = rhobar / _safe(rho)
@@ -1479,7 +1625,7 @@ def lsqr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                 normal_h <= limit_h or alpha_h <= tiny or beta_h <= tiny):
             reason = CONVERGED_RTOL_NORMAL
     x = psolve(y) if x0 is None else x0 + psolve(y)
-    return _result(matvec, b, x, its, reason, history)
+    return _result(matvec, b, x, its, reason, history, axis=axis_name)
 
 
 for _name, _fn in (("gmres", gmres), ("fgmres", fgmres), ("lgmres", lgmres),

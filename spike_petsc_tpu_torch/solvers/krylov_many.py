@@ -14,6 +14,14 @@ come to the host once per decision point (BiCGStab: after the s-norm and
 after the full step; the other engines: once per iteration), where the
 convergence tests, the iteration counts and the history are kept.  Results
 are column-batched ``KSPResult``s (see ``types.KSPResult``).
+
+On a mesh every engine takes ``axis_name`` (a ``parallel.mesh.MeshAxis``;
+its rank's row block of the columns): each JAX ``psum`` of ``[r]`` or
+stacked ``[k, r]`` column sums is one ``all_reduce`` (``_cdots``).
+``conv_sync_axis`` (the replica axis) keeps JAX's meaning: the loop runs
+while any column of any replica iterates (stopped columns stay frozen, the
+loop-global trip count advances), and bicgstab's half-step exit and
+gmres's DGKS refinement are taken replica-wide, one ``all_reduce`` each.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from .krylov import DGKS_THRESHOLD
+from .krylov import DGKS_THRESHOLD, _Sync
 from .types import (CONVERGED_ITERATING, CONVERGED_ITS, DIVERGED_BREAKDOWN,
                     DIVERGED_NANORINF, KSPResult, default_convergence_check)
 
@@ -36,15 +44,30 @@ def _identity_pc(x):
     return x
 
 
-def _cdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _cdot(a: torch.Tensor, b: torch.Tensor, axis=None) -> torch.Tensor:
     """Per-column inner products <a_j, b_j> = a_j^H b_j: [n, r] x [n, r]
-    -> [r]."""
-    return (a.conj() * b).sum(dim=0)
+    -> [r], summed over the mesh axis ``axis`` (one ``all_reduce``)."""
+    d = (a.conj() * b).sum(dim=0)
+    return d if axis is None else axis.all_reduce(d)
 
 
-def _cnorm(x: torch.Tensor) -> torch.Tensor:
+def _cdots(pairs, axis=None) -> tuple:
+    """Several per-column inner products, one stacked ``[k, r]``
+    ``all_reduce`` on a mesh (JAX ``krylov_many.py:51-57``)."""
+    d = [(a.conj() * b).sum(dim=0) for a, b in pairs]
+    if axis is None:
+        return tuple(d)
+    s = axis.all_reduce(torch.stack(d))
+    return tuple(s[i] for i in range(len(pairs)))
+
+
+def _cnorm(x: torch.Tensor, axis=None) -> torch.Tensor:
     """Per-column norms, real for complex x."""
-    return torch.sqrt(_cdot(x, x).real)
+    return torch.sqrt(_cdot(x, x, axis).real)
+
+
+def _sync(conv_sync_axis) -> Optional[_Sync]:
+    return None if conv_sync_axis is None else _Sync(conv_sync_axis)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -73,8 +96,10 @@ class _Columns:
             rn[j], self.bnorm[j], its, **self.tols)
             for j in range(rn.shape[0])], np.int32)
 
-    def iterating(self) -> bool:
-        return bool((self.reason == CONVERGED_ITERATING).any())
+    def iterating(self, sync: Optional[_Sync] = None) -> bool:
+        """Some column iterates (on some replica, under ``sync``)."""
+        it = bool((self.reason == CONVERGED_ITERATING).any())
+        return it if sync is None else sync.any(it)
 
     def active(self) -> np.ndarray:
         return self.reason == CONVERGED_ITERATING
@@ -114,7 +139,7 @@ def bicgstab_many(matvec: Callable, B: torch.Tensor,
                   pc_apply: Optional[Callable] = None, *,
                   rtol: float = 1e-5, atol: float = 1e-50,
                   divtol: float = 1e4, maxit: int = 10000,
-                  **_) -> KSPResult:
+                  axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Column-batched preconditioned BiCGStab; B: [n, r].
 
     Each column runs the one-RHS ``bicgstab`` recurrence (its own initial
@@ -124,113 +149,130 @@ def bicgstab_many(matvec: Callable, B: torch.Tensor,
     apply and matvec; otherwise the full step runs and per-column freezing
     applies.  PETSc's KSPSolve_BCGS performs the same s-norm exit."""
     psolve = pc_apply or _identity_pc
+    ax, sync = axis_name, _sync(conv_sync_axis)
     x0_zero = X0 is None                 # R0 = B exactly; skip matvec(0)
     dev, dtype = B.device, B.dtype
     tiny = torch.finfo(dtype).tiny
-    bnorm = _host(_cnorm(B))
+    bnorm = _host(_cnorm(B, ax))
     R0 = B if x0_zero else B - matvec(X0)
-    cols = _Columns(_host(_cnorm(R0)), bnorm, maxit, dtype, rtol=rtol,
+    cols = _Columns(_host(_cnorm(R0, ax)), bnorm, maxit, dtype, rtol=rtol,
                     atol=atol, divtol=divtol)
     ones = torch.ones(B.shape[1], dtype=dtype, device=dev)
     s = dict(X=torch.zeros_like(B) if x0_zero else X0.clone(), R=R0,
              P=torch.zeros_like(B), V=torch.zeros_like(B), rho=ones,
              alpha=ones, omega=ones)
     Rt = R0
-    while cols.iterating():
+    while cols.iterating(sync):
         active = cols.active()
-        rho_new = _cdot(Rt, s["R"])
+        rho_new = _cdot(Rt, s["R"], ax)
         beta = (rho_new / torch.where(s["rho"] != 0, s["rho"], 1.0)) \
             * (s["alpha"] / torch.where(s["omega"] != 0, s["omega"], 1.0))
         P = s["R"] + beta * (s["P"] - s["omega"] * s["V"])
         Phat = psolve(P)
         V = matvec(Phat)
-        denom = _cdot(Rt, V)
+        denom = _cdot(Rt, V, ax)
         alpha = rho_new / torch.where(denom != 0, denom, 1.0)
         Sr = s["R"] - alpha * V
-        snorm, rho_abs = _host(torch.stack([_cnorm(Sr), rho_new.abs()]))
+        snorm, rho_abs = _host(torch.stack([_cnorm(Sr, ax),
+                                            rho_new.abs()]))
         half_reason = cols.check(snorm, cols.trip + 1)
-        if np.all(~active | (half_reason > 0)):
+        all_half = bool(np.all(~active | (half_reason > 0)))
+        if sync is not None:                 # JAX's pmin over the replicas
+            all_half = not sync.any(not all_half)
+        if all_half:
             new = dict(X=s["X"] + alpha * Phat, R=Sr, P=P, V=V, rho=rho_new,
                        alpha=alpha, omega=s["omega"])
             rn, reason = snorm, half_reason
         else:
             Shat = psolve(Sr)
             T = matvec(Shat)
-            tt, ts = _cdot(T, T), _cdot(T, Sr)
+            tt, ts = _cdots(((T, T), (T, Sr)), ax)
             omega = ts / torch.where(tt != 0, tt, 1.0)
             R = Sr - omega * T
             new = dict(X=s["X"] + alpha * Phat + omega * Shat, R=R, P=P, V=V,
                        rho=rho_new, alpha=alpha, omega=omega)
-            rn = _host(_cnorm(R))
+            rn = _host(_cnorm(R, ax))
             reason = cols.check(rn, cols.trip + 1)
             reason = np.where((rho_abs < tiny)
                               & (reason == CONVERGED_ITERATING),
                               DIVERGED_BREAKDOWN, reason)
         s = _freeze(active, new, s)
         cols.record(active, rn, reason)
-    return cols.result(s["X"], _cnorm(B - matvec(s["X"])))
+    return cols.result(s["X"], _cnorm(B - matvec(s["X"]), ax))
 
 
 def cg_many(matvec: Callable, B: torch.Tensor,
             X0: Optional[torch.Tensor] = None,
             pc_apply: Optional[Callable] = None, *, rtol: float = 1e-5,
             atol: float = 1e-50, divtol: float = 1e4, maxit: int = 10000,
-            **_) -> KSPResult:
+            axis_name=None, conv_sync_axis=None, **_) -> KSPResult:
     """Column-batched preconditioned CG (SPD operator and PC); B: [n, r]."""
     psolve = pc_apply or _identity_pc
+    ax, sync = axis_name, _sync(conv_sync_axis)
     x0_zero = X0 is None
     dtype = B.dtype
-    bnorm = _host(_cnorm(B))
+    bnorm = _host(_cnorm(B, ax))
     R0 = B if x0_zero else B - matvec(X0)
     Z0 = psolve(R0)
-    cols = _Columns(_host(_cnorm(R0)), bnorm, maxit, dtype, rtol=rtol,
+    cols = _Columns(_host(_cnorm(R0, ax)), bnorm, maxit, dtype, rtol=rtol,
                     atol=atol, divtol=divtol)
     s = dict(X=torch.zeros_like(B) if x0_zero else X0.clone(), R=R0, P=Z0,
-             rz=_cdot(R0, Z0))
-    while cols.iterating():
+             rz=_cdot(R0, Z0, ax))
+    while cols.iterating(sync):
         active = cols.active()
         W = matvec(s["P"])
-        pw = _cdot(s["P"], W)
+        pw = _cdot(s["P"], W, ax)
         alpha = s["rz"] / torch.where(pw != 0, pw, 1.0)
         X = s["X"] + alpha * s["P"]
         R = s["R"] - alpha * W
         Z = psolve(R)
-        rz_new, rr = _cdot(R, Z), _cdot(R, R)
+        rz_new, rr = _cdots(((R, Z), (R, R)), ax)
         beta = rz_new / torch.where(s["rz"] != 0, s["rz"], 1.0)
         new = dict(X=X, R=R, P=Z + beta * s["P"], rz=rz_new)
         rn = _host(torch.sqrt(rr.real))
         reason = cols.check(rn, cols.trip + 1)
         s = _freeze(active, new, s)
         cols.record(active, rn, reason)
-    return cols.result(s["X"], _cnorm(B - matvec(s["X"])))
+    return cols.result(s["X"], _cnorm(B - matvec(s["X"]), ax))
 
 
 def _orthogonalize_many(V: torch.Tensor, w: torch.Tensor,
-                        cgs_refinement: str):
+                        cgs_refinement: str, axis=None,
+                        sync: Optional[_Sync] = None):
     """Classical Gram-Schmidt of each column of ``w [n, r]`` against the
     basis ``V [a, n, r]`` with the single-RHS policy of
     ``krylov._orthogonalize``.  ``"ifneeded"``: the DGKS test is per column,
-    and the one batched refinement pass runs when any column needs it (JAX
-    ``krylov_many.py:343-370``), decided on the host.  Returns ``(w, h,
-    ||w||)``, ``h [a, r]``."""
+    and the one batched refinement pass runs when any column (of any
+    replica, under ``sync``) needs it (JAX ``krylov_many.py:343-370``),
+    decided on the host; on a mesh the column norms ride the gram row's
+    ``all_reduce``.  Returns ``(w, h, ||w||)``, ``h [a, r]``."""
     def gram(w):
-        return torch.einsum("anr,nr->ar", V.conj(), w)
+        h = torch.einsum("anr,nr->ar", V.conj(), w)
+        return h if axis is None else axis.all_reduce(h)
 
     def project(w, h):
         return w - torch.einsum("ar,anr->nr", h, V)
 
-    h = gram(w)
-    wnorm0 = _cnorm(w) if cgs_refinement == "ifneeded" else None
+    if cgs_refinement == "ifneeded" and axis is not None:
+        hw = axis.all_reduce(torch.cat([
+            torch.einsum("anr,nr->ar", V.conj(), w),
+            (w.conj() * w).sum(dim=0)[None].to(V.dtype)]))
+        h, wnorm0 = hw[:-1], torch.sqrt(hw[-1].real.abs())
+    else:
+        h = gram(w)
+        wnorm0 = _cnorm(w) if cgs_refinement == "ifneeded" else None
     w = project(w, h)
-    hj1 = _cnorm(w)
+    hj1 = _cnorm(w, axis)
     refine = cgs_refinement == "always"
     if cgs_refinement == "ifneeded":
         after, before = _host(torch.stack([hj1, wnorm0]))
         refine = bool((after < DGKS_THRESHOLD * before).any())
+        if sync is not None:
+            refine = sync.any(refine)
     if refine:
         h2 = gram(w)
         w = project(w, h2)
-        h, hj1 = h + h2, _cnorm(w)
+        h, hj1 = h + h2, _cnorm(w, axis)
     return w, h, hj1
 
 
@@ -239,7 +281,8 @@ def gmres_many(matvec: Callable, B: torch.Tensor,
                pc_apply: Optional[Callable] = None, *, restart: int = 30,
                rtol: float = 1e-5, atol: float = 1e-50, divtol: float = 1e4,
                maxit: int = 10000, side: str = "left",
-               cgs_refinement: str = "always", **_) -> KSPResult:
+               cgs_refinement: str = "always", axis_name=None,
+               conv_sync_axis=None, **_) -> KSPResult:
     """Column-batched restarted GMRES, left (default) or right
     preconditioned; B: [n, r].
 
@@ -261,6 +304,7 @@ def gmres_many(matvec: Callable, B: torch.Tensor,
             f"unknown cgs_refinement {cgs_refinement!r}: expected never, "
             "ifneeded, or always (-ksp_gmres_cgs_refinement_type)")
     psolve = pc_apply or _identity_pc
+    ax, sync = axis_name, _sync(conv_sync_axis)
     right = side == "right"
     n, nc = B.shape
     dev, dtype = B.device, B.dtype
@@ -272,13 +316,13 @@ def gmres_many(matvec: Callable, B: torch.Tensor,
         return R if right else psolve(R)
 
     X = torch.zeros_like(B) if X0 is None else X0.clone()
-    bnorm = _host(_cnorm(B if right else psolve(B)))
+    bnorm = _host(_cnorm(B if right else psolve(B), ax))
     R = residual(X)
-    cols = _Columns(_host(_cnorm(R)), bnorm, maxit, dtype, rtol=rtol,
+    cols = _Columns(_host(_cnorm(R, ax)), bnorm, maxit, dtype, rtol=rtol,
                     atol=atol, divtol=divtol)
-    while cols.iterating():
+    while cols.iterating(sync):
         cycle_active = cols.active()
-        beta = _cnorm(R)
+        beta = _cnorm(R, ax)
         V = torch.zeros((m + 1, n, nc), dtype=dtype, device=dev)
         V[0] = R / torch.where(beta > 0, beta, 1.0)
         H = np.zeros((m + 1, m, nc), npdt)
@@ -288,10 +332,11 @@ def gmres_many(matvec: Callable, B: torch.Tensor,
         sn = np.zeros((m, nc), npdt)
         jcol = np.zeros(nc, np.int64)      # steps each column was active for
         j = 0
-        while j < m and cols.iterating():
+        while j < m and cols.iterating(sync):
             active = cols.active()
             w = matvec(psolve(V[j])) if right else psolve(matvec(V[j]))
-            w, h, hj1 = _orthogonalize_many(V[:j + 1], w, cgs_refinement)
+            w, h, hj1 = _orthogonalize_many(V[:j + 1], w, cgs_refinement,
+                                            ax, sync)
             V[j + 1] = _merge(active, w / torch.where(hj1 > 0, hj1, 1.0),
                               V[j + 1])
             col = np.zeros((m + 1, nc), npdt)
@@ -329,7 +374,7 @@ def gmres_many(matvec: Callable, B: torch.Tensor,
         Xn = X + (psolve(dX) if right else dX)
         X, R = (_merge(cycle_active, Xn, X),
                 _merge(cycle_active, residual(Xn), R))
-    return cols.result(X, _cnorm(B - matvec(X)))
+    return cols.result(X, _cnorm(B - matvec(X), ax))
 
 
 def richardson_many(matvec: Callable, B: torch.Tensor,
@@ -337,40 +382,43 @@ def richardson_many(matvec: Callable, B: torch.Tensor,
                     pc_apply: Optional[Callable] = None, *,
                     rtol: float = 1e-5, atol: float = 1e-50,
                     divtol: float = 1e4, maxit: int = 10000,
-                    scale: float = 1.0, **_) -> KSPResult:
+                    scale: float = 1.0, axis_name=None, conv_sync_axis=None,
+                    **_) -> KSPResult:
     """Column-batched preconditioned Richardson iteration
     X += scale * M^{-1}(B - A X); B: [n, r].  With a factorization PC this
     is multi-RHS iterative refinement."""
     psolve = pc_apply or _identity_pc
+    ax, sync = axis_name, _sync(conv_sync_axis)
     x0_zero = X0 is None
     dtype = B.dtype
-    bnorm = _host(_cnorm(B))
+    bnorm = _host(_cnorm(B, ax))
     R0 = B if x0_zero else B - matvec(X0)
-    cols = _Columns(_host(_cnorm(R0)), bnorm, maxit, dtype, rtol=rtol,
+    cols = _Columns(_host(_cnorm(R0, ax)), bnorm, maxit, dtype, rtol=rtol,
                     atol=atol, divtol=divtol)
     s = dict(X=torch.zeros_like(B) if x0_zero else X0.clone(), R=R0)
-    while cols.iterating():
+    while cols.iterating(sync):
         active = cols.active()
         X = s["X"] + scale * psolve(s["R"])
         R = B - matvec(X)
-        rn = _host(_cnorm(R))
+        rn = _host(_cnorm(R, ax))
         reason = cols.check(rn, cols.trip + 1)
         s = _freeze(active, dict(X=X, R=R), s)
         cols.record(active, rn, reason)
-    return cols.result(s["X"], _cnorm(B - matvec(s["X"])))
+    return cols.result(s["X"], _cnorm(B - matvec(s["X"]), ax))
 
 
 def preonly_many(matvec: Callable, B: torch.Tensor,
                  X0: Optional[torch.Tensor] = None,
-                 pc_apply: Optional[Callable] = None, **_) -> KSPResult:
+                 pc_apply: Optional[Callable] = None, axis_name=None,
+                 **_) -> KSPResult:
     """One multi-RHS preconditioner application (KSPPREONLY batched): with
     a direct factorization PC this is ``spike_solve_many`` with the
     KSPResult bookkeeping.  The history is ``[2, r]``: ||B|| and the final
     residual norm."""
     psolve = pc_apply or _identity_pc
     X = psolve(B) if X0 is None else X0 + psolve(B - matvec(X0))
-    rn = _cnorm(B - matvec(X)).detach().cpu()
-    history = torch.stack([_cnorm(B).detach().cpu(), rn])
+    rn = _cnorm(B - matvec(X), axis_name).detach().cpu()
+    history = torch.stack([_cnorm(B, axis_name).detach().cpu(), rn])
     reason = torch.where(torch.isfinite(rn), CONVERGED_ITS,
                          DIVERGED_NANORINF).to(torch.int32)
     return KSPResult(x=X, its=torch.ones(B.shape[1], dtype=torch.int32),

@@ -230,6 +230,36 @@ def test_blocktri_matvec_kernel_matches_plain(cuda_device, n, k, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ppd,nb,b", [(2, 5, 64), (64, 123, 128)])
+def test_blocktri_matvec_chunked_entry_matches_plain(cuda_device, ppd, nb, b):
+    """#7 through the chunked entry of the distributed blocks route: a
+    rank's [ppd, nb, b, b] SPIKE partition blocks (L[:, 0] and U[:, -1]
+    zero) read in place as one block sequence, against the plain version
+    and against each partition's own product."""
+    from spike_petsc_tpu_torch.ops.spike import _partition_blocks
+    k = b // 2
+    n = ppd * nb * b
+    band = banded_from_numpy(random_band(n, k, k, seed=16, dtype=np.float32),
+                             k, k, device=cuda_device)
+    T = _partition_blocks(band, ppd, nb * b, b)
+    x = torch.randn((ppd, nb, b), device=cuda_device)
+    ref = cbt.blocktri_matvec_chunked_cuda(T, x, impl="plain")
+    launches = cbt.KERNEL.launches
+    got = cbt.blocktri_matvec_chunked_cuda(T, x)
+    torch.cuda.synchronize()
+    assert cbt.KERNEL.launches == launches + 1
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert _rel(got, ref) <= TOL
+    own = torch.stack([cbt.blocktri_matvec_plain(
+        BlockTridiagonal(D=T.D[p], L=T.L[p], U=T.U[p]), x[p].reshape(-1))
+        for p in range(ppd)]).reshape(x.shape)
+    assert _rel(got, own) <= TOL
+    with pytest.raises(ValueError, match="in place"):
+        cbt.blocktri_matvec_chunked_cuda(BlockTridiagonal(
+            D=T.D.transpose(-1, -2), L=T.L, U=T.U), x)
+
+
+@pytest.mark.cuda
 def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
     sf = spike_factor(banded_from_numpy(random_band(4096, 20, 20, seed=15),
                                         20, 20, device=cuda_device),
