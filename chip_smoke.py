@@ -175,6 +175,21 @@ In order, it:
      mesh (f64) in one process (equal iterations, x within 1e-5); config 2
      on the mesh (cg with #3 and #2, and ``make_dist_solver_batched`` cg
      serving on a (1, 1) mesh at r = 32 with #5), launches held exactly;
+     the rest of the distributed path at one rank (``phase_dist_multislice``,
+     ``phase_dist_3d``, ``phase_dist_autodiff``, ``phase_elastic``,
+     ``phase_dist_ms_reference``): the flagship on a (1, 1)
+     ``make_mesh_multislice`` (its factor's pieces against the 1-D mesh's,
+     ``make_dist_solver_multislice`` gmres on the band and the blocks
+     routes in the 1-D mesh's iterations, bicg on
+     ``dist_spike_transpose_multislice``, ``make_dist_solver_multislice_
+     batched`` richardson and bcgs at r = 32 on #4), a (1, 1, 1)
+     ``make_mesh_3d`` with ``make_dist_solver_3d`` richardson and gmres at
+     r = 32, ``dist_solve_banded_diff`` and its multislice form against the
+     single-device ``solve_banded_diff``'s gradients, ``resilient_solve``
+     (a fault after segment 0, the same-size retry, a checkpoint resumed)
+     and ``resilient_serve`` on (1, 1) and (1, 1, 1) with a fault, each
+     with its launches held; a small band through the multislice and 3-D
+     solvers on the card (f32) and on a CPU mesh (f64);
  14. the route tuner, the native assembly, config 4 and the auction
      (``phase_tuning``, ``phase_native_factor``, ``phase_config4``,
      ``phase_config4_reference``, ``phase_auction``), the script's own
@@ -197,12 +212,15 @@ In order, it:
      f64; ``parallel.auction_match`` on config 3's matrix at n = 1e5 and,
      where the first run predicts it under a minute, 1e6 (rounds, time,
      a permutation within n eps of MC64 job 5's log-product, the ELL
-     arrays on the card);
+     arrays on the card), and ``auction_match_dist`` on a one-rank mesh
+     at n = 1e5 (``phase_dist_auction``: the same checks, its rounds and
+     time beside ``auction_match``'s);
  15. prints a ``{"kernels": [...]}`` line (each kernel's launches on its
      path, error, time, plain time, bound and library time, and its
      launches on each further path: the PCs', gmres_many's, autodiff's,
      the tuner's 'auto' checks, the native assembly's, config 4's, the
-     distributed paths' ``dist_*``) and
+     distributed paths' ``dist_*``, ``dist_ms_*``, ``dist_3d_*``,
+     ``dist_diff_*`` and ``resilient_*``) and
      the script's time in all, and, last, the line
      ``{"ok": true, "device": {...}}``.
 
@@ -496,6 +514,14 @@ CONFIG4_REF_LOBPCG_ITS = 5     # measured equal (593 and 593)
 # AUCTION_BUDGET_S (its rounds x its per-round time x the size ratio)
 AUCTION_N = (100_000, 1_000_000)
 AUCTION_BUDGET_S = 60.0
+# the rest of the distributed path at one rank: the serving engines'
+# richardson at rtol 0 runs exactly DIST_SERVE_TRIPS trips (one #4 launch
+# each, stored spikes); the multislice autodiff's GMRES at an
+# f32-attainable rtol; the elastic drill's segments of one iteration
+DIST_SERVE_TRIPS = 2
+DIST_DIFF_RTOL, DIST_DIFF_MAXIT = 1e-6, 30
+DIST_DIFF_TOL = 1e-4       # gradients against solve_banded_diff's, f32
+ELASTIC_RNORM_MAX = 1e-4   # the true f32 relres after the drills
 PEAK_BYTES_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
 PEAK_F64_FLOPS = 34e12     # f64 outside the tensor cores
@@ -4047,9 +4073,11 @@ def auction_run(n, device, t):
 def phase_auction(device, t):
     """``auction_match`` on config 3's matrix at AUCTION_N[0], then at
     AUCTION_N[1] where its rounds x per-round time x the size ratio
-    predicts under AUCTION_BUDGET_S."""
+    predicts under AUCTION_BUDGET_S.  Returns the first run's (rounds,
+    seconds)."""
     n0, n1 = AUCTION_N
     rounds, sec = auction_run(n0, device, t)
+    first = (rounds, sec)
     predicted = rounds * (sec / max(rounds, 1)) * (n1 / n0)
     print(f"auction at n={n1} predicted {predicted:.1f} s (rounds of "
           f"n={n0} x its per-round time x {n1 // n0}; budget "
@@ -4058,6 +4086,7 @@ def phase_auction(device, t):
         auction_run(n1, device, t)
     else:
         print(f"auction at n={n1}: cut (predicted over the budget)")
+    return first
 
 
 # ---------------------------------------------------------------------------
@@ -4355,6 +4384,487 @@ def phase_dist_reference(device, tmp):
           "dist card and CPU reference disagree")
 
 
+# ---------------------------------------------------------------------------
+# The rest of the distributed path at one rank: the multislice and 3-D
+# meshes, the mesh autodiff, the elastic solves and the mesh auction
+# ---------------------------------------------------------------------------
+
+DIST_FACTOR_OPTIONS = dict(block_b=BLOCK, parts_per_device=K,
+                           store_spikes=True, inverter="newton_fixed")
+
+
+def dist_factor_options():
+    import torch
+    return dict(DIST_FACTOR_OPTIONS, spike_dtype=torch.bfloat16)
+
+
+def tensors_of(obj, prefix=""):
+    """``{path: tensor}`` of every tensor a (nested) dataclass holds."""
+    import dataclasses
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    out = {}
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            out.update(tensors_of(getattr(obj, f.name),
+                                  f"{prefix}.{f.name}".lstrip(".")))
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            out.update(tensors_of(v, f"{prefix}[{i}]"))
+    return out
+
+
+def factor_difference(a, b):
+    """(tensors compared, the largest max|a - b| / max|a| over them, and
+    whether every pair is bit-equal) of two mesh factors."""
+    ta, tb = tensors_of(a), tensors_of(b)
+    check(ta.keys() == tb.keys() and all(
+        ta[k].shape == tb[k].shape and ta[k].dtype == tb[k].dtype
+        for k in ta), "the two factors hold different tensors")
+    worst, equal = 0.0, True
+    for k in ta:
+        if ta[k].numel() == 0:
+            continue
+        x, y = ta[k].float(), tb[k].float()
+        d = float((x - y).abs().max())
+        worst = max(worst, d / max(float(x.abs().max()), 1e-30))
+        equal &= bool(d == 0)
+    return len(ta), worst, equal
+
+
+def serving_relres(band, X, B):
+    """The largest per-column true f32 relres of ``X`` ``[n, r]``."""
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    return float((torch.linalg.norm(banded_matvec(band, X) - B, dim=0)
+                  / torch.linalg.norm(B, dim=0)).max())
+
+
+def serving_run(label, serve, band, B, Bcall, t, want_of):
+    """One serving call: launches, per-column relres (``serve(Bcall)``,
+    ``B`` ``[n, r]``), ``want_of(launches)`` the expected launches (held),
+    wall, device busy and idle share."""
+    reset_launches()
+    Xs = serve(Bcall)
+    launches = read_launches()
+    X = Xs if Xs.shape == B.shape else Xs.T
+    relres = serving_relres(band, X, B)
+    print(f"{label}: per-column true relres (f32) max {relres:.3e}")
+    check(relres <= SERVE_RELRES_MAX and X.shape == B.shape,
+          f"{label}: relres {relres}")
+    held(label, launches, want_of(launches))
+    dist_times(label.replace(" ", "_"), lambda: serve(Bcall), t)
+    return launches
+
+
+def many_trips(launches, per_trip, fixed=0, most=SERVE_ITS_MAX):
+    """The #4 launches of a serving engine as ``fixed + per_trip * trips``
+    with 1 <= trips <= ``most`` (the engines return x only, so the trips
+    are read off the count, which must have that form)."""
+    n = launches.get("fused_sweep_many", 0)
+    trips = (n - fixed) // per_trip
+    check(1 <= trips <= most and n == fixed + per_trip * trips,
+          f"#4 launched {n} times: not {fixed} + {per_trip} a trip")
+    return {"fused_sweep_many": n}
+
+
+def phase_dist_multislice(band, rhs, device, t, tmp, single_its):
+    """The flagship on a (1, 1) multislice mesh: the factor (its pieces
+    against the 1-D mesh's on the same band: one slice, so the PC masks
+    change nothing), gmres on the band route (#2) and the blocks route
+    (#7) in the 1-D mesh's iterations, bicg with
+    ``dist_spike_transpose_multislice``, and the serving engine at r = 32
+    (richardson, #4 one a trip; bcgs, #4 two a trip); launches held, wall,
+    device busy and idle share beside the 1-D mesh's of the same call."""
+    import dataclasses
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.parallel import (
+        dist_spike_factor, dist_spike_factor_multislice,
+        dist_spike_transpose_multislice, make_dist_solver_multislice,
+        make_dist_solver_multislice_batched, make_mesh, make_mesh_multislice)
+    paths = {}
+    ones = torch.ones(N, device=device)
+    opts = dist_factor_options()
+    with one_rank_group(tmp, "dist_multislice"):
+        mesh1 = make_mesh(1, device=device)
+        mesh = make_mesh_multislice((1, 1), device=device)
+        d1 = dist_spike_factor(band, mesh1, **opts)
+
+        def factor():
+            return dist_spike_factor_multislice(band, mesh, **opts)
+        t0 = time.perf_counter()
+        dsf = factor()
+        torch.cuda.synchronize()
+        count, worst, equal = factor_difference(d1, dsf)
+        print(f"dist_spike_factor_multislice (flagship, (1, 1), K={dsf.K}, "
+              f"ppd={dsf.ppd}): first call {time.perf_counter() - t0:.2f} s;"
+              f" reduced system {type(dsf.red_fact).__name__}, matvec route "
+              f"{dsf.matvec_route}; against the 1-D mesh's factor: "
+              f"{count} tensors, max|d| / max|1-D| {worst:.3e}, bit-equal: "
+              f"{equal}")
+        check(worst <= 1e-6, f"multislice factor vs 1-D: {worst}")
+        check(dsf.matvec_route == "banded_cuda"
+              and type(dsf.red_fact).__name__ == "CRFactor",
+              "the (1, 1) factor's route or reduced system")
+        del d1
+        solver = make_dist_solver_multislice(dsf, mesh, ksp_type="gmres",
+                                             rtol=1e-8, restart=30, maxit=30)
+        res, launches = dist_solve_run(
+            "dist_ms gmres+spike (flagship, (1, 1), banded route)", solver,
+            rhs, band, ones, t, GMRES_ITS_MAX)
+        check(res.its == single_its, f"multislice gmres {res.its} its, "
+              f"1-D mesh and single device {single_its}")
+        held("dist_ms gmres (banded route)", launches,
+             dist_gmres_expected(res.its, "band_matvec"))
+        paths["dist_ms_gmres"] = launches
+        wall, busy = dist_times("dist_ms_gmres_solve", lambda: solver(rhs), t)
+        one = t["dist_gmres_solve"][0]
+        print(f"multislice (1, 1) vs the 1-D mesh (flagship gmres, "
+              f"{res.its} its both, same call): wall {wall:.3f} ms against "
+              f"{one:.3f} ms ({wall / one:.3f}x)")
+
+        dsf_b = dataclasses.replace(dsf, mv_prep=None)
+        solver_b = make_dist_solver_multislice(dsf_b, mesh, ksp_type="gmres",
+                                               rtol=1e-8, restart=30,
+                                               maxit=30)
+        res_b, launches = dist_solve_run(
+            "dist_ms gmres+spike (flagship, (1, 1), blocks route)", solver_b,
+            rhs, band, ones, t, GMRES_ITS_MAX)
+        check(res_b.its == single_its, f"blocks route {res_b.its} its")
+        held("dist_ms gmres (blocks route)", launches,
+             dist_gmres_expected(res_b.its, "blocktri_matvec"))
+        paths["dist_ms_gmres_blocks"] = launches
+        dist_times("dist_ms_gmres_solve_blocks", lambda: solver_b(rhs), t)
+        del dsf_b, solver_b
+
+        t0 = time.perf_counter()
+        dsft = dist_spike_transpose_multislice(dsf, mesh)
+        torch.cuda.synchronize()
+        print(f"dist_spike_transpose_multislice (flagship): "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, factor "
+              f"{type(dsft.fact).__name__} {dsft.fact.method}")
+        bicg = make_dist_solver_multislice(dsf, mesh, ksp_type="bicg",
+                                           dsf_transpose=dsft, rtol=1e-8,
+                                           maxit=30)
+        res_t, launches = dist_solve_run("dist_ms bicg+spike (flagship)",
+                                         bicg, rhs, band, ones, t,
+                                         GMRES_ITS_MAX)
+        held("dist_ms bicg", launches, {"fused_sweep": 2 * res_t.its + 2,
+                                        "band_matvec": res_t.its + 1,
+                                        "blocktri_matvec": res_t.its})
+        paths["dist_ms_bicg"] = launches
+        dist_times("dist_ms_bicg_solve", lambda: bicg(rhs), t)
+        del dsft, bicg
+
+        gen = torch.Generator(device=device).manual_seed(SEED + 47)
+        X = torch.randn((N, NRHS), generator=gen, device=device)
+        B = banded_matvec(band, X)
+        rich = make_dist_solver_multislice_batched(
+            dsf, mesh, ksp_type="richardson", rtol=0.0,
+            maxit=DIST_SERVE_TRIPS)
+        paths["dist_ms_serve_richardson"] = serving_run(
+            "dist_ms serving richardson r=32", rich, band, B, B, t,
+            lambda _: {"fused_sweep_many": DIST_SERVE_TRIPS})
+        bcgs = make_dist_solver_multislice_batched(dsf, mesh, ksp_type="bcgs",
+                                                   rtol=1e-8, maxit=30)
+        paths["dist_ms_serve_bcgs"] = serving_run(
+            "dist_ms serving bcgs r=32", bcgs, band, B, B, t,
+            lambda n: many_trips(n, 2))
+        del X, B, dsf, solver, rich, bcgs
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_dist_3d(band, device, t, tmp):
+    """The flagship on a (1, 1, 1) 3-D mesh: ``make_dist_solver_3d``
+    richardson (#4 one a trip) and gmres (#4: two before the loop, one an
+    iteration and one a cycle) at r = 32; launches held."""
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.parallel import (dist_spike_factor_multislice,
+                                                make_dist_solver_3d,
+                                                make_mesh_3d)
+    paths = {}
+    with one_rank_group(tmp, "dist_3d"):
+        mesh3 = make_mesh_3d((1, 1, 1), device=device)
+        dsf = dist_spike_factor_multislice(band, mesh3,
+                                           **dist_factor_options())
+        gen = torch.Generator(device=device).manual_seed(SEED + 48)
+        X = torch.randn((N, NRHS), generator=gen, device=device)
+        B = banded_matvec(band, X)
+        Bt = B.T.contiguous()                                    # [R, n]
+        rich = make_dist_solver_3d(dsf, mesh3, ksp_type="richardson",
+                                   rtol=0.0, maxit=DIST_SERVE_TRIPS)
+        paths["dist_3d_richardson"] = serving_run(
+            "dist_3d richardson r=32", rich, band, B, Bt, t,
+            lambda _: {"fused_sweep_many": DIST_SERVE_TRIPS})
+        gm = make_dist_solver_3d(dsf, mesh3, ksp_type="gmres", rtol=1e-8,
+                                 restart=30, maxit=30)
+        paths["dist_3d_gmres"] = serving_run(
+            "dist_3d gmres r=32", gm, band, B, Bt, t,
+            lambda n: many_trips(n, 1, fixed=3, most=GMRES_ITS_MAX))
+        del X, B, Bt, dsf, rich, gm
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_dist_autodiff(band, rhs, device, t, tmp):
+    """``dist_solve_banded_diff`` on the flagship (one rank, K = 64; #1
+    twice a pass, as ``solve_banded_diff``) and its multislice form on a
+    (1, 1) mesh (GMRES both ways at rtol DIST_DIFF_RTOL; #1 two a PC apply
+    and #7 one a matvec): the gradients of sum(sin(x) x) against the
+    single-device ``solve_banded_diff``'s on the same band, launches held,
+    forward and backward timed."""
+    import torch
+    from spike_petsc_tpu_torch.ops.autodiff import solve_banded_diff
+    from spike_petsc_tpu_torch.parallel import (
+        dist_solve_banded_diff, dist_solve_banded_diff_multislice, make_mesh,
+        make_mesh_multislice)
+    show = shower(t)
+    kl, ku = band.kl, band.ku
+    paths = {}
+
+    def leaves():
+        return (band.data.detach().clone().requires_grad_(True),
+                rhs.detach().clone().requires_grad_(True))
+
+    def grads(fn):
+        d, b = leaves()
+        reset_launches()
+        x = fn(d, b)
+        fwd = nonzero(read_launches())
+        loss = (torch.sin(x) * x).sum()
+        reset_launches()
+        gd, gb = torch.autograd.grad(loss, (d, b))
+        return gd, gb, fwd, nonzero(read_launches())
+
+    gd0, gb0, _, _ = grads(lambda d, b: solve_banded_diff(d, b, kl, ku, K))
+
+    def gmres_pass(n):
+        """#1 two a PC apply (no stored spikes), #7 one a matvec: with
+        its iterations of one cycle, 2 (its + 2) and its + 1."""
+        mv = n.get("blocktri_matvec", 0)
+        return {"fused_sweep": 2 * (mv + 1), "blocktri_matvec": mv}
+
+    with one_rank_group(tmp, "dist_autodiff"):
+        mesh = make_mesh(1, device=device)
+        mesh2 = make_mesh_multislice((1, 1), device=device)
+        cases = (
+            ("dist_diff_1d", lambda d, b: dist_solve_banded_diff(
+                d, b, kl, ku, mesh, block_b=BLOCK, parts_per_device=K),
+             lambda n: AUTODIFF_LAUNCHES["flagship"]),
+            ("dist_diff_ms", lambda d, b: dist_solve_banded_diff_multislice(
+                d, b, kl, ku, mesh2, block_b=BLOCK, parts_per_device=K,
+                rtol=DIST_DIFF_RTOL, maxit=DIST_DIFF_MAXIT), gmres_pass))
+        for label, fn, want in cases:
+            gd, gb, fwd, bwd = grads(fn)
+            err_d = float((gd - gd0).abs().max() / gd0.abs().max())
+            err_b = float((gb - gb0).abs().max() / gb0.abs().max())
+            print(f"{label} (flagship, K={K}): launches forward {fwd}, "
+                  f"backward {bwd}; against solve_banded_diff's gradients: "
+                  f"data {err_d:.3e}, rhs {err_b:.3e}")
+            check(max(err_d, err_b) <= DIST_DIFF_TOL
+                  and bool(torch.isfinite(gd).all()),
+                  f"{label}: gradients {err_d}, {err_b}")
+            check(fwd == want(fwd) and bwd == want(bwd)
+                  and fwd.get("fused_sweep", 0) > 0,
+                  f"{label}: launches {fwd}, {bwd}")
+            paths[label] = {k: fwd.get(k, 0) + bwd.get(k, 0)
+                            for k in set(fwd) | set(bwd)}
+            d, b = leaves()
+            x = fn(d, b)
+            loss = (torch.sin(x) * x).sum()
+            show(f"{label}_forward", time_ms(lambda: fn(d, b), reps=3))
+            show(f"{label}_backward", time_ms(lambda: torch.autograd.grad(
+                loss, (d, b), retain_graph=True), reps=3))
+            del x, loss, d, b
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_elastic(band, rhs, device, t, tmp):
+    """The elastic drills on one rank: ``resilient_solve`` on the flagship
+    in segments of one iteration with a fault after segment 0 (the default
+    policy's same-size retry), its checkpoint to ``tmp``, then a resume
+    from that file to convergence; ``resilient_serve`` at r = 32 on (1, 1)
+    and (1, 1, 1) with one fault each.  Checks failures, meshes_used, the
+    iterations, segments, attempts and x; launches read (#1 and #2 for the
+    solve, #4 alone for the serving engines)."""
+    import os
+    import torch
+    from spike_petsc_tpu_torch.ops.band import banded_matvec
+    from spike_petsc_tpu_torch.parallel import (SolveCheckpoint,
+                                                resilient_serve,
+                                                resilient_solve)
+    from spike_petsc_tpu_torch.solvers.types import (CONVERGED_RTOL,
+                                                     DIVERGED_ITS)
+    paths = {}
+
+    def once(message):
+        fired = []
+
+        def inject(index):
+            if index == 0 and not fired:
+                fired.append(True)
+                raise RuntimeError(message)
+        return inject
+
+    with one_rank_group(tmp, "elastic"):
+        path = os.path.join(tmp, "elastic_ckpt.npz")
+        common = dict(block_b=BLOCK, parts_per_device=K, rtol=1e-8,
+                      segment_its=1, ckpt_path=path, device=device)
+        reset_launches()
+        t0 = time.perf_counter()
+        r1 = resilient_solve(band, rhs, maxit=1, fault_injector=once(
+            "injected: transient fault after segment 0"), **common)
+        t1 = time.perf_counter()
+        st = SolveCheckpoint.load(path)
+        r2 = resilient_solve(band, rhs, maxit=30, resume=True, **common)
+        t2 = time.perf_counter()
+        launches = read_launches()
+        x = torch.as_tensor(r2.x, device=device)
+        relres = float(torch.linalg.norm(banded_matvec(band, x) - rhs)
+                       / torch.linalg.norm(rhs))
+        xerr = float((x - 1).abs().max())
+        print(f"resilient_solve (flagship, segments of 1 it, a fault after "
+              f"segment 0): its {r1.its}, segments {r1.segments}, failures "
+              f"{r1.failures}, meshes {r1.meshes_used}, reason {r1.reason}; "
+              f"checkpoint its_done {st.its_done}, segments {st.segments}; "
+              f"resumed: its {r2.its}, segments {r2.segments}, failures "
+              f"{r2.failures}, reason {r2.reason}, true relres (f32) "
+              f"{relres:.3e}, max|x - 1| {xerr:.3e}; host clock "
+              f"{(t1 - t0) * 1e3:.1f} ms and {(t2 - t1) * 1e3:.1f} ms (the "
+              f"factor each); launches {nonzero(launches)}")
+        check(r1.failures == 1 and r1.meshes_used == [(1,)]
+              and r1.its == 1 and r1.segments == 1
+              and r1.reason == DIVERGED_ITS, "resilient_solve drill")
+        check(st.its_done == 1 and st.segments == 1, "the checkpoint")
+        check(r2.reason == CONVERGED_RTOL and r2.failures == 0
+              and r2.its == r2.segments and 1 < r2.its <= 2 * GMRES_ITS_MAX
+              and relres <= ELASTIC_RNORM_MAX and xerr <= 1e-3,
+              "resilient_solve resumed")
+        check(set(nonzero(launches)) == {"fused_sweep", "band_matvec"},
+              f"resilient_solve launches {launches}")
+        paths["resilient_solve"] = launches
+
+        gen = torch.Generator(device=device).manual_seed(SEED + 49)
+        X = torch.randn((N, NRHS), generator=gen, device=device)
+        B = banded_matvec(band, X)
+        Bt = B.T.contiguous()
+        for shape in ((1, 1), (1, 1, 1)):
+            tag = f"resilient_serve_{len(shape)}d"
+            reset_launches()
+            t0 = time.perf_counter()
+            res = resilient_serve(band, Bt, mesh_shape=shape, block_b=BLOCK,
+                                  parts_per_device=K, ksp_type="bcgs",
+                                  rtol=1e-8, maxit=30, device=device,
+                                  fault_injector=once("injected: replica "
+                                                      "fault"))
+            sec = time.perf_counter() - t0
+            launches = read_launches()
+            Xs = torch.as_tensor(res.X, device=device).T
+            relres = serving_relres(band, Xs, B)
+            print(f"{tag} {shape} r={NRHS} (bcgs, a fault after attempt 0):"
+                  f" attempts {res.attempts}, failures {res.failures}, "
+                  f"meshes {res.meshes_used}, per-column true relres (f32) "
+                  f"max {relres:.3e}; host clock {sec * 1e3:.1f} ms; "
+                  f"launches {nonzero(launches)}")
+            check(res.attempts == 2 and res.failures == 1
+                  and res.meshes_used == [shape]
+                  and relres <= SERVE_RELRES_MAX, f"{tag} drill")
+            # no stored spikes: two #4 a PC apply, two applies a trip, the
+            # batch served twice
+            check(set(nonzero(launches)) == {"fused_sweep_many"}
+                  and launches["fused_sweep_many"] % 8 == 0,
+                  f"{tag} launches {launches}")
+            paths[tag] = launches
+        del X, B, Bt
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_dist_ms_reference(device, tmp):
+    """``make_dist_solver_multislice`` gmres and ``make_dist_solver_3d``
+    gmres (two right-hand sides) on a small band, on the card (f32,
+    kernels) and on a CPU mesh (f64, plain versions) in one process: equal
+    iterations and x within 1e-5."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix
+    from spike_petsc_tpu_torch.parallel import (dist_spike_factor_multislice,
+                                                make_dist_solver_3d,
+                                                make_dist_solver_multislice,
+                                                make_mesh_3d,
+                                                make_mesh_multislice)
+    band, rhs = flagship_band(20_000, 20, device, seed=SEED + 7)
+    cpu = BandedMatrix(data=band.data.double().cpu(), kl=20, ku=20)
+    out, out3 = {}, {}
+    with one_rank_group(tmp, "dist_ms_reference"):
+        for label, a, b, dev in (("card", band, rhs, device),
+                                 ("cpu", cpu, rhs.double().cpu(), "cpu")):
+            mesh = make_mesh_multislice((1, 1), device=dev)
+            dsf = dist_spike_factor_multislice(a, mesh, block_b=64,
+                                               parts_per_device=8)
+            reset_launches()
+            out[label] = make_dist_solver_multislice(
+                dsf, mesh, ksp_type="gmres", rtol=DIST_REF_RTOL)(b)
+            mesh3 = make_mesh_3d((1, 1, 1), device=dev)
+            d3 = dist_spike_factor_multislice(a, mesh3, block_b=64,
+                                              parts_per_device=8)
+            out3[label] = make_dist_solver_3d(
+                d3, mesh3, ksp_type="gmres", rtol=DIST_REF_RTOL)(
+                    torch.stack([b, 2 * b]))
+            print(f"dist_ms reference {label}: {out[label].its} its, "
+                  f"launches {nonzero(read_launches())}")
+    err = float((out["card"].x.double().cpu() - out["cpu"].x).abs().max())
+    err3 = float((out3["card"].double().cpu() - out3["cpu"]).abs().max()
+                 / out3["cpu"].abs().max())
+    print(f"dist_ms gmres n=20000 w=41 K=8 (1, 1): card {out['card'].its} "
+          f"its vs CPU f64 {out['cpu'].its} its, max|x_card - x_cpu| "
+          f"{err:.3e}; make_dist_solver_3d gmres (1, 1, 1), 2 columns: "
+          f"max|X_card - X_cpu| / max|X_cpu| {err3:.3e}")
+    check(out["card"].its == out["cpu"].its and err <= 1e-5
+          and err3 <= 1e-5 and out["card"].reason == out["cpu"].reason == 2,
+          "multislice / 3-D card and CPU reference disagree")
+
+
+def phase_dist_auction(device, t, tmp, single):
+    """``auction_match_dist`` on a one-rank mesh on config 3's matrix at
+    AUCTION_N[0]: a permutation within n eps of MC64 job 5's log-product,
+    its rounds and time beside ``auction_match``'s (``single``: rounds,
+    seconds)."""
+    import numpy as np
+    import torch
+    from spike_petsc_tpu_torch.models import problems
+    from spike_petsc_tpu_torch.ordering import mc64
+    from spike_petsc_tpu_torch.parallel import auction_match_dist, make_mesh
+    n = AUCTION_N[0]
+    a = problems.illscaled_nonsym(n, 6, 6)
+    with one_rank_group(tmp, "dist_auction"):
+        mesh = make_mesh(1, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = auction_match_dist(a, mesh)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    rounds, eps = res.info["rounds"], res.info["eps"]
+    lp = float(np.sum(np.log(np.abs(res.apply(a).diagonal()))))
+    lp_exact = float(np.sum(np.log(np.abs(mc64(a, job=5).apply(a)
+                                          .diagonal()))))
+    t[f"auction_dist_{n}"] = (sec * 1e3, 0.0)
+    print(f"auction_match_dist (one rank, config 3's matrix, n={n}): "
+          f"{rounds} rounds, {sec * 1e3:.1f} ms (host clock, as "
+          f"auction_match's {single[0]} rounds, {single[1] * 1e3:.1f} ms), "
+          f"{sec * 1e3 / max(rounds, 1):.3f} ms a round; log-product "
+          f"{lp:.6f} against MC64 job 5's {lp_exact:.6f} (n*eps "
+          f"{n * eps:.1e}); info {res.info}")
+    check(np.array_equal(np.sort(res.rperm), np.arange(n)),
+          "auction_match_dist: not a permutation")
+    check(lp >= lp_exact - n * eps - 1e-9 * abs(lp_exact),
+          f"auction_match_dist: log-product {lp} below MC64's {lp_exact}")
+
+
 def main() -> int:
     import tempfile
     import torch
@@ -4443,6 +4953,15 @@ def run(tmp) -> int:
                                      res.its, tmp))
     phase_dist_reference(device, tmp)
     print(f"distributed flagship phases: {time.perf_counter() - tg:.1f} s")
+    # the multislice and 3-D meshes, the mesh autodiff, the elastic drills
+    tg = time.perf_counter()
+    paths.update(phase_dist_multislice(band, rhs, device, t, tmp, res.its))
+    paths.update(phase_dist_3d(band, device, t, tmp))
+    paths.update(phase_dist_autodiff(band, rhs, device, t, tmp))
+    paths.update(phase_elastic(band, rhs, device, t, tmp))
+    phase_dist_ms_reference(device, tmp)
+    print(f"multislice, 3-D, mesh autodiff and elastic phases: "
+          f"{time.perf_counter() - tg:.1f} s")
     del band, rhs, sf, res, pc
     torch.cuda.empty_cache()
     tc = time.perf_counter()
@@ -4543,9 +5062,10 @@ def run(tmp) -> int:
     torch.cuda.empty_cache()
     print(f"config 4 phases: {time.perf_counter() - tp:.1f} s")
     tp = time.perf_counter()
-    phase_auction(device, t)
+    single_auction = phase_auction(device, t)
     torch.cuda.empty_cache()
-    print(f"auction phase: {time.perf_counter() - tp:.1f} s")
+    phase_dist_auction(device, t, tmp, single_auction)
+    print(f"auction phases: {time.perf_counter() - tp:.1f} s")
     print(f"tuner, native-assembly, config 4 and auction phases: "
           f"{time.perf_counter() - tn:.1f} s")
 

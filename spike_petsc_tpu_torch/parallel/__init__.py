@@ -1,43 +1,25 @@
-"""Multi-rank execution on ``torch.distributed``: meshes of process groups,
-the distributed SPIKE factor and solves, and the Krylov solvers over a 1-D
-mesh and a 2-D (rhs x p) serving mesh (``mesh.py``, ``spike_dist.py``); the
-single-device auction (``matching_dev.auction_match``).
+"""Multi-rank execution on ``torch.distributed`` (the port of
+``spike_petsc_tpu.parallel``): meshes of process groups (1-D, the 2-D
+serving mesh, the multislice and the 3-D meshes), the distributed SPIKE
+factor and solves, the Krylov solvers and the serving engines over them
+(``mesh.py``, ``spike_dist.py``), the differentiable mesh solves
+(``autodiff.py``), the elastic solves (``elastic.py``) and the auction on
+one device and over a mesh axis (``matching_dev.py``)."""
 
-Not yet ported (ROADMAP Queue 1 item 5b): the multislice and 3-D meshes,
-the distributed autodiff, elastic serving and the mesh auction.  Their
-names are here and raise ``NotImplementedError``."""
-
+from .autodiff import (dist_solve_banded_diff,
+                       dist_solve_banded_diff_multislice)
+from .elastic import (ResilientResult, ResilientServeResult, SolveCheckpoint,
+                      resilient_serve, resilient_solve)
 from .matching_dev import auction_match, auction_match_dist
-from .mesh import Mesh, MeshAxis, make_mesh, make_mesh_2d, shard_leading
+from .mesh import (Mesh, MeshAxis, make_mesh, make_mesh_2d, make_mesh_3d,
+                   make_mesh_multislice, shard_leading)
 from .spike_dist import (DistSpikeFactor, dist_spike_factor,
-                         dist_spike_solve, dist_spike_solve_many,
-                         dist_spike_transpose, make_dist_solver,
-                         make_dist_solver_batched)
-
-
-def _pending(name: str):
-    def not_ported(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not yet ported to spike_petsc_tpu_torch (ROADMAP "
-            "Queue 1 item 5b: multislice and 3-D meshes, parallel/autodiff, "
-            "parallel/elastic, auction_match_dist)")
-    not_ported.__name__ = not_ported.__qualname__ = name
-    return not_ported
-
-
-make_mesh_multislice = _pending("make_mesh_multislice")
-dist_spike_factor_multislice = _pending("dist_spike_factor_multislice")
-make_dist_solver_multislice = _pending("make_dist_solver_multislice")
-make_dist_solver_multislice_batched = _pending(
-    "make_dist_solver_multislice_batched")
-dist_spike_transpose_multislice = _pending("dist_spike_transpose_multislice")
-make_mesh_3d = _pending("make_mesh_3d")
-make_dist_solver_3d = _pending("make_dist_solver_3d")
-resilient_solve = _pending("resilient_solve")
-resilient_serve = _pending("resilient_serve")
-dist_solve_banded_diff = _pending("dist_solve_banded_diff")
-dist_solve_banded_diff_multislice = _pending(
-    "dist_solve_banded_diff_multislice")
+                         dist_spike_factor_multislice, dist_spike_solve,
+                         dist_spike_solve_many, dist_spike_transpose,
+                         dist_spike_transpose_multislice, make_dist_solver,
+                         make_dist_solver_3d, make_dist_solver_batched,
+                         make_dist_solver_multislice,
+                         make_dist_solver_multislice_batched)
 
 __all__ = [
     "Mesh", "MeshAxis", "make_mesh", "make_mesh_2d", "shard_leading",
@@ -47,7 +29,8 @@ __all__ = [
     "make_mesh_multislice", "dist_spike_factor_multislice",
     "make_dist_solver_multislice", "make_dist_solver_multislice_batched",
     "dist_spike_transpose_multislice", "make_mesh_3d", "make_dist_solver_3d",
-    "resilient_solve", "resilient_serve",
-    "dist_solve_banded_diff", "dist_solve_banded_diff_multislice",
     "auction_match", "auction_match_dist",
+    "ResilientResult", "ResilientServeResult", "SolveCheckpoint",
+    "resilient_serve", "resilient_solve",
+    "dist_solve_banded_diff", "dist_solve_banded_diff_multislice",
 ]

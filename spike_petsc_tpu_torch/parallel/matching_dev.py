@@ -1,6 +1,8 @@
 """Device-parallel weighted bipartite matching (the auction algorithm).
 
-The port of the JAX package's ``parallel/matching_dev.py`` on one device:
+The port of the JAX package's ``parallel/matching_dev.py``, on one device
+(``auction_match``) and over a mesh axis (``auction_match_dist``, the
+columns sharded over the axis).  On one device:
 the matrix as padded ELL arrays [n, dmax] on the device, then rounds of
 all-column bidding (a row-wise argmax and two segment reductions,
 ``scatter_reduce`` "amax" and "amin"), row acceptance by the highest raise
@@ -200,11 +202,124 @@ def auction_match(a, eps: Optional[float] = None,
                           info=info)
 
 
-def auction_match_dist(a, mesh=None, axis: str = "p", eps=None,
-                       max_rounds=None) -> OrderingResult:
-    """The mesh-distributed auction of the JAX package (columns sharded over
-    a device mesh); not yet ported."""
-    raise NotImplementedError(
-        "auction_match_dist (the auction over a device mesh) is not yet "
-        "ported to spike_petsc_tpu_torch (ROADMAP Queue 1 item 5b); "
-        "auction_match runs on one device")
+def _auction_round_dist(rows_l, ben_l, gcol, state, eps: float, n: int,
+                        ax):
+    """One bidding round of JAX's ``_auction_rounds_dist`` body on this
+    rank's columns, in place on ``state`` = (match_l, matchR, p, active):
+    the row owners ``matchR`` and the prices ``p`` are replicated and
+    updated identically on every rank from two ``all_reduce``s (the best
+    raise a row, ``max``; the winning global column id, ``min``)."""
+    match_l, matchR, p, active = state
+    nl = rows_l.shape[0]
+    dev = rows_l.device
+    ar = torch.arange(nl, device=dev)
+    neg = torch.tensor(-torch.inf, dtype=ben_l.dtype, device=dev)
+    unmatched = match_l < 0
+    active += ax.all_reduce(unmatched.sum()[None])[0] > 0
+    pr = torch.cat([p, p.new_zeros(1)])                    # pad row n
+    vals = torch.where(unmatched[:, None], ben_l - pr[rows_l], neg)
+    best_e = torch.argmax(vals, dim=1)
+    best = vals.gather(1, best_e[:, None])[:, 0]
+    vals[ar, best_e] = neg
+    second = vals.amax(dim=1)
+    has_bid = unmatched & torch.isfinite(best)
+    target = torch.where(has_bid, rows_l[ar, best_e], n)
+    raise_amt = torch.where(torch.isfinite(second), best - second,
+                            torch.zeros_like(best)) + eps
+
+    # global acceptance: per row the highest raise over every rank, ties
+    # to the lowest global column id; the dummy slot n takes no-bids
+    bid_key = torch.where(has_bid, raise_amt, neg)
+    row_best = torch.full((n + 1,), -torch.inf, dtype=ben_l.dtype,
+                          device=dev).scatter_reduce(0, target, bid_key,
+                                                     "amax")
+    row_best = ax.all_reduce(row_best, "max")
+    is_top = has_bid & (bid_key >= row_best[target])
+    cand = torch.where(is_top, gcol, n)
+    winner = torch.full((n + 1,), n, dtype=cand.dtype,
+                        device=dev).scatter_reduce(0, target, cand, "amin")
+    winner = ax.all_reduce(winner, "min")[:n]
+
+    # the replicated row state, identical on every rank
+    accepted_row = (winner < n) & torch.isfinite(row_best[:n])
+    matchR.copy_(torch.where(accepted_row, winner, matchR))
+    p.add_(torch.where(accepted_row, row_best[:n], torch.zeros_like(p)))
+
+    # this rank's columns: a win where it is its target's winner; an
+    # eviction where the row's owner is no longer this column
+    tgt_c = target.clamp(0, n - 1)
+    i_won = has_bid & (target < n) & (winner[tgt_c] == gcol)
+    match_l.copy_(torch.where(i_won, tgt_c, match_l))
+    owned = match_l >= 0
+    still_mine = owned & (matchR[match_l.clamp(0, n - 1)] == gcol)
+    match_l.copy_(torch.where(owned & ~still_mine,
+                              torch.full_like(match_l, -1), match_l))
+
+
+def _auction_rounds_dist(rows_l, ben_l, n: int, eps: float,
+                         max_rounds: int, ax):
+    """The mesh auction on this rank's ``[nl, dmax]`` columns: (match_l,
+    matchR[n], prices[n], rounds), rounds as JAX counts them (the rounds
+    that began with a column unmatched on any rank, padded columns
+    included).  The exit condition is read every ``CHECK_EVERY`` rounds
+    from an ``all_reduce``d count, so every rank stops together; the
+    rounds run after every column is matched change nothing."""
+    dev = rows_l.device
+    nl = rows_l.shape[0]
+    gcol = ax.rank * nl + torch.arange(nl, device=dev)
+    match_l = torch.full((nl,), -1, dtype=torch.int64, device=dev)
+    matchR = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    p = torch.zeros(n, dtype=ben_l.dtype, device=dev)
+    active = torch.zeros((), dtype=torch.int64, device=dev)
+    state = (match_l, matchR, p, active)
+    ran = 0
+    while ran < max_rounds and int(ax.all_reduce(
+            (match_l < 0).sum()[None])[0]) > 0:
+        for _ in range(min(CHECK_EVERY, max_rounds - ran)):
+            _auction_round_dist(rows_l, ben_l, gcol, state, eps, n, ax)
+        ran += min(CHECK_EVERY, max_rounds - ran)
+    return match_l, matchR, p, int(active)
+
+
+def auction_match_dist(a, mesh, axis: str = "p", eps: Optional[float] = None,
+                       max_rounds: Optional[int] = None) -> OrderingResult:
+    """MC64-job-5-objective matching over a mesh axis (JAX
+    ``parallel/matching_dev.py:132-250``): the columns sharded over
+    ``axis`` (padded to a multiple of its size with columns that cannot
+    bid), the row owners and prices replicated.  Every rank passes the
+    same matrix and gets the same result; ``info`` holds ``rounds``
+    (JAX's count), ``eps``, ``devices`` and, where the round budget ran
+    out, ``completed``."""
+    ax = mesh.axis(axis)
+    rows_np, logw_np, n = csc_to_ell(a)
+    ndev = ax.size
+    eps = eps if eps is not None else 1e-3 / max(n, 1)
+    max_rounds = max_rounds or 50 * n
+    n_pad = -(-max(n, 1) // ndev) * ndev
+    dmax = rows_np.shape[1] if n else 1
+    rows_pad = np.full((n_pad, dmax), n, dtype=np.int64)
+    ben_pad = np.full((n_pad, dmax), -np.inf)
+    if n:
+        rows_pad[:n] = rows_np
+        ben_pad[:n] = np.where(np.isfinite(logw_np), -logw_np, -np.inf)
+    nl = n_pad // ndev
+    mine = slice(ax.rank * nl, (ax.rank + 1) * nl)
+    match_l, _, prices, rounds = _auction_rounds_dist(
+        torch.as_tensor(rows_pad[mine]).to(ax.device),
+        torch.as_tensor(ben_pad[mine]).to(ax.device), n=n, eps=eps,
+        max_rounds=max_rounds, ax=ax)
+    match = ax.all_gather(match_l).reshape(-1)[:n].cpu().numpy()
+    info = dict(type="auction_dist", rounds=rounds, eps=float(eps),
+                devices=ndev)
+    unmatched = np.flatnonzero(match < 0)
+    if unmatched.size:
+        used = np.zeros(n, dtype=bool)
+        used[match[match >= 0]] = True
+        free = np.flatnonzero(~used)
+        match[unmatched] = free[: unmatched.size]
+        info["completed"] = int(unmatched.size)
+    row_scale, col_scale = _scalings_from_prices(
+        a, rows_np, logw_np, prices.double().cpu().numpy(), n)
+    return OrderingResult(rperm=match, cperm=np.arange(n),
+                          row_scale=row_scale, col_scale=col_scale,
+                          info=info)

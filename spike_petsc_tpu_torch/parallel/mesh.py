@@ -10,7 +10,14 @@ carries the collectives the distributed solvers use (``all_reduce``,
 
   axis "p"   - the SPIKE partition axis (``ppd`` band partitions a rank);
   axis "rhs" - an optional batch axis over independent right-hand sides,
-               each row of the 2-D mesh a replica of the factorization.
+               each row of the 2-D mesh a replica of the factorization;
+  axis "slice" - the outer row axis of the multislice layout: exact SPIKE
+               within a slice, block-Jacobi across slices.
+
+A mesh of two or more axes also carries the plane of its last two axes as
+one axis, ``mesh.axis(("slice", "p"))``: the ranks of a ``(slice, p)``
+plane in slice-major order, the JAX package's tuple axis name.  Its ring
+exchange and its reductions are those of the flattened plane.
 
 A mesh needs a default process group that the caller initialized
 (``torch.distributed.init_process_group``); it never creates one.  The
@@ -28,6 +35,7 @@ import warnings
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -138,58 +146,94 @@ def _require_group() -> None:
             "init_method=..., world_size=..., rank=...) first")
 
 
-def make_mesh_2d(shape: Sequence[int], axes=("rhs", "p"),
-                 device=None) -> Mesh:
+def _build_mesh(shape: Sequence[int], axes: Sequence[str],
+                device) -> Mesh:
     """A mesh of ``shape`` over the first ``prod(shape)`` ranks of the
-    default group, axes named ``axes``.  Every rank of the default group
-    must call it (each line's group is made by ``dist.new_group`` on every
-    rank, in the same order); a rank outside the mesh raises after that."""
+    default group, row-major, axes named ``axes``: one process group for
+    every line along every axis and, on a mesh of two or more axes, one
+    for every plane of the last two axes (its ranks in row-major order,
+    the flattened ``(slice, p)`` order of the JAX package's tuple axis
+    names), registered under the tuple of the two names.  Every rank of
+    the default group calls ``dist.new_group`` for every group, in the
+    same order, including the groups it is not in; a rank outside the mesh
+    raises after that."""
     _require_group()
     shape = tuple(int(s) for s in shape)
     axes = tuple(axes)
-    if len(shape) != len(axes) or not 1 <= len(shape) <= 2:
-        raise ValueError(f"mesh shape {shape} and axes {axes}: one or two "
-                         "axes")
     world, me = dist.get_world_size(), dist.get_rank()
-    need = 1
-    for s in shape:
-        need *= s
+    need = int(np.prod(shape))
     if need > world:
         raise ValueError(f"requested {need} ranks, have {world}")
     dev = _mesh_device(device)
-    coords = None
-    if me < need:
-        coords = (me,) if len(shape) == 1 else divmod(me, shape[1])
+    grid = np.arange(need).reshape(shape)
+    d = len(shape)
+    groups = [((a,), axes[a]) for a in range(d)]
+    if d >= 2:
+        groups.append(((d - 2, d - 1), (axes[d - 2], axes[d - 1])))
     made = {}
-    for a, name in enumerate(axes):
-        other = shape[1 - a] if len(shape) == 2 else 1
-        for line in range(other):
-            if len(shape) == 1:
-                ranks = tuple(range(shape[0]))
-            elif a == 0:
-                ranks = tuple(i * shape[1] + line for i in range(shape[0]))
-            else:
-                ranks = tuple(line * shape[1] + j for j in range(shape[1]))
+    for dims, name in groups:
+        rest = [a for a in range(d) if a not in dims]
+        lines = np.moveaxis(grid, list(dims),
+                            list(range(len(rest), d))).reshape(
+                                -1, int(np.prod([shape[a] for a in dims])))
+        for line in lines:
+            ranks = tuple(int(r) for r in line)
             group = (dist.group.WORLD if len(ranks) == world
                      else dist.new_group(list(ranks)))
-            if coords is not None and me in ranks:
+            if me in ranks:
                 _check_backend(group, dev)
                 made[name] = MeshAxis(name=name, group=group,
                                       size=len(ranks),
                                       rank=ranks.index(me), ranks=ranks,
                                       device=dev)
-    if coords is None:
+    if me >= need:
         raise ValueError(f"rank {me} lies outside the {shape} mesh")
     return Mesh(axis_names=axes, shape=dict(zip(axes, shape)), device=dev,
                 axes=made)
+
+
+def make_mesh_2d(shape: Sequence[int], axes=("rhs", "p"),
+                 device=None) -> Mesh:
+    """A mesh of ``shape`` (one or two axes) over the first
+    ``prod(shape)`` ranks of the default group, axes named ``axes``.
+    Every rank of the default group must call it."""
+    if len(shape) != len(axes) or not 1 <= len(shape) <= 2:
+        raise ValueError(f"mesh shape {tuple(shape)} and axes "
+                         f"{tuple(axes)}: one or two axes")
+    return _build_mesh(shape, axes, device)
+
+
+def make_mesh_multislice(shape: Sequence[int], axes=("slice", "p"),
+                         device=None) -> Mesh:
+    """The 2-D (slices, ranks-per-slice) mesh of the multislice SPIKE
+    (JAX ``spike_dist.py:1045-1059``): ranks row-major, as JAX lays the
+    devices out where they carry no ``slice_index``.  Its plane axis
+    ``mesh.axis((axes[0], axes[1]))`` spans the whole mesh in slice-major
+    order."""
+    if len(shape) != 2 or len(axes) != 2:
+        raise ValueError(f"a multislice mesh has two axes, got shape "
+                         f"{tuple(shape)} and axes {tuple(axes)}")
+    return _build_mesh(shape, axes, device)
+
+
+def make_mesh_3d(shape: Sequence[int], axes=("rhs", "slice", "p"),
+                 device=None) -> Mesh:
+    """The 3-D (replicas, slices, ranks-per-slice) mesh of replicated
+    multislice serving (JAX ``spike_dist.py:1696-1713``), ranks row-major.
+    Each replica's ``(slice, p)`` plane is the axis
+    ``mesh.axis((axes[1], axes[2]))``."""
+    if len(shape) != 3 or len(axes) != 3:
+        raise ValueError(f"a 3-D mesh has three axes, got shape "
+                         f"{tuple(shape)} and axes {tuple(axes)}")
+    return _build_mesh(shape, axes, device)
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "p",
               device=None) -> Mesh:
     """A 1-D mesh over the first ``n_devices`` ranks (default: all)."""
     _require_group()
-    return make_mesh_2d((n_devices or dist.get_world_size(),), (axis,),
-                        device=device)
+    return _build_mesh((n_devices or dist.get_world_size(),), (axis,),
+                       device)
 
 
 def shard_leading(mesh: Mesh, x, axis: str = "p") -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Multi-rank SPIKE on ``torch.distributed``: the partitions-per-rank
 factorization, the solves, the halo matvec and the Krylov solvers over a
-mesh (the port of the 1-D and 2-D halves of
-``spike_petsc_tpu.parallel.spike_dist``).
+mesh, 1-D, 2-D (rhs x p), multislice (slice x p) and 3-D (rhs x slice x
+p) (the port of ``spike_petsc_tpu.parallel.spike_dist``).
 
 **The SPMD model.**  JAX runs one program over a mesh, global arrays in and
 out.  Here one Python process runs per rank, and the API keeps JAX's
@@ -31,6 +31,9 @@ K = n_ranks * ppd band partitions along the mesh axis:
   the neighbours, one ``batch_isend_irecv`` (JAX's cyclic ``ppermute``);
 * inner products are one ``all_reduce`` each over the axis
   (``axis_name`` of the Krylov solvers).
+
+The multislice layout (the section at the end) is SPIKE within each slice
+and block-Jacobi across slices; its matvec is exact.
 
 On the card the partition sweeps take the fused kernels of the
 single-device path through ``ops.spike.partition_solver`` (#1 for ``inv``,
@@ -95,7 +98,8 @@ class DistSpikeFactor:
     k: int
     ppd: int
     truncated: bool
-    rank: int                         # this rank's coordinate on the axis
+    rank: int                         # this rank's place on the row axis
+    #                                   (the (slice, p) plane: multislice)
     # the local band rows for the banded matvec route (the diagonal-major
     # layout of the kernel #2), None for the blocks route
     mv_prep: Optional[PreparedBandMV] = None
@@ -247,6 +251,18 @@ def _dist_safety_net(band, dsf, mesh, axis, inverter, store_dtype,
     return dsf, False
 
 
+def _local_band(band: BandedMatrix, ring_rank: int, rows: int,
+                device) -> BandedMatrix:
+    """This rank's ``rows`` rows of the band padded to the mesh's rows
+    (``ring_rank`` its place on the row axis), on the mesh device."""
+    n, lo = band.n, ring_rank * rows
+    mine = BandedMatrix(data=band.data[min(lo, n):min(lo + rows, n)],
+                        kl=band.kl, ku=band.ku)
+    mine = pad_banded(mine, rows)
+    return BandedMatrix(data=mine.data.to(device).contiguous(), kl=band.kl,
+                        ku=band.ku)
+
+
 def _dist_spike_factor_impl(band: BandedMatrix, mesh: Mesh, axis: str, *,
                             method, truncated, block_b, parts_per_device,
                             reduced, store_spikes, store_dtype, spike_dtype,
@@ -257,13 +273,8 @@ def _dist_spike_factor_impl(band: BandedMatrix, mesh: Mesh, axis: str, *,
     K = ax.size * ppd
     kl, ku, n = band.kl, band.ku, band.n
     k, b, m = _partition_geometry(n, K, kl, ku, block_b)
-    nb, w = m // b, band.width
-    # this rank's rows of the padded band: [ppd * m, w] on the mesh device
-    lo, hi = ax.rank * ppd * m, (ax.rank + 1) * ppd * m
-    mine = BandedMatrix(data=band.data[min(lo, n):min(hi, n)], kl=kl, ku=ku)
-    mine = pad_banded(mine, ppd * m)
-    local = BandedMatrix(data=mine.data.to(mesh.device).contiguous(),
-                         kl=kl, ku=ku)
+    nb = m // b
+    local = _local_band(band, ax.rank, ppd * m, mesh.device)
     route = _resolve_matvec_impl(matvec_impl, local)
 
     gidx = ax.rank * ppd + torch.arange(ppd, device=mesh.device)
@@ -299,13 +310,14 @@ def _dist_spike_factor_impl(band: BandedMatrix, mesh: Mesh, axis: str, *,
 # Local (per-rank) building blocks: [ppd, ...] arrays of this rank
 # ---------------------------------------------------------------------------
 
-def local_interface_solve(dsf: DistSpikeFactor, g_top: torch.Tensor,
-                          g_bot: torch.Tensor, ax: MeshAxis):
-    """All-gather the interface values (two ``all_gather``s of
-    ``[ppd, k(, r)]``), solve the replicated reduced system (or apply
-    ``red_Dinv`` when truncated), and slice this rank's partitions.
-    Returns ``(xbot_prev, xtop_next)`` of the shape of ``g_top``."""
-    K, k, ppd = dsf.K, dsf.k, dsf.ppd
+def _interface_solve(dsf: DistSpikeFactor, g_top: torch.Tensor,
+                     g_bot: torch.Tensor, ax: MeshAxis, K: int):
+    """All-gather the interface values over ``ax`` (two ``all_gather``s of
+    ``[ppd, k(, r)]``), solve the reduced system of the ``K`` partitions
+    along ``ax`` (or apply ``red_Dinv`` when truncated), and slice this
+    rank's partitions.  Returns ``(xbot_prev, xtop_next)`` of the shape of
+    ``g_top``, zero at the ends of the axis."""
+    k, ppd = dsf.k, dsf.ppd
     trail = tuple(g_top.shape[2:])
     gt = ax.all_gather(g_top).reshape((K, k) + trail)
     gb = ax.all_gather(g_bot).reshape((K, k) + trail)
@@ -318,13 +330,20 @@ def local_interface_solve(dsf: DistSpikeFactor, g_top: torch.Tensor,
     else:
         z = _solve_reduced_system(dsf.red_fact, rhs)
     zpad = torch.cat([z, torch.zeros_like(z[:1])], dim=0)  # [K, 2k(, r)]
-    gp = dsf.rank * ppd + torch.arange(ppd, device=z.device)
+    gp = ax.rank * ppd + torch.arange(ppd, device=z.device)
     mask = (1,) * (1 + len(trail))
     xtop_next = zpad[gp.clamp(max=K - 1), k:] * (gp < K - 1).reshape(
         (ppd,) + mask).to(z.dtype)
     xbot_prev = zpad[(gp - 1).clamp(min=0), :k] * (gp > 0).reshape(
         (ppd,) + mask).to(z.dtype)
     return xbot_prev, xtop_next
+
+
+def local_interface_solve(dsf: DistSpikeFactor, g_top: torch.Tensor,
+                          g_bot: torch.Tensor, ax: MeshAxis):
+    """The interface solve of a 1-D mesh factor: the replicated reduced
+    system of all K partitions."""
+    return _interface_solve(dsf, g_top, g_bot, ax, dsf.K)
 
 
 def _local_tri_solve(dsf: DistSpikeFactor, rblk: torch.Tensor,
@@ -548,6 +567,65 @@ def _remove_local(q_loc: torch.Tensor, v: torch.Tensor,
 # Transpose
 # ---------------------------------------------------------------------------
 
+def _transpose_local_parts(dsf: DistSpikeFactor, ring: MeshAxis, *,
+                           spikes: bool, spike_mask=None, fast: bool = True):
+    """This rank's part of the factorization of A^T on the same factors,
+    shared by the 1-D and the multislice transposes (JAX
+    ``spike_dist.py:724``): the coupling tips swap and transpose with one
+    exchange around ``ring`` (the stored global-edge zeros zero the new
+    edges), the blocks transpose partition by partition, and, where
+    ``spikes``, the transpose spikes are one batched solve of their 2k
+    columns built from the tips as ``spike_mask(Btip_t, Ctip_t)`` leaves
+    them.  Returns ``(blocks_t, Btip_t, Ctip_t, factT, Vt, Wt, tips)``,
+    the last three None without ``spikes``."""
+    ppd, nb, b, k = dsf.ppd, dsf.nb, dsf.b, dsf.k
+    blocks, dtype = dsf.blocks, dsf.Btip.dtype
+
+    def tT(a):
+        return a.transpose(-1, -2)
+
+    ct_next, bt_prev = ring.exchange(dsf.Ctip[0], dsf.Btip[-1])
+    Btip_t = tT(torch.cat([dsf.Ctip[1:], ct_next[None]])).contiguous()
+    Ctip_t = tT(torch.cat([bt_prev[None], dsf.Btip[:-1]])).contiguous()
+    zb = torch.zeros_like(blocks.D[:, :1])
+    blocks_t = BlockTridiagonal(
+        D=tT(blocks.D).contiguous(),
+        L=torch.cat([zb, tT(blocks.U[:, :-1])], dim=1),
+        U=torch.cat([tT(blocks.L[:, 1:]), zb], dim=1))
+    if fast and dsf.fact.method == "inv":
+        factT = transposed_factor_from_blocks(dsf.fact, blocks)
+    else:
+        factT = TransposedBlockTriFactor(dsf.fact)
+    if not spikes:
+        return blocks_t, Btip_t, Ctip_t, factT, None, None, None
+    Bs, Cs = (Btip_t, Ctip_t) if spike_mask is None else \
+        spike_mask(Btip_t, Ctip_t)
+    rhs = torch.zeros((ppd, nb, b, 2 * k), dtype=dtype,
+                      device=dsf.Btip.device)
+    rhs[:, nb - 1, b - k:, :k] = Bs
+    rhs[:, 0, :k, k:] = Cs
+    VW = _batched_tri_solve(factT, rhs).to(dtype)
+    Vt, Wt = VW[..., :k], VW[..., k:]
+    tips = torch.stack(_tips_of(Vt, Wt, nb, b, k), dim=1)
+    return blocks_t, Btip_t, Ctip_t, factT, Vt, Wt, tips
+
+
+def _keep_spikes(Vt, Wt, keep: bool, sdt):
+    """The transpose spikes a transposed factor keeps, in the forward
+    factor's spike dtype ``sdt``."""
+    if not keep or Vt is None:
+        return None, None
+    V, W = Vt.contiguous(), Wt.contiguous()
+    return (V, W) if sdt is None else (V.to(sdt), W.to(sdt))
+
+
+def _require_block_thomas(dsf: DistSpikeFactor, name: str) -> None:
+    if not isinstance(dsf.fact, BlockTriFactor):
+        raise ValueError(
+            f"{name} requires block-Thomas partition factors "
+            f"(got {type(dsf.fact).__name__})")
+
+
 def dist_spike_transpose(dsf: DistSpikeFactor, mesh: Mesh, axis: str = "p",
                          reduced: str = "auto", inverter: str = "auto",
                          store_spikes: Optional[bool] = None,
@@ -567,61 +645,81 @@ def dist_spike_transpose(dsf: DistSpikeFactor, mesh: Mesh, axis: str = "p",
     sweep kernel #1 as the forward ones do; otherwise the storage-sharing
     ``TransposedBlockTriFactor`` marker (plain transpose sweeps).  The
     result carries no band rows: its matvec takes the blocks route."""
-    if not isinstance(dsf.fact, BlockTriFactor):
-        raise ValueError(
-            "dist_spike_transpose requires block-Thomas partition factors "
-            f"(got {type(dsf.fact).__name__})")
+    _require_block_thomas(dsf, "dist_spike_transpose")
     ax = mesh.axis(axis)
-    K, k, ppd, nb, b = dsf.K, dsf.k, dsf.ppd, dsf.nb, dsf.b
-    method = dsf.fact.method
+    K, k = dsf.K, dsf.k
     keep = (dsf.V is not None) if store_spikes is None else store_spikes
     sdt = dsf.V.dtype if dsf.V is not None else None
-    blocks, dtype = dsf.blocks, dsf.Btip.dtype
-
-    def tT(a):
-        return a.transpose(-1, -2)
-
-    ct_next, bt_prev = ax.exchange(dsf.Ctip[0], dsf.Btip[-1])
-    Btip_t = tT(torch.cat([dsf.Ctip[1:], ct_next[None]])).contiguous()
-    Ctip_t = tT(torch.cat([bt_prev[None], dsf.Btip[:-1]])).contiguous()
-    zb = torch.zeros_like(blocks.D[:, :1])
-    blocks_t = BlockTridiagonal(
-        D=tT(blocks.D).contiguous(),
-        L=torch.cat([zb, tT(blocks.U[:, :-1])], dim=1),
-        U=torch.cat([tT(blocks.L[:, 1:]), zb], dim=1))
-    if fast and method == "inv":
-        factT = transposed_factor_from_blocks(dsf.fact, blocks)
-    else:
-        factT = TransposedBlockTriFactor(dsf.fact)
-    common = dict(n=dsf.n, K=K, m=dsf.m, b=b, k=k, ppd=ppd,
-                  truncated=dsf.truncated, rank=dsf.rank)
-    if K == 1:
-        return DistSpikeFactor(blocks=blocks_t, fact=factT, Btip=Btip_t,
-                               Ctip=Ctip_t, red_fact=None, red_Dinv=None,
-                               V=None, W=None, **common)
-    rhs = torch.zeros((ppd, nb, b, 2 * k), dtype=dtype,
-                      device=dsf.Btip.device)
-    rhs[:, nb - 1, b - k:, :k] = Btip_t
-    rhs[:, 0, :k, k:] = Ctip_t
-    VW = _batched_tri_solve(factT, rhs).to(dtype)
-    Vt, Wt = VW[..., :k], VW[..., k:]
-    tips = torch.stack(_tips_of(Vt, Wt, nb, b, k), dim=1)
-    all_tips = ax.all_gather(tips).reshape(K, 4, k, k)
-    red_fact, red_Dinv = _build_reduced(all_tips, dsf.truncated, method,
-                                        reduced, inverter)
-    V = W = None
-    if keep:
-        V, W = Vt.contiguous(), Wt.contiguous()
-        if sdt is not None:
-            V, W = V.to(sdt), W.to(sdt)
+    blocks_t, Btip_t, Ctip_t, factT, Vt, Wt, tips = _transpose_local_parts(
+        dsf, ax, spikes=K > 1, fast=fast)
+    red_fact = red_Dinv = None
+    if K > 1:
+        all_tips = ax.all_gather(tips).reshape(K, 4, k, k)
+        red_fact, red_Dinv = _build_reduced(all_tips, dsf.truncated,
+                                            dsf.fact.method, reduced,
+                                            inverter)
+    V, W = _keep_spikes(Vt, Wt, keep, sdt)
     return DistSpikeFactor(blocks=blocks_t, fact=factT, Btip=Btip_t,
                            Ctip=Ctip_t, red_fact=red_fact,
-                           red_Dinv=red_Dinv, V=V, W=W, **common)
+                           red_Dinv=red_Dinv, V=V, W=W, n=dsf.n, K=K,
+                           m=dsf.m, b=dsf.b, k=k, ppd=dsf.ppd,
+                           truncated=dsf.truncated, rank=dsf.rank)
 
 
 # ---------------------------------------------------------------------------
 # Krylov solvers on the mesh
 # ---------------------------------------------------------------------------
+
+def _krylov_solve_fn(dsf: DistSpikeFactor, ax: MeshAxis, ksp_type: str,
+                     use_pc: bool, dsf_transpose, nullspace,
+                     transpose_nullspace, params: dict, matvec_of, pc_of):
+    """The Krylov solve over the row axis ``ax`` shared by the 1-D and the
+    multislice solvers: ``matvec_of(d)`` / ``pc_of(d)`` give the local
+    operator and PC of the factor ``d`` (``dsf`` or ``dsf_transpose``),
+    every inner product and null-space projection is one ``all_reduce``
+    over ``ax``, and x comes back global on every rank."""
+    method = SOLVERS.get(ksp_type)
+    tns = transpose_nullspace if transpose_nullspace is not None \
+        else nullspace
+    qn = None if nullspace is None else _pad_shard_rhs(dsf, ax,
+                                                       nullspace.vecs)
+    qt = None if tns is None else _pad_shard_rhs(dsf, ax, tns.vecs)
+
+    def project(q, fn):
+        return fn if q is None else (lambda v: _remove_local(q, fn(v), ax))
+
+    def solve_fn(rhs, x0=None) -> KSPResult:
+        r_local = _pad_shard_rhs(dsf, ax, torch.as_tensor(rhs))
+        x0_local = None if x0 is None else _pad_shard_rhs(
+            dsf, ax, torch.as_tensor(x0))
+        if qt is not None:
+            # consistency and residual drift by the LEFT null space
+            r_local = _remove_local(qt, r_local, ax)
+        matvec = project(qt, matvec_of(dsf))
+        # every PC output projected (KSP_PCApply + MatNullSpaceRemove)
+        pc_apply = project(qn, pc_of(dsf)) if use_pc else None
+        kw = dict(params)
+        if ksp_type in TRANSPOSE_KSP_TYPES:
+            kw["matvec_transpose"] = project(qn, matvec_of(dsf_transpose))
+            if use_pc:
+                kw["pc_apply_transpose"] = project(qt, pc_of(dsf_transpose))
+        res = method(matvec, r_local, x0_local, pc_apply, axis_name=ax,
+                     **kw)
+        x = res.x if qn is None else _remove_local(qn, res.x, ax)
+        return KSPResult(x=_gather_global(dsf, ax, x), its=res.its,
+                         reason=res.reason, rnorm=res.rnorm,
+                         history=res.history,
+                         true_history=res.true_history)
+
+    return solve_fn
+
+
+def _need_transpose(ksp_type: str, dsf_transpose, how: str) -> None:
+    if ksp_type in TRANSPOSE_KSP_TYPES and dsf_transpose is None:
+        raise ValueError(
+            f"distributed {ksp_type} needs the A^T factorization: pass "
+            f"dsf_transpose={how}")
+
 
 def make_dist_solver(dsf: DistSpikeFactor, mesh: Mesh, axis: str = "p",
                      ksp_type: str = "gmres", use_pc: bool = True,
@@ -641,57 +739,112 @@ def make_dist_solver(dsf: DistSpikeFactor, mesh: Mesh, axis: str = "p",
 
     Returns ``solve(rhs[n], x0=None) -> KSPResult`` whose ``x`` is the
     global ``[n]`` vector on every rank."""
-    method = SOLVERS.get(ksp_type)
-    if ksp_type in TRANSPOSE_KSP_TYPES and dsf_transpose is None:
-        raise ValueError(
-            f"distributed {ksp_type} needs the A^T factorization: pass "
-            "dsf_transpose=dist_spike_transpose(dsf, mesh, axis)")
+    _need_transpose(ksp_type, dsf_transpose,
+                    "dist_spike_transpose(dsf, mesh, axis)")
     ax = mesh.axis(axis)
-    tns = transpose_nullspace if transpose_nullspace is not None \
-        else nullspace
-    qn = None if nullspace is None else _pad_shard_rhs(dsf, ax,
-                                                       nullspace.vecs)
-    qt = None if tns is None else _pad_shard_rhs(dsf, ax, tns.vecs)
+    return _krylov_solve_fn(
+        dsf, ax, ksp_type, use_pc, dsf_transpose, nullspace,
+        transpose_nullspace, params,
+        matvec_of=lambda d: (lambda v: local_matvec(d, v, ax)),
+        pc_of=lambda d: (lambda v: local_spike_solve(d, v, ax)))
 
-    def solve_fn(rhs, x0=None) -> KSPResult:
+
+def _many_local_fn(dsf: DistSpikeFactor, ksp_type: str, use_pc: bool,
+                   params: dict, *, red: MeshAxis, sync: Optional[MeshAxis],
+                   pc_many, pc_one, mv_one):
+    """The multi-RHS engine of one replica behind the serving surfaces
+    (``make_dist_solver_batched``, ``make_dist_solver_multislice_batched``,
+    ``make_dist_solver_3d``; JAX ``spike_dist.py:864-993, 1550-1644``):
+    ``local_fn(rblk [ppd, nb, b, r]) -> x`` of the same shape.  Sums run
+    over the row axis ``red``; the keep-iterating decisions are taken
+    over the replica axis ``sync`` where there is one (richardson the
+    largest residual of every replica, the solvers ``conv_sync_axis``), so
+    every replica takes the same number of trips.  ``pc_many`` / ``pc_one``
+    are the multi- and single-RHS PC applies, ``mv_one`` the single-RHS
+    matvec; the multi-RHS matvec is ``local_matvec_many`` over ``red``,
+    the batched block product, on every route."""
+    ppd, m, nb, b = dsf.ppd, dsf.m, dsf.nb, dsf.b
+
+    def to_blocks(X):                       # [ppd * m, r] -> [ppd, nb, b, r]
+        return X.reshape(ppd, nb, b, X.shape[-1])
+
+    if ksp_type == "preonly":
+        return pc_many
+    if ksp_type == "richardson":
+        rtol = params.get("rtol", 1e-8)
+        maxit = params.get("maxit", 50)
+
+        def local_fn(rblk):
+            bnorm2 = red.all_reduce(torch.sum(rblk.square(), dim=(0, 1, 2)))
+            bnorm2 = torch.clamp(bnorm2, min=torch.finfo(rblk.dtype).tiny)
+
+            def resid_rel(X):
+                R = rblk - local_matvec_many(dsf, X, red)
+                rn2 = red.all_reduce(torch.sum(R.square(), dim=(0, 1, 2)))
+                rel = torch.sqrt(rn2 / bnorm2).max()[None]
+                if sync is not None:
+                    rel = sync.all_reduce(rel, "max")
+                return R, float(rel)
+
+            # the residual of the CURRENT iterate rides along, so
+            # convergence is tested before the next correction is spent
+            X = pc_many(rblk)
+            R, rel = resid_rel(X)
+            it = 1
+            while rel > rtol and it < maxit:
+                X = X + pc_many(R)
+                R, rel = resid_rel(X)
+                it += 1
+            return X
+        return local_fn
+    if ksp_type in MANY_SOLVERS:
+        method_many = MANY_SOLVERS[ksp_type]
+
+        def local_fn(rblk):
+            rloc = rblk.shape[-1]
+
+            def mvm(X):
+                return local_matvec_many(dsf, to_blocks(X), red).reshape(
+                    ppd * m, rloc)
+
+            def pcm(X):
+                return pc_many(to_blocks(X)).reshape(ppd * m, rloc)
+            res = method_many(mvm, rblk.reshape(ppd * m, rloc), None,
+                              pcm if use_pc else None, axis_name=red,
+                              conv_sync_axis=sync, **params)
+            return to_blocks(res.x)
+        return local_fn
+    method = SOLVERS.get(ksp_type)
+
+    def local_fn(rblk):
+        cols = [method(mv_one, rblk[..., j].reshape(-1), None,
+                       pc_one if use_pc else None, axis_name=red,
+                       conv_sync_axis=sync, **params).x
+                for j in range(rblk.shape[-1])]
+        return to_blocks(torch.stack(cols, dim=-1))
+    return local_fn
+
+
+def _replica_solve_fn(dsf: DistSpikeFactor, rows: MeshAxis, ax_r: MeshAxis,
+                      axis_rhs: str, local_fn):
+    """``solve(rhs[R, n]) -> x[R, n]`` over a replica axis: row block i of
+    ``rhs`` goes to replica i, each replica solves its block over its row
+    axis ``rows``, and x is gathered on every rank."""
+    ppd, m, nb, b = dsf.ppd, dsf.m, dsf.nb, dsf.b
+
+    def solve_fn(rhs) -> torch.Tensor:
         rhs = torch.as_tensor(rhs)
-        r_local = _pad_shard_rhs(dsf, ax, rhs)
-        x0_local = None if x0 is None else _pad_shard_rhs(
-            dsf, ax, torch.as_tensor(x0))
-        if qt is not None:
-            # consistency and residual drift by the LEFT null space
-            r_local = _remove_local(qt, r_local, ax)
-
-            def matvec(v):
-                return _remove_local(qt, local_matvec(dsf, v, ax), ax)
-        else:
-            def matvec(v):
-                return local_matvec(dsf, v, ax)
-        base_pc = (lambda v: local_spike_solve(dsf, v, ax)) if use_pc \
-            else None
-        # every PC output projected (KSP_PCApply + MatNullSpaceRemove)
-        pc_apply = base_pc if (base_pc is None or qn is None) else \
-            (lambda v: _remove_local(qn, base_pc(v), ax))
-        kw = dict(params)
-        if ksp_type in TRANSPOSE_KSP_TYPES:
-            if qn is not None:
-                kw["matvec_transpose"] = lambda v: _remove_local(
-                    qn, local_matvec(dsf_transpose, v, ax), ax)
-            else:
-                kw["matvec_transpose"] = \
-                    lambda v: local_matvec(dsf_transpose, v, ax)
-            if use_pc:
-                def base_pct(v):
-                    return local_spike_solve(dsf_transpose, v, ax)
-                kw["pc_apply_transpose"] = base_pct if qt is None else \
-                    (lambda v: _remove_local(qt, base_pct(v), ax))
-        res = method(matvec, r_local, x0_local, pc_apply, axis_name=ax,
-                     **kw)
-        x = res.x if qn is None else _remove_local(qn, res.x, ax)
-        return KSPResult(x=_gather_global(dsf, ax, x), its=res.its,
-                         reason=res.reason, rnorm=res.rnorm,
-                         history=res.history,
-                         true_history=res.true_history)
+        R = rhs.shape[0]
+        if R % ax_r.size:
+            raise ValueError(f"{R} right-hand sides do not split over the "
+                             f"{axis_rhs!r} axis of size {ax_r.size}")
+        rloc = R // ax_r.size
+        mine = rhs[ax_r.rank * rloc:(ax_r.rank + 1) * rloc]      # [Rloc, n]
+        r_local = _pad_shard_rhs(dsf, rows, mine.T)       # [ppd * m, Rloc]
+        x = local_fn(r_local.reshape(ppd, nb, b, rloc)).reshape(ppd * m,
+                                                                 rloc)
+        x = _gather_global(dsf, rows, x)                       # [n, Rloc]
+        return ax_r.all_gather(x.T.contiguous()).reshape(R, dsf.n)
 
     return solve_fn
 
@@ -720,83 +873,296 @@ def make_dist_solver_batched(dsf: DistSpikeFactor, mesh: Mesh,
     * any other KSP type: one right-hand side at a time (JAX's
       ``lax.map``), ``conv_sync_axis=axis_rhs``."""
     ax_p, ax_r = mesh.axis(axis_p), mesh.axis(axis_rhs)
-    ppd, m, nb, b = dsf.ppd, dsf.m, dsf.nb, dsf.b
+    local_fn = _many_local_fn(
+        dsf, ksp_type, use_pc, params, red=ax_p, sync=ax_r,
+        pc_many=lambda X: local_spike_solve_many(dsf, X, ax_p),
+        pc_one=lambda v: local_spike_solve(dsf, v, ax_p),
+        mv_one=lambda v: local_matvec(dsf, v, ax_p))
+    return _replica_solve_fn(dsf, ax_p, ax_r, axis_rhs, local_fn)
 
-    def to_blocks(X):                       # [ppd * m, R] -> [ppd, nb, b, R]
-        return X.reshape(ppd, nb, b, X.shape[-1])
 
-    if ksp_type == "preonly":
-        def local_fn(rblk):
-            return local_spike_solve_many(dsf, rblk, ax_p)
-    elif ksp_type == "richardson":
-        rtol = params.get("rtol", 1e-8)
-        maxit = params.get("maxit", 50)
+# ---------------------------------------------------------------------------
+# Multislice: slices x partitions within a slice, and the 3-D serving mesh
+# ---------------------------------------------------------------------------
+#
+# The rows are split over the (slice, p) plane.  Each slice is factored as
+# an exact SPIKE of its own: its tips are all-gathered over the p line
+# only and every rank holds its slice's reduced system.  Across slices the
+# PC is block-Jacobi (a slice edge is a global edge of the reduced
+# system), so a PC apply sends nothing between slices.  The matvec keeps
+# the TRUE coupling: its k-wide edge strips ride the ring of the flattened
+# plane, and the Krylov sums all_reduce over the plane.
 
-        def local_fn(rblk):
-            bnorm2 = ax_p.all_reduce(torch.sum(rblk.square(),
-                                               dim=(0, 1, 2)))
-            bnorm2 = torch.clamp(bnorm2, min=torch.finfo(rblk.dtype).tiny)
+def _plane(mesh: Mesh, axis_slice: str, axis_p: str):
+    """``(ax_slice, ax_p, plane)``: the two line axes and the
+    ``(slice, p)`` plane axis of this rank."""
+    return (mesh.axis(axis_slice), mesh.axis(axis_p),
+            mesh.axis((axis_slice, axis_p)))
 
-            def resid_rel(X):
-                R = rblk - local_matvec_many(dsf, X, ax_p)
-                rn2 = ax_p.all_reduce(torch.sum(R.square(), dim=(0, 1, 2)))
-                rel = ax_r.all_reduce(torch.sqrt(rn2 / bnorm2).max()[None],
-                                      "max")
-                return R, float(rel)
 
-            # the residual of the CURRENT iterate rides along, so
-            # convergence is tested before the next correction is spent
-            X = local_spike_solve_many(dsf, rblk, ax_p)
-            R, rel = resid_rel(X)
-            it = 1
-            while rel > rtol and it < maxit:
-                X = X + local_spike_solve_many(dsf, R, ax_p)
-                R, rel = resid_rel(X)
-                it += 1
-            return X
-    elif ksp_type in MANY_SOLVERS:
-        method_many = MANY_SOLVERS[ksp_type]
+def dist_spike_factor_multislice(
+        band: BandedMatrix, mesh: Mesh, axis_slice: str = "slice",
+        axis_p: str = "p", method: str = "inv",
+        block_b: Optional[int] = None, parts_per_device: int = 1,
+        reduced: str = "auto", store_spikes: bool = False,
+        store_dtype=None, spike_dtype=None,
+        shift: str = "none", shift_amount: float = 0.0,
+        inverter: str = "auto", safety_net: bool = True,
+        matvec_impl: str = "auto") -> DistSpikeFactor:
+    """Factor a global band over a (slice, p) mesh (JAX
+    ``spike_dist.py:1062-1116``): exact SPIKE within each slice,
+    block-Jacobi across slices, the matvec exact.  K = n_slices *
+    per_slice * ppd partitions; the reduced system is this rank's
+    slice's.  Every rank passes the same global band.
 
-        def local_fn(rblk):
-            rloc = rblk.shape[-1]
+    The options are :func:`dist_spike_factor`'s; stored V/W spikes come
+    from the PC tips (slice edges zeroed).  The safety net's probe is one
+    richardson iteration (a PC apply): block-Jacobi across slices is
+    inexact by design, so it rejects only a non-finite result or a
+    residual above 1e6, and then re-factors with ``inverter='blocked'``.
+    The probe's residual comes out of an ``all_reduce``, so every rank
+    takes the same decision.  ``matvec_impl``: as in
+    :func:`dist_spike_factor`, single right-hand side only (the multi-RHS
+    matvec is the batched block product, and a transposed factor carries
+    no band rows)."""
+    def build(inv):
+        return _dist_spike_factor_multislice_impl(
+            band, mesh, axis_slice, axis_p, method=method, block_b=block_b,
+            parts_per_device=parts_per_device, reduced=reduced,
+            store_spikes=store_spikes, store_dtype=store_dtype,
+            spike_dtype=spike_dtype, shift=shift,
+            shift_amount=shift_amount, inverter=inv,
+            matvec_impl=matvec_impl)
 
-            def mvm(X):
-                return local_matvec_many(dsf, to_blocks(X), ax_p).reshape(
-                    ppd * m, rloc)
+    dsf = build(inverter)
+    if safety_net:
+        from ..solvers.pc import _newton_probe_active
+        if _newton_probe_active(inverter):
+            probe = banded_matvec(band, torch.ones(band.n, dtype=band.dtype,
+                                                   device=band.device))
+            res = make_dist_solver_multislice(
+                dsf, mesh, axis_slice, axis_p, ksp_type="richardson",
+                rtol=1e-30, maxit=1)(probe)
+            rel = float(res.rnorm) / float(torch.linalg.norm(probe))
+            if not math.isfinite(rel) or rel > 1e6:
+                dsf = build("blocked")
+    return dsf
 
-            def pcm(X):
-                return local_spike_solve_many(dsf, to_blocks(X),
-                                              ax_p).reshape(ppd * m, rloc)
-            res = method_many(mvm, rblk.reshape(ppd * m, rloc), None,
-                              pcm if use_pc else None, axis_name=ax_p,
-                              conv_sync_axis=ax_r, **params)
-            return to_blocks(res.x)
+
+def _dist_spike_factor_multislice_impl(
+        band: BandedMatrix, mesh: Mesh, axis_slice: str, axis_p: str, *,
+        method, block_b, parts_per_device, reduced, store_spikes,
+        store_dtype, spike_dtype, shift, shift_amount, inverter,
+        matvec_impl: str = "blocks") -> DistSpikeFactor:
+    ax_s, ax_p, plane = _plane(mesh, axis_slice, axis_p)
+    ppd = parts_per_device
+    Ks = ax_p.size * ppd                  # partitions per slice
+    K = ax_s.size * Ks
+    kl, ku, n = band.kl, band.ku, band.n
+    k, b, m = _partition_geometry(n, K, kl, ku, block_b)
+    nb = m // b
+    local = _local_band(band, plane.rank, ppd * m, mesh.device)
+    route = _resolve_matvec_impl(matvec_impl, local)
+
+    gidx = plane.rank * ppd + torch.arange(ppd, device=mesh.device)
+    # the true tips (global edges zeroed), which the matvec takes
+    Btip, Ctip = _extract_tips(local.data, ppd, m, k, kl, ku,
+                               zero_boundaries=False)
+    Btip[gidx == K - 1] = 0
+    Ctip[gidx == 0] = 0
+    blocks = _partition_blocks(local, ppd, m, b)
+    red_fact = V = W = None
+    if Ks > 1:
+        # the PC tips: a slice edge is a global edge of the PC
+        lidx = gidx % Ks
+        Btip_pc, Ctip_pc = Btip.clone(), Ctip.clone()
+        Btip_pc[lidx == Ks - 1] = 0
+        Ctip_pc[lidx == 0] = 0
+        fact, Vfull, Wfull = _factor_and_spikes(
+            blocks, Btip_pc, Ctip_pc, method=method, shift=shift,
+            shift_amount=shift_amount, inverter=inverter, nb=nb, b=b, k=k)
+        tips = torch.stack(_tips_of(Vfull, Wfull, nb, b, k), dim=1)
+        slice_tips = ax_p.all_gather(tips).reshape(Ks, 4, k, k)
+        red_fact, _ = _build_reduced(slice_tips, False, method, reduced,
+                                     inverter)
+        if store_spikes:
+            V, W = Vfull, Wfull
     else:
-        method = SOLVERS.get(ksp_type)
+        fact = _local_factor(blocks, method, shift, shift_amount, inverter)
+    fact, V, W, _ = _cast_stored(fact, V, W, None, store_dtype, spike_dtype)
+    return DistSpikeFactor(
+        blocks=blocks, fact=fact, Btip=Btip, Ctip=Ctip, red_fact=red_fact,
+        red_Dinv=None, V=V, W=W, n=n, K=K, m=m, b=b, k=k, ppd=ppd,
+        truncated=False, rank=plane.rank,
+        mv_prep=prepare_banded_mv(local) if route == "banded_cuda" else None)
 
-        def local_fn(rblk):
-            def matvec(v):
-                return local_matvec(dsf, v, ax_p)
 
-            def pc_apply(v):
-                return local_spike_solve(dsf, v, ax_p)
-            cols = [method(matvec, rblk[..., j].reshape(-1), None,
-                           pc_apply if use_pc else None, axis_name=ax_p,
-                           conv_sync_axis=ax_r, **params).x
-                    for j in range(rblk.shape[-1])]
-            return to_blocks(torch.stack(cols, dim=-1))
+def dist_spike_transpose_multislice(
+        dsf: DistSpikeFactor, mesh: Mesh, axis_slice: str = "slice",
+        axis_p: str = "p", reduced: str = "auto", inverter: str = "auto",
+        store_spikes: Optional[bool] = None,
+        fast: bool = True) -> DistSpikeFactor:
+    """The multislice factorization of A^T on the same factors (JAX
+    ``spike_dist.py:1236-1328``): the TRUE tips swap and transpose around
+    the ring of the (slice, p) plane, so the A^T matvec keeps the exact
+    coupling across slices; the transpose spikes and each slice's reduced
+    system come from the tips re-masked at the slice edges, so the
+    transposed PC stays block-Jacobi across slices.  ``fast`` as in
+    :func:`dist_spike_transpose`; the result takes the blocks route."""
+    _require_block_thomas(dsf, "dist_spike_transpose_multislice")
+    ax_s, ax_p, plane = _plane(mesh, axis_slice, axis_p)
+    ppd, k = dsf.ppd, dsf.k
+    Ks = ax_p.size * ppd
+    keep = (dsf.V is not None) if store_spikes is None else store_spikes
+    sdt = dsf.V.dtype if dsf.V is not None else None
+    lidx = ax_p.rank * ppd + torch.arange(ppd, device=dsf.Btip.device)
+
+    def pc_mask(Btip_t, Ctip_t):
+        Bs, Cs = Btip_t.clone(), Ctip_t.clone()
+        Bs[lidx == Ks - 1] = 0
+        Cs[lidx == 0] = 0
+        return Bs, Cs
+
+    blocks_t, Btip_t, Ctip_t, factT, Vt, Wt, tips = _transpose_local_parts(
+        dsf, plane, spikes=Ks > 1, spike_mask=pc_mask, fast=fast)
+    red_fact = None
+    if Ks > 1:
+        slice_tips = ax_p.all_gather(tips).reshape(Ks, 4, k, k)
+        red_fact, _ = _build_reduced(slice_tips, False, dsf.fact.method,
+                                     reduced, inverter)
+    V, W = _keep_spikes(Vt, Wt, keep, sdt)
+    return DistSpikeFactor(blocks=blocks_t, fact=factT, Btip=Btip_t,
+                           Ctip=Ctip_t, red_fact=red_fact, red_Dinv=None,
+                           V=V, W=W, n=dsf.n, K=dsf.K, m=dsf.m, b=dsf.b,
+                           k=k, ppd=ppd, truncated=False, rank=dsf.rank)
+
+
+def _interface_solve_in_slice(dsf: DistSpikeFactor, g_top, g_bot,
+                              ax_p: MeshAxis):
+    """The interface solve of one slice: the values all-gathered over the
+    p line only, this slice's reduced system, zero at the slice edges
+    (the block-Jacobi PC tips)."""
+    return _interface_solve(dsf, g_top, g_bot, ax_p, ax_p.size * dsf.ppd)
+
+
+def local_spike_solve_multislice(dsf: DistSpikeFactor,
+                                 rhs_local: torch.Tensor, ax_p: MeshAxis,
+                                 impl: str = "auto") -> torch.Tensor:
+    """This rank's PC apply on a (slice, p) mesh: exact SPIKE within the
+    slice, block-Jacobi across slices.  The interface vectors are zero
+    exactly where the PC tips differ from the true ones (the slice
+    edges), so the correction of :func:`_spike_correct` applies as on the
+    1-D mesh."""
+    nb, b, k, ppd = dsf.nb, dsf.b, dsf.k, dsf.ppd
+    rblk = rhs_local.reshape(ppd, nb, b)
+    g = _local_tri_solve(dsf, rblk, impl)
+    if ax_p.size * ppd == 1:
+        return g.reshape(-1)
+    xbot_prev, xtop_next = _interface_solve_in_slice(
+        dsf, g[:, 0, :k], g[:, nb - 1, b - k:], ax_p)
+    x = _spike_correct(dsf, g, rblk, xbot_prev, xtop_next,
+                       lambda r2: _local_tri_solve(dsf, r2, impl))
+    return x.reshape(-1)
+
+
+def local_spike_solve_multislice_many(dsf: DistSpikeFactor,
+                                      rblk: torch.Tensor, ax_p: MeshAxis,
+                                      impl: str = "auto") -> torch.Tensor:
+    """The multi-RHS PC apply on a (slice, p) mesh; ``rblk`` ``[ppd, nb,
+    b, r]`` -> the same, the factors streamed once for all r."""
+    nb, b, k = dsf.nb, dsf.b, dsf.k
+    g = _local_tri_solve_many(dsf, rblk, impl)
+    if ax_p.size * dsf.ppd == 1:
+        return g
+    xbot_prev, xtop_next = _interface_solve_in_slice(
+        dsf, g[:, 0, :k, :], g[:, nb - 1, b - k:, :], ax_p)
+    return _spike_correct(dsf, g, rblk, xbot_prev, xtop_next,
+                          lambda r2: _local_tri_solve_many(dsf, r2, impl))
+
+
+def local_matvec_multislice(dsf: DistSpikeFactor, x_local: torch.Tensor,
+                            plane: MeshAxis) -> torch.Tensor:
+    """The exact matvec on a (slice, p) mesh: :func:`local_matvec` with the
+    edge strips around the ring of the flattened plane (only the
+    slice-edge strips cross between slices)."""
+    return local_matvec(dsf, x_local, plane)
+
+
+def make_dist_solver_multislice(dsf: DistSpikeFactor, mesh: Mesh,
+                                axis_slice: str = "slice", axis_p: str = "p",
+                                ksp_type: str = "gmres", use_pc: bool = True,
+                                dsf_transpose: Optional[DistSpikeFactor]
+                                = None, nullspace=None,
+                                transpose_nullspace=None, **params):
+    """The multislice Krylov solver (JAX ``spike_dist.py:1454-1547``): the
+    per-slice SPIKE PC, the exact matvec, inner products and null-space
+    projections ``all_reduce``d over the (slice, p) plane.  The A^T types
+    take ``dsf_transpose=dist_spike_transpose_multislice(dsf, mesh)``.
+    Returns ``solve(rhs[n], x0=None) -> KSPResult``, x global on every
+    rank."""
+    _need_transpose(ksp_type, dsf_transpose,
+                    "dist_spike_transpose_multislice(dsf, mesh, ...)")
+    _, ax_p, plane = _plane(mesh, axis_slice, axis_p)
+    return _krylov_solve_fn(
+        dsf, plane, ksp_type, use_pc, dsf_transpose, nullspace,
+        transpose_nullspace, params,
+        matvec_of=lambda d: (lambda v: local_matvec_multislice(d, v, plane)),
+        pc_of=lambda d: (lambda v: local_spike_solve_multislice(d, v, ax_p)))
+
+
+def _multislice_many_local_fn(dsf: DistSpikeFactor, ksp_type: str,
+                              ax_p: MeshAxis, plane: MeshAxis, params: dict,
+                              sync_axis: Optional[MeshAxis] = None):
+    """The multi-RHS engine on a (slice, p) plane (JAX
+    ``spike_dist.py:1550-1644``), behind both the multislice serving
+    solver and the 3-D mesh: ``local_fn(rblk [ppd, nb, b, r]) -> x``.  Its
+    collectives run on the plane; on a replica mesh ``sync_axis`` keeps
+    the replicas' trip counts equal."""
+    return _many_local_fn(
+        dsf, ksp_type, True, params, red=plane, sync=sync_axis,
+        pc_many=lambda X: local_spike_solve_multislice_many(dsf, X, ax_p),
+        pc_one=lambda v: local_spike_solve_multislice(dsf, v, ax_p),
+        mv_one=lambda v: local_matvec_multislice(dsf, v, plane))
+
+
+def make_dist_solver_multislice_batched(
+        dsf: DistSpikeFactor, mesh: Mesh, axis_slice: str = "slice",
+        axis_p: str = "p", ksp_type: str = "richardson", **params):
+    """Multi-RHS serving on the (slice, p) mesh itself (JAX
+    ``spike_dist.py:1647-1693``): the rows span every rank and each rank
+    solves all r right-hand sides on its rows.  Returns ``solve(rhs[n, r])
+    -> x[n, r]`` on every rank.  ``ksp_type``: "richardson" (refinement
+    with the exact matvec, converges to the true solution), "preonly"
+    (one PC apply: block-Jacobi across slices, PC-grade), the
+    ``krylov_many`` engines, or any other KSP type one column at a time."""
+    _, ax_p, plane = _plane(mesh, axis_slice, axis_p)
+    local_fn = _multislice_many_local_fn(dsf, ksp_type, ax_p, plane, params)
+    ppd, m, nb, b = dsf.ppd, dsf.m, dsf.nb, dsf.b
 
     def solve_fn(rhs) -> torch.Tensor:
         rhs = torch.as_tensor(rhs)
-        R = rhs.shape[0]
-        if R % ax_r.size:
-            raise ValueError(f"{R} right-hand sides do not split over the "
-                             f"{axis_rhs!r} axis of size {ax_r.size}")
-        rloc = R // ax_r.size
-        mine = rhs[ax_r.rank * rloc:(ax_r.rank + 1) * rloc]      # [Rloc, n]
-        r_local = _pad_shard_rhs(dsf, ax_p, mine.T)       # [ppd * m, Rloc]
-        x = local_fn(to_blocks(r_local)).reshape(ppd * m, rloc)
-        x = _gather_global(dsf, ax_p, x)                       # [n, Rloc]
-        return ax_r.all_gather(x.T.contiguous()).reshape(R, dsf.n)
+        r = rhs.shape[1]
+        rblk = _pad_shard_rhs(dsf, plane, rhs).reshape(ppd, nb, b, r)
+        x = local_fn(rblk).reshape(ppd * m, r)
+        return _gather_global(dsf, plane, x)
 
     return solve_fn
+
+
+def make_dist_solver_3d(dsf: DistSpikeFactor, mesh: Mesh,
+                        axis_rhs: str = "rhs", axis_slice: str = "slice",
+                        axis_p: str = "p", ksp_type: str = "richardson",
+                        **params):
+    """Replicated multislice serving on a 3-D (rhs, slice, p) mesh (JAX
+    ``spike_dist.py:1716-1762``): every replica holds the multislice
+    factorization (``dist_spike_factor_multislice(band, mesh)`` on the 3-D
+    mesh factors over each replica's plane) and solves its row block of
+    the right-hand sides.  The engines take their keep-iterating decisions
+    over ``axis_rhs``, so the replicas run the same number of trips.
+    Returns ``solve(rhs[R, n]) -> x[R, n]`` (R divisible by the rhs axis)
+    on every rank."""
+    _, ax_p, plane = _plane(mesh, axis_slice, axis_p)
+    ax_r = mesh.axis(axis_rhs)
+    local_fn = _multislice_many_local_fn(dsf, ksp_type, ax_p, plane, params,
+                                         sync_axis=ax_r)
+    return _replica_solve_fn(dsf, plane, ax_r, axis_rhs, local_fn)

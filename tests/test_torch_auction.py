@@ -123,9 +123,24 @@ def test_auction_near_optimal_against_mc64():
     assert hsp.diagonal_weight_product(scaled) > 0
 
 
-def test_auction_match_dist_is_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tmd.auction_match_dist(problems.mc64_doc_example(), mesh=None)
+def test_auction_match_dist_is_not_yet_ported(tmp_path):
+    """``auction_match_dist`` (ported: it raised NotImplementedError
+    before) runs on a one-rank gloo mesh (a spawned rank,
+    ``torch_dist_worker``) and gives the JAX package's matching, rounds
+    and scalings on MC64's documentation example at its defaults
+    (tests/test_torch_dist_auction.py holds P = 2 and 4)."""
+    from spike_petsc_tpu.parallel import make_mesh
+    from torch_dist_worker import case_result, run_ranks
+    got = case_result(run_ranks(1, "torch_dist_ms_cases:auction_doc_program",
+                                tmp_path), "doc")
+    ref = jmd.auction_match_dist(problems.mc64_doc_example(), make_mesh(1))
+    np.testing.assert_array_equal(got["rperm"], ref.rperm)
+    assert int(got["rounds"]) == ref.info["rounds"]
+    assert int(got["completed"]) == ref.info.get("completed", 0)
+    np.testing.assert_allclose(got["row_scale"], ref.row_scale,
+                               rtol=REL_TOL)
+    np.testing.assert_allclose(got["col_scale"], ref.col_scale,
+                               rtol=REL_TOL)
 
 
 def _run(main, argv):

@@ -1456,3 +1456,63 @@ def test_dense_tensor_pmat_on_the_card(cuda_device, pc):
     assert got.x.is_cuda and got.reason > 0 and ref.reason > 0
     assert abs(int(got.its) - int(ref.its)) <= 1
     assert _rel(got.x.double().cpu(), ref.x) <= 1e-4
+
+
+@pytest.fixture
+def one_rank_nccl(cuda_device, tmp_path):
+    """A one-rank default group (gloo for CPU tensors, NCCL for CUDA ones)
+    on a file store, destroyed after the test."""
+    import torch.distributed as dist
+    dist.init_process_group(backend="cpu:gloo,cuda:nccl",
+                            init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    yield cuda_device
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_multislice_factor_on_the_card_equals_the_1d_mesh(one_rank_nccl):
+    """A (1, 1) multislice factor on the card holds the 1-D mesh's tensors
+    (one slice: the PC masks change nothing), and its gmres launches #1
+    and #2 as the 1-D mesh's does."""
+    from spike_petsc_tpu_torch.ops.cuda import KERNELS
+    from spike_petsc_tpu_torch.parallel import (dist_spike_factor,
+                                                dist_spike_factor_multislice,
+                                                make_dist_solver,
+                                                make_dist_solver_multislice,
+                                                make_mesh,
+                                                make_mesh_multislice)
+    dev = one_rank_nccl
+    n, k = 8 * 20 * 128, 60
+    band = banded_from_numpy(random_band(n, k, k, seed=21, dtype=np.float32),
+                             k, k, device=dev)
+    opts = dict(block_b=128, parts_per_device=8, store_spikes=True)
+    d1 = dist_spike_factor(band, make_mesh(1, device=dev), **opts)
+    mesh = make_mesh_multislice((1, 1), device=dev)
+    dm = dist_spike_factor_multislice(band, mesh, **opts)
+    for f in ("Btip", "Ctip", "V", "W"):
+        assert _rel(getattr(dm, f), getattr(d1, f)) <= 1e-6, f
+    assert dm.matvec_route == d1.matvec_route == "banded_cuda"
+    b = banded_matvec(band, torch.ones(n, device=dev))
+    res1 = make_dist_solver(d1, make_mesh(1, device=dev), rtol=1e-6)(b)
+    for kern in KERNELS:
+        kern.launches = 0
+    res = make_dist_solver_multislice(dm, mesh, rtol=1e-6)(b)
+    torch.cuda.synchronize()
+    launches = {kern.name: kern.launches for kern in KERNELS}
+    assert res.reason > 0 and res.its == res1.its
+    assert launches["fused_sweep"] == res.its + 2
+    assert launches["band_matvec"] == res.its + 1
+    assert _rel(res.x, torch.ones(n, device=dev)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_auction_match_dist_on_the_card_matches_the_cpu(one_rank_nccl):
+    from spike_petsc_tpu_torch.models import problems
+    from spike_petsc_tpu_torch.parallel import auction_match_dist, make_mesh
+    a = problems.illscaled_nonsym(20_000, 6, 6, seed=1)
+    card = auction_match_dist(a, make_mesh(1, device=one_rank_nccl))
+    cpu = auction_match_dist(a, make_mesh(1, device="cpu"))
+    assert np.array_equal(card.rperm, cpu.rperm)
+    assert card.info == cpu.info
+    np.testing.assert_allclose(card.row_scale, cpu.row_scale, rtol=1e-12)
