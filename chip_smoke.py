@@ -11,7 +11,8 @@ In order, it:
      stored bf16 spikes, newton_fixed) and holds each kernel against its
      plain PyTorch version on the same inputs: the banded matvec at the
      flagship and a ragged shape; the fused sweep with f32 and bf16 factors
-     at the flagship factor shape and at nb = 1; the multi-RHS fused sweep
+     at the flagship factor shape and at nb = 1, at the cluster size its
+     plan picks and at each other (1, 2, 4); the multi-RHS fused sweep
      at the same shapes for r = 32, 1 and 100; the block-tridiagonal matvec
      on the flagship conversion (f32 and bf16 blocks) and a ragged band;
      the f64 banded matvec on the flagship band in f64 and a ragged band
@@ -38,7 +39,10 @@ In order, it:
        * ``spike_solve(sf, b, impl="pallas")`` (the two-pass sweeps) and
          ``blocktri_matvec_pallas`` (the grid matvec) on the flagship;
   6. times the factor, the solves, the GMRES and serving solves, the
-     operators and each kernel beside its plain version and, where one
+     operators, the fused sweep (#1) beside the two-pass sweeps (#9) on
+     the flagship factor (f32 and bf16, each with its bound and #1's time
+     before its redesign), and each kernel beside its plain version and,
+     where one
      PyTorch call computes the same function (a sparse product), beside
      that call, with CUDA events (median and spread of the repetitions),
      the serving stage's device busy time (torch.profiler), and the card's
@@ -268,6 +272,17 @@ SPD_BEFORE_MS = {"f32": 1.3904, "bf16": 1.2257}
 # kernel #4 before its redesign (PERF.md §6, row #4, in brackets: H100
 # 80GB HBM3, 700 W), printed beside this run's time
 MANY_BEFORE_MS = {"f32": 1.4496, "bf16": 1.2226}
+# kernel #1 before its redesign (PERF.md §6, row #1, in brackets: H100
+# 80GB HBM3, 700 W; one block a partition), printed beside this run's
+# time: the flagship, the zero-diagonal factor (K = 64, nb = 245, b = 64),
+# K = 512, nb = 16, and K = 1, nb = 157 (device time a call); config 4's
+# inner factor (K = 16, nb = 49, b = 128), which no earlier run timed, from
+# the first design's source built beside the redesign in one call of
+# experiments/torch_lab_fused_sweep.py (CUDA events, random factor).  All
+# constants, not measured in this run
+FUSED_BEFORE_MS = {"flagship_f32": 0.6383, "flagship_bf16": 0.4232,
+                   "zerodiag": 0.5174, "k512": 0.5081, "k1_nb157": 0.2395,
+                   "config4": 0.2212}
 # f64-grade refinement on the flagship band (f64 operator, f32 factors):
 # the recipe of spike_petsc_tpu/testbed.py (-ksp_type richardson
 # -pc_spike_factor_dtype f32), rtol 1e-12 and maxit 20 as bench.py's stage
@@ -400,8 +415,12 @@ ZERODIAG_REL_MAX = 0.1
 # in f64 on the same factor, max|kernel - f64| / max|f64|.  The factor is
 # ill-conditioned (pivots raised to 1e-8 of the matrix's scale), so two f32
 # sweeps that sum in different orders differ by far more than KERNEL_TOL.
-# On an H100 80GB HBM3 (700 W): #1 3.9e-5 and #9 6.0e-4 (their plain f32
-# versions 3.4e-5 and 3.8e-3)
+# On an H100 80GB HBM3 (700 W): #1 7.8e-5 (its first design 3.9e-5) and #9
+# 6.0e-4; their plain f32 versions 3.4e-5 and 3.8e-3.  #1's copies that
+# sum each row serially, forward or backward, read 4.8e-5 and 3.9e-5 on
+# this right-hand side, and on three random ones #1 reads 0.96e-6 to
+# 1.39e-6 against plain f32's 1.14e-6 to 1.65e-6
+# (experiments/torch_lab_fused_sweep.py --orders)
 ZERODIAG_SWEEP_TOL = {"fused_sweep": 1e-4, "sweeps": 2e-3}
 # B: the flagship at K = 512 (nb = 16): K - 1 = 511 = 2^9 - 1 reduced
 # block rows, which 'auto' factors by cyclic reduction
@@ -593,6 +612,22 @@ def laplacian_factor(n, device):
     return spike_factor(band, K=1, block_b=CONFIG1_BLOCK)
 
 
+def random_inv_factor(K, nb, b, dtype, device, seed):
+    """An ``inv`` factor of random matrices, scaled so that both sweeps
+    stay bounded (each matrix's norm ~0.5), made on ``device`` from a seed:
+    for a sweep kernel at shapes no problem gives (its work does not depend
+    on the values)."""
+    import torch
+    from spike_petsc_tpu_torch.ops.blocktri import BlockTriFactor
+    gen = torch.Generator(device=device).manual_seed(seed)
+    s = 0.25 / b ** 0.5
+    F, U, Sinv = (torch.randn((K, nb, b, b), generator=gen, device=device)
+                  * s for _ in range(3))
+    Sinv += 0.5 * torch.eye(b, device=device)
+    return BlockTriFactor(F=F.to(dtype), U=U.to(dtype), Sinv=Sinv.to(dtype),
+                          method="inv")
+
+
 def time_ms(fn, reps=REPS, iters=1):
     """Median and spread (max - min) in ms per call of ``fn`` over ``reps``
     repetitions of ``iters`` calls, with CUDA events, after one warm-up."""
@@ -629,17 +664,27 @@ def roofline(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
                                                            "operations")
 
 
+def sweep_bytes(fact, r=1):
+    """The bytes a block-Thomas solve of ``r`` right-hand sides must move:
+    each matrix the two sweeps read, once (``inv``: F_1 .. F_{nb-1},
+    U_0 .. U_{nb-2} and every Sinv_i, 3 nb - 2 a partition; ``spd``:
+    F_1 .. F_{nb-1} and every Sinv_i, 2 nb - 1; F_0 and U_{nb-1} are never
+    read), r in and x out in f32.  A kernel's own round trips (#9's y) are
+    not the function's."""
+    K, nb, b, _ = fact.F.shape
+    mats = {"inv": 3 * nb - 2, "spd": 2 * nb - 1}[fact.method]
+    return (K * mats * b * b * fact.F.element_size()
+            + 2 * K * nb * b * r * 4)
+
+
 def sweep_bound(fact, r=1, peak_flops=PEAK_F32_FLOPS):
     """The roofline of a fused block-Thomas solve of ``r`` right-hand
-    sides: the factor's stored matrices (F, U, Sinv for ``inv``; F, Sinv
-    for ``spd``) and the f32 vectors in and out; 3 nb - 2 matrix-vector
-    products per partition and column, at ``peak_flops`` (the CUDA cores'
-    f32 rate unless the kernel runs its products on the tensor cores)."""
+    sides: ``sweep_bytes``, and 3 nb - 2 matrix-vector products per
+    partition and column at ``peak_flops`` (the CUDA cores' f32 rate
+    unless the kernel runs its products on the tensor cores)."""
     K, nb, b, _ = fact.F.shape
-    mats = 3 if fact.method == "inv" else 2
-    nbytes = (mats * fact.F.numel() * fact.F.element_size()
-              + 2 * K * nb * b * r * 4)
-    return roofline(nbytes, 2 * K * (3 * nb - 2) * b * b * r, peak_flops)
+    return roofline(sweep_bytes(fact, r), 2 * K * (3 * nb - 2) * b * b * r,
+                    peak_flops)
 
 
 def band_csr(band):
@@ -745,15 +790,30 @@ def phase_kernels(band, rhs, sf, device):
              ("flagship bf16", cast_factor(sf.fact, torch.bfloat16), rblk),
              ("nb=1 f32", small.fact,
               torch.randn((K, 1, BLOCK), generator=gen, device=device))]
+    sms = cfs.device_sms(device)
     for label, fact, r in cases:
-        diff, err = kernel_err(
-            cfs.blocktri_solve_fused_cuda(fact, r),
-            cfs.blocktri_solve_fused_cuda(fact, r, impl="plain"))
+        plain = cfs.blocktri_solve_fused_cuda(fact, r, impl="plain")
+        diff, err = kernel_err(cfs.blocktri_solve_fused_cuda(fact, r), plain)
         torch.cuda.synchronize()
+        k, nb, b, _ = fact.F.shape
+        plan = cfs.fused_sweep_cluster(k, nb, b, sms)
+        cfg = cfs.kernel_config(b, fact.F.dtype, plan)
         print(f"fused_sweep {label} {tuple(fact.F.shape)}: max abs err "
-              f"{diff:.3e}, relative {err:.3e}")
+              f"{diff:.3e}, relative {err:.3e}; plan c={plan} "
+              f"({k * plan} blocks on {sms} SMs, {cfg['compute_warps']} "
+              f"compute warps "
+              f"and 1 producer warp a block, ring {cfg['depth']} slabs, "
+              f"{cfg['smem_bytes']} B of shared memory)")
         check(err <= KERNEL_TOL, f"fused_sweep {label} err {err}")
         errs.setdefault("fused_sweep", diff)
+        # every cluster size the plan can pick, on the same inputs
+        for c in cfs.CLUSTER_SIZES:
+            diff, err = kernel_err(
+                cfs.blocktri_solve_fused_cuda(fact, r, cluster=c), plain)
+            torch.cuda.synchronize()
+            print(f"  fused_sweep {label} at c={c} ({k * c} blocks): max "
+                  f"abs err {diff:.3e}, relative {err:.3e}")
+            check(err <= KERNEL_TOL, f"fused_sweep {label} c={c} err {err}")
 
     # the multi-RHS sweep: one column chunk (r = 32), one column, and
     # several chunks (r = 100), f32 and bf16 factors, and nb = 1
@@ -1071,6 +1131,7 @@ def phase_timing(band, rhs, sf, device):
     from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
     from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
     from spike_petsc_tpu_torch.ops.cuda import fused_sweep_many as cfm
+    from spike_petsc_tpu_torch.ops.cuda import sweeps as csw
     from spike_petsc_tpu_torch.ops.spike import (spike_factor, spike_solve,
                                                  spike_solve_many)
     from spike_petsc_tpu_torch.solvers.operator import as_matvec_many
@@ -1109,14 +1170,28 @@ def phase_timing(band, rhs, sf, device):
     del csr
     rblk = torch.nn.functional.pad(rhs, (0, K * sf.m - N)).reshape(
         K, sf.nb, BLOCK)
+    sms = cfs.device_sms(device)
+    plan = cfs.fused_sweep_cluster(K, sf.nb, BLOCK, sms)
     for label, fact in (("f32", sf.fact),
                         ("bf16", cast_factor(sf.fact, torch.bfloat16))):
-        gb = 3 * fact.F.numel() * fact.F.element_size() / 1e9
+        gb = sweep_bytes(fact) / 1e9
         show(f"fused_sweep_cuda_{label}", time_ms(
             lambda: cfs.blocktri_solve_fused_cuda(fact, rblk), iters=10), gb)
         show(f"fused_sweep_plain_{label}", time_ms(
             lambda: cfs.blocktri_solve_fused_cuda(fact, rblk, impl="plain"),
             iters=3), gb)
+        # #9 on the same factor: the same function in two launches
+        show(f"sweeps_cuda_flagship_{label}", time_ms(
+            lambda: csw.blocktri_solve_batched_cuda(fact, rblk), iters=10),
+            gb)
+        bms, bby = sweep_bound(fact)
+        ms1, ms9 = (t[f"{k}_{label}"][0] for k in ("fused_sweep_cuda",
+                                                   "sweeps_cuda_flagship"))
+        print(f"fused_sweep (#1, c={plan}: {K * plan} blocks) against sweeps "
+              f"(#9) on the flagship factor ({label}): #1 {ms1:.4f} ms, "
+              f"#9 {ms9:.4f} ms; bound {bms:.4f} ms ({bby}), bound / time "
+              f"#1 {bms / ms1:.3f}, #9 {bms / ms9:.3f}; #1 before its "
+              f"redesign (PERF.md) {FUSED_BEFORE_MS[f'flagship_{label}']} ms")
     bounds["fused_sweep"] = sweep_bound(sf.fact)
     # #4 runs its products on the tensor cores (3xTF32 / 2xTF32)
     bounds["fused_sweep_many"] = sweep_bound(sf.fact, NRHS, PEAK_TF32_FLOPS)
@@ -1131,7 +1206,7 @@ def phase_timing(band, rhs, sf, device):
         K, sf.nb, BLOCK, NRHS)
     for label, fact in (("f32", sf.fact),
                         ("bf16", cast_factor(sf.fact, torch.bfloat16))):
-        gb = 3 * fact.F.numel() * fact.F.element_size() / 1e9
+        gb = sweep_bytes(fact, NRHS) / 1e9
         show(f"fused_sweep_many_cuda_{label}", time_ms(
             lambda: cfm.blocktri_solve_fused_many_cuda(fact, rm), iters=5),
             gb)
@@ -1394,7 +1469,7 @@ def phase_spd_timing(band, rhs, ssf, device):
         SPD_K, ssf.nb, SPD_BLOCK, NRHS)
     for label, fact in (("f32", ssf.fact),
                         ("bf16", cast_factor(ssf.fact, torch.bfloat16))):
-        gb = 2 * fact.F.numel() * fact.F.element_size() / 1e9
+        gb = sweep_bytes(fact) / 1e9
         show(f"fused_sweep_spd_cuda_{label}", time_ms(
             lambda: cfss.blocktri_solve_fused_spd_cuda(fact, rblk),
             iters=5), gb)
@@ -1841,15 +1916,13 @@ def phase_config1(device, t, bounds):
     print(f"sweeps (config 1: K=1 nb={sf.nb} b={sf.b}) against its plain "
           f"version: max abs err {diff:.3e}, relative {err:.3e}")
     check(err <= KERNEL_TOL, f"config 1 sweeps err {err}")
-    gb = 3 * sf.fact.F.numel() * 4 / 1e9
+    gb = sweep_bytes(sf.fact) / 1e9
     show("config1_sweeps_cuda", time_ms(
         lambda: csw.blocktri_solve_batched_cuda(sf.fact, r), iters=10), gb)
     show("config1_sweeps_plain", time_ms(
         lambda: csw.blocktri_solve_batched_cuda(sf.fact, r, impl="plain"),
         iters=2))
-    # F, U, Sinv once, r in, y out and back in, x out
-    bound = roofline(3 * sf.fact.F.numel() * 4 + 4 * sf.nb * sf.b * 4,
-                     2 * (3 * sf.nb - 2) * sf.b * sf.b)
+    bound = sweep_bound(sf.fact)
     bounds["config1_sweeps"] = bound
     ms = t["config1_sweeps_cuda"][0]
     sms = csw.device_sms(device)
@@ -1889,13 +1962,19 @@ def phase_config1(device, t, bounds):
         ref.fact, r2) for _ in range(20)])[0] / 20
     d1 = device_profile(lambda: [cfs.blocktri_solve_fused_cuda(
         ref.fact, r2) for _ in range(20)])[0] / 20
+    b1 = sweep_bound(ref.fact)
     print(f"sweeps (#9, C={csw.sweeps_chunks(1, ref.nb, ref.b, sms)}) "
-          f"against fused_sweep (#1) on the n={CONFIG1_REF_N} factor (K=1 "
+          f"against fused_sweep (#1, c="
+          f"{cfs.fused_sweep_cluster(1, ref.nb, ref.b, sms)}) on the "
+          f"n={CONFIG1_REF_N} factor (K=1 "
           f"nb={ref.nb} b={ref.b}, which #1 admits and the route gives to "
           f"#1): #9 {t['config1_ref_sweeps_cuda'][0]:.4f} ms a call, "
           f"{d9:.4f} ms of device time; #1 "
           f"{t['config1_ref_fused_sweep_cuda'][0]:.4f} ms, {d1:.4f} ms of "
-          f"device time; relative errors {e9:.3e}, {e1:.3e}")
+          f"device time (before its redesign, PERF.md: "
+          f"{FUSED_BEFORE_MS['k1_nb157']}); #1's bound {b1[0]:.4f} ms "
+          f"({b1[1]}), bound / device time {b1[0] / d1:.3f}; relative "
+          f"errors {e9:.3e}, {e1:.3e}")
     # #2 at this path's operator (n = 1e5, w = 3), a launch at a time
     prep = cbm.prepare_banded_mv(op)
     xv = torch.randn(op.n, generator=torch.Generator(device=device)
@@ -2524,17 +2603,14 @@ def phase_alternate_timing(band, a64, b64, rhs, sf, device, t):
         K, sf.nb, BLOCK)
     for label, fact in (("f32", sf.fact),
                         ("bf16", cast_factor(sf.fact, torch.bfloat16))):
-        gb = 3 * fact.F.numel() * fact.F.element_size() / 1e9
+        gb = sweep_bytes(fact) / 1e9
         show(f"sweeps_cuda_{label}", time_ms(
             lambda: csw.blocktri_solve_batched_cuda(fact, rblk), iters=10),
             gb)
     show("sweeps_plain_f32", time_ms(
         lambda: csw.blocktri_solve_batched_cuda(sf.fact, rblk, impl="plain"),
         iters=3))
-    # F, U, Sinv once, r in, y out and back in, x out
-    bounds["sweeps"] = roofline(
-        3 * sf.fact.F.numel() * 4 + 4 * K * sf.nb * BLOCK * 4,
-        2 * K * (3 * sf.nb - 2) * BLOCK * BLOCK)
+    bounds["sweeps"] = sweep_bound(sf.fact)
 
     T = band_to_blocktri(band, BLOCK)
     xb = torch.randn((T.nb, BLOCK), device=device)
@@ -2701,9 +2777,9 @@ def phase_zerodiag(device, t, bounds):
 def zerodiag_kernels(sf, b, sweep, t, bounds):
     """The sweep kernel of a zero-diagonal PC (#1 for the spike PC, #9 for
     the lu PC) on that PC's shifted factor and right-hand side, timed
-    beside its bound (#9's: #1's bytes plus the y round trip).  The kernel
-    is held within ZERODIAG_SWEEP_TOL of the plain sweep in f64 on the
-    same factor; its plain f32 version's distance from that sweep is
+    beside the solve's bound (``sweep_bound``, #1's and #9's alike).  The
+    kernel is held within ZERODIAG_SWEEP_TOL of the plain sweep in f64 on
+    the same factor; its plain f32 version's distance from that sweep is
     printed beside it."""
     import dataclasses
     import torch
@@ -2724,21 +2800,30 @@ def zerodiag_kernels(sf, b, sweep, t, bounds):
     _, err_plain = kernel_err(plain, ref)
     _, err_pair = kernel_err(got, plain)
     tol = ZERODIAG_SWEEP_TOL[sweep]
+    if sweep == "fused_sweep":
+        # every cluster size sums each row in the same order: the same bits
+        for c in cfs.CLUSTER_SIZES:
+            x = kern(sf.fact, rblk, cluster=c)
+            _, err_c = kernel_err(x, ref)
+            same = bool(torch.equal(x, got))
+            print(f"  fused_sweep (zero-diagonal) at c={c}: against the f64 "
+                  f"sweep {err_c:.3e}, bit-identical to the plan's: {same}")
+            check(err_c <= tol and same, f"fused_sweep at the zero-diagonal "
+                  f"factor, c={c}: {err_c} from the f64 sweep, limit {tol}, "
+                  f"bit-identical {same}")
     del f64, ref
     name = f"zerodiag_{sweep}"
     show(name, time_ms(lambda: kern(sf.fact, rblk), iters=10))
-    if sweep == "fused_sweep":
-        bounds[name] = sweep_bound(sf.fact)
-    else:
-        K, nb, bb = sf.K, sf.nb, sf.b
-        bounds[name] = roofline(3 * sf.fact.F.numel() * 4 + 4 * K * nb * bb * 4,
-                                2 * K * (3 * nb - 2) * bb * bb)
+    bounds[name] = sweep_bound(sf.fact)
+    before = (f"; before its redesign (PERF.md) "
+              f"{FUSED_BEFORE_MS['zerodiag']} ms"
+              if sweep == "fused_sweep" else "")
     print(f"  {sweep} (zero-diagonal: K={sf.K} nb={sf.nb} b={sf.b}, "
           f"shifted factor) against the f64 sweep {err:.3e} (limit "
           f"{tol:.3e}), its plain f32 version against the f64 sweep "
           f"{err_plain:.3e}, kernel against plain f32 {err_pair:.3e}; bound "
           f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), bound / time "
-          f"{bounds[name][0] / t[name][0]:.3f}")
+          f"{bounds[name][0] / t[name][0]:.3f}{before}")
     check(err <= tol, f"{sweep} at the zero-diagonal factor: {err} from the "
           f"f64 sweep, limit {tol}")
 
@@ -2793,12 +2878,15 @@ def phase_cr_flagship(band, rhs, device, t, bounds):
     print(f"fused_sweep (K={CR_K} nb={sf.nb} b={BLOCK}) against its plain "
           f"version: max abs {diff:.3e}, relative {err:.3e}")
     check(err <= KERNEL_TOL, f"fused_sweep at K={CR_K}: {err}")
-    gb = 3 * sf.fact.F.numel() * 4 / 1e9
+    gb = sweep_bytes(sf.fact) / 1e9
     show("fused_sweep_cuda_k512", time_ms(
         lambda: cfs.blocktri_solve_fused_cuda(sf.fact, rblk), iters=10), gb)
     bms, bby = sweep_bound(sf.fact)
-    print(f"  fused_sweep K={CR_K} bound {bms:.4f} ms ({bby}), bound / time "
-          f"{bms / t['fused_sweep_cuda_k512'][0]:.3f}")
+    plan = cfs.fused_sweep_cluster(CR_K, sf.nb, BLOCK,
+                                   cfs.device_sms(device))
+    print(f"  fused_sweep K={CR_K} (c={plan}) bound {bms:.4f} ms ({bby}), "
+          f"bound / time {bms / t['fused_sweep_cuda_k512'][0]:.3f}; before "
+          f"its redesign (PERF.md) {FUSED_BEFORE_MS['k512']} ms")
     bounds["fused_sweep_k512"] = (bms, bby)
 
     t0 = time.perf_counter()
@@ -3082,18 +3170,14 @@ def pc_timings(label, make, pc, r, t):
 
 def sweep_check(label, kern, fact, r, t, bounds):
     """``kern`` (#1's or #9's wrapper) on ``fact`` against its plain
-    version, timed beside its bound (#9's: #1's bytes plus the y round
-    trip).  Returns the relative error."""
+    version, timed beside the solve's bound (``sweep_bound``, #1's and
+    #9's alike).  Returns the relative error."""
     from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
     show = shower(t)
     _, err = kernel_err(kern(fact, r), kern(fact, r, impl="plain"))
     show(label, time_ms(lambda: kern(fact, r), iters=10))
     K, nb, b, _ = fact.F.shape
-    if kern is cfs.blocktri_solve_fused_cuda:
-        bounds[label] = sweep_bound(fact)
-    else:
-        bounds[label] = roofline(3 * fact.F.numel() * 4 + 4 * K * nb * b * 4,
-                                 2 * K * (3 * nb - 2) * b * b)
+    bounds[label] = sweep_bound(fact)
     print(f"  {label} (K={K} nb={nb} b={b}) against its plain version "
           f"{err:.3e}; bound {bounds[label][0]:.4f} ms ({bounds[label][1]}), "
           f"bound / time {bounds[label][0] / t[label][0]:.3f}")
@@ -3994,6 +4078,17 @@ def phase_config4(device, tmp, t, paths, errs):
     print(f"config 4 inner factor (K={sf.K} nb={sf.nb} b={sf.b}): {sweep} "
           f"against its plain version {err:.3e}")
     check(err <= KERNEL_TOL, f"config 4 {sweep}: {err}")
+    if sweep == "fused_sweep":
+        name = "fused_sweep_cuda_config4"
+        shower(t)(name, time_ms(lambda: kern(sf.fact, rblk), iters=20))
+        bms, bby = sweep_bound(sf.fact)
+        plan = cfs.fused_sweep_cluster(sf.K, sf.nb, sf.b,
+                                       cfs.device_sms(device))
+        print(f"  fused_sweep (config 4 inner factor, c={plan}): bound "
+              f"{bms:.4f} ms ({bby}), bound / time "
+              f"{bms / t[name][0]:.3f}; the first design in a lab call "
+              f"(experiments/torch_lab_fused_sweep.py, PERF.md) "
+              f"{FUSED_BEFORE_MS['config4']} ms")
     errs[sweep] = max(errs[sweep], err)
     return launches
 

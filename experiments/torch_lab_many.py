@@ -39,8 +39,7 @@ sys.path.insert(0, str(ROOT / "experiments"))
 from chip_smoke import (BLOCK, HALF_BW, K, KERNEL_TOL, N,  # noqa: E402
                         NRHS, flagship_band, kernel_err, sweep_bound,
                         time_ms)
-from spike_petsc_tpu_torch.ops.cuda._build import NVCC_FLAGS, _nvcc  # noqa: E402
-from torch_lab_many_spd import LAB_DIR, parse, variant  # noqa: E402
+from torch_lab_many_spd import parse, start_nvcc, variant  # noqa: E402
 
 P, I = ctypes.c_void_p, ctypes.c_int
 CONFIG_KEYS = ("cluster", "cols", "warps", "depth", "smem_bytes")
@@ -48,16 +47,10 @@ CONFIG_KEYS = ("cluster", "cols", "warps", "depth", "smem_bytes")
 
 def build(versions):
     """{label: ctypes library}, one nvcc per distinct label."""
-    LAB_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, src, consts in versions:
-        if label in procs:
-            continue
-        out = LAB_DIR / f"{label}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out),
-               str(variant(label, src, consts))]
-        procs[label] = (out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        if label not in procs:
+            procs[label] = start_nvcc(label, variant(label, src, consts))
     libs = {}
     for label, (out, proc) in procs.items():
         log, _ = proc.communicate()

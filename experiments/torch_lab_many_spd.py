@@ -40,7 +40,7 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import (KERNEL_TOL, NRHS, SPD_BLOCK, SPD_HALF_BW,  # noqa: E402
                         SPD_K, SPD_N, kernel_err, spd_band, spd_factor,
                         sweep_bound, time_ms)
-from spike_petsc_tpu_torch.ops.cuda._build import NVCC_FLAGS, _nvcc  # noqa: E402
+from spike_petsc_tpu_torch.ops.cuda._build import nvcc_command  # noqa: E402
 
 LAB_DIR = ROOT / "build" / "lab"
 P, I = ctypes.c_void_p, ctypes.c_int
@@ -60,43 +60,63 @@ def parse(args):
     return out
 
 
-def variant(label, src, consts) -> Path:
-    """A copy of `src` under build/lab/ with each constant set."""
+def variant(label, src, consts, edits=()) -> Path:
+    """A copy of `src` under build/lab/ with each constant set and each
+    (OLD, NEW) pair of `edits` made (every OLD text replaced by NEW)."""
     text = src.read_text()
     for name, value in consts.items():
         text, n = re.subn(rf"(constexpr int {name} = )[^;]+;",
                           rf"\g<1>{value};", text)
         if n != 1:
             raise ValueError(f"{label}: {n} lines define {name} in {src}")
+    for old, new in edits:
+        if old not in text:
+            raise ValueError(f"{label}: no {old!r} in {src}")
+        text = text.replace(old, new)
+    LAB_DIR.mkdir(parents=True, exist_ok=True)
     out = LAB_DIR / f"{label}.cu"
     out.write_text(text)
     return out
 
 
+def start_nvcc(label, source):
+    """Start nvcc on `source` into build/lab/<label>.so with the port's
+    flags; returns (library path, process)."""
+    out = LAB_DIR / f"{label}.so"
+    return out, subprocess.Popen(nvcc_command(source, out),
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def finish_nvcc(label, out, proc, functions):
+    """Wait for a build from `start_nvcc`, print its register report and
+    load the library, each of `functions` ({name: argtypes}) returning an
+    int; raises if nvcc failed."""
+    log, _ = proc.communicate()
+    regs = [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
+    print(f"build {label}: exit {proc.returncode}; " + " | ".join(regs))
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {label}:\n{log}")
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in functions.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = I
+    return lib
+
+
 def build(versions):
     """{label: ctypes library}, one nvcc per distinct label."""
-    LAB_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, src, consts in versions:
-        if label in procs:
-            continue
-        out = LAB_DIR / f"{label}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out),
-               str(variant(label, src, consts))]
-        procs[label] = (out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        if label not in procs:
+            procs[label] = start_nvcc(label, variant(label, src, consts))
     libs = {}
     for label, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"build {label}: exit {proc.returncode}; " + " | ".join(regs))
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {label}:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        for fn in ("fused_sweep_many_spd_f32", "fused_sweep_many_spd_bf16"):
-            getattr(lib, fn).argtypes = [P, P, P, P, I, I, I, I, P]
-            getattr(lib, fn).restype = I
+        lib = finish_nvcc(label, out, proc, {
+            fn: [P, P, P, P, I, I, I, I, P]
+            for fn in ("fused_sweep_many_spd_f32",
+                       "fused_sweep_many_spd_bf16")})
         if hasattr(lib, "fused_sweep_many_spd_config"):   # not the parent's
             lib.fused_sweep_many_spd_config.argtypes = [I, I, P]
             for b, bf16 in ((64, 0), (64, 1)):

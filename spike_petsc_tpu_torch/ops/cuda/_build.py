@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles at first use, with ``nvcc`` for ``sm_90a``,
 into a shared library with a plain C interface under ``build/torch_kernels/``
 at the repository root, and loads through ``ctypes``.  The library's file
-name carries a hash of its source and flags, so an edited source rebuilds and
-a checkout builds everything it needs by itself.  Importing this module needs
-no compiler; only a launch (or an explicit ``build_all``) does.
+name carries a hash of its source, the headers of ``csrc/`` it includes and
+the flags, so an edited source or header rebuilds and a checkout builds
+everything it needs by itself.  Importing this module needs no compiler;
+only a launch (or an explicit ``build_all``) does.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,6 +42,20 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot build")
 
 
+def nvcc_command(src, out) -> list:
+    """The compiler's command line for ``src`` into the library ``out``:
+    the port's flags, and ``csrc/`` on the include path (for a copy of a
+    source built elsewhere)."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out),
+            str(src)]
+
+
+def _included(text: str) -> list:
+    """The headers of csrc/ that a source includes, in order."""
+    return [CSRC_DIR / name
+            for name in re.findall(r'^#include "([^"]+)"', text, re.M)]
+
+
 class CudaKernel:
     """One CUDA source, its C entry points and its launch count.
 
@@ -59,9 +75,12 @@ class CudaKernel:
         return CSRC_DIR / f"{self.name}.cu"
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{h}.so"
+        text = self.source.read_bytes()
+        h = hashlib.sha256(text)
+        for header in _included(text.decode()):
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
     def start_build(self):
         """Start ``nvcc`` for this source unless the library exists.
@@ -71,8 +90,8 @@ class CudaKernel:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        proc = subprocess.Popen(nvcc_command(self.source, tmp),
+                                stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp
 

@@ -21,6 +21,7 @@ import torch
 from ..blocktri import BlockTriFactor, blocktri_solve, sweep_precision
 from ._build import CudaKernel, I, P
 from .fused_sweep import _BLOCK_SIZES as _FUSED_BLOCK_SIZES
+from .fused_sweep import device_sms
 from .fused_sweep_spd import spd_block_for
 
 KERNEL = CudaKernel("sweeps", {
@@ -83,10 +84,6 @@ def sweeps_chunk_bounds(nb: int, chunks: int) -> list:
     """Chunk c covers block rows ``[bounds[c], bounds[c + 1])`` (the
     kernels' ``chunk_start``); none is empty when chunks <= nb."""
     return [c * nb // chunks for c in range(chunks + 1)]
-
-
-def device_sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def sweeps_feasible(fact, b: int, rhs_dtype=torch.float32) -> bool:

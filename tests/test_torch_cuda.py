@@ -82,6 +82,43 @@ def test_fused_sweep_kernel_matches_plain(cuda_device, b, K, n, dtype):
     assert _rel(got, ref) <= TOL
 
 
+# (K, nb, b): K in {1, 8, 16, 64, 512} and a ragged 37 at nb = 1, 2 and 49;
+# nb = 123 (the flagship's) and the largest nb the rule admits (452 at
+# b = 128, 906 at b = 64) at smaller K
+_CLUSTER_SHAPES = (
+    [(K, nb, b) for K in (1, 8, 16, 37, 64, 512) for nb in (1, 2, 49)
+     for b in (64, 128)]
+    + [(K, 123, b) for K in (1, 16, 64) for b in (64, 128)]
+    + [(K, 452, 128) for K in (1, 8)] + [(K, 906, 64) for K in (1, 8)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,nb,b", _CLUSTER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_sweep_every_cluster_size(cuda_device, K, nb, b, dtype):
+    """#1 at each cluster size the plan can pick (each partition's rows
+    split over 1, 2 or 4 blocks) against its plain version, and the plan's
+    own choice launched once."""
+    from chip_smoke import random_inv_factor
+    fact = random_inv_factor(K, nb, b, dtype, cuda_device, seed=K * nb + b)
+    r = torch.randn((K, nb, b), device=cuda_device,
+                    generator=torch.Generator(device=cuda_device)
+                    .manual_seed(nb))
+    assert cfs.fused_sweep_feasible(fact, b)
+    ref = cfs.blocktri_solve_fused_cuda(fact, r, impl="plain")
+    for c in cfs.CLUSTER_SIZES:
+        got = cfs.blocktri_solve_fused_cuda(fact, r, cluster=c)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= TOL, c
+    launches = cfs.KERNEL.launches
+    got = cfs.blocktri_solve_fused_cuda(fact, r)
+    torch.cuda.synchronize()
+    assert cfs.KERNEL.launches == launches + 1
+    assert _rel(got, ref) <= TOL
+    with pytest.raises(ValueError, match="cluster=8"):
+        cfs.blocktri_solve_fused_cuda(fact, r, cluster=8)
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
     band = banded_from_numpy(random_band(4096, 20, 20, seed=10), 20, 20,
@@ -1089,7 +1126,8 @@ def _launches():
 def _launched(before):
     """The kernels launched since ``before`` (``_launches()``), by name."""
     after = _launches()
-    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
 
 
 def _pc_pair(name, n, k, opts, device, seed=35):
