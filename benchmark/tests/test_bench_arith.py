@@ -1,0 +1,126 @@
+"""The benchmark's arithmetic against numbers worked by hand: the
+end-to-end metrics on synthetic call times, the bytes of a PC apply, and
+the trace's intervals."""
+
+import pytest
+
+from benchmark import harness, trace
+from benchmark.metrics import (_roofline, device_idle_pct, its_per_rhs,
+                               krylov_ms_per_it, launches_per_rhs,
+                               pc_apply_ms, pc_apply_roofline, rhs_per_s,
+                               solve_p95_ms)
+
+
+def synthetic_run(**kw):
+    run = harness.Run(cfg={}, traffic={"columns": 2})
+    for k, v in kw.items():
+        setattr(run, k, v)
+    return run
+
+
+def test_rate_is_over_the_whole_window():
+    # 10 calls of 2 columns, 1 column failed, in a window of 4 s: 19 / 4
+    run = synthetic_run(call_s=[0.1] * 10, window_s=4.0, columns=20,
+                        columns_ok=19)
+    assert rhs_per_s.read(run) == pytest.approx(4.75)
+
+
+def test_p95_is_over_every_call():
+    # 100 calls: 1 ms .. 100 ms; the inclusive 95th percentile lies at
+    # 1 + 0.95 * 99 = 95.05 ms
+    run = synthetic_run(call_s=[i / 1e3 for i in range(1, 101)])
+    assert solve_p95_ms.read(run) == pytest.approx(95.05)
+    # one stall among 40 fast calls moves it: 39 x 1 ms and one 1 s call:
+    # position 0.95 * 39 = 37.05 lies among the fast ones
+    run = synthetic_run(call_s=[1e-3] * 39 + [1.0])
+    assert solve_p95_ms.read(run) == pytest.approx(1.0)
+    run = synthetic_run(call_s=[1e-3] * 18 + [1.0, 1.0])
+    # 19 gaps: position 18.05, between the 19th (1 s) and the 20th: 1000 ms
+    assert solve_p95_ms.read(run) == pytest.approx(1000.0)
+    assert solve_p95_ms.read(synthetic_run(call_s=[0.25])) == 250.0
+    assert solve_p95_ms.read(synthetic_run()) is None
+
+
+def test_its_per_rhs():
+    assert its_per_rhs.read(synthetic_run(its=[1, 2, 2, 3])) == 2.0
+
+
+def spike_cfg(pc, **opts):
+    return {"n": 1000, "kl": 4, "ku": 3, "pc_type": pc, "options": opts}
+
+
+def test_apply_bytes_by_hand():
+    # n = 1000, K = 4, b = 16, k = 4: 250 rows a partition, rounded up to
+    # 256: nb = 16; inv: 3 * 16 - 2 = 46 matrices of 16 x 16 f32 a
+    # partition: 4 * 46 * 256 * 4 = 188416; spikes V and W in bf16:
+    # 2 * 4 * 16 * 16 * 4 * 2 = 16384; the reduced system, 3 block rows
+    # of 8 x 8, Thomas inv: 3 * 3 - 2 = 7 matrices: 7 * 64 * 4 = 1792;
+    # r in, x out for 2 columns: 2 * 1000 * 2 * 4 = 16000
+    g = _roofline.spike_geometry(spike_cfg(
+        "spike", pc_spike_partitions=4, pc_spike_block=16,
+        pc_spike_store_spikes=1, pc_spike_spike_dtype="bf16"))
+    assert (g["K"], g["nb"], g["b"], g["k"], g["method"]) == (4, 16, 16, 4,
+                                                             "inv")
+    assert _roofline.apply_bytes(g, 2) == 188416 + 16384 + 1792 + 16000
+    # spd, truncated, f32 spikes, 1 column: 2 * 16 - 1 = 31 matrices:
+    # 4 * 31 * 256 * 4 = 126976; spikes 2 * 4 * 16 * 16 * 4 * 4 = 32768;
+    # 3 inverted 8 x 8 diagonal blocks: 3 * 64 * 4 = 768; 2 * 1000 * 4
+    g = _roofline.spike_geometry(spike_cfg(
+        "cholesky", pc_cholesky_partitions=4, pc_cholesky_block=16,
+        pc_cholesky_truncated=1, pc_cholesky_store_spikes=1))
+    assert g["method"] == "spd" and g["truncated"]
+    assert _roofline.apply_bytes(g, 1) == 126976 + 32768 + 768 + 8000
+    # K is capped so that each partition covers 2k rows: 1000 // 8 = 125
+    g = _roofline.spike_geometry(spike_cfg(
+        "spike", pc_spike_partitions=500, pc_spike_block=8))
+    assert g["K"] == 125 and g["nb"] == 1
+    # the flagship (PERF.md): 2228275968 bytes at r = 32, 0.6652 ms
+    flag = {"n": 1_000_000, "kl": 100, "ku": 100, "pc_type": "spike",
+            "options": {"pc_spike_partitions": 64, "pc_spike_block": 128,
+                        "pc_spike_store_spikes": 1,
+                        "pc_spike_spike_dtype": "bf16"}}
+    nbytes = _roofline.apply_bytes(_roofline.spike_geometry(flag), 32)
+    assert nbytes == 2228275968
+    assert _roofline.least_ms(nbytes) == pytest.approx(0.66515, rel=1e-4)
+
+
+def test_trace_intervals():
+    ops = [(0, 10), (5, 12), (20, 30), (30, 31), (40, 45)]
+    assert trace.union_length(ops) == 12 + 11 + 5
+    assert trace.idle_gaps(ops) == [(12, 20), (31, 40)]
+    assert trace.span_device_s(sorted(ops), [(0, 12), (39, 50)]) == (
+        10 + 7 + 5) / 1e6
+    host = [(0, 100, "call"), (10, 20, "a"), (12, 14, "b"), (30, 50, "c")]
+    assert trace.host_op_at(host, [11, 13, 16, 25, 40, 200]) == [
+        "a", "b", "a", "call", "c", "(no host op)"]
+
+
+def trace_run(**kw):
+    t = trace.TraceSummary(window_s=2.0)
+    for k, v in kw.items():
+        setattr(t, k, v)
+    cfg = spike_cfg("spike", pc_spike_partitions=4, pc_spike_block=16,
+                    pc_spike_store_spikes=1, pc_spike_spike_dtype="bf16")
+    return harness.Run(cfg=cfg, traffic={"columns": 2}, trace=t,
+                       call_its=[2, 3], columns=40)
+
+
+def test_trace_readers():
+    run = trace_run(busy_s=1.5, device_ops=200,
+                    span_count={trace.PC_SPAN: 4, trace.CALL_SPAN: 2},
+                    span_device_s={trace.CALL_SPAN: 1.0,
+                                   trace.PC_SPAN: 0.4})
+    assert device_idle_pct.read(run) == pytest.approx(25.0)
+    assert launches_per_rhs.read(run) == 5.0
+    assert pc_apply_ms.read(run) == pytest.approx(100.0)
+    # (1.0 - 0.4) s over 2 + 3 iterations
+    assert krylov_ms_per_it.read(run) == pytest.approx(120.0)
+    least = _roofline.least_ms(188416 + 16384 + 1792 + 16000)
+    assert pc_apply_roofline.read(run) == pytest.approx(least / 100.0 * 100)
+
+
+def test_readers_find_nothing_without_device_operations():
+    run = trace_run()
+    for reader in (device_idle_pct, launches_per_rhs, pc_apply_ms,
+                   pc_apply_roofline, krylov_ms_per_it):
+        assert reader.read(run) is None
