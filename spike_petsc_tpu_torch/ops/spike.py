@@ -27,7 +27,8 @@ The port of ``spike_petsc_tpu.ops.spike``:
   ``impl="pallas"`` also names; ``lu`` and CR factors, which no kernel
   takes, the plain sweeps), a reduced solve, and the stored-spike
   correction ``x = g - V xt - W xb`` (or a second sweep when spikes are
-  not stored);
+  not stored), each in its span (``SPIKESweep``, ``SPIKEReduced``,
+  ``SPIKECorrect``; ``utils.profiling.span``);
 * ``spike_solve_many`` does the same for ``[n, r]`` right-hand sides, the
   factors streamed once for all r (the multi-RHS fused kernels on the card);
 * ``spike_transpose`` turns a factorization of A into one of A^T on the
@@ -60,6 +61,7 @@ from .cuda.fused_sweep_many import (blocktri_solve_fused_many_cuda,
 from .cuda.fused_sweep_many_spd import blocktri_solve_fused_many_spd_cuda
 from .cuda.fused_sweep_spd import blocktri_solve_fused_spd_cuda
 from .cuda.sweeps import blocktri_solve_batched_cuda, sweeps_feasible
+from ..utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -778,30 +780,35 @@ def spike_solve(sf: SpikeFactor, rhs: torch.Tensor,
     else:
         batched_solve = _batched_solver(sf, impl, rhs)
 
-    g = batched_solve(rblk)                                  # [K, nb, b]
+    with span("SPIKESweep"):
+        g = batched_solve(rblk)                              # [K, nb, b]
     if K == 1:
         return g.reshape(-1)[:sf.n]
 
-    xbot_prev, xtop_next = _reduced_solve(sf, g[:, nb - 1, b - k:],
-                                          g[:, 0, :k])
+    with span("SPIKEReduced"):
+        xbot_prev, xtop_next = _reduced_solve(sf, g[:, nb - 1, b - k:],
+                                              g[:, 0, :k])
     if sf.V is not None:
         # one sweep: x = g - V x_{p+1}^top - W x_{p-1}^bot
-        dtype = sweep_precision(sf.V, g)
-        x = (g - torch.einsum("pnbk,pk->pnb", sf.V.to(dtype),
-                              xtop_next.to(dtype))
-             - torch.einsum("pnbk,pk->pnb", sf.W.to(dtype),
-                            xbot_prev.to(dtype)))
+        with span("SPIKECorrect"):
+            dtype = sweep_precision(sf.V, g)
+            x = (g - torch.einsum("pnbk,pk->pnb", sf.V.to(dtype),
+                                  xtop_next.to(dtype))
+                 - torch.einsum("pnbk,pk->pnb", sf.W.to(dtype),
+                                xbot_prev.to(dtype)))
     else:
         # recompute sweep: solve with the boundary-corrected rhs
-        dtype = sweep_precision(sf.Btip, g)
-        corrB = torch.einsum("prc,pc->pr", sf.Btip.to(dtype),
-                             xtop_next.to(dtype))
-        corrC = torch.einsum("prc,pc->pr", sf.Ctip.to(dtype),
-                             xbot_prev.to(dtype))
-        r2 = rblk.clone()
-        r2[:, nb - 1, b - k:] -= corrB.to(r2.dtype)
-        r2[:, 0, :k] -= corrC.to(r2.dtype)
-        x = batched_solve(r2)
+        with span("SPIKECorrect"):
+            dtype = sweep_precision(sf.Btip, g)
+            corrB = torch.einsum("prc,pc->pr", sf.Btip.to(dtype),
+                                 xtop_next.to(dtype))
+            corrC = torch.einsum("prc,pc->pr", sf.Ctip.to(dtype),
+                                 xbot_prev.to(dtype))
+            r2 = rblk.clone()
+            r2[:, nb - 1, b - k:] -= corrB.to(r2.dtype)
+            r2[:, 0, :k] -= corrC.to(r2.dtype)
+        with span("SPIKESweep"):
+            x = batched_solve(r2)
     return x.reshape(-1)[:sf.n]
 
 
@@ -835,22 +842,27 @@ def spike_solve_many(sf: SpikeFactor, rhs: torch.Tensor,
         impl = "cuda"
     batched_solve = _batched_solver(sf, impl, rhs, many=True)
 
-    g = batched_solve(rblk)                                  # [K, nb, b, r]
+    with span("SPIKESweep"):
+        g = batched_solve(rblk)                              # [K, nb, b, r]
     if K == 1:
         return g.reshape(K * m, r)[:sf.n]
 
-    xbot_prev, xtop_next = _reduced_solve(sf, g[:, nb - 1, b - k:, :],
-                                          g[:, 0, :k, :])    # [K, k, r]
+    with span("SPIKEReduced"):
+        xbot_prev, xtop_next = _reduced_solve(
+            sf, g[:, nb - 1, b - k:, :], g[:, 0, :k, :])     # [K, k, r]
     if sf.V is not None:
-        dtype = sweep_precision(sf.V, g)
-        x = (g - sf.V.to(dtype) @ xtop_next.to(dtype)[:, None]
-             - sf.W.to(dtype) @ xbot_prev.to(dtype)[:, None])
+        with span("SPIKECorrect"):
+            dtype = sweep_precision(sf.V, g)
+            x = (g - sf.V.to(dtype) @ xtop_next.to(dtype)[:, None]
+                 - sf.W.to(dtype) @ xbot_prev.to(dtype)[:, None])
     else:
-        dtype = sweep_precision(sf.Btip, g)
-        corrB = sf.Btip.to(dtype) @ xtop_next.to(dtype)      # [K, k, r]
-        corrC = sf.Ctip.to(dtype) @ xbot_prev.to(dtype)
-        r2 = rblk.clone()
-        r2[:, nb - 1, b - k:, :] -= corrB.to(r2.dtype)
-        r2[:, 0, :k, :] -= corrC.to(r2.dtype)
-        x = batched_solve(r2)
+        with span("SPIKECorrect"):
+            dtype = sweep_precision(sf.Btip, g)
+            corrB = sf.Btip.to(dtype) @ xtop_next.to(dtype)  # [K, k, r]
+            corrC = sf.Ctip.to(dtype) @ xbot_prev.to(dtype)
+            r2 = rblk.clone()
+            r2[:, nb - 1, b - k:, :] -= corrB.to(r2.dtype)
+            r2[:, 0, :k, :] -= corrC.to(r2.dtype)
+        with span("SPIKESweep"):
+            x = batched_solve(r2)
     return x.reshape(K * m, r)[:sf.n]

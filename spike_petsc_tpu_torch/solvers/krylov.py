@@ -27,7 +27,8 @@ The JAX versions stage each solve in ``lax.while_loop``.  Here the vectors
 (and the Krylov bases) stay on the operator's device, and the small scalars
 that a decision needs come to the host once per iteration: the residual
 norm for the convergence test, with the breakdown tests' magnitudes stacked
-beside it.  GMRES brings its Hessenberg column to the host, where the
+beside it (``_host``, one ``KSPHostSync`` span a read; ``cg``'s every read
+goes through it).  GMRES brings its Hessenberg column to the host, where the
 Givens rotations and the least-squares solve run in the vectors' dtype.
 Complex scalars take JAX's formulas: inner products conjugate their first
 argument, norms and histories are real, the Givens rotations are unitary
@@ -59,6 +60,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from ..utils.profiling import span
 from ..utils.registry import register_ksp
 from .types import (CONVERGED_ITERATING, CONVERGED_ITS,
                     CONVERGED_RTOL_NORMAL, DIVERGED_BREAKDOWN,
@@ -158,8 +160,13 @@ def _safe(t: torch.Tensor) -> torch.Tensor:
 
 
 def _host(*scalars: torch.Tensor) -> list:
-    """Device scalars to host floats, in one synchronization."""
-    return torch.stack([s.reshape(()) for s in scalars]).tolist()
+    """Device scalars to host floats, in one synchronization: one
+    ``KSPHostSync`` span a read.  A single scalar is read as it is, several
+    stacked first."""
+    with span("KSPHostSync"):
+        if len(scalars) == 1:
+            return [scalars[0].item()]
+        return torch.stack([s.reshape(()) for s in scalars]).tolist()
 
 
 def _tiny(dtype: torch.dtype) -> float:
@@ -190,7 +197,7 @@ def _result(matvec, b, x, its, reason, history, true_history=None,
             axis=None):
     """The result with the true final residual norm."""
     return KSPResult(x=x, its=its, reason=reason,
-                     rnorm=float(_norm(b - matvec(x), axis)),
+                     rnorm=_host(_norm(b - matvec(x), axis))[0],
                      history=history, true_history=true_history)
 
 
@@ -1022,13 +1029,13 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     psolve = pc_apply or _identity_pc
     x0_zero = x0 is None                   # r0 = b exactly; skip matvec(0)
     x = torch.zeros_like(b) if x0_zero else x0.clone()
-    check = _checker(float(norm(b)), rtol=rtol, atol=atol, divtol=divtol,
+    check = _checker(_host(norm(b))[0], rtol=rtol, atol=atol, divtol=divtol,
                      maxit=maxit)
     history = _history(maxit, b.dtype)
     r = b if x0_zero else b - matvec(x)
     p = psolve(r)
     rz = dot(r, p)
-    rnorm = float(norm(r))
+    rnorm, = _host(norm(r))
     history[0] = rnorm
     its = 0
     reason = check(rnorm, its)
@@ -1042,7 +1049,7 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         beta = rz_new / _safe(rz)
         p = z + beta * p
         rz = rz_new
-        rn = float(torch.sqrt(rr.real))
+        rn, = _host(torch.sqrt(rr.real))
         its += 1
         history[its] = rn
         reason = check(rn, its)

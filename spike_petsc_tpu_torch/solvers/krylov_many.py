@@ -12,8 +12,9 @@ The JAX engines run in ``lax.while_loop``.  Here the vectors and the
 per-column scalars stay on the operator's device, and the per-column norms
 come to the host once per decision point (BiCGStab: after the s-norm and
 after the full step; the other engines: once per iteration), where the
-convergence tests, the iteration counts and the history are kept.  Results
-are column-batched ``KSPResult``s (see ``types.KSPResult``).
+convergence tests, the iteration counts and the history are kept; each read
+is one ``KSPHostSync`` span (``_host``; ``preonly_many``'s are not).
+Results are column-batched ``KSPResult``s (see ``types.KSPResult``).
 
 On a mesh every engine takes ``axis_name`` (a ``parallel.mesh.MeshAxis``;
 its rank's row block of the columns): each JAX ``psum`` of ``[r]`` or
@@ -32,6 +33,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from ..utils.profiling import span
 from .krylov import DGKS_THRESHOLD, _Sync
 from .types import (CONVERGED_ITERATING, CONVERGED_ITS, DIVERGED_BREAKDOWN,
                     DIVERGED_NANORINF, KSPResult, default_convergence_check)
@@ -71,8 +73,10 @@ def _sync(conv_sync_axis) -> Optional[_Sync]:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """Bring a small device tensor to the host (one synchronization)."""
-    return t.detach().cpu().numpy()
+    """Bring a small device tensor to the host (one synchronization, one
+    ``KSPHostSync`` span)."""
+    with span("KSPHostSync"):
+        return t.detach().cpu().numpy()
 
 
 class _Columns:
@@ -118,7 +122,8 @@ class _Columns:
     def result(self, X: torch.Tensor, rnorm: torch.Tensor) -> KSPResult:
         return KSPResult(x=X, its=torch.from_numpy(self.its),
                          reason=torch.from_numpy(self.reason),
-                         rnorm=rnorm.detach().cpu(), history=self.history)
+                         rnorm=torch.from_numpy(_host(rnorm)),
+                         history=self.history)
 
 
 def _merge(active: np.ndarray, new: torch.Tensor,

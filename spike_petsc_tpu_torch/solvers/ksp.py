@@ -55,7 +55,7 @@ import torch
 from ..ops.band import BandedMatrix, banded_diagonal, banded_diagonal_scale
 from ..ops.blocktri import BlockTridiagonal
 from ..utils.options import Options
-from ..utils.profiling import scope
+from ..utils.profiling import span
 from ..utils.registry import SOLVERS
 from . import krylov  # noqa: F401  (registers the ported solvers)
 from . import fieldsplit  # noqa: F401  (registers composite/fieldsplit PCs)
@@ -142,6 +142,17 @@ def _projected(fn: Optional[Callable], ns) -> Optional[Callable]:
     return lambda v: ns.remove(fn(v))
 
 
+def _spanned(name: str, fn: Optional[Callable]) -> Optional[Callable]:
+    """``fn`` with each call inside ``span(name)`` (None: unchanged)."""
+    if fn is None:
+        return None
+
+    def call(v):
+        with span(name):
+            return fn(v)
+    return call
+
+
 def _chebyshev_bounds(opts: Options, kw: dict, matvec, n, dtype, device,
                       pc_apply) -> None:
     """``-ksp_chebyshev_eigenvalues emin,emax`` pins chebyshev's bounds;
@@ -207,9 +218,8 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
     method = SOLVERS.get(ksp_type)
     if pc is None:
         name = pc_type or opts.get_string("pc_type", "none")
-        with scope("PCSetUp"):
-            pc = make_pc(name, A if pmat is None else pmat, opts,
-                         device=device, dtype=dtype)
+        pc = make_pc(name, A if pmat is None else pmat, opts, device=device,
+                     dtype=dtype)
     shown_pc = pc
     if transpose:
         A, pc, nullspace, transpose_nullspace = _transposed(
@@ -221,8 +231,10 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
                                     device=device, dtype=dtype)
     ns, tns = _nullspaces(opts, nullspace, transpose_nullspace, n, device,
                           op_dtype or dtype or torch.float32)
-    matvec = _projected(matvec, tns)
-    pc_apply = _projected(pc.apply if pc.name != "none" else None, ns)
+    # PETSc's log events, around every route of the operator and the PC
+    matvec = _spanned("MatMult", _projected(matvec, tns))
+    pc_apply = _spanned("PCApply", _projected(
+        pc.apply if pc.name != "none" else None, ns))
     kw = _params_from_options(opts, params)
     if ksp_type in _TRANSPOSE_TYPES:
         # A^T and M^-T, each unless the caller gave it: A^T's residual
@@ -301,7 +313,7 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
         device=device, dtype=dtype)
     ns, tns = _nullspaces(opts, nullspace, transpose_nullspace, n, device,
                           op_dtype or dtype or torch.float32)
-    matvec_many = _projected(matvec_many, tns)
+    matvec_many = _spanned("MatMult", _projected(matvec_many, tns))
     if pc.name == "none":
         pc_apply_many = None
     elif pc.apply_many is not None:
@@ -310,7 +322,7 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
         def pc_apply_many(R):
             return torch.stack([pc.apply(R[:, j]) for j in range(R.shape[1])],
                                dim=1)
-    pc_apply_many = _projected(pc_apply_many, ns)
+    pc_apply_many = _spanned("PCApply", _projected(pc_apply_many, ns))
     kw = _params_from_options(opts, params)
     for extra in ("norm_type", "monitor_true"):    # not in the batched
         kw.pop(extra, None)                        # engines' surface

@@ -47,6 +47,7 @@ from ..ops.spike import (_batched_solver, partition_solver, spike_factor,
                          spike_solve, spike_solve_many, spike_transpose)
 from ..utils.debug import SINGULAR, factor_health
 from ..utils.options import Options
+from ..utils.profiling import scope
 from ..utils.registry import PRECONDITIONERS, register_pc
 from .operator import as_matvec, as_matvec_many, transpose_operator
 
@@ -147,9 +148,12 @@ def make_pc(name: str, pmat, options: Optional[Options] = None,
             prefix: str = "", *, device=None, dtype=None) -> PC:
     """Build a preconditioner by registry name, PETSc ``PCSetType`` style.
     A host ``pmat`` is placed on ``device`` in ``dtype`` (see the module
-    docstring)."""
+    docstring).  The build is the ``PCSetUp`` stage
+    (``utils.profiling.scope``), a sub-PC's (PCBANDED's inner PC, mg's
+    smoother) part of its parent's."""
     opts = (options or Options()).scoped(prefix)
-    return PRECONDITIONERS.get(name)(_place(pmat, device, dtype), opts)
+    with scope("PCSetUp"):
+        return PRECONDITIONERS.get(name)(_place(pmat, device, dtype), opts)
 
 
 @register_pc("none")

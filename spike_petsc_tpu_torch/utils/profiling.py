@@ -2,17 +2,23 @@
 
 The reference delegates tracing to PETSc: PetscInfo event notes, per-function
 stack tracing, -log_summary stage logging (SURVEY.md §5;
-reference/src/matbanded.c:175).  The port's equivalents:
+reference/src/matbanded.c:175).  The port's equivalents, one primitive for
+each kind of path:
 
-* ``scope(name)`` — named trace annotation: shows up in the torch.profiler
-  timeline (``torch.profiler.record_function``) AND accumulates wall-clock
-  per stage (the -log_view analogue).  Where CUDA is in use, the scope
-  synchronizes the device before it stops the clock, so a stage's time is
-  the work it launched, not the time to queue it.
+* ``span(name)`` — the hot path's span (the solve's operator, PC apply,
+  SPIKE sweep and reduced solve, the Krylov loops' host reads), named after
+  PETSc's log events: a host-side ``torch.profiler`` event while a profiler
+  records, and nothing at all (one shared null context) while none does.
+  It never synchronizes, so a trace shows the host and the device as they
+  overlap, the device's operations on the same clock as the spans.
+* ``scope(name)`` — a set-up stage (``PCSetUp``, the fieldsplit and Fiedler
+  stages, the testbed's): a trace annotation that also accumulates
+  wall-clock per stage (the -log_view analogue).  Where CUDA is in use, the
+  scope synchronizes the device before it stops the clock, so a stage's
+  time is the work it launched, not the time to queue it; keep it off the
+  solve's path.
 * ``log_event`` / ``event_log`` — structured event records (phase, matrix
   size, bandwidth, residuals) replacing PetscInfo prints.
-* ``start_trace``/``stop_trace`` — a torch.profiler trace of the host and
-  the CUDA device, exported as a Chrome trace.
 * ``stage_report()`` — per-stage cumulative wall-clock/hit-count table;
   ``stage_times()`` the same seconds as a dict.
 """
@@ -20,26 +26,17 @@ reference/src/matbanded.c:175).  The port's equivalents:
 from __future__ import annotations
 
 import contextlib
-import json
-import os
 import time
 from collections import defaultdict
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Set
 
 import torch
 
 _STAGES: Dict[str, Dict[str, float]] = defaultdict(
     lambda: {"time": 0.0, "count": 0})
 _EVENTS: List[dict] = []
-_VERBOSITY = 0
-_TRACE = None
-
-
-def set_verbosity(level: int) -> None:
-    """0 = silent, 1 = events printed, 2 = + stage timings (mirrors MC64's
-    ICNTL(5) diagnostic levels, reference/src/hslmc64.c:233-241)."""
-    global _VERBOSITY
-    _VERBOSITY = level
+_OPEN: Set[str] = set()         # the stages being timed now
+_NULL = contextlib.nullcontext()
 
 
 def _sync() -> None:
@@ -54,25 +51,42 @@ def _sync() -> None:
 def scope(name: str):
     """Named profiling scope: trace annotation + stage timer.  The device
     is synchronized at entry and exit when CUDA is in use, so the stage's
-    time holds the device work it launched and none launched before it."""
-    _sync()
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
+    time holds the device work it launched and none launched before it.
+    A stage entered again inside itself (a sub-PC's ``PCSetUp``) is part
+    of the outer one and is not timed twice."""
+    if name in _OPEN:
         yield
+        return
+    _OPEN.add(name)
+    try:
         _sync()
-    dt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(name):
+            yield
+            _sync()
+        dt = time.perf_counter() - t0
+    finally:
+        _OPEN.discard(name)
     s = _STAGES[name]
     s["time"] += dt
     s["count"] += 1
-    if _VERBOSITY >= 2:
-        print(f"[stage] {name}: {dt * 1e3:.3f} ms")
+
+
+def span(name: str):
+    """A hot-path span: a context manager that, while a ``torch.profiler``
+    records, marks ``name`` on the host's timeline, and otherwise is one
+    shared null context (no clock read, no allocation).  It never
+    synchronizes.  The event is a host-side one only
+    (``_RecordFunctionFast``): a trace places the device's operations under
+    it by the host call that launched them, and the device's timeline
+    carries no annotation beside the operations."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def log_event(event: str, **fields: Any) -> None:
-    rec = dict(event=event, t=time.time(), **fields)
-    _EVENTS.append(rec)
-    if _VERBOSITY >= 1:
-        print(f"[event] {json.dumps(rec, default=str)}")
+    _EVENTS.append(dict(event=event, t=time.time(), **fields))
 
 
 def event_log() -> List[dict]:
@@ -98,22 +112,3 @@ def stage_report() -> str:
                      f"{s['time'] / max(c, 1) * 1e3:>10.3f}")
     return "\n".join(lines)
 
-
-def start_trace(logdir: str) -> None:
-    """Start a torch.profiler trace of the host and, where CUDA is
-    available, the device; ``stop_trace`` writes it to ``logdir``."""
-    global _TRACE
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    _TRACE = (torch.profiler.profile(activities=acts), logdir)
-    _TRACE[0].__enter__()
-
-
-def stop_trace() -> None:
-    global _TRACE
-    prof, logdir = _TRACE
-    _TRACE = None
-    prof.__exit__(None, None, None)
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -1554,3 +1554,42 @@ def test_auction_match_dist_on_the_card_matches_the_cpu(one_rank_nccl):
     assert np.array_equal(card.rperm, cpu.rperm)
     assert card.info == cpu.info
     np.testing.assert_allclose(card.row_scale, cpu.row_scale, rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_spans_are_host_events_and_every_launch_is_found(cuda_device):
+    """Under a CUDA trace the port's spans are host-side events only (no
+    device-side annotation joins the device's operations), and every
+    device operation of a batched bcgs solve with a spike PC (#2, #4,
+    library kernels, copies) has the host call that launched it: the CUDA
+    API call of the same correlation id, inside the spans that a trace
+    places it under."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from spike_petsc_tpu_torch import make_solver_many
+    spans = {"MatMult", "PCApply", "SPIKESweep", "SPIKEReduced",
+             "SPIKECorrect", "KSPHostSync"}
+    band = banded_from_numpy(random_band(20000, 50, 50, seed=16,
+                                         dtype=np.float32), 50, 50,
+                             device=cuda_device)
+    B = banded_matvec(band, torch.randn((20000, 6), device=cuda_device))
+    solver = make_solver_many(band, ksp_type="bcgs", pc_type="spike",
+                              rtol=1e-6, options=Options({
+                                  "pc_spike_partitions": 8,
+                                  "pc_spike_block": 64,
+                                  "pc_spike_store_spikes": 1}))
+    plain = solver(B)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = solver(B)
+        torch.cuda.synchronize()
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    dev = [e for e in events if e.device_type != DeviceType.CPU]
+    assert {e.name for e in cpu} >= spans
+    assert dev and not any(e.name in spans or e.is_user_annotation
+                           for e in dev)
+    launches = {e.id for e in cpu if e.name.startswith("cu")}
+    assert all(e.id in launches for e in dev)
+    assert torch.equal(traced.x, plain.x)
