@@ -46,7 +46,11 @@ In order, it:
      PyTorch call computes the same function (a sparse product), beside
      that call, with CUDA events (median and spread of the repetitions),
      the serving stage's device busy time (torch.profiler), and the card's
-     device-to-device copy rate; the refinement solve with the f64 kernel
+     device-to-device copy rate; the reduced-system kernel on the
+     flagship's reduced factor ([63, 200, 200]) at r = 32 and r = 1 against
+     the plain loop (within 2e-6 of max|plain|), its device time a launch
+     and a call's, the plain loop's call and the bound by ``sweep_bytes``
+     of the reduced factor; the refinement solve with the f64 kernel
      against the plain f64 operator, with its device busy time; then the
      transpose-free KSP types on the flagship, the spike PC built once
      (``make_pc``) and passed to each ``solve``: fgmres, lgmres, gcr, cgs,
@@ -248,6 +252,8 @@ PC_OPTIONS = {"pc_spike_partitions": K, "pc_spike_block": BLOCK,
 SEED = 0
 REPS = 5
 KERNEL_TOL = 1e-5          # max|kernel - plain| / max|plain|
+REDUCED_TOL = 2e-6         # the reduced-system kernel's, the same measure
+ITERS_REDUCED = 20         # launches queued back to back: the device's time
 SPIKE_RELRES_MAX = 2.5e-4  # f32 relative residual of one bf16-spike solve
 GMRES_ITS_MAX = 3
 NRHS = 32                  # serving batch (BASELINE config 2's batched mode)
@@ -458,7 +464,7 @@ PCS_REF_N = 20_000
 # NVIDIA's data sheet for the H100 SXM (700 W): the bound of each kernel
 # complex scalars, ops/autodiff.py, gmres_many's options and the factor
 # checks (phase_complex, phase_gmres_many_options, phase_autodiff,
-# phase_checks).  Complex input launches none of the nine kernels (their
+# phase_checks).  Complex input launches none of the kernels (their
 # rules admit f32/bf16 only; complex spd takes the plain sweep)
 COMPLEX_RTOL = 1e-5
 COMPLEX_RELRES_MAX = 1e-4
@@ -483,10 +489,14 @@ AUTODIFF_REF_N, AUTODIFF_REF_TOL = 20_000, 1e-3
 # (PERF.md, before the first run).  K = 64: spike_factor stores no spikes
 # (the JAX default), so each spike_solve sweeps the partitions twice (g,
 # then the boundary-corrected solve; ops/spike.py spike_solve), #1 twice a
-# pass; the 'auto' inverter is lapack (no Newton probe, which only the PCs
-# run), and spike_transpose's spikes are one plain batched solve.  K = 1 at
-# nb = 1563: one solve a pass with no reduced system, the two-pass pair #9
-AUTODIFF_LAUNCHES = {"flagship": {"fused_sweep": 2},
+# pass, and its reduced system (63 block rows of 200) on the reduced
+# kernel once; the 'auto' inverter is lapack (no Newton probe, which only
+# the PCs run), and spike_transpose's spikes are one plain batched solve.
+# On the mesh the reduced system of 64 partitions is cyclic reduction (from
+# 33 block rows): no reduced kernel.  K = 1 at nb = 1563: one solve a pass
+# with no reduced system, the two-pass pair #9
+AUTODIFF_LAUNCHES = {"flagship": {"fused_sweep": 2, "reduced_thomas": 1},
+                     "dist_flagship": {"fused_sweep": 2},
                      "config1": {"sweeps": 2}}
 ZERODIAG_CHECK = (20_000, 64, 3)       # n, K, block: singular b = 3 blocks
 # the route tuner (tools/tune.py) at the flagship, at config 3's width and
@@ -554,6 +564,7 @@ REPLACES = {
     "fused_sweep_many_spd": "spike_petsc_tpu/ops/pallas/fused_sweep.py:458",
     "band_matvec_f64": "spike_petsc_tpu/ops/pallas/band_matvec.py:231",
     "sweeps": "spike_petsc_tpu/ops/pallas/sweeps.py:66/:84",
+    "reduced_thomas": "none (JAX: lax.scan in spike_petsc_tpu/ops/blocktri.py)",
     "blocktri_matvec_grid": "spike_petsc_tpu/ops/pallas/matvec.py:31",
 }
 
@@ -916,7 +927,8 @@ def phase_main_path(band, rhs, device):
     check(res.x.shape == (N,) and bool(torch.isfinite(res.x).all()),
           "solution shape / finiteness")
     check(xerr <= 1e-3 and true_rel <= 1e-4, "solution accuracy")
-    check(launches["band_matvec"] > 0 and launches["fused_sweep"] > 0,
+    check(launches["band_matvec"] > 0 and launches["fused_sweep"] > 0
+          and launches["reduced_thomas"] > 0,
           f"a kernel did not run on the main path: {launches}")
     return res, launches
 
@@ -1284,6 +1296,57 @@ def spd_factor(band, K=SPD_K):
     from spike_petsc_tpu_torch.ops.spike import spike_factor
     return spike_factor(band, K=K, block_b=SPD_BLOCK, method="spd",
                         truncated=True, store_spikes=True)
+
+
+def phase_reduced(sf, device, t, bounds, errs):
+    """The reduced-system kernel (``csrc/reduced_thomas.cu``) on the
+    flagship's own reduced factor ([K - 1, 2k, 2k] = [63, 200, 200], f32)
+    at r = 32 and r = 1: against the plain loop (``blocktri_solve``) within
+    ``REDUCED_TOL`` of max|plain|; the device time a launch (``ITERS``
+    launches queued back to back), the plain loop's call (host-paced, as in
+    the PC apply), and the bound by ``sweep_bytes`` of the reduced factor."""
+    import torch
+    from spike_petsc_tpu_torch.ops.blocktri import (BlockTriFactor,
+                                                    blocktri_solve)
+    from spike_petsc_tpu_torch.ops.cuda import reduced_thomas as crt
+    show = shower(t)
+    fact = sf.red_fact
+    nb, B = fact.F.shape[0], fact.F.shape[-1]
+    check(crt.reduced_thomas_feasible(fact, torch.empty((nb, B, NRHS),
+                                                        device=device)),
+          f"the flagship's reduced factor is not the kernel's: "
+          f"{type(fact).__name__} {tuple(fact.F.shape)}")
+    as4 = BlockTriFactor(F=fact.F[None], U=fact.U[None],
+                         Sinv=fact.Sinv[None])
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    for r in (NRHS, 1):
+        rhs = torch.randn((nb, B, r), generator=gen, device=device)
+        if r == 1:
+            rhs = rhs[..., 0]
+        diff, err = kernel_err(crt.blocktri_solve_reduced_cuda(fact, rhs),
+                               blocktri_solve(fact, rhs))
+        print(f"reduced_thomas flagship [{nb}, {B}, {B}] r={r}: max abs err "
+              f"{diff:.3e}, relative {err:.3e}")
+        check(err <= REDUCED_TOL, f"reduced_thomas r={r} err {err}")
+        errs["reduced_thomas"] = max(errs.get("reduced_thomas", 0.0), diff)
+        plan = crt.reduced_thomas_plan(B, r)
+        x = torch.empty_like(rhs)
+        gb = sweep_bytes(as4, r) / 1e9
+        label = "f32" if r == NRHS else "f32_r1"
+        show(f"reduced_thomas_cuda_{label}", time_ms(
+            lambda: crt._launch(fact, rhs, x, r, plan),
+            iters=ITERS_REDUCED), gb)
+        show(f"reduced_thomas_call_{label}", time_ms(
+            lambda: crt.blocktri_solve_reduced_cuda(fact, rhs)), gb)
+        show(f"reduced_thomas_plain_{label}", time_ms(
+            lambda: blocktri_solve(fact, rhs)), gb)
+        bms, bby = sweep_bound(as4, r)
+        print(f"reduced_thomas r={r} (plan {plan}): kernel "
+              f"{t[f'reduced_thomas_cuda_{label}'][0]:.4f} ms a launch, "
+              f"{t[f'reduced_thomas_call_{label}'][0]:.4f} a call; plain loop "
+              f"{t[f'reduced_thomas_plain_{label}'][0]:.4f} ms a call; bound "
+              f"{bms:.4f} ms ({bby})")
+    bounds["reduced_thomas"] = sweep_bound(as4, NRHS)
 
 
 def phase_spd_kernels(rhs, ssf, device):
@@ -1715,6 +1778,7 @@ def phase_config3(device):
     expected = {name: 0 for name in launches}
     expected["band_matvec"] = 2 * res.its + 1
     expected["fused_sweep"] = 2 * 2 * res.its
+    expected["reduced_thomas"] = 2 * res.its     # one a PC apply
     print(f"bcgs+banded (config 3, n={op.n}): {res.its} its, reason "
           f"{res.reason}, true relres (f32) {true_rel:.3e}, error in "
           f"solution {err:g} (TPU v5e yardstick: 2 its, relres 8.6e-8)")
@@ -2134,16 +2198,20 @@ def phase_ksp_types_reference(device):
 
 
 def gmres_expected(its, launches, sweep, matvec, sweeps_per_apply=1,
-                   restart=30):
+                   restart=30, reduced=False):
     """The launches of left-preconditioned gmres from x0 = 0 without the
     true-residual monitor: PC applies (``sweeps_per_apply`` launches of
     ``sweep`` each) for ||M^-1 b||, the first residual, each iteration and
     each restart's residual; operator applies (``matvec``) for the first
-    residual, each iteration and each restart's residual."""
+    residual, each iteration and each restart's residual.  ``reduced``: a
+    spike PC whose reduced system takes the reduced kernel, once an
+    apply."""
     cycles = -(-its // restart)
     expected = {name: 0 for name in launches}
     expected[sweep] = sweeps_per_apply * (2 + its + cycles - 1)
     expected[matvec] = 1 + its + cycles - 1
+    if reduced:
+        expected["reduced_thomas"] = 2 + its + cycles - 1
     return expected
 
 
@@ -2155,9 +2223,10 @@ def transpose_types_expected(ksp, its, launches):
     one for the final residual; lsqr: M^-T A^T u0, then per iteration
     A M^-1 v and M^-T A^T u, then x = M^-1 y and the final residual; cgls:
     M^-1 b and A^T M^-T c, then per iteration M^-1 A p and A^T M^-T s, then
-    the final residual."""
+    the final residual.  Each PC apply also solves its reduced system on
+    the reduced kernel once."""
     expected = {name: 0 for name in launches}
-    expected["fused_sweep"] = 2 * its + 2
+    expected["fused_sweep"] = expected["reduced_thomas"] = 2 * its + 2
     expected["band_matvec"] = 2 * its + (1 if ksp == "bicg" else 2)
     return expected
 
@@ -2241,7 +2310,8 @@ def phase_transpose_flagship(band, rhs, sf, pc, device, t):
         launches = read_launches()
         rel = float(torch.linalg.norm(banded_matvec_t(band, res.x) - bt)
                     / btnorm)
-        expected = gmres_expected(res.its, launches, "fused_sweep", mv)
+        expected = gmres_expected(res.its, launches, "fused_sweep", mv,
+                                  reduced=True)
         print(f"gmres+spike transpose=True ({impl} operator): {res.its} its, "
               f"{reason_str(res.reason)}, true relres of A^T x = b (f32) "
               f"{rel:.3e}, max|x - 1| {float((res.x - 1).abs().max()):.3e}; "
@@ -2358,6 +2428,7 @@ def phase_transpose_config3(device):
     expected = {name: 0 for name in launches}
     expected["band_matvec"] = 2 * res.its + 1
     expected["fused_sweep"] = 4 * (res.its + 1)
+    expected["reduced_thomas"] = 2 * (res.its + 1)   # one a PC apply
     print(f"bicg+banded (config 3, n={op.n}): testbed exit code {rc}, "
           f"{wall:.2f} s in all, {res.its} its, reason {res.reason}, true "
           f"relres (f32) {rel:.3e}; launches {launches}; expected "
@@ -2493,10 +2564,12 @@ def phase_refine(a64, b64):
         if main_launches is None:
             # every residual on #6 (its + 1 with x0 = None: one per
             # iteration and the final rnorm), every PC apply on #1, and the
-            # safety net's probe solve (newton_fixed) on #1 once
+            # safety net's probe solve (newton_fixed) on #1 once; each of
+            # those solves its reduced system on the reduced kernel once
             expect = {k: 0 for k in launches}
             expect.update(band_matvec_f64=res.its + 1,
-                          fused_sweep=res.its + 1)
+                          fused_sweep=res.its + 1,
+                          reduced_thomas=res.its + 1)
             print(f"  expected launches: {expect}")
             check(launches == expect, f"refinement launches {launches}, "
                   f"expected {expect}")
@@ -2698,7 +2771,8 @@ def phase_zerodiag(device, t, bounds):
     """A: the reference's zero-diagonal scenario at n = 1e6 in f32 through
     ``testbed.main``: tridiagonal [-1, 0, -1], every pivot zero; gmres with
     the spike PC (K = 64, b = 64: #1 at nb = 245, two sweeps an apply, the
-    spikes not stored) and with the lu PC (b = 64: #9 at K = 1, nb = 15625),
+    spikes not stored, and the reduced kernel once) and with the lu PC
+    (b = 64: #9 at K = 1, nb = 15625, no reduced system),
     each with ``-pc_factor_shift_type nonzero`` and without.  Each run's
     launches of #1, #9 and #2 held exactly to what gmres makes; the shifted
     runs raise pivots (``shifted_pivots`` > 0) and end within
@@ -2730,7 +2804,8 @@ def phase_zerodiag(device, t, bounds):
             found = re.search(r"shifted_pivots=(\d+)", out)
             shifted_pivots = int(found.group(1)) if found else None
             expected = gmres_expected(res.its, launches, sweep,
-                                      "band_matvec", sweeps_per_apply=2)
+                                      "band_matvec", sweeps_per_apply=2,
+                                      reduced=pc_name == "spike")
             print(f"zerodiag {label} (n={ZERODIAG_N}, f32, testbed): exit "
                   f"code {rc}, {res.its} its, reason {res.reason}, error in "
                   f"solution {err:.6g} (||x - u|| / ||u|| {rel:.3e}, limit "
@@ -2946,6 +3021,8 @@ def phase_methods_flagship(band, rhs, device, t):
                                   "band_matvec")
         if name == "newton_pan":
             expected["fused_sweep"] += 1         # the safety net's probe
+            # an inv reduced system: the reduced kernel once a solve
+            expected["reduced_thomas"] = expected["fused_sweep"]
         else:
             expected["fused_sweep"] = 0          # plain sweeps
         print(f"gmres+spike -pc_spike_{'inverter' if name == 'newton_pan' else 'method'} "
@@ -3931,7 +4008,7 @@ def phase_native_factor(device, t, errs, paths):
     r = blocktri_matvec(T, res.x.reshape(T.nb, BLOCK)).reshape(-1) - b
     true_rel = float(torch.linalg.norm(r) / torch.linalg.norm(b))
     expected = gmres_expected(res.its, launches, "fused_sweep",
-                              "blocktri_matvec")
+                              "blocktri_matvec", reduced=True)
     print(f"gmres+spike on the native blocks (n={N}, n_pad={npad}): "
           f"{res.its} its, {reason_str(res.reason)}, true relres (f32) "
           f"{true_rel:.3e}, max|x - 1| {float((res.x - 1).abs().max()):.3e}"
@@ -3986,7 +4063,8 @@ def lobpcg_event():
 def config4_expected(rec, out, launches):
     """The launches gmres (left PC, x0 = 0) makes on config 4: the inner
     spike PC's sweeps (two an apply, the spikes not stored; #1 one launch
-    a sweep, #9 two), on the kernel ``sweep_route`` picks for its factor;
+    a sweep, #9 two), on the kernel ``sweep_route`` picks for its factor,
+    and its reduced system on the reduced kernel once an apply;
     the operator's band part on #2 where the testbed split it (one an
     operator apply), none for a CSR operator.  Returns (the expected
     launches, the inner factor, the sweep kernel's name)."""
@@ -4000,7 +4078,7 @@ def config4_expected(rec, out, launches):
     per_sweep = 1 if route == "fused" else 2
     its = rec["result"].its
     expected = gmres_expected(its, launches, sweep, "band_matvec",
-                              sweeps_per_apply=2 * per_sweep)
+                              sweeps_per_apply=2 * per_sweep, reduced=True)
     if "Device operator: band+outliers split" not in out:
         expected["band_matvec"] = 0
     return expected, sf, sweep
@@ -4749,7 +4827,7 @@ def phase_dist_autodiff(band, rhs, device, t, tmp):
         cases = (
             ("dist_diff_1d", lambda d, b: dist_solve_banded_diff(
                 d, b, kl, ku, mesh, block_b=BLOCK, parts_per_device=K),
-             lambda n: AUTODIFF_LAUNCHES["flagship"]),
+             lambda n: AUTODIFF_LAUNCHES["dist_flagship"]),
             ("dist_diff_ms", lambda d, b: dist_solve_banded_diff_multislice(
                 d, b, kl, ku, mesh2, block_b=BLOCK, parts_per_device=K,
                 rtol=DIST_DIFF_RTOL, maxit=DIST_DIFF_MAXIT), gmres_pass))
@@ -4998,6 +5076,7 @@ def run(tmp) -> int:
     phase_refine_reference(device)
     alt_launches = phase_alternate_path(band, rhs, sf)
     t, bounds = phase_timing(band, rhs, sf, device)
+    phase_reduced(sf, device, t, bounds, errs)
     bounds.update(phase_alternate_timing(band, a64, b64, rhs, sf, device, t))
     del a64, b64
     torch.cuda.empty_cache()
@@ -5191,7 +5270,10 @@ def run(tmp) -> int:
              None),
             ("blocktri_matvec_grid", alt_launches,
              ("blocktri_matvec_grid_cuda", "blocktri_matvec_grid_plain"),
-             "blocktri_matvec_library")):
+             "blocktri_matvec_library"),
+            ("reduced_thomas", serve_launches,
+             ("reduced_thomas_cuda_f32", "reduced_thomas_plain_f32"),
+             None)):
         bound_ms, bound_by = bounds[name]
         kernels.append({
             "name": name, "route": "cuda",

@@ -60,6 +60,8 @@ from .cuda.fused_sweep_many import (blocktri_solve_fused_many_cuda,
                                     fused_sweep_many_feasible)
 from .cuda.fused_sweep_many_spd import blocktri_solve_fused_many_spd_cuda
 from .cuda.fused_sweep_spd import blocktri_solve_fused_spd_cuda
+from .cuda.reduced_thomas import (blocktri_solve_reduced_cuda,
+                                  reduced_thomas_feasible)
 from .cuda.sweeps import blocktri_solve_batched_cuda, sweeps_feasible
 from ..utils.profiling import span
 
@@ -543,10 +545,24 @@ def _batched_tri_solve(fact, rhs: torch.Tensor) -> torch.Tensor:
     return blocktri_solve(fact, rhs)
 
 
-def _solve_reduced_system(red_fact, rhs: torch.Tensor) -> torch.Tensor:
-    """The reduced solve, dispatching on the factor type (Thomas or CR)."""
+def _takes_reduced_kernel(red_fact, rhs: torch.Tensor, impl: str) -> bool:
+    """Whether the reduced solve runs the one-launch kernel
+    (``ops/cuda/reduced_thomas.py``): a CUDA right-hand side, a kernel
+    ``impl`` (not 'plain' or 'xla', which keep the plain loop on any
+    device) and a factor that ``reduced_thomas_feasible`` admits."""
+    return (impl not in ("plain", "xla") and rhs.is_cuda
+            and reduced_thomas_feasible(red_fact, rhs))
+
+
+def _solve_reduced_system(red_fact, rhs: torch.Tensor,
+                          impl: str = "auto") -> torch.Tensor:
+    """The reduced solve, dispatching on the factor type (Thomas or CR):
+    a block-Thomas factor takes the one-launch kernel where
+    ``_takes_reduced_kernel`` says so, else ``blocktri_solve``."""
     if isinstance(red_fact, CRFactor):
         return cr_solve(red_fact, rhs)
+    if _takes_reduced_kernel(red_fact, rhs, impl):
+        return blocktri_solve_reduced_cuda(red_fact, rhs)
     return blocktri_solve(red_fact, rhs)
 
 
@@ -635,19 +651,28 @@ def spike_transpose(sf: SpikeFactor, reduced: str = "auto",
 # Solve
 # ---------------------------------------------------------------------------
 
-def _reduced_solve(sf: SpikeFactor, g_bot: torch.Tensor, g_top: torch.Tensor):
+def _reduced_solve(sf: SpikeFactor, g_bot: torch.Tensor, g_top: torch.Tensor,
+                   impl: str = "auto"):
     """Solve for interface unknowns; ``g_bot``/``g_top`` are ``[K, k]`` or
     ``[K, k, r]``.  Returns (xbot_prev, xtop_next) of the same shape:
     xtop_next[p] = x_{p+1}^top (zero for p = K-1),
-    xbot_prev[p] = x_{p-1}^bot (zero for p = 0)."""
+    xbot_prev[p] = x_{p-1}^bot (zero for p = 0).  ``impl`` as in
+    ``_takes_reduced_kernel``."""
     k = sf.k
     rhs = torch.cat([g_bot[:-1], g_top[1:]], dim=1)          # [K-1, 2k(, r)]
+    if not sf.truncated and _takes_reduced_kernel(sf.red_fact, rhs, impl):
+        # the kernel writes z into block rows 1 .. K-1 of one zeroed
+        # [K+1, 2k(, r)] buffer, whose views are xbot_prev and xtop_next
+        buf = rhs.new_zeros((rhs.shape[0] + 2,) + rhs.shape[1:])
+        blocktri_solve_reduced_cuda(sf.red_fact, rhs, out=buf[1:-1])
+        return buf[:-1, :k], buf[1:, k:]
     if sf.truncated:
         cols = rhs.dim() == 3
         z = _sweep_matvec(sf.red_Dinv, rhs if cols else rhs[..., None])
         z = z if cols else z[..., 0]
     else:
-        z = _solve_reduced_system(sf.red_fact, rhs)
+        # the kernel refused above: the plain solve of the factor's type
+        z = _solve_reduced_system(sf.red_fact, rhs, "plain")
     zk = torch.zeros_like(z[:1, :k])
     xtop_next = torch.cat([z[:, k:], zk], dim=0)
     xbot_prev = torch.cat([zk, z[:, :k]], dim=0)
@@ -762,11 +787,13 @@ def spike_solve(sf: SpikeFactor, rhs: torch.Tensor,
     ``inv`` factors #1 where its rule admits them, else the two-pass #9
     where its rule does, else plain; #3 for ``spd``, raising where it does
     not apply; plain for ``lu`` and CR factors), "cuda" (the fused kernel;
-    raises where it does not apply), "plain" (the plain PyTorch sweeps on any device), or
-    the JAX names: "xla" (plain), "pallas_fused" (cuda) and "pallas" (the
-    two-pass sweep kernels #9 of ``ops/cuda/sweeps.py``, one launch per
-    sweep; ``inv`` factors only, raising on the card where their rule
-    refuses the factors).
+    raises where it does not apply), "plain" (the plain PyTorch sweeps
+    and reduced solve on any device), or the JAX names: "xla" (plain),
+    "pallas_fused" (cuda) and "pallas" (the two-pass sweep kernels #9 of
+    ``ops/cuda/sweeps.py``, one launch per sweep; ``inv`` factors only,
+    raising on the card where their rule refuses the factors).  Every impl
+    but the plain ones solves a block-Thomas reduced system on the card
+    with the reduced kernel where its rule admits it.
     """
     K, m, b, k, nb = sf.K, sf.m, sf.b, sf.k, sf.nb
     rp = torch.zeros(K * m, dtype=rhs.dtype, device=rhs.device)
@@ -787,7 +814,7 @@ def spike_solve(sf: SpikeFactor, rhs: torch.Tensor,
 
     with span("SPIKEReduced"):
         xbot_prev, xtop_next = _reduced_solve(sf, g[:, nb - 1, b - k:],
-                                              g[:, 0, :k])
+                                              g[:, 0, :k], impl)
     if sf.V is not None:
         # one sweep: x = g - V x_{p+1}^top - W x_{p-1}^bot
         with span("SPIKECorrect"):
@@ -826,9 +853,11 @@ def spike_solve_many(sf: SpikeFactor, rhs: torch.Tensor,
     impl: "auto" (on a CUDA tensor the multi-RHS CUDA kernel of the
     factor's method: #4 for ``inv`` whenever its feasibility rule admits
     the factors, else plain; #5 for ``spd``, raising where its rule refuses
-    them), "cuda" (the kernel; raises where it does not apply), or "plain";
-    and the JAX names "xla" (plain), "pallas_fused" (cuda) and "pallas"
-    (the multi-RHS kernel, as in JAX, for ``inv`` factors only).  The JAX
+    them), "cuda" (the kernel; raises where it does not apply), or "plain"
+    (the plain sweeps and reduced solve on any device); and the JAX names
+    "xla" (plain), "pallas_fused" (cuda) and "pallas" (the multi-RHS
+    kernel, as in JAX, for ``inv`` factors only).  The reduced solve as in
+    :func:`spike_solve`.  The JAX
     dispatch's switch to XLA at large r is a TPU VMEM measurement and is
     not carried over.
     """
@@ -849,7 +878,7 @@ def spike_solve_many(sf: SpikeFactor, rhs: torch.Tensor,
 
     with span("SPIKEReduced"):
         xbot_prev, xtop_next = _reduced_solve(
-            sf, g[:, nb - 1, b - k:, :], g[:, 0, :k, :])     # [K, k, r]
+            sf, g[:, nb - 1, b - k:, :], g[:, 0, :k, :], impl)  # [K, k, r]
     if sf.V is not None:
         with span("SPIKECorrect"):
             dtype = sweep_precision(sf.V, g)

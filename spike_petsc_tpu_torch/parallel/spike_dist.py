@@ -311,12 +311,14 @@ def _dist_spike_factor_impl(band: BandedMatrix, mesh: Mesh, axis: str, *,
 # ---------------------------------------------------------------------------
 
 def _interface_solve(dsf: DistSpikeFactor, g_top: torch.Tensor,
-                     g_bot: torch.Tensor, ax: MeshAxis, K: int):
+                     g_bot: torch.Tensor, ax: MeshAxis, K: int,
+                     impl: str = "auto"):
     """All-gather the interface values over ``ax`` (two ``all_gather``s of
     ``[ppd, k(, r)]``), solve the reduced system of the ``K`` partitions
     along ``ax`` (or apply ``red_Dinv`` when truncated), and slice this
     rank's partitions.  Returns ``(xbot_prev, xtop_next)`` of the shape of
-    ``g_top``, zero at the ends of the axis."""
+    ``g_top``, zero at the ends of the axis.  ``impl``: the solve's, which
+    picks the reduced solve's route (``ops.spike._takes_reduced_kernel``)."""
     k, ppd = dsf.k, dsf.ppd
     trail = tuple(g_top.shape[2:])
     gt = ax.all_gather(g_top).reshape((K, k) + trail)
@@ -328,7 +330,7 @@ def _interface_solve(dsf: DistSpikeFactor, g_top: torch.Tensor,
         z = dsf.red_Dinv.to(dtype) @ cols.to(dtype)
         z = z if trail else z[..., 0]
     else:
-        z = _solve_reduced_system(dsf.red_fact, rhs)
+        z = _solve_reduced_system(dsf.red_fact, rhs, impl)
     zpad = torch.cat([z, torch.zeros_like(z[:1])], dim=0)  # [K, 2k(, r)]
     gp = ax.rank * ppd + torch.arange(ppd, device=z.device)
     mask = (1,) * (1 + len(trail))
@@ -340,10 +342,11 @@ def _interface_solve(dsf: DistSpikeFactor, g_top: torch.Tensor,
 
 
 def local_interface_solve(dsf: DistSpikeFactor, g_top: torch.Tensor,
-                          g_bot: torch.Tensor, ax: MeshAxis):
+                          g_bot: torch.Tensor, ax: MeshAxis,
+                          impl: str = "auto"):
     """The interface solve of a 1-D mesh factor: the replicated reduced
     system of all K partitions."""
-    return _interface_solve(dsf, g_top, g_bot, ax, dsf.K)
+    return _interface_solve(dsf, g_top, g_bot, ax, dsf.K, impl)
 
 
 def _local_tri_solve(dsf: DistSpikeFactor, rblk: torch.Tensor,
@@ -394,7 +397,7 @@ def local_spike_solve(dsf: DistSpikeFactor, rhs_local: torch.Tensor,
     if dsf.K == 1:
         return g.reshape(-1)
     xbot_prev, xtop_next = local_interface_solve(
-        dsf, g[:, 0, :k], g[:, nb - 1, b - k:], ax)
+        dsf, g[:, 0, :k], g[:, nb - 1, b - k:], ax, impl)
     x = _spike_correct(dsf, g, rblk, xbot_prev, xtop_next,
                        lambda r2: _local_tri_solve(dsf, r2, impl))
     return x.reshape(-1)
@@ -411,7 +414,7 @@ def local_spike_solve_many(dsf: DistSpikeFactor, rblk: torch.Tensor,
     if dsf.K == 1:
         return g
     xbot_prev, xtop_next = local_interface_solve(
-        dsf, g[:, 0, :k, :], g[:, nb - 1, b - k:, :], ax)
+        dsf, g[:, 0, :k, :], g[:, nb - 1, b - k:, :], ax, impl)
     return _spike_correct(
         dsf, g, rblk, xbot_prev, xtop_next,
         lambda r2: _local_tri_solve_many(dsf, r2, impl))
@@ -1038,11 +1041,12 @@ def dist_spike_transpose_multislice(
 
 
 def _interface_solve_in_slice(dsf: DistSpikeFactor, g_top, g_bot,
-                              ax_p: MeshAxis):
+                              ax_p: MeshAxis, impl: str = "auto"):
     """The interface solve of one slice: the values all-gathered over the
     p line only, this slice's reduced system, zero at the slice edges
     (the block-Jacobi PC tips)."""
-    return _interface_solve(dsf, g_top, g_bot, ax_p, ax_p.size * dsf.ppd)
+    return _interface_solve(dsf, g_top, g_bot, ax_p, ax_p.size * dsf.ppd,
+                            impl)
 
 
 def local_spike_solve_multislice(dsf: DistSpikeFactor,
@@ -1059,7 +1063,7 @@ def local_spike_solve_multislice(dsf: DistSpikeFactor,
     if ax_p.size * ppd == 1:
         return g.reshape(-1)
     xbot_prev, xtop_next = _interface_solve_in_slice(
-        dsf, g[:, 0, :k], g[:, nb - 1, b - k:], ax_p)
+        dsf, g[:, 0, :k], g[:, nb - 1, b - k:], ax_p, impl)
     x = _spike_correct(dsf, g, rblk, xbot_prev, xtop_next,
                        lambda r2: _local_tri_solve(dsf, r2, impl))
     return x.reshape(-1)
@@ -1075,7 +1079,7 @@ def local_spike_solve_multislice_many(dsf: DistSpikeFactor,
     if ax_p.size * dsf.ppd == 1:
         return g
     xbot_prev, xtop_next = _interface_solve_in_slice(
-        dsf, g[:, 0, :k, :], g[:, nb - 1, b - k:, :], ax_p)
+        dsf, g[:, 0, :k, :], g[:, nb - 1, b - k:, :], ax_p, impl)
     return _spike_correct(dsf, g, rblk, xbot_prev, xtop_next,
                           lambda r2: _local_tri_solve_many(dsf, r2, impl))
 

@@ -1301,8 +1301,9 @@ def test_solve_banded_diff_runs_the_sweep_kernels(cuda_device, n, K,
                                                   kernel):
     """Both passes of ``solve_banded_diff`` on the card run the sweep
     kernels: #1 twice a pass at K = 4 (no stored spikes: two sweeps a
-    solve), #9's pair once a pass on one long partition; the gradients
-    within 1e-3 of the CPU's f64 ones."""
+    solve) and the reduced system's kernel once, #9's pair once a pass on
+    one long partition; the gradients within 1e-3 of the CPU's f64
+    ones."""
     from spike_petsc_tpu_torch.ops.autodiff import solve_banded_diff
     k = 20 if K > 1 else 1
     data = random_band(n, k, k, seed=31, dtype=np.float32)
@@ -1321,7 +1322,8 @@ def test_solve_banded_diff_runs_the_sweep_kernels(cuda_device, n, K,
         return g, fwd, bwd
 
     (gd, gb), fwd, bwd = grads(cuda_device, torch.float32)
-    assert fwd == bwd == {kernel: 2}
+    assert fwd == bwd == ({kernel: 2, "reduced_thomas": 1} if K > 1
+                          else {kernel: 2})
     (gd64, gb64), _, _ = grads("cpu", torch.float64)
     assert _rel(gd.double().cpu(), gd64) <= 1e-3
     assert _rel(gb.double().cpu(), gb64) <= 1e-3
@@ -1593,3 +1595,179 @@ def test_spans_are_host_events_and_every_launch_is_found(cuda_device):
     launches = {e.id for e in cpu if e.name.startswith("cu")}
     assert all(e.id in launches for e in dev)
     assert torch.equal(traced.x, plain.x)
+
+
+# ---------------------------------------------------------------------------
+# the reduced-system kernel (csrc/reduced_thomas.cu): the SPIKE reduced
+# solve in one launch, against the plain loop blocktri_solve
+# ---------------------------------------------------------------------------
+
+REDUCED_TOL = 2e-6
+
+
+def _reduced_rel(label, got, ref):
+    """max|got - ref| / max|ref|, printed (pytest -s shows the reading)."""
+    err = _rel(got.double(), ref.double())
+    print(f"{label}: {err:.3e} of max|plain|")
+    return err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,r", [(63, 32), (63, 1), (63, 5), (63, None),
+                                  (2, 32), (2, None)])
+def test_reduced_thomas_kernel_matches_plain(cuda_device, nb, r):
+    """The flagship's reduced shape ([63, 200, 200], r = 32), one column,
+    five, a vector, and nb = 2: the kernel against ``blocktri_solve`` on a
+    random ``inv`` factor within 2e-6 of max|plain|, one launch."""
+    from chip_smoke import random_inv_factor
+    from spike_petsc_tpu_torch.ops.blocktri import BlockTriFactor
+    from spike_petsc_tpu_torch.ops.cuda import reduced_thomas as crt
+    f4 = random_inv_factor(1, nb, 200, torch.float32, cuda_device, seed=nb)
+    fact = BlockTriFactor(F=f4.F[0], U=f4.U[0], Sinv=f4.Sinv[0])
+    shape = (nb, 200) if r is None else (nb, 200, r)
+    rhs = torch.randn(shape, device=cuda_device,
+                      generator=torch.Generator(device=cuda_device)
+                      .manual_seed(nb + (r or 0)))
+    assert crt.reduced_thomas_feasible(fact, rhs)
+    ref = blocktri_solve(fact, rhs)
+    launches = crt.KERNEL.launches
+    got = crt.blocktri_solve_reduced_cuda(fact, rhs)
+    torch.cuda.synchronize()
+    assert crt.KERNEL.launches == launches + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert _reduced_rel(f"reduced nb={nb} r={r}", got, ref) <= REDUCED_TOL
+
+
+@pytest.mark.cuda
+def test_reduced_thomas_refuses_what_it_does_not_take(cuda_device):
+    from spike_petsc_tpu_torch.ops.cuda import reduced_thomas as crt
+    sf = spike_factor(banded_from_numpy(random_band(4096, 20, 20, seed=15),
+                                        20, 20, device=cuda_device),
+                      K=4, block_b=64)                               # f64
+    rhs = torch.zeros((3, 40, 2), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take"):
+        crt.blocktri_solve_reduced_cuda(sf.red_fact, rhs)
+    f32 = cast_factor(sf.red_fact, torch.float32)
+    with pytest.raises(ValueError, match="does not take"):
+        crt.blocktri_solve_reduced_cuda(f32, rhs[:, :38].float())
+
+
+def _wide_spike(cuda_device, n=8 * 128 * 3, seed=41, **kw):
+    """The flagship's band shape (kl = ku = 100: a reduced system of 2k =
+    200) on a small n, K = 8, b = 128, f32, stored bf16 spikes."""
+    band = banded_from_numpy(random_band(n, 100, 100, seed=seed,
+                                         dtype=np.float32), 100, 100,
+                             device=cuda_device)
+    kw = dict(dict(store_spikes=True, spike_dtype=torch.bfloat16), **kw)
+    return band, spike_factor(band, K=8, block_b=128, **kw)
+
+
+def _both_routes(monkeypatch, solve_fn):
+    """``solve_fn()`` by the kernel route and by the plain one (the rule
+    refusing every factor), with the kernel's launches of each."""
+    from spike_petsc_tpu_torch.ops import spike as sp
+    from spike_petsc_tpu_torch.ops.cuda import reduced_thomas as crt
+    before = crt.KERNEL.launches
+    got = solve_fn()
+    torch.cuda.synchronize()
+    kernel_launches = crt.KERNEL.launches - before
+    with monkeypatch.context() as m:
+        m.setattr(sp, "reduced_thomas_feasible", lambda *a: False)
+        before = crt.KERNEL.launches
+        ref = solve_fn()
+        torch.cuda.synchronize()
+        assert crt.KERNEL.launches == before
+    return got, ref, kernel_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("many", [True, False])
+def test_spike_solve_takes_the_reduced_kernel(cuda_device, monkeypatch,
+                                              many):
+    """``spike_solve_many`` (r = 32) and ``spike_solve`` on the flagship's
+    band shape: the reduced solve is one launch of the kernel, and the
+    solution agrees with the plain route's within 2e-6 of its max."""
+    _, sf = _wide_spike(cuda_device)
+    assert tuple(sf.red_fact.F.shape) == (7, 200, 200)
+    gen = torch.Generator(device=cuda_device).manual_seed(42)
+    if many:
+        rhs = torch.randn((sf.n, 32), device=cuda_device, generator=gen)
+        got, ref, launches = _both_routes(
+            monkeypatch, lambda: spike_solve_many(sf, rhs))
+    else:
+        rhs = torch.randn(sf.n, device=cuda_device, generator=gen)
+        got, ref, launches = _both_routes(
+            monkeypatch, lambda: spike_solve(sf, rhs))
+    assert launches == 1
+    assert _reduced_rel(f"spike_solve many={many}", got, ref) <= REDUCED_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("many", [True, False])
+@pytest.mark.parametrize("impl", ["plain", "xla"])
+def test_plain_impl_keeps_the_plain_reduced_solve(cuda_device, many, impl):
+    """``impl='plain'`` (and JAX's 'xla') is the plain PyTorch version on
+    any device: at K > 1 on the card it launches no reduced kernel, and
+    agrees with the kernel route within 2e-6 of its max."""
+    from spike_petsc_tpu_torch.ops.cuda import reduced_thomas as crt
+    _, sf = _wide_spike(cuda_device, seed=47)
+    gen = torch.Generator(device=cuda_device).manual_seed(48)
+    shape = (sf.n, 32) if many else (sf.n,)
+    rhs = torch.randn(shape, device=cuda_device, generator=gen)
+    solve = spike_solve_many if many else spike_solve
+    before = crt.KERNEL.launches
+    ref = solve(sf, rhs, impl=impl)
+    torch.cuda.synchronize()
+    assert crt.KERNEL.launches == before
+    got = solve(sf, rhs)
+    torch.cuda.synchronize()
+    assert crt.KERNEL.launches == before + 1
+    assert _reduced_rel(f"impl={impl} many={many}", got, ref) <= REDUCED_TOL
+
+
+@pytest.mark.cuda
+def test_transposed_reduced_factor_takes_the_reduced_kernel(cuda_device,
+                                                            monkeypatch):
+    """``spike_transpose``'s reduced factor (built by the same
+    ``reduced_factor``) takes the kernel as the forward one does: one
+    launch a solve, the plain route's answer within 2e-6."""
+    from spike_petsc_tpu_torch.ops.spike import spike_transpose
+    band, sf = _wide_spike(cuda_device, seed=43)
+    sft = spike_transpose(sf, band=band)
+    rhs = torch.randn(sf.n, device=cuda_device,
+                      generator=torch.Generator(device=cuda_device)
+                      .manual_seed(44))
+    got, ref, launches = _both_routes(monkeypatch,
+                                      lambda: spike_solve(sft, rhs))
+    assert launches == 1
+    assert _reduced_rel("spike_transpose", got, ref) <= REDUCED_TOL
+
+
+@pytest.mark.cuda
+def test_reduced_kernel_launches_once_a_reduced_solve(cuda_device):
+    """The spike PC on the flagship's band shape: an apply to 32 columns
+    (#4) and an apply to one vector (#1) each launch the kernel exactly
+    once; the SPD cells' PC (``cholesky``, truncated: the reduced system is
+    K - 1 independent solves by ``red_Dinv``) never."""
+    from spike_petsc_tpu_torch.ops.cuda import reduced_thomas as crt
+    from spike_petsc_tpu_torch.solvers.pc import make_pc
+    band, _ = _wide_spike(cuda_device, seed=45)
+    pc = make_pc("spike", band, Options({"pc_spike_partitions": 8,
+                                         "pc_spike_block": 128,
+                                         "pc_spike_store_spikes": 1}))
+    R = torch.randn((band.data.shape[0], 32), device=cuda_device)
+    _reset()
+    pc.apply_many(R)
+    assert _launches() == {"fused_sweep_many": 1, "reduced_thomas": 1}
+    _reset()
+    pc.apply(R[:, 0])
+    assert _launches() == {"fused_sweep": 1, "reduced_thomas": 1}
+    sband = banded_from_numpy(spd_band(8192, 16, seed=46).astype(np.float32),
+                              16, 16, device=cuda_device)
+    spc = make_pc("cholesky", sband, Options({
+        "pc_cholesky_partitions": 8, "pc_cholesky_block": 64,
+        "pc_cholesky_truncated": 1, "pc_cholesky_store_spikes": 1}))
+    _reset()
+    spc.apply_many(torch.randn((8192, 32), device=cuda_device))
+    spc.apply(torch.randn(8192, device=cuda_device))
+    assert "reduced_thomas" not in _launches()
