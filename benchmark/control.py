@@ -2,14 +2,15 @@
 
     python3 -m benchmark.control --workload <cell> --seeds 1 2 3 ...
 
-For each seed, in one process (the set-up is long): the band and the pool
-as a run makes them; the program, composed as a run composes it, called
-once on every block of the pool; the plain reference's float64 answers; and
-the gap (``xerr``, as the run's check computes it) of three answers:
+For each seed, in one process (the set-up is long): the matrix and the
+pool as a run makes them; the program, set up as a run sets it up, called
+once on every block of the pool; the configuration's plain reference's
+float64 answers; and the gap (``xerr``, as the run's check computes it) of
+three answers:
 
 - ``program``: the program's (the lower reading, the largest over seeds);
 - ``control``: the reference itself in the program's place, computed in
-  TF32 (float32 storage, every block product's operands rounded to TF32),
+  TF32 (float32 storage, every product's operands rounded to TF32),
   the precision below the configuration's float32 with TF32 off (the upper
   reading, the smallest over seeds);
 - ``f32``: the same reference in plain float32, for comparison.
@@ -34,33 +35,30 @@ def readings(root: Path, workload: str, seed: int, device) -> dict:
     spec = harness.cell_spec(root, workload)
     cfg, traffic = spec["cfg"], spec["traffic"]
     port = harness.import_port()
-    ref_mod = harness.load_module(root, "reference", cfg["reference"])
-    n, kl, ku = cfg["n"], cfg["kl"], cfg["ku"]
+    solve = harness.load_module(root, "reference", cfg["reference"]).solve
+    n = cfg["n"]
 
-    data = harness.make_band(root, cfg, seed, device)
-    pool = harness.make_pool(cfg, traffic, data, seed)
-    band = port.BandedMatrix(data=data, kl=kl, ku=ku)
-    pc = port.make_pc(cfg["pc_type"], band,
-                      port.Options(dict(cfg["options"])))
-    solver = harness.compose(port, cfg, traffic, band, pc)
+    matrix = harness.make_matrix(root, cfg, seed, device)
+    pool = harness.make_pool(root, cfg, traffic, matrix, seed, device)
+    pc, solver, _ = harness.build(root, port, cfg, traffic, matrix, device)
     got, its = [], []
     for p in sorted(pool):
         res = solver(pool[p])
         got.append(res.x.reshape(n, -1))
         its += harness.column_stats(res, traffic["columns"])[0]
-    del solver, pc, band
+    del solver, pc
     X = torch.cat(got, dim=1)
     del got
     B = torch.cat([pool[p].reshape(n, -1) for p in sorted(pool)], dim=1)
     del pool
-    ref = ref_mod.solve_band(data, kl, ku, B)
+    ref = solve(cfg, matrix, B)
     out = dict(seed=seed, workload=workload, its_max=max(its),
                program=max(harness.column_gaps(X, ref)))
     del X
-    out["control"] = max(harness.column_gaps(ref_mod.solve_band(
-        data, kl, ku, B, dtype=torch.float32, tf32_products=True), ref))
-    out["f32"] = max(harness.column_gaps(ref_mod.solve_band(
-        data, kl, ku, B, dtype=torch.float32), ref))
+    out["control"] = max(harness.column_gaps(solve(
+        cfg, matrix, B, dtype=torch.float32, tf32_products=True), ref))
+    out["f32"] = max(harness.column_gaps(solve(
+        cfg, matrix, B, dtype=torch.float32), ref))
     return out
 
 

@@ -4,8 +4,11 @@ Everything that belongs to one configuration, traffic mix or metric is a
 file found by its name in ``BENCHMARK.json``:
 
 - ``configs/<config>.json`` (the manifest's ``file``): the deployment, its
-  sizes, the PC and its options, and ``generator``, the matrix's maker in
-  ``problems/<generator>.py``;
+  sizes (``n``), its dtype, the PC and its options, ``generator``, the
+  matrix's maker and what it hands the program, in
+  ``problems/<generator>.py``, and ``reference``, the plain arithmetic
+  (A X, the float64 answers and the control's) in
+  ``reference/<reference>.py``;
 - ``traffic/<traffic>.json``: ``entry`` (``one``: ``make_solver``, a vector
   a call; ``many``: ``make_solver_many``, ``columns`` a call), the KSP
   type, its parameters, the pool of seeded right-hand sides sent in turn
@@ -16,6 +19,9 @@ file found by its name in ``BENCHMARK.json``:
 The program, ``spike_petsc_tpu_torch``, gives the system under test and
 its counts (``KSPResult.its``, ``.reason``); the spans, the clocks, the
 trace's reduction, the inputs and the reference are the benchmark's own.
+The harness knows no matrix format: the generator makes the matrix, the
+reference does its arithmetic, the program is given what the generator
+builds from it.
 """
 
 from __future__ import annotations
@@ -31,7 +37,6 @@ from contextlib import nullcontext
 from pathlib import Path
 
 from benchmark import trace as tracing
-from benchmark.reference import banded as reference
 
 ROOT = Path(__file__).resolve().parents[1]
 # a traced run traces at most this long a window of whole calls: the trace
@@ -126,29 +131,53 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def make_pool(cfg: dict, traffic: dict, data, seed: int, indices=None):
+def make_matrix(root: Path, cfg: dict, seed: int, device):
+    """The configuration's matrix, made from ``seed`` on ``device`` by its
+    generator, in the form its reference reads."""
+    return load_module(root, "problems", cfg["generator"]).make(
+        cfg, seed, device)
+
+
+def make_pool(root: Path, cfg: dict, traffic: dict, matrix, seed: int,
+              device, indices=None):
     """The pool of right-hand sides, ``B = A X`` with X drawn from a
-    generator seeded with ``seed + 1`` on the band's device, one block of
+    generator seeded with ``seed + 1`` on ``device``, one block of
     ``columns`` a call (a vector for ``entry`` ``one``), A X in float64
-    and rounded to the band's dtype.  ``indices`` keeps only those blocks
-    (each drawn as in the whole pool)."""
+    by the configuration's reference and rounded to its dtype.
+    ``indices`` keeps only those blocks (each drawn as in the whole
+    pool)."""
     import torch
-    n, kl, ku = cfg["n"], cfg["kl"], cfg["ku"]
+    matvec = load_module(root, "reference", cfg["reference"]).matvec
+    dtype = getattr(torch, cfg["dtype"])
     r = traffic["columns"]
-    gen = torch.Generator(device=data.device).manual_seed(seed + 1)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
     pool = {}
     for p in range(traffic["pool"]):
-        X = torch.randn((n, r), generator=gen, device=data.device,
-                        dtype=data.dtype)
+        X = torch.randn((cfg["n"], r), generator=gen, device=device,
+                        dtype=dtype)
         if indices is None or p in indices:
-            B = reference.band_matvec(data, kl, ku, X).to(data.dtype)
+            B = matvec(cfg, matrix, X).to(dtype)
             pool[p] = B[:, 0].contiguous() if traffic["entry"] == "one" else B
     return pool
 
 
-def make_band(root: Path, cfg: dict, seed: int, device):
-    return load_module(root, "problems", cfg["generator"]).make(
-        cfg, seed, device)
+def build(root: Path, port, cfg: dict, traffic: dict, matrix, device,
+          trace: bool = False):
+    """The program set up for the cell on ``matrix``: (the PC, the
+    composed solver, the synchronized ``make_pc`` call's seconds), the
+    PC's applies spanned where ``trace``.  The generator's
+    ``program_operator`` gives the operator, which is the PC matrix too,
+    and where the program places it."""
+    A, place = load_module(root, "problems", cfg["generator"]) \
+        .program_operator(port, cfg, matrix, device)
+    sync(device)
+    t0 = time.perf_counter()
+    pc = port.make_pc(cfg["pc_type"], A, port.Options(dict(cfg["options"])),
+                      **place)
+    sync(device)
+    pc_setup_s = time.perf_counter() - t0
+    return pc, compose(port, cfg, traffic, A, traced_pc(pc, trace),
+                       place), pc_setup_s
 
 
 def traced_pc(pc, enabled: bool):
@@ -170,13 +199,14 @@ def traced_pc(pc, enabled: bool):
                                apply_many=spanned(pc.apply_many))
 
 
-def compose(port, cfg: dict, traffic: dict, band, pc):
-    """The cell's entry, composed with the given PC."""
+def compose(port, cfg: dict, traffic: dict, A, pc, place: dict):
+    """The cell's entry on the operator ``A``, placed by ``place``,
+    composed with the given PC."""
     opts = port.Options(dict(cfg["options"]))
     make = {"one": port.make_solver, "many": port.make_solver_many}
-    return make[traffic["entry"]](band, options=opts,
+    return make[traffic["entry"]](A, options=opts,
                                   ksp_type=traffic["ksp_type"], pc=pc,
-                                  **traffic["params"])
+                                  **place, **traffic["params"])
 
 
 def column_stats(res, r: int):
@@ -230,18 +260,20 @@ def window(solver, pool: dict, seconds: float, device, rng: random.Random,
 def check(root: Path, spec: dict, seed: int, kept: list, device) -> list:
     """The reference's answers for the sampled calls and the gap of the
     program's: ``xerr``, the widest over the sampled columns of
-    max|x - x_ref| / max|x_ref|, x_ref solved in float64 by the plain
-    block-Thomas elimination from the band and right-hand sides made anew
-    from the seed.  Returns each sampled call's per-column gaps."""
+    max|x - x_ref| / max|x_ref|, x_ref solved in float64 by the
+    configuration's plain reference from the matrix and right-hand sides
+    made anew from the seed.  Returns each sampled call's per-column
+    gaps."""
     import torch
     cfg, traffic = spec["cfg"], spec["traffic"]
-    data = make_band(root, cfg, seed, device)
+    matrix = make_matrix(root, cfg, seed, device)
     used = sorted({p for p, _ in kept})
-    pool = make_pool(cfg, traffic, data, seed, indices=set(used))
+    pool = make_pool(root, cfg, traffic, matrix, seed, device,
+                     indices=set(used))
     B = torch.cat([pool[p].reshape(cfg["n"], -1) for p in used], dim=1)
-    X = load_module(root, "reference", cfg["reference"]).solve_band(
-        data, cfg["kl"], cfg["ku"], B)
-    del data, pool, B
+    X = load_module(root, "reference", cfg["reference"]).solve(cfg, matrix,
+                                                               B)
+    del matrix, pool, B
     r = traffic["columns"]
     ref = {p: X[:, i * r:(i + 1) * r] for i, p in enumerate(used)}
     return [column_gaps(x, ref[p]) for p, x in kept]
@@ -267,16 +299,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     device = torch.device(device)
     on_card = device.type == "cuda"
 
-    data = make_band(root, cfg, seed, device)
-    band = port.BandedMatrix(data=data, kl=cfg["kl"], ku=cfg["ku"])
-    sync(device)
-    t0 = time.perf_counter()
-    pc = port.make_pc(cfg["pc_type"], band,
-                      port.Options(dict(cfg["options"])))
-    sync(device)
-    run.pc_setup_s = time.perf_counter() - t0
-    solver = compose(port, cfg, traffic, band, traced_pc(pc, trace))
-    pool = make_pool(cfg, traffic, data, seed)
+    matrix = make_matrix(root, cfg, seed, device)
+    pc, solver, run.pc_setup_s = build(root, port, cfg, traffic, matrix,
+                                       device, trace)
+    pool = make_pool(root, cfg, traffic, matrix, seed, device)
     for p in range(min(2, len(pool))):          # the cell's own shapes
         solver(pool[p])
     sync(device)
@@ -305,7 +331,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
                 "count": 1,
                 "memory_peak_bytes": torch.cuda.max_memory_allocated(device)
                 if on_card else 0}
-    del solver, pc, band, data, pool
+    del solver, pc, matrix, pool
     if on_card:
         torch.cuda.empty_cache()
 

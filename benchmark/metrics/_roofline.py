@@ -35,21 +35,33 @@ def spike_geometry(cfg: dict) -> dict:
     """(K, nb, b, k, method, store_spikes, truncated, factor and spike
     bytes) of the configuration's spike-family PC, as the PC builds it:
     K capped so that every partition covers 2k rows, partition rows rounded
-    up to a multiple of the block."""
-    name = cfg["pc_type"]
+    up to a multiple of the block.
+
+    The PC is ``pc_type`` with its options ``pc_<type>_*`` and the band's
+    half-width ``max(kl, ku)``, or, where ``pc_type`` is ``banded``, the PC
+    on the band it extracts: ``banded_pc_type`` (``spike`` by default),
+    with the options ``banded_pc_<type>_*`` and the half-width ``band_k``
+    that the extraction keeps."""
+    name, prefix = cfg["pc_type"], ""
     opts = cfg["options"]
-    n, k = cfg["n"], max(cfg["kl"], cfg["ku"], 1)
-    K = max(1, min(int(opts.get(f"pc_{name}_partitions", 1)), n // (2 * k)))
-    b = int(opts[f"pc_{name}_block"])
+    if name == "banded":
+        name, prefix = opts.get("banded_pc_type", "spike"), "banded_"
+        k = max(cfg["band_k"], 1)
+    else:
+        k = max(cfg["kl"], cfg["ku"], 1)
+    key = f"{prefix}pc_{name}_"
+    n = cfg["n"]
+    K = max(1, min(int(opts.get(key + "partitions", 1)), n // (2 * k)))
+    b = int(opts[key + "block"])
     rows = -(-n // K)
     nb = -(-rows // b)
-    factor = _SIZES[opts.get(f"pc_{name}_store_dtype") or "f32"]
+    factor = _SIZES[opts.get(key + "store_dtype") or "f32"]
     return dict(n=n, K=K, nb=nb, b=b, k=k,
-                method=opts.get(f"pc_{name}_method", _METHODS[name]),
-                store_spikes=bool(int(opts.get(f"pc_{name}_store_spikes", 0))),
-                truncated=bool(int(opts.get(f"pc_{name}_truncated", 0))),
+                method=opts.get(key + "method", _METHODS[name]),
+                store_spikes=bool(int(opts.get(key + "store_spikes", 0))),
+                truncated=bool(int(opts.get(key + "truncated", 0))),
                 factor_bytes=factor,
-                spike_bytes=_SIZES.get(opts.get(f"pc_{name}_spike_dtype"),
+                spike_bytes=_SIZES.get(opts.get(key + "spike_dtype"),
                                        factor))
 
 

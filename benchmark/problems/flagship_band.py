@@ -4,9 +4,14 @@ Entries uniform(-1, 1) (the slots outside the matrix too), then the
 diagonal set to the row's absolute sum plus 1: strict row dominance by a
 margin of 1.  One draw of ``n x (kl + ku + 1)`` from a generator seeded
 with ``seed`` on ``device``.
+
+The program is given the band as its ``BandedMatrix``
+(``_band.program_operator``).
 """
 
 import torch
+
+from benchmark.problems._band import program_operator  # noqa: F401
 
 
 def make(cfg: dict, seed: int, device) -> torch.Tensor:

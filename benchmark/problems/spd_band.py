@@ -6,9 +6,14 @@ The upper diagonals uniform(-1, 1), mirrored onto the lower ones so that
 sum plus 1 (symmetric positive definite by strict dominance); slots outside
 the matrix zero.  One draw a diagonal from a generator seeded with ``seed``
 on ``device``.
+
+The program is given the band as its ``BandedMatrix``
+(``_band.program_operator``).
 """
 
 import torch
+
+from benchmark.problems._band import program_operator  # noqa: F401
 
 
 def make(cfg: dict, seed: int, device) -> torch.Tensor:

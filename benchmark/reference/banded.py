@@ -8,11 +8,15 @@ partition, blocks of ``block`` rows, a pivoted LU of each diagonal block),
 both in float64 by default.  It imports nothing of the program under test
 and takes nothing the program made.
 
-``solve_band(..., dtype=torch.float32, tf32=True)`` is the check's control:
-the same elimination in float32 with every block product's operands rounded
-to TF32 (10 explicit mantissa bits), the precision a matrix product on the
-card takes with TF32 on.  The rounding is done here, so the control reads
-the same on the CPU and on the card.
+``matvec`` and ``solve`` are what the harness calls on every reference:
+each takes the configuration (here its ``kl`` and ``ku``) and the matrix as
+the configuration's generator makes it (here the band's entries).
+
+``solve(..., dtype=torch.float32, tf32_products=True)`` is the check's
+control: the same elimination in float32 with every block product's
+operands rounded to TF32 (10 explicit mantissa bits), the precision a
+matrix product on the card takes with TF32 on.  The rounding is done here,
+so the control reads the same on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -110,3 +114,15 @@ def solve_band(data: torch.Tensor, kl: int, ku: int, B: torch.Tensor, *,
     for i in range(nb - 2, -1, -1):
         X[i] -= mm(CG[i, :, :b], X[i + 1])
     return X.reshape(nb * b, r)[:n]
+
+
+def matvec(cfg: dict, data: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """A X in float64: the pool's right-hand sides."""
+    return band_matvec(data, cfg["kl"], cfg["ku"], X)
+
+
+def solve(cfg: dict, data: torch.Tensor, B: torch.Tensor,
+          **kw) -> torch.Tensor:
+    """X with A X = B, by ``solve_band`` (float64; ``dtype=torch.float32,
+    tf32_products=True``: the control)."""
+    return solve_band(data, cfg["kl"], cfg["ku"], B, **kw)

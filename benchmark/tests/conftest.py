@@ -12,7 +12,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ("flagship-bcgs-r32", "spd-cg-1rhs", "spd-cg-r32")
+CELLS = ("flagship-bcgs-r32", "spd-cg-1rhs", "spd-cg-r32",
+         "flagship-gmres-1rhs")
 # the end-to-end metrics every cell reports
 E2E = {"rhs_per_s", "solve_p95_ms", "setup_s"}
 # each configuration at a size the CPU runs in a second: the same

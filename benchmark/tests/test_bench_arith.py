@@ -74,6 +74,22 @@ def test_apply_bytes_by_hand():
     g = _roofline.spike_geometry(spike_cfg(
         "spike", pc_spike_partitions=500, pc_spike_block=8))
     assert g["K"] == 125 and g["nb"] == 1
+    # PCBANDED's inner spike PC, its options under banded_ and the band it
+    # extracts of half-width band_k = 5 (kl, ku are not read): n = 1200,
+    # K = 3, b = 16, f32, spikes not stored: 400 rows a partition, 25
+    # blocks of 16: nb = 25; inv: 3 * 25 - 2 = 73 matrices of 16 x 16 f32 a
+    # partition: 3 * 73 * 256 * 4 = 224256; the reduced system, 2 block
+    # rows of 10 x 10, Thomas inv: 3 * 2 - 2 = 4 matrices: 4 * 100 * 4 =
+    # 1600; r in, x out for 1 column: 2 * 1200 * 4 = 9600
+    banded_cfg = {"n": 1200, "pc_type": "banded", "band_k": 5,
+                  "options": {"pc_banded_kmax": 5,
+                              "banded_pc_spike_partitions": 3,
+                              "banded_pc_spike_block": 16}}
+    g = _roofline.spike_geometry(banded_cfg)
+    assert (g["K"], g["nb"], g["b"], g["k"], g["method"]) == (3, 25, 16, 5,
+                                                             "inv")
+    assert not g["store_spikes"] and not g["truncated"]
+    assert _roofline.apply_bytes(g, 1) == 224256 + 1600 + 9600
     # the flagship (PERF.md): 2228275968 bytes at r = 32, 0.6652 ms
     flag = {"n": 1_000_000, "kl": 100, "ku": 100, "pc_type": "spike",
             "options": {"pc_spike_partitions": 64, "pc_spike_block": 128,

@@ -4,6 +4,7 @@ top-level module names compared whole (``spike_petsc_tpu_torch`` is not
 ``spike_petsc_tpu``)."""
 
 import json
+import re
 import subprocess
 import sys
 
@@ -36,3 +37,14 @@ def test_the_reference_loads_nothing_of_the_program():
     tops = top_level_modules("import benchmark.reference.banded")
     assert "torch" in tops
     assert not tops & {"spike_petsc_tpu_torch", "spike_petsc_tpu", "jax"}
+
+
+def test_the_harness_knows_no_matrix_format():
+    """The matrix, its arithmetic and what the program is given are the
+    configuration's files': the harness and the control name no band, no
+    band routine and no reference module."""
+    banned = re.compile(r"\b(kl|ku|BandedMatrix|band_matvec|solve_band)\b"
+                        r"|benchmark\.reference\b|from benchmark\.reference")
+    for name in ("harness.py", "control.py"):
+        text = (ROOT / "benchmark" / name).read_text()
+        assert not banned.search(text), (name, banned.search(text))

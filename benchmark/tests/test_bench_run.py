@@ -11,7 +11,8 @@ import sys
 import pytest
 import torch
 
-from benchmark import control, harness
+from benchmark import control, harness, trace
+from benchmark.reference import banded
 from benchmark.tests.conftest import CELLS, E2E, ROOT, copy_benchmark
 
 SEED = 2_147_483_999          # above 32 signed bits
@@ -82,10 +83,11 @@ def broken(fault):
     return make
 
 
-# the faults each cell can have: the single-RHS cell has no batch to halve,
+# the faults each cell can have: a single-RHS cell has no batch to halve,
 # and no cell has an exchange between chips to leave out
 FAULTS = [(c, f) for c in CELLS for f in ("unchanged", "half", "altered")
-          if not (f == "half" and c == "spd-cg-1rhs")]
+          if not (f == "half" and harness.cell_spec(
+              ROOT, c)["traffic"]["columns"] == 1)]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS)
@@ -129,12 +131,45 @@ def test_a_run_that_is_not_correct_exits_0_with_its_result(
     assert last[1] == "check unconverged 0 limit 0"
 
 
-@pytest.mark.parametrize("cell", ["flagship-bcgs-r32", "spd-cg-1rhs"])
+@pytest.mark.parametrize("cell", ["flagship-bcgs-r32", "spd-cg-1rhs",
+                                  "flagship-gmres-1rhs"])
 def test_the_control_fails_and_the_program_holds(tiny_root, cell):
     limit = harness.cell_spec(ROOT, cell)["limits"]["xerr"]
     got = control.readings(tiny_root, cell, SEED, "cpu")
     assert got["program"] < limit < got["control"]
     assert got["f32"] < limit
+
+
+@pytest.mark.parametrize("cell", ["flagship-bcgs-r32", "spd-cg-1rhs"])
+def test_the_band_configurations_read_as_before_through_the_seam(tiny_root,
+                                                                 cell):
+    """The pool, the reference's answers and the control's, and the
+    program's operator, made through the configuration's generator and
+    reference, are those the harness made when it called ``band_matvec``
+    and ``solve_band`` and built the ``BandedMatrix`` itself."""
+    spec = harness.cell_spec(tiny_root, cell)
+    cfg, traffic = spec["cfg"], spec["traffic"]
+    n, kl, ku, r = cfg["n"], cfg["kl"], cfg["ku"], traffic["columns"]
+    data = harness.make_matrix(tiny_root, cfg, SEED, "cpu")
+    pool = harness.make_pool(tiny_root, cfg, traffic, data, SEED, "cpu")
+    gen = torch.Generator(device=data.device).manual_seed(SEED + 1)
+    for p in range(traffic["pool"]):
+        X = torch.randn((n, r), generator=gen, dtype=data.dtype)
+        B = banded.band_matvec(data, kl, ku, X).to(data.dtype)
+        assert torch.equal(pool[p], B[:, 0] if traffic["entry"] == "one"
+                           else B)
+    B = torch.cat([pool[p].reshape(n, -1) for p in sorted(pool)], dim=1)
+    solve = harness.load_module(tiny_root, "reference",
+                                cfg["reference"]).solve
+    assert torch.equal(solve(cfg, data, B), banded.solve_band(data, kl, ku,
+                                                              B))
+    assert torch.equal(
+        solve(cfg, data, B, dtype=torch.float32, tf32_products=True),
+        banded.solve_band(data, kl, ku, B, dtype=torch.float32,
+                          tf32_products=True))
+    A, place = harness.load_module(tiny_root, "problems", cfg["generator"]) \
+        .program_operator(harness.import_port(), cfg, data, "cpu")
+    assert place == {} and (A.kl, A.ku) == (kl, ku) and A.data is data
 
 
 def test_a_cell_and_a_metric_added_by_files_alone(tiny_root):
@@ -170,3 +205,110 @@ def test_a_cell_and_a_metric_added_by_files_alone(tiny_root):
     # the cells that were there do not report the new metric
     assert "calls_per_s" not in cpu_run(tiny_root, "spd-cg-r32")["metrics"]
     assert torch.get_default_dtype() == torch.float32
+
+
+# a throwaway configuration whose operator is not a band: a 5-point matrix
+# on a 40 x 50 grid, rows dominant by 0.5, its couplings -1 + uniform(-0.2,
+# 0.2) from the seed, held as a host SciPy CSR; PCBANDED keeps the band of
+# half-width 4 (the couplings at +-40 fall outside) under a spike PC
+GRID_GENERATOR = """
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+
+def make(cfg, seed, device):
+    nx, ny = cfg["nx"], cfg["ny"]
+    rng = np.random.default_rng(seed)
+    idx = np.arange(nx * ny).reshape(ny, nx)
+    pairs = [(idx[:, :-1], idx[:, 1:]), (idx[:-1], idx[1:])]
+    rows = np.concatenate([np.r_[a.ravel(), b.ravel()] for a, b in pairs])
+    cols = np.concatenate([np.r_[b.ravel(), a.ravel()] for a, b in pairs])
+    vals = -1 + rng.uniform(-0.2, 0.2, rows.size)
+    off = sp.csr_matrix((vals, (rows, cols)), shape=(nx * ny, nx * ny))
+    diag = np.asarray(abs(off).sum(axis=1)).ravel() + 0.5
+    return (off + sp.diags(diag)).tocsr().astype(np.float32)
+
+
+def program_operator(port, cfg, matrix, device):
+    return matrix, {"device": device, "dtype": torch.float32}
+"""
+
+DENSE_REFERENCE = """
+import torch
+
+
+def _dense(matrix, dtype, device):
+    return torch.as_tensor(matrix.toarray()).to(device=device, dtype=dtype)
+
+
+def matvec(cfg, matrix, X):
+    return _dense(matrix, torch.float64, X.device) @ X.to(torch.float64)
+
+
+def solve(cfg, matrix, B, *, dtype=torch.float64):
+    return torch.linalg.solve(_dense(matrix, dtype, B.device), B.to(dtype))
+"""
+
+GRID = {"name": "grid5", "generator": "grid5", "reference": "dense",
+        "nx": 40, "ny": 50, "n": 2000, "dtype": "float32", "tf32": False,
+        "pc_type": "banded", "band_k": 4,
+        "options": {"pc_banded_kmax": 4, "banded_pc_type": "spike",
+                    "banded_pc_spike_partitions": 4,
+                    "banded_pc_spike_block": 8}}
+
+
+def summary_with_pc_device_time(summarize):
+    """``trace.summarize`` that gives each PC span 1 ms of device time:
+    the CPU has no device trace to give it."""
+    def summary(prof, window_s):
+        out = summarize(prof, window_s)
+        out.span_device_s[trace.PC_SPAN] = 1e-3 * out.span_count.get(
+            trace.PC_SPAN, 0)
+        return out
+    return summary
+
+
+def test_a_sparse_cell_added_by_files_alone(tiny_root, monkeypatch):
+    bench = tiny_root / "benchmark"
+    (bench / "problems" / "grid5.py").write_text(GRID_GENERATOR)
+    (bench / "reference" / "dense.py").write_text(DENSE_REFERENCE)
+    (bench / "configs" / "grid5.json").write_text(json.dumps(GRID))
+    (bench / "traffic" / "gmres-1rhs-grid.json").write_text(json.dumps(
+        {"entry": "one", "ksp_type": "gmres", "columns": 1,
+         "params": {"restart": 30, "rtol": 1e-8, "maxit": 300}, "pool": 2,
+         "sample_calls": 2}))
+    (bench / "workloads" / "grid5-gmres.json").write_text(
+        json.dumps({"limits": {"xerr": 1e-5}}))
+    path = tiny_root / "BENCHMARK.json"
+    manifest = json.loads(path.read_text())
+    manifest["configs"].append(
+        {"name": "grid5", "source": "https://example.org/grid5",
+         "file": "benchmark/configs/grid5.json", "reduced": [],
+         "why": "a throwaway sparse configuration"})
+    manifest["workloads"].append(
+        {"name": "grid5-gmres", "config": "grid5",
+         "traffic": "gmres-1rhs-grid", "chips": 1,
+         "why": "a throwaway sparse cell"})
+    for m in manifest["end_to_end"] + manifest["per_layer"]:
+        if "workloads" in m:
+            m["workloads"].append("grid5-gmres")
+    path.write_text(json.dumps(manifest))
+
+    cfg = harness.cell_spec(tiny_root, "grid5-gmres")["cfg"]
+    pc, _, _ = harness.build(tiny_root, harness.import_port(), cfg,
+                             {"entry": "one", "ksp_type": "gmres",
+                              "params": {}},
+                             harness.make_matrix(tiny_root, cfg, SEED, "cpu"),
+                             "cpu")
+    assert pc.name == "banded" and pc.info["k"] == cfg["band_k"]
+    out = cpu_run(tiny_root, "grid5-gmres")
+    assert out["correct"], out["check"]
+    assert set(out["metrics"]) == E2E
+    monkeypatch.setattr(harness.tracing, "summarize",
+                        summary_with_pc_device_time(trace.summarize))
+    out = cpu_run(tiny_root, "grid5-gmres", trace=True)
+    assert out["correct"], out["check"]
+    assert out["metrics"]["its_per_rhs"]["value"] > 2
+    roofline = out["metrics"]["pc_apply_roofline"]["value"]
+    assert isinstance(roofline, float) and 0 < roofline < 100
