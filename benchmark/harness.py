@@ -14,11 +14,16 @@ file found by its name in ``BENCHMARK.json``:
   type, its parameters, the pool of seeded right-hand sides sent in turn
   and how many calls the check samples;
 - ``workloads/<cell>.json``: the limits of the cell's check;
-- ``metrics/<metric>.py``: the reader of each metric, ``read(run)``.
+- ``metrics/<metric>.py``: the reader of each metric, ``read(run)``; a
+  reader of the program's spans names them in ``SPANS``, and a traced run
+  reduces those names (``trace.py``).
 
-The program, ``spike_petsc_tpu_torch``, gives the system under test and
-its counts (``KSPResult.its``, ``.reason``); the spans, the clocks, the
-trace's reduction, the inputs and the reference are the benchmark's own.
+The program, ``spike_petsc_tpu_torch``, gives the system under test, its
+counts (``KSPResult.its``, ``.reason``), its spans, and the set-up stages
+and events it records (``utils.profiling``) and its PC's ``info``, copied
+onto the run; the
+benchmark's spans, the clocks, the trace's reduction, the inputs and the
+reference are the benchmark's own.
 The harness knows no matrix format: the generator makes the matrix, the
 reference does its arithmetic, the program is given what the generator
 builds from it.
@@ -65,6 +70,12 @@ class Run:
     columns: int = 0                # attempted in the window
     columns_ok: int = 0             # converged and not failed by the check
     trace: tracing.TraceSummary | None = None
+    # what the program's ``utils.profiling`` recorded while the cell was
+    # built: each set-up stage's seconds, and the events it logged; and
+    # what the PC reports of itself (``PC.info``)
+    stages: dict = dataclasses.field(default_factory=dict)
+    events: list = dataclasses.field(default_factory=list)
+    pc_info: dict = dataclasses.field(default_factory=dict)
 
 
 def load_json(path: Path) -> dict:
@@ -299,15 +310,26 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     device = torch.device(device)
     on_card = device.type == "cuda"
 
+    records = importlib.import_module(f"{port.__name__}.utils.profiling")
+    stages, logged = records.stage_times(), len(records.event_log())
+
     matrix = make_matrix(root, cfg, seed, device)
     pc, solver, run.pc_setup_s = build(root, port, cfg, traffic, matrix,
                                        device, trace)
+    run.stages = {k: v - stages.get(k, 0.0)
+                  for k, v in records.stage_times().items()
+                  if v != stages.get(k)}
+    run.events = records.event_log()[logged:]
+    run.pc_info = dict(pc.info)
     pool = make_pool(root, cfg, traffic, matrix, seed, device)
     for p in range(min(2, len(pool))):          # the cell's own shapes
         solver(pool[p])
     sync(device)
     run.setup_s = time.perf_counter() - started
 
+    names = spec["per_layer" if trace else "end_to_end"]
+    readers = {m["name"]: load_module(root, "metrics", m["name"])
+               for m in names}
     rng = random.Random(seed)
     if trace:
         from torch.profiler import ProfilerActivity, profile
@@ -319,7 +341,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
                                        min(seconds, TRACE_WINDOW_S), device,
                                        rng, traffic["sample_calls"], run,
                                        span=True)
-        run.trace = tracing.summarize(prof, run.window_s)
+        run.trace = tracing.summarize(prof, run.window_s, [
+            s for r in readers.values() for s in getattr(r, "SPANS", ())])
         del prof
     else:
         kept, unconverged = window(solver, pool, seconds, device, rng,
@@ -351,10 +374,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
               "unconverged": {"value": unconverged, "limit": 0}}
     correct = xerr <= limit and unconverged == 0
 
-    names = spec["per_layer" if trace else "end_to_end"]
     metrics = {}
     for m in names:
-        value = load_module(root, "metrics", m["name"]).read(run)
+        value = readers[m["name"]].read(run)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     if trace:

@@ -2,13 +2,17 @@
 end-to-end metrics on synthetic call times, the bytes of a PC apply, and
 the trace's intervals."""
 
+from types import SimpleNamespace
+
 import pytest
+from torch.autograd import DeviceType
 
 from benchmark import harness, trace
-from benchmark.metrics import (_roofline, device_idle_pct, its_per_rhs,
-                               krylov_ms_per_it, launches_per_rhs,
-                               pc_apply_ms, pc_apply_roofline, rhs_per_s,
-                               solve_p95_ms)
+from benchmark.metrics import (_roofline, device_idle_pct, host_syncs_per_it,
+                               its_per_rhs, krylov_ms_per_it,
+                               launches_per_rhs, operator_ms, pc_apply_ms,
+                               pc_apply_roofline, reduced_solve_ms,
+                               rhs_per_s, solve_p95_ms, sweep_ms)
 
 
 def synthetic_run(**kw):
@@ -138,5 +142,100 @@ def test_trace_readers():
 def test_readers_find_nothing_without_device_operations():
     run = trace_run()
     for reader in (device_idle_pct, launches_per_rhs, pc_apply_ms,
-                   pc_apply_roofline, krylov_ms_per_it):
+                   pc_apply_roofline, krylov_ms_per_it, operator_ms,
+                   sweep_ms, reduced_solve_ms, host_syncs_per_it):
         assert reader.read(run) is None
+    # spans that ran on the host, with no device trace (the CPU): the
+    # device readers find nothing, the count of host reads is read
+    run = trace_run(span_count={"MatMult": 3, "KSPHostSync": 10},
+                    span_device_s={"MatMult": 0.0})
+    assert operator_ms.read(run) is None
+    assert host_syncs_per_it.read(run) == 2.0
+
+
+def event(name, start, end, device=DeviceType.CPU, corr=0):
+    """A profiler event as ``prof.events()`` gives it (times in us)."""
+    return SimpleNamespace(name=name, device_type=device, id=corr, thread=1,
+                           time_range=SimpleNamespace(start=start, end=end))
+
+
+def kernel(name, start, end, corr):
+    return event(name, start, end, DeviceType.CUDA, corr)
+
+
+def summary_of(events, spans):
+    prof = SimpleNamespace(events=lambda: events)
+    return trace.summarize(prof, 1e-4, spans)
+
+
+# one call: MatMult (a second MatMult nested in it), then PCApply with a
+# SPIKESweep nested in it, and a second PCApply; the kernels k1 .. k3
+# launched at 20 (MatMult), 45 (no program span) and 56 (PCApply and
+# SPIKESweep), a set with no launch found; the device's own
+# bench.call interval from 15 to 96
+CALL = [event(trace.CALL_SPAN, 0, 100), event("MatMult", 10, 40),
+        event("MatMult", 12, 14), event("PCApply", 50, 90),
+        event("SPIKESweep", 55, 70), event("PCApply", 92, 99),
+        event("cudaLaunchKernel", 20, 21, corr=2),
+        event("cudaLaunchKernel", 45, 46, corr=3),
+        event("cuLaunchKernelEx", 56, 57, corr=1),
+        kernel("k2", 22, 32, 2), kernel("k3", 47, 49, 3),
+        kernel("k1", 60, 64, 1), kernel("Memset (Device)", 94, 96, 9),
+        kernel(trace.CALL_SPAN, 15, 96, 0)]
+
+
+def test_a_kernel_counts_under_every_span_open_at_its_launch():
+    t = summary_of(CALL, ["MatMult", "PCApply", "SPIKESweep", "KSPHostSync",
+                          "MatMult"])
+    assert t.span_count["MatMult"] == 2 and t.span_count["PCApply"] == 2
+    assert t.span_count["SPIKESweep"] == 1 and t.span_count[
+        "KSPHostSync"] == 0
+    # k1 under both PCApply and the SPIKESweep inside it; k2 once under
+    # MatMult, though two MatMult were open
+    assert t.span_ops == {"MatMult": 1, "PCApply": 1, "SPIKESweep": 1,
+                          "KSPHostSync": 0}
+    assert t.span_device_s["MatMult"] == pytest.approx(10e-6)
+    assert t.span_device_s["PCApply"] == pytest.approx(4e-6)
+    assert t.span_device_s["SPIKESweep"] == pytest.approx(4e-6)
+    assert t.span_device_s["KSPHostSync"] == 0.0
+
+
+def test_a_kernel_launched_outside_every_span_counts_under_none():
+    t = summary_of(CALL, ["MatMult", "PCApply", "SPIKESweep"])
+    # k3 (2 us) is in the call's device time and under no program span
+    assert sum(t.span_ops.values()) == 3
+    assert t.span_device_s[trace.CALL_SPAN] == pytest.approx(
+        (10 + 2 + 4 + 2) / 1e6)
+    assert sum(t.span_device_s[n] for n in ("MatMult", "PCApply")) == (
+        pytest.approx(14e-6))
+
+
+def test_an_operation_with_no_launch_is_counted_unmatched():
+    t = summary_of(CALL, ["MatMult"])
+    assert t.unmatched_ops == 1 and t.device_ops == 4
+
+
+def test_the_harness_spans_keep_their_device_reduction():
+    """Declared or not, ``bench.call`` and ``bench.pc_apply`` are reduced
+    by their intervals on the device's timeline, as they always were."""
+    plain = summary_of(CALL, [])
+    declared = summary_of(CALL, ["MatMult", trace.CALL_SPAN, trace.PC_SPAN])
+    for t in (plain, declared):
+        assert t.span_count[trace.CALL_SPAN] == 1
+        assert t.span_device_s[trace.CALL_SPAN] == pytest.approx(18e-6)
+        assert t.span_device_s[trace.PC_SPAN] == 0.0
+        assert t.device_ops == 4 and t.busy_s == pytest.approx(18e-6)
+    assert trace.CALL_SPAN not in declared.span_ops
+    assert plain.span_ops == {} and plain.unmatched_ops == 1
+
+
+def test_span_readers_on_a_reduced_trace():
+    t = summary_of(CALL, ["MatMult", "SPIKESweep", "SPIKEReduced",
+                          "KSPHostSync"])
+    run = harness.Run(cfg={}, traffic={"columns": 1}, trace=t,
+                      call_its=[2])
+    assert operator_ms.read(run) == pytest.approx(10e-3 / 2)
+    assert sweep_ms.read(run) == pytest.approx(4e-3)
+    # the reduced solve and the host reads did not run
+    assert reduced_solve_ms.read(run) is None
+    assert host_syncs_per_it.read(run) is None

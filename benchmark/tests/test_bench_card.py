@@ -7,7 +7,7 @@ import sys
 import pytest
 
 from benchmark import control, harness
-from benchmark.tests.conftest import ROOT
+from benchmark.tests.conftest import CELLS, ROOT
 
 pytestmark = pytest.mark.cuda
 
@@ -23,8 +23,7 @@ def test_a_short_run_on_the_card(card):
     assert proc.stderr.splitlines()[-1].startswith("check unconverged")
 
 
-@pytest.mark.parametrize("cell", ["flagship-bcgs-r32", "spd-cg-1rhs",
-                                  "flagship-gmres-1rhs"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_the_control_fails_at_the_cells_size(card, cell):
     limit = harness.cell_spec(ROOT, cell)["limits"]["xerr"]
     for seed in (4000000011, 4000000012, 4000000013):

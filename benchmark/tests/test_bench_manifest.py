@@ -1,5 +1,6 @@
 """BENCHMARK.json and the files it names: present, well formed, and each
-cell's metrics listed."""
+cell's metrics listed.  Every cell is held to what its own files state;
+the cells of ``PINNED`` also to what they were built with."""
 
 import json
 import re
@@ -7,12 +8,11 @@ import re
 import pytest
 
 from benchmark import harness
-from benchmark.tests.conftest import CELLS, E2E, ROOT
+from benchmark.tests.conftest import CELLS, E2E, MANIFEST, PINNED, ROOT
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-PER_LAYER = ("its_per_rhs", "krylov_ms_per_it", "pc_apply_ms",
-             "pc_apply_roofline", "device_idle_pct", "launches_per_rhs")
+SOURCES = ("device_trace", "program_span", "program_counter", "host_clock")
 
 
 @pytest.fixture(scope="module")
@@ -26,19 +26,24 @@ def test_manifest_keys_and_limits(manifest):
     assert manifest["command"] == ["python3", "-m", "benchmark.run"]
     assert manifest["paths"] == ["benchmark"]
     assert 1 <= manifest["run_seconds"] <= 51
-    assert [w["name"] for w in manifest["workloads"]] == list(CELLS)
+    names = [w["name"] for w in manifest["workloads"]]
+    assert len(names) == len(set(names)) and set(PINNED) <= set(names)
+    # the harness runs one process on one card
     assert all(w["chips"] == 1 for w in manifest["workloads"])
+    configs = {c["name"] for c in manifest["configs"]}
+    assert configs == {w["config"] for w in manifest["workloads"]}
     for m in manifest["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
     assert {m["name"]: m["bound"] for m in manifest["end_to_end"]}[
         "setup_s"] == 0.25
-    cells = {w["name"] for w in manifest["workloads"]}
+    cells = set(names)
     e2e = {m["name"]: set(m.get("workloads", cells))
            for m in manifest["end_to_end"]}
     for m in manifest["per_layer"]:
         # each cell that reads the metric reports the metric it moves
         assert set(m["workloads"]) <= e2e[m["moves"]] <= cells
+        assert m["source"] in SOURCES
     assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
 
 
@@ -60,29 +65,56 @@ def test_names_units_and_texts(manifest):
 @pytest.mark.parametrize("cell", CELLS)
 def test_every_cell_reads_its_files_and_metrics(cell):
     spec = harness.cell_spec(ROOT, cell)
-    assert {m["name"] for m in spec["end_to_end"]} == E2E
-    assert [m["name"] for m in spec["per_layer"]] == list(PER_LAYER) + [
-        "pc_setup_s"]
-    e2e = {m["name"] for m in spec["end_to_end"]}
+    e2e = [m["name"] for m in spec["end_to_end"]]
+    per_layer = [m["name"] for m in spec["per_layer"]]
+    assert "setup_s" in e2e and len(e2e) >= 2 and per_layer
     assert all(m["moves"] in e2e for m in spec["per_layer"])
     cfg, traffic = spec["cfg"], spec["traffic"]
-    assert cfg["name"] == spec["cell"]["config"] and cfg["reduced"] == []
-    assert (ROOT / "benchmark" / "problems"
-            / f"{cfg['generator']}.py").is_file()
+    assert cfg["name"] == spec["cell"]["config"] and "tiny" in cfg
+    for kind in ("problems", "reference"):
+        key = "generator" if kind == "problems" else "reference"
+        assert (ROOT / "benchmark" / kind / f"{cfg[key]}.py").is_file()
     assert traffic["entry"] in ("one", "many")
-    assert traffic["columns"] == (1 if traffic["entry"] == "one" else 32)
-    assert traffic["params"]["rtol"] == 1e-8
-    assert 0 < spec["limits"]["xerr"] < 1e-4
+    assert (traffic["columns"] == 1) == (traffic["entry"] == "one")
+    assert 0 < traffic["params"]["rtol"] < 1
+    # the limit lies between the readings it was set from
+    limits = json.loads((ROOT / "benchmark" / "workloads"
+                         / f"{cell}.json").read_text())
+    xerr, got = limits["limits"]["xerr"], limits["set_from"]
+    assert got["program_max"] < xerr < got["control_tf32_min"]
     for m in spec["end_to_end"] + spec["per_layer"]:
-        assert hasattr(harness.load_module(ROOT, "metrics", m["name"]),
-                       "read")
+        reader = harness.load_module(ROOT, "metrics", m["name"])
+        assert hasattr(reader, "read")
+        spans = getattr(reader, "SPANS", ())
+        assert isinstance(spans, tuple)
+        assert all(isinstance(s, str) and s for s in spans)
+    if cell in PINNED:
+        pin = PINNED[cell]
+        assert set(e2e) == E2E and per_layer == pin["per_layer"]
+        assert traffic["columns"] == pin["columns"]
+        assert traffic["params"]["rtol"] == pin["rtol"]
+        assert 0 < xerr < 1e-4
 
 
-@pytest.mark.parametrize("name,n,kl", [("flagship-w201", 1_000_000, 100),
-                                       ("spd-w33", 1_000_000, 16)])
-def test_configurations_are_uncut(manifest, name, n, kl):
+UNCUT = {"flagship-w201": (1_000_000, 100, dict(
+             n=6000, kl=8, ku=8, options=dict(pc_spike_partitions=8,
+                                              pc_spike_block=16))),
+         "spd-w33": (1_000_000, 16, dict(
+             n=6000, kl=4, ku=4, options=dict(pc_cholesky_partitions=4,
+                                              pc_cholesky_block=16)))}
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in MANIFEST["configs"]])
+def test_configurations_are_uncut(manifest, name):
     entry = {c["name"]: c for c in manifest["configs"]}[name]
     cfg = json.loads((ROOT / entry["file"]).read_text())
-    assert (cfg["n"], cfg["kl"], cfg["ku"]) == (n, kl, kl)
-    assert cfg["source"] == entry["source"] and entry["reduced"] == []
-    assert cfg["dtype"] == "float32" and cfg["tf32"] is False
+    assert cfg["source"] == entry["source"]
+    # a cut names keys the configuration has
+    assert all(key in cfg for key in entry["reduced"])
+    if name in UNCUT:
+        n, kl, tiny = UNCUT[name]
+        assert (cfg["n"], cfg["kl"], cfg["ku"]) == (n, kl, kl)
+        assert entry["reduced"] == [] and cfg["reduced"] == []
+        assert cfg["dtype"] == "float32" and cfg["tf32"] is False
+        # their tiny runs are the ones the tests always ran
+        assert cfg["tiny"] == tiny

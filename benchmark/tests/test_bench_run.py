@@ -1,6 +1,8 @@
 """Whole runs of the harness on the CPU at tiny sizes: what it prints, the
 check that decides ``correct`` against faults planted under the timed path
-and against the control, and a cell added by files alone."""
+and against the control, and a cell added by files alone.  The cells are
+those ``BENCHMARK.json`` names, each at its configuration's ``tiny``
+size."""
 
 import dataclasses
 import json
@@ -47,7 +49,8 @@ def test_tiny_cell_is_correct(tiny_root, cell):
     out = cpu_run(tiny_root, cell)
     assert out["correct"], out["check"]
     assert out["failed"] == 0 and out["attempted"] > 0
-    assert set(out["metrics"]) == E2E
+    assert set(out["metrics"]) == {
+        m["name"] for m in harness.cell_spec(tiny_root, cell)["end_to_end"]}
     assert list(out)[-1] == "check"
     assert out["check"]["xerr"]["value"] < out["check"]["xerr"]["limit"]
 
@@ -55,11 +58,52 @@ def test_tiny_cell_is_correct(tiny_root, cell):
 def test_traced_run_reads_the_counters(tiny_root):
     out = cpu_run(tiny_root, "spd-cg-r32", trace=True)
     assert out["correct"]
-    # the CPU has no device trace: only the counters and the host clock
-    assert set(out["metrics"]) == {"its_per_rhs", "pc_setup_s"}
+    # the CPU has no device trace: only the counters, the program's host
+    # spans and the host clock
+    assert set(out["metrics"]) == {"its_per_rhs", "pc_setup_s",
+                                   "host_syncs_per_it"}
     out = cpu_run(tiny_root, "spd-cg-1rhs", trace=True)
-    assert set(out["metrics"]) == {"its_per_rhs", "pc_setup_s"}
+    assert set(out["metrics"]) == {"its_per_rhs", "pc_setup_s",
+                                   "host_syncs_per_it"}
     assert out["device"]["window_s"] > 0 and "breakdown" in out
+    # cg reads ||b|| and ||r0||, one norm an iteration and the final
+    # residual: 3 + its reads a call of its iterations
+    its = out["metrics"]["its_per_rhs"]["value"]
+    assert out["metrics"]["host_syncs_per_it"]["value"] == pytest.approx(
+        (3 + its) / its)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_traced_tiny_cell_reads_what_the_cpu_can_give(tiny_root, cell):
+    """On the CPU a traced run is correct and reads every per-layer
+    metric of the cell that does not come from the device's trace, and
+    none that does."""
+    out = cpu_run(tiny_root, cell, trace=True)
+    assert out["correct"], out["check"]
+    per_layer = harness.cell_spec(tiny_root, cell)["per_layer"]
+    assert set(out["metrics"]) == {m["name"] for m in per_layer
+                                   if m["source"] != "device_trace"}
+
+
+def test_the_run_keeps_the_programs_set_up_records(tiny_root, monkeypatch):
+    """A reader finds on the run the set-up stages and events that the
+    program recorded while this run built the cell, and what the PC
+    reports of itself; two runs in one process each see their own."""
+    runs = []
+    window = harness.window
+
+    def spied(*args, **kw):
+        runs.append(args[6])
+        return window(*args, **kw)
+    monkeypatch.setattr(harness, "window", spied)
+    for _ in range(2):
+        cpu_run(tiny_root, "spd-cg-1rhs")
+    for run in runs:
+        assert set(run.stages) == {"PCSetUp"}
+        # the synchronized stage lies inside the timed make_pc call
+        assert 0 < run.stages["PCSetUp"] <= run.pc_setup_s
+        assert run.events == []
+        assert run.pc_info["partitions"] == 4 and run.pc_info["block"] == 16
 
 
 def broken(fault):
@@ -131,8 +175,7 @@ def test_a_run_that_is_not_correct_exits_0_with_its_result(
     assert last[1] == "check unconverged 0 limit 0"
 
 
-@pytest.mark.parametrize("cell", ["flagship-bcgs-r32", "spd-cg-1rhs",
-                                  "flagship-gmres-1rhs"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_the_control_fails_and_the_program_holds(tiny_root, cell):
     limit = harness.cell_spec(ROOT, cell)["limits"]["xerr"]
     got = control.readings(tiny_root, cell, SEED, "cpu")
@@ -234,6 +277,8 @@ def program_operator(port, cfg, matrix, device):
     return matrix, {"device": device, "dtype": torch.float32}
 """
 
+# its control rounds the float32 matrix and right-hand sides to TF32's 10
+# mantissa bits (to nearest) before the float32 solve
 DENSE_REFERENCE = """
 import torch
 
@@ -242,12 +287,19 @@ def _dense(matrix, dtype, device):
     return torch.as_tensor(matrix.toarray()).to(device=device, dtype=dtype)
 
 
+def _tf32(t):
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def matvec(cfg, matrix, X):
     return _dense(matrix, torch.float64, X.device) @ X.to(torch.float64)
 
 
-def solve(cfg, matrix, B, *, dtype=torch.float64):
-    return torch.linalg.solve(_dense(matrix, dtype, B.device), B.to(dtype))
+def solve(cfg, matrix, B, *, dtype=torch.float64, tf32_products=False):
+    A, B = _dense(matrix, dtype, B.device), B.to(dtype)
+    if tf32_products:
+        A, B = _tf32(A), _tf32(B)
+    return torch.linalg.solve(A, B)
 """
 
 GRID = {"name": "grid5", "generator": "grid5", "reference": "dense",
@@ -261,8 +313,8 @@ GRID = {"name": "grid5", "generator": "grid5", "reference": "dense",
 def summary_with_pc_device_time(summarize):
     """``trace.summarize`` that gives each PC span 1 ms of device time:
     the CPU has no device trace to give it."""
-    def summary(prof, window_s):
-        out = summarize(prof, window_s)
+    def summary(prof, window_s, program_spans=()):
+        out = summarize(prof, window_s, program_spans)
         out.span_device_s[trace.PC_SPAN] = 1e-3 * out.span_count.get(
             trace.PC_SPAN, 0)
         return out

@@ -9,6 +9,16 @@ operation launched inside it to the end of the last; the window's work runs
 on one stream, so a device operation belongs to a span when it starts
 inside that span's interval there.  (The host-side tree does not serve:
 it does not link the kernels the program launches through ``ctypes``.)
+
+The program's own spans (``spike_petsc_tpu_torch.utils.profiling.span``:
+``MatMult``, ``PCApply``, ``SPIKESweep``...) are host-side events only, with
+no interval on the device's timeline.  A reader names those it reads in its
+``SPANS``, and for each such name a device operation counts under the span
+when the CUDA call that launched it (the host event of the same
+correlation id: ``cudaLaunchKernel``, ``cuLaunchKernel``,
+``cudaMemcpyAsync``...) ran while an instance of the span was open; so the
+kernels launched through ``ctypes`` count too, and an operation launched
+inside nested spans counts under each of them.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ class TraceSummary:
     busy_s: float = 0.0             # the union of their intervals
     span_count: dict = field(default_factory=dict)
     span_device_s: dict = field(default_factory=dict)
+    span_ops: dict = field(default_factory=dict)    # the program's spans
+    unmatched_ops: int = 0          # device operations with no launch found
     top_ops: list = field(default_factory=list)     # [[name, s], ...]
     idle_gaps: list = field(default_factory=list)   # [[host op, s], ...]
 
@@ -81,8 +93,9 @@ def host_op_at(host, points):
     return names
 
 
-def summarize(prof, window_s: float) -> TraceSummary:
-    """Reduce a finished profiler's events to a ``TraceSummary``."""
+def summarize(prof, window_s: float, program_spans=()) -> TraceSummary:
+    """Reduce a finished profiler's events to a ``TraceSummary``, the
+    program's spans named in ``program_spans`` by their launches."""
     from torch.autograd import DeviceType
     events = prof.events()
     spans = (CALL_SPAN, PC_SPAN)
@@ -99,6 +112,8 @@ def summarize(prof, window_s: float) -> TraceSummary:
         out.span_device_s[name] = span_device_s(
             ops, [(e.time_range.start, e.time_range.end) for e in marks
                   if e.name == name])
+    launched_under(out, cpu, dev,
+                   [n for n in dict.fromkeys(program_spans) if n not in spans])
     by_name = defaultdict(float)
     for e in dev:
         by_name[e.name[:NAME_CHARS]] += (e.time_range.end
@@ -135,3 +150,41 @@ def span_device_s(ops, marks) -> float:
             total += ops[i][1] - ops[i][0]
             i += 1
     return total / 1e6
+
+
+def launched_under(out: TraceSummary, cpu, dev, names) -> None:
+    """For each span name of ``names``, into ``out``: how many times it ran
+    on the host, and the device operations of ``dev`` launched while one
+    of its instances was open and their device seconds; and how many
+    device operations matched no launch.  ``cpu`` holds the host events."""
+    launched_at, intervals = {}, {name: [] for name in names}
+    for e in cpu:
+        # the CUDA API calls carry the correlation id of what they launch
+        if e.name.startswith("cu"):
+            launched_at[e.id] = e.time_range.start
+        elif e.name in intervals:
+            intervals[e.name].append((e.time_range.start, e.time_range.end))
+    open_at = {}                # name -> (starts, ends) of merged instances
+    for name, iv in intervals.items():
+        out.span_count[name] = len(iv)
+        merged = []
+        for s, e in sorted(iv):
+            if merged and s <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], e)
+            else:
+                merged.append([s, e])
+        open_at[name] = ([m[0] for m in merged], [m[1] for m in merged])
+    ops, busy = Counter(), defaultdict(float)
+    for op in dev:
+        t = launched_at.get(op.id)
+        if t is None:
+            out.unmatched_ops += 1
+            continue
+        for name, (starts, ends) in open_at.items():
+            i = bisect_right(starts, t) - 1
+            if i >= 0 and t <= ends[i]:
+                ops[name] += 1
+                busy[name] += op.time_range.end - op.time_range.start
+    for name in names:
+        out.span_ops[name] = ops[name]
+        out.span_device_s[name] = busy[name] / 1e6
