@@ -46,7 +46,12 @@ In order, it:
      PyTorch call computes the same function (a sparse product), beside
      that call, with CUDA events (median and spread of the repetitions),
      the serving stage's device busy time (torch.profiler), and the card's
-     device-to-device copy rate; the reduced-system kernel on the
+     device-to-device copy rate; the multi-RHS band kernel (#11) at
+     n = 1e6, r = 32 and w = 33, 201, 13 and 3 against its plain version
+     and #2's column loop (each column bit-equal), timed beside its bound,
+     its plain version and the two routes it replaced (the column loop
+     and ``blocktri_many``), and the operator's launches a call in the
+     batched solves' profiles; the reduced-system kernel on the
      flagship's reduced factor ([63, 200, 200]) at r = 32 and r = 1 against
      the plain loop (within 2e-6 of max|plain|), its device time a launch
      and a call's, the plain loop's call and the bound by ``sweep_bytes``
@@ -153,7 +158,8 @@ In order, it:
      ``phase_checks`` on the flagship, ``phase_complex`` after it):
      ``make_solver_many(ksp_type="gmres")`` at r = 32 with the spike PC on
      the left and on the right (#4) under each CGS refinement, the
-     operator the column route of #2, every column converged, timed per
+     operator #11 under ``-mat_matvec_impl banded_cuda`` (#2 not
+     launched), every column converged, timed per
      right-hand side; ``solve_banded_diff`` on the flagship (K = 64: #1)
      and config 1's band (K = 1: #9), each pass's launches held to
      AUTODIFF_LAUNCHES, the adjoint residual, the gradients against those
@@ -566,7 +572,13 @@ REPLACES = {
     "sweeps": "spike_petsc_tpu/ops/pallas/sweeps.py:66/:84",
     "reduced_thomas": "none (JAX: lax.scan in spike_petsc_tpu/ops/blocktri.py)",
     "blocktri_matvec_grid": "spike_petsc_tpu/ops/pallas/matvec.py:31",
+    "band_matvec_many": "none (JAX: a column loop or batched block products "
+                        "in spike_petsc_tpu/solvers/operator.py "
+                        "as_matvec_many)",
 }
+# the multi-RHS band kernel (#11) at n = N, r = NRHS: (kl, ku) of the
+# cells' widths (33, 201) and of config 3's and config 1's (13, 3)
+BAND_MANY_SHAPES = ((16, 16), (100, 100), (6, 6), (1, 1))
 
 
 def check(ok: bool, what: str) -> None:
@@ -1043,7 +1055,7 @@ def phase_serving(band, device):
     B = banded_matvec(band, X)
     route = as_matvec_many(band)[0]._route
     print(f"solve_many operator route (-mat_matvec_impl auto): {route}")
-    check(route == "blocktri_many", f"serving operator route {route}")
+    check(route == "banded_cuda_many", f"serving operator route {route}")
     main_launches = None
     for rtol in (1e-8, 1e-4):
         reset_launches()
@@ -1068,8 +1080,9 @@ def phase_serving(band, device):
             check(max(its) <= SERVE_ITS_MAX, f"serving its {its}")
             check(float(relres.max()) <= SERVE_RELRES_MAX,
                   f"serving relres {float(relres.max())}")
-            check(launches["fused_sweep_many"] > 0,
-                  f"multi-RHS sweep did not run on the serving path: "
+            check(launches["fused_sweep_many"] > 0
+                  and launches["band_matvec_many"] > 0,
+                  f"multi-RHS sweep or #11 did not run on the serving path: "
                   f"{launches}")
             main_launches = launches
         else:
@@ -1100,6 +1113,15 @@ def phase_reference_many(device):
     check(err <= 1e-5 and bool((got.reason == 2).all())
           and bool((ref.reason == 2).all()),
           "solve_many: card and CPU reference disagree")
+
+
+def operator_launches(fn):
+    """(#11, #2) launches of one call of ``fn``: a batched solve's
+    operator is one #11 a ``MatMult`` on the band route."""
+    reset_launches()
+    fn()
+    launches = read_launches()
+    return launches["band_matvec_many"], launches["band_matvec"]
 
 
 def device_profile(fn, top=6):
@@ -1258,7 +1280,9 @@ def phase_timing(band, rhs, sf, device):
         print(f"  {name} per RHS: {t[name][0] / NRHS:.4f} ms")
         busy, items = device_profile(lambda: server(B))
         print(f"  {name} device busy {busy:.3f} ms of {t[name][0]:.3f} ms "
-              f"wall: idle share {1 - busy / t[name][0]:.3f}")
+              f"wall: idle share {1 - busy / t[name][0]:.3f}; operator "
+              "launches a call (#11, #2): "
+              f"{operator_launches(lambda: server(B))}")
         for key, count, ms in items:
             print(f"    {ms:8.3f} ms  {count:5d} x  {key}")
 
@@ -1285,10 +1309,84 @@ def phase_timing(band, rhs, sf, device):
     show("blocktri_matvec_library", time_ms(lambda: bsr @ xp, iters=20),
          bt_gb)
     del bsr
-    mv_many = as_matvec_many(band)[0]
+    mv_many = as_matvec_many(band, impl="blocktri")[0]
     show("blocktri_many_r32", time_ms(lambda: mv_many(X), iters=5),
          (3 * T.D.numel() * 4 + 2 * N * NRHS * 4) / 1e9)
     return t, bounds
+
+
+def phase_band_many(device, t, bounds, errs):
+    """#11 at n = N, r = NRHS, each width of ``BAND_MANY_SHAPES``: against
+    its plain version and the column loop of #2 (each column bit-equal),
+    timed beside its bound, its plain version and the two routes it
+    replaces (#2 column by column with a stack, as the column loop
+    ``vmap_banded_cuda`` ran it, and ``blocktri_many``);
+    at w = 201 also with bf16 storage.  Times go into ``t`` as
+    ``band_matvec_many_<route>_w<w>``."""
+    import torch
+    from spike_petsc_tpu_torch import BandedMatrix
+    from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
+    from spike_petsc_tpu_torch.ops.cuda import band_matvec_many as cbmm
+    from spike_petsc_tpu_torch.solvers.operator import as_matvec_many
+    show = shower(t)
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    X = torch.randn((N, NRHS), generator=gen, device=device)
+    for kl, ku in BAND_MANY_SHAPES:
+        w = kl + ku + 1
+        band = BandedMatrix(data=torch.randn((N, w), generator=gen,
+                                             device=device), kl=kl, ku=ku)
+        prep = cbm.prepare_banded_mv(band)
+        got = cbmm.banded_matvec_many_prepared(prep, X)
+
+        def loop(X):
+            return torch.stack([cbm.banded_matvec_prepared(
+                prep, X[:, j].contiguous()) for j in range(X.shape[1])],
+                dim=1)
+        _, err = kernel_err(got, cbmm.banded_matvec_many_prepared(
+            prep, X, impl="plain"))
+        errs["band_matvec_many"] = max(errs.get("band_matvec_many", 0.0),
+                                       err)
+        equal = bool(torch.equal(got, loop(X)))
+        plan = cbmm.band_many_plan(kl, ku, 4)
+        print(f"band_matvec_many w={w} r={NRHS}: plan {plan}, against its "
+              f"plain version {err:.3e}, columns equal to #2's: {equal}")
+        check(err <= KERNEL_TOL, f"#11 against its plain version at w={w}: "
+              f"{err}")
+        check(equal, f"#11's columns differ from #2's at w={w}")
+        nbytes = N * w * 4 + 2 * N * NRHS * 4
+        bounds[f"band_matvec_many_w{w}"] = roofline(nbytes,
+                                                    2 * N * w * NRHS)
+        gb = nbytes / 1e9
+        show(f"band_matvec_many_cuda_w{w}", time_ms(
+            lambda: cbmm.banded_matvec_many_prepared(prep, X), iters=20), gb)
+        show(f"band_matvec_many_plain_w{w}", time_ms(
+            lambda: cbmm.banded_matvec_many_prepared(prep, X, impl="plain"),
+            reps=3), gb)
+        show(f"band_matvec_many_loop_w{w}", time_ms(lambda: loop(X),
+                                                    iters=3), gb)
+        blocks = as_matvec_many(band, impl="blocktri")[0]
+        show(f"band_matvec_many_blocktri_w{w}", time_ms(lambda: blocks(X),
+                                                        iters=5), gb)
+        del blocks
+        if w == 201:
+            p16 = cbm.prepare_banded_mv(BandedMatrix(
+                data=band.data.bfloat16(), kl=kl, ku=ku))
+            nb16 = N * w * 2 + 2 * N * NRHS * 4
+            bounds["band_matvec_many_w201_bf16"] = roofline(
+                nb16, 2 * N * w * NRHS)
+            show("band_matvec_many_cuda_w201_bf16", time_ms(
+                lambda: cbmm.banded_matvec_many_prepared(p16, X), iters=20),
+                nb16 / 1e9)
+            del p16
+        ms = t[f"band_matvec_many_cuda_w{w}"][0]
+        bms, by = bounds[f"band_matvec_many_w{w}"]
+        print(f"  #11 w={w}: {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"time / bound {ms / bms:.2f}; column loop "
+              f"{t[f'band_matvec_many_loop_w{w}'][0]:.4f} ms, blocktri_many "
+              f"{t[f'band_matvec_many_blocktri_w{w}'][0]:.4f} ms")
+        del band, prep
+        torch.cuda.empty_cache()
+    bounds["band_matvec_many"] = bounds["band_matvec_many_w201"]
 
 
 def spd_factor(band, K=SPD_K):
@@ -1440,7 +1538,9 @@ def phase_spd_serving(band, device):
     gen = torch.Generator(device=device).manual_seed(SEED + 13)
     X = torch.randn((SPD_N, NRHS), generator=gen, device=device)
     B = banded_matvec(band, X)
-    print(f"cg serving operator route: {as_matvec_many(band)[0]._route}")
+    route = as_matvec_many(band)[0]._route
+    print(f"cg serving operator route: {route}")
+    check(route == "banded_cuda_many", f"cg serving operator route {route}")
     reset_launches()
     res = solve_many(band, B, ksp_type="cg", pc_type="cholesky",
                      options=Options(dict(SPD_OPTIONS)), rtol=1e-8, maxit=50)
@@ -1465,6 +1565,8 @@ def phase_spd_serving(band, device):
     check(launches["fused_sweep_many_spd"] == CG_SERVE_ITS + 1,
           f"the spd multi-RHS sweep ran {launches['fused_sweep_many_spd']} "
           f"times on cg serving, expected {CG_SERVE_ITS + 1}")
+    check(launches["band_matvec_many"] > 0,
+          f"#11 did not run on cg serving: {launches}")
     return launches
 
 
@@ -1586,7 +1688,8 @@ def phase_spd_timing(band, rhs, ssf, device):
     busy, items = device_profile(lambda: server(B))
     print(f"  serve_cg_r32 device busy {busy:.3f} ms of "
           f"{t['serve_cg_r32'][0]:.3f} ms wall: idle share "
-          f"{1 - busy / t['serve_cg_r32'][0]:.3f}")
+          f"{1 - busy / t['serve_cg_r32'][0]:.3f}; operator launches a call "
+          f"(#11, #2): {operator_launches(lambda: server(B))}")
     for key, count, ms in items:
         print(f"    {ms:8.3f} ms  {count:5d} x  {key}")
     return t, bounds
@@ -3641,12 +3744,11 @@ def phase_complex(device, t):
 
 def phase_gmres_many_options(band, device, t):
     """``make_solver_many(ksp_type="gmres")`` on the flagship at r = 32 with
-    the spike PC and the column route of #2 (``-mat_matvec_impl banded_cuda``):
-    the left PC (as before), then the right PC with each CGS refinement.
-    Every column converged at its rtol (GMRES_MANY_CASES) with a true f32
-    relres <= 1e-4;
-    under the right PC #4 (the PC through ``spike_solve_many``) and #2
-    launched.  Each timed per right-hand side.  Returns the launches of
+    the spike PC and ``-mat_matvec_impl banded_cuda``, which takes the
+    multi-RHS band kernel (#11) as 'auto' does: the left PC (as before),
+    then the right PC with each CGS refinement.  Every column converged at
+    its rtol (GMRES_MANY_CASES) with a true f32 relres <= 1e-4; #4 (the PC
+    through ``spike_solve_many``) and #11 launched, #2 not.  Each timed per right-hand side.  Returns the launches of
     the right-PC ``always`` run."""
     import torch
     from spike_petsc_tpu_torch import Options, make_solver_many
@@ -3678,15 +3780,16 @@ def phase_gmres_many_options(band, device, t):
               f"{name}: reasons {res.reason.tolist()}, relres "
               f"{float(relres.max())}")
         check(launches.get("fused_sweep_many", 0) > 0
-              and launches.get("band_matvec", 0) > 0,
-              f"{name}: #4 or #2 did not run: {launches}")
+              and launches.get("band_matvec_many", 0) > 0
+              and launches.get("band_matvec", 0) == 0,
+              f"{name}: #4 or #11 did not run, or #2 did: {launches}")
         show(name, time_ms(lambda: server(B), reps=3))
         print(f"  {name} per RHS: {t[name][0] / NRHS:.4f} ms")
         if (side, cgs) == ("right", "always"):
             right_launches = launches
     print(f"  gmres_many right / left per RHS: "
           f"{t['gmres_many_right_always'][0] / t['gmres_many_left_always'][0]:.3f}"
-          f"; bcgs serving (left, blocktri_many route) per RHS "
+          f"; bcgs serving (left, #11 operator) per RHS "
           f"{t['serve_bcgs_rtol1e-08'][0] / NRHS:.4f} ms")
     return right_launches
 
@@ -5077,6 +5180,7 @@ def run(tmp) -> int:
     alt_launches = phase_alternate_path(band, rhs, sf)
     t, bounds = phase_timing(band, rhs, sf, device)
     phase_reduced(sf, device, t, bounds, errs)
+    phase_band_many(device, t, bounds, errs)
     bounds.update(phase_alternate_timing(band, a64, b64, rhs, sf, device, t))
     del a64, b64
     torch.cuda.empty_cache()
@@ -5273,6 +5377,9 @@ def run(tmp) -> int:
              "blocktri_matvec_library"),
             ("reduced_thomas", serve_launches,
              ("reduced_thomas_cuda_f32", "reduced_thomas_plain_f32"),
+             None),
+            ("band_matvec_many", serve_launches,
+             ("band_matvec_many_cuda_w201", "band_matvec_many_plain_w201"),
              None)):
         bound_ms, bound_by = bounds[name]
         kernels.append({

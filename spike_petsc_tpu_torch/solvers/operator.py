@@ -3,7 +3,8 @@
 The KSP layer only ever sees ``matvec: [n] -> [n]`` (or, for the batched
 engines, ``matvec_many: [n, r] -> [n, r]``).  Ported: BandedMatrix (plain
 shifted-axpy route, the banded CUDA kernel and its f64 form, or a one-time
-block-tridiagonal conversion with the blocktri CUDA kernel),
+block-tridiagonal conversion with the blocktri CUDA kernel; for r columns
+the multi-RHS band kernel),
 BlockTridiagonal, callables, host SciPy sparse matrices (a band+outliers
 split whose band part takes the band route, or a ``torch.sparse_csr_tensor``
 product) and dense 2-D matrices (a dense product); ``transpose_operator``
@@ -26,6 +27,7 @@ from ..ops.cuda.band_matvec import (banded_matvec_prepared, banded_mv_feasible,
 from ..ops.cuda.band_matvec_f64 import (banded_matvec_prepared_f64,
                                         banded_mv_f64_feasible,
                                         prepare_banded_mv_f64)
+from ..ops.cuda.band_matvec_many import banded_matvec_many_prepared
 from ..ops.cuda.blocktri_matvec import (blocktri_matvec_cuda,
                                         blocktri_matvec_feasible)
 from ..ops.split import split_if_profitable, split_matvec
@@ -34,11 +36,11 @@ _IMPLS = ("auto", "banded_pallas", "banded_cuda", "blocktri", "xla")
 _BT_BLOCK = 128          # block size of the band -> blocktri conversion
 
 
-def _use_blocktri_matvec(a) -> bool:
-    """Whether the blocktri routes may run: the operator (a band or a
-    BlockTridiagonal) lies on a CUDA device (the JAX package's rule is "the
-    backend is a TPU")."""
-    return (a.data if isinstance(a, BandedMatrix) else a.D).is_cuda
+def _use_blocktri_matvec(device: torch.device) -> bool:
+    """Whether the blocktri routes may run for an operator (a band or a
+    BlockTridiagonal) on ``device``: a CUDA device (the JAX package's rule
+    is "the backend is a TPU")."""
+    return device.type == "cuda"
 
 
 def _tag(mv, route: str):
@@ -113,7 +115,7 @@ def _band_route(a: BandedMatrix, impl: str) -> str:
             return "banded_cuda_f64"
         if banded_mv_feasible(a):
             return "banded_cuda"
-    if impl == "blocktri" and _use_blocktri_matvec(a):
+    if impl == "blocktri" and _use_blocktri_matvec(a.device):
         if not blocktri_feasible(a):
             raise _bt_refused(a)
         return "blocktri"
@@ -177,7 +179,8 @@ def as_matvec(a, n_hint: int = None, impl: str = "auto", device=None,
         return _tag(lambda x: banded_matvec(a, x), route), a.n, a.dtype
     if isinstance(a, BlockTridiagonal):
         nb, b = a.nb, a.b
-        if _use_blocktri_matvec(a) and blocktri_matvec_feasible(a.dtype, b):
+        if _use_blocktri_matvec(a.D.device) \
+                and blocktri_matvec_feasible(a.dtype, b):
             return (_tag(lambda x: blocktri_matvec_cuda(a, x), "blocktri"),
                     nb * b, a.dtype)
         return (_tag(lambda x: blocktri_matvec(a, x.reshape(nb, b))
@@ -216,41 +219,66 @@ def _as_matvec_other(a, impl, device, dtype) -> Tuple[Callable, int, object]:
         "spike_petsc_tpu_torch")
 
 
+def _many_route(a: BandedMatrix, impl: str, device: torch.device) -> str:
+    """The multi-RHS route of a band lying on ``device`` under
+    ``-mat_matvec_impl impl``: the single source of that choice.
+
+    * ``banded_cuda_many``: 'auto', ``banded_cuda`` and ``banded_pallas``
+      on a CUDA device, for every band the banded kernel's rule admits
+      (``banded_mv_feasible``: f32 or bf16 storage, any width it takes):
+      the multi-RHS band kernel (#11) reads the band once for all r
+      columns.  Its tiles adapt to kl, ku and r; no width takes another
+      route;
+    * ``blocktri_many``: ``impl="blocktri"`` where the blocktri routes may
+      run (raising where the conversion gate refuses the band), and 'auto'
+      there for a wide band no banded kernel takes (f16 storage);
+    * ``vmap``: the column loop over the single-RHS route: f64 bands (#6 a
+      column), ``xla`` (the plain version), and every band on the CPU.
+    """
+    if impl in ("auto", "banded_cuda", "banded_pallas") \
+            and device.type == "cuda" and banded_mv_feasible(a):
+        return "banded_cuda_many"
+    if impl in ("auto", "blocktri") and _use_blocktri_matvec(device):
+        bt_ok, wide = _bt_gate(a)
+        if impl == "blocktri" and not bt_ok:
+            raise _bt_refused(a)
+        if bt_ok and (impl == "blocktri" or wide):
+            return "blocktri_many"
+    return "vmap"
+
+
 def as_matvec_many(a, n_hint: int = None, impl: str = "auto", device=None,
                    dtype=None) -> Tuple[Callable, int, object]:
     """Return (matvec_many: [n, r] -> [n, r], n, dtype): a true multi-RHS
     operator apply for the batched Krylov engines (``krylov_many``).
 
     Routes, tagged on the closure:
-      * ``blocktri_many``: a band the conversion gate admits (wide under
-        'auto', any width under ``impl="blocktri"``, which raises on a CUDA
-        band the gate refuses) on a CUDA device takes one band->blocktri
-        conversion, then ``blocktri_matvec`` on ``[nb, b, r]`` as batched
-        products: the blocks stream once for all r columns.  A
-        BlockTridiagonal operator takes the same product;
+      * a band takes ``_many_route``'s: ``banded_cuda_many``, one launch of
+        the multi-RHS band kernel on the layout ``prepare_banded_mv``
+        builds once; ``blocktri_many``, one band->blocktri conversion, held
+        beside the band (3 * 128 entries a row), then ``blocktri_matvec``
+        on ``[nb, b, r]`` as batched products; or the column loop below;
+      * a BlockTridiagonal operator takes ``blocktri_many``'s product;
       * ``dense_many``: a dense 2-D matrix, ``A @ X``;
       * ``vmap_<route>``: everything else applies the single-RHS route
-        column by column, so a narrow CUDA band still runs the banded
-        kernel.
-
-    The blocktri route keeps a second at-rest copy of the operator, 3 * 128
-    entries per row, beside the band.
+        column by column.
     """
     _check_impl(impl)
-    if isinstance(a, BandedMatrix) and impl in ("auto", "blocktri") \
-            and _use_blocktri_matvec(a):
-        bt_ok, wide = _bt_gate(a)
-        if impl == "blocktri" and not bt_ok:
-            raise _bt_refused(a)
-        if bt_ok and (impl == "blocktri" or wide):
-            T = band_to_blocktri(a, _BT_BLOCK)
-            nb, b, n = T.nb, T.b, a.n
+    route = (_many_route(a, impl, a.device) if isinstance(a, BandedMatrix)
+             else None)
+    if route == "banded_cuda_many":
+        prep = prepare_banded_mv(a)
+        return (_tag(lambda X: banded_matvec_many_prepared(prep, X), route),
+                a.n, a.dtype)
+    if route == "blocktri_many":
+        T = band_to_blocktri(a, _BT_BLOCK)
+        nb, b, n = T.nb, T.b, a.n
 
-            def mv_many(X):
-                Xb = torch.nn.functional.pad(X, (0, 0, 0, nb * b - n))
-                return blocktri_matvec(T, Xb.reshape(nb, b, -1)).reshape(
-                    nb * b, -1)[:n]
-            return _tag(mv_many, "blocktri_many"), n, a.dtype
+        def mv_many(X):
+            Xb = torch.nn.functional.pad(X, (0, 0, 0, nb * b - n))
+            return blocktri_matvec(T, Xb.reshape(nb, b, -1)).reshape(
+                nb * b, -1)[:n]
+        return _tag(mv_many, route), n, a.dtype
     if isinstance(a, BlockTridiagonal):
         nb, b = a.nb, a.b
 

@@ -25,6 +25,7 @@ from spike_petsc_tpu_torch.ops.blocktri import (BlockTridiagonal,
                                                 blocktri_solve, cast_factor)
 from spike_petsc_tpu_torch.ops.cuda import band_matvec as cbm
 from spike_petsc_tpu_torch.ops.cuda import band_matvec_f64 as cbm64
+from spike_petsc_tpu_torch.ops.cuda import band_matvec_many as cbmm
 from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec as cbt
 from spike_petsc_tpu_torch.ops.cuda import blocktri_matvec_grid as cgrid
 from spike_petsc_tpu_torch.ops.cuda import fused_sweep as cfs
@@ -61,6 +62,115 @@ def test_band_matvec_kernel_matches_plain(cuda_device, n, kl, ku, dtype):
     torch.cuda.synchronize()
     assert cbm.KERNEL.launches == launches + 1
     assert got.dtype == torch.float32 and _rel(got, ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kl,ku,r,dtype", [
+    (100003, 16, 16, 32, torch.float32),      # w = 33 (spd-cg-r32)
+    (100003, 100, 100, 32, torch.float32),    # w = 201, chunks of 34
+    (100003, 1, 1, 64, torch.float32),        # w = 3, two column tiles
+    (100003, 100, 100, 32, torch.bfloat16),   # w = 201, chunks of 51
+    (4099, 5, 20, 5, torch.float32),          # kl != ku, ragged r
+    (4099, 6, 6, 33, torch.bfloat16),
+    (4099, 6, 6, 1, torch.float32),
+    (20000, 150, 60, 40, torch.float32),      # ragged chunks and columns
+    (4099, 1000, 1200, 7, torch.float32)])    # w = 2201
+def test_band_matvec_many_kernel_matches_plain_and_the_column_loop(
+        cuda_device, n, kl, ku, r, dtype):
+    """#11 within f32 rounding of its plain version, and each column equal
+    to #2's result on it bit for bit (the same fmaf chain over d), in one
+    launch."""
+    band = banded_from_numpy(random_band(n, kl, ku, seed=8, dtype=np.float32,
+                                         dominant=False), kl, ku,
+                             device=cuda_device)
+    prep = cbm.prepare_banded_mv(BandedMatrix(data=band.data.to(dtype),
+                                              kl=kl, ku=ku))
+    X = torch.randn((n, r), device=cuda_device)
+    ref = cbmm.banded_matvec_many_prepared(prep, X, impl="plain")
+    launches = cbmm.KERNEL.launches
+    got = cbmm.banded_matvec_many_prepared(prep, X)
+    torch.cuda.synchronize()
+    assert cbmm.KERNEL.launches == launches + 1
+    assert got.dtype == torch.float32 and _rel(got, ref) <= TOL
+    cols = torch.stack([cbm.banded_matvec_prepared(prep, X[:, j].contiguous())
+                        for j in range(r)], dim=1)
+    assert torch.equal(got, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", ["ldx72_aligned", "ldx72_misaligned",
+                                  "strided"])
+def test_band_matvec_many_kernel_takes_column_views(cuda_device, cols):
+    """X as a view of a wider block (rows 72 apart, aligned or not) takes
+    the 4-byte copies, strided columns a contiguous copy; a contiguous
+    ``[n, 32]`` X the window's bulk copy: the same answer each way."""
+    n, k = 4099, 20
+    band = banded_from_numpy(random_band(n, k, k, seed=8, dtype=np.float32),
+                             k, k, device=cuda_device)
+    prep = cbm.prepare_banded_mv(band)
+    wide = torch.randn((n, 72), device=cuda_device)
+    X = {"ldx72_aligned": wide[:, 4:36], "ldx72_misaligned": wide[:, 3:35],
+         "strided": wide[:, ::2]}[cols]
+    got = cbmm.banded_matvec_many_prepared(prep, X)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cbmm.banded_matvec_many_prepared(
+        prep, X.contiguous()))
+    assert _rel(got, cbmm.banded_matvec_many_prepared(
+        prep, X, impl="plain")) <= TOL
+
+
+@pytest.mark.cuda
+def test_band_matvec_many_kernel_refuses_what_it_does_not_take(cuda_device):
+    band = BandedMatrix(data=torch.randn((4096, 41), device=cuda_device),
+                        kl=20, ku=20)
+    prep = cbm.prepare_banded_mv(band)
+    with pytest.raises(ValueError, match="f32 X"):
+        cbmm.banded_matvec_many_prepared(
+            prep, torch.zeros((4096, 3), dtype=torch.float64,
+                              device=cuda_device))
+    with pytest.raises(ValueError, match="shape"):
+        cbmm.banded_matvec_many_prepared(prep, torch.zeros(4096,
+                                                           device=cuda_device))
+    p16 = cbm.PreparedBandMV(d3=prep.d3.half(), kl=20, ku=20, n=4096)
+    with pytest.raises(ValueError, match="layout"):
+        cbmm.banded_matvec_many_prepared(p16, torch.zeros((4096, 3),
+                                                          device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ksp,kl", [("cg", 16), ("bcgs", 100)])
+def test_band_many_route_launches_once_a_matmult(cuda_device, monkeypatch,
+                                                 ksp, kl):
+    """A batched solve on a CUDA band under 'auto': every operator apply
+    is one launch of #11 and none of #2."""
+    from spike_petsc_tpu_torch import make_solver_many
+    from spike_petsc_tpu_torch.solvers import operator as top
+    calls = [0]
+    real = top.banded_matvec_many_prepared
+
+    def counted(prep, X):
+        calls[0] += 1
+        return real(prep, X)
+    monkeypatch.setattr(top, "banded_matvec_many_prepared", counted)
+    n = 20000
+    data = (spd_band(n, kl, seed=37, dtype=np.float32) if ksp == "cg" else
+            random_band(n, kl, kl, seed=37, dtype=np.float32))
+    band = banded_from_numpy(data, kl, kl, device=cuda_device)
+    X = torch.randn((n, 32), device=cuda_device)
+    B = banded_matvec(band, X)
+    pc = ("cholesky", {"pc_cholesky_partitions": 8, "pc_cholesky_block": 64,
+                       "pc_cholesky_truncated": 1}) if ksp == "cg" else \
+        ("spike", {"pc_spike_partitions": 8, "pc_spike_block": 128})
+    solver = make_solver_many(band, ksp_type=ksp, pc_type=pc[0],
+                              options=Options(pc[1]), rtol=1e-6)
+    before = (cbmm.KERNEL.launches, cbm.KERNEL.launches)
+    res = solver(B)
+    torch.cuda.synchronize()
+    assert bool((res.reason > 0).all())
+    assert float((res.x - X).abs().max()) < 1e-3
+    assert calls[0] > 0
+    assert cbmm.KERNEL.launches - before[0] == calls[0]
+    assert cbm.KERNEL.launches == before[1]
 
 
 @pytest.mark.cuda
@@ -320,7 +430,8 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_serving_path_runs_the_multi_rhs_sweep(cuda_device):
-    """solve_many on a wide band: the blocktri_many operator and the spike
+    """solve_many on a wide band: the multi-RHS band kernel (#11) under
+    'auto' (``blocktri_many`` only under ``impl="blocktri"``) and the spike
     PC's multi-RHS apply (kernel #4), every column converged."""
     from spike_petsc_tpu_torch import solve_many
     from spike_petsc_tpu_torch.solvers.operator import as_matvec_many
@@ -329,7 +440,8 @@ def test_serving_path_runs_the_multi_rhs_sweep(cuda_device):
                              device=cuda_device)
     X = torch.randn((20000, 6), device=cuda_device)
     B = banded_matvec(band, X)
-    assert as_matvec_many(band)[0]._route == "blocktri_many"
+    assert as_matvec_many(band)[0]._route == "banded_cuda_many"
+    assert as_matvec_many(band, impl="blocktri")[0]._route == "blocktri_many"
     before = cfm.KERNEL.launches
     res = solve_many(band, B, ksp_type="bcgs", pc_type="spike", rtol=1e-6,
                      options=Options({"pc_spike_partitions": 8,
